@@ -1,0 +1,213 @@
+"""Advection kernels B1 (x then y) and B2 (z + fused forces), with their
+plain PyTorch versions.
+
+B1 `advect_xy` replaces fluidx12_tpu/ops/pallas/advect.py
+`_pass_kernel_fused_xy` (via `_run_pass_fused_xy`); B2 `advect_z_forces`
+replaces `_zpass_forces_kernel` (via `_run_zpass`; with forces=False, the
+plain `_zpass_kernel`).  Both follow the TPU kernels' semantics, not the
+mirror-addressed XLA twin's: clamp addressing folded into the displacement,
+the x-pass result rounded to the storage dtype before the y pass, and the
+forces epilogue in the per-channel table form of `_forces_table`.  One
+difference: B1 returns its y-pass result in f32 and B2 reads it so, where
+the TPU rounds it to bf16 in HBM between the two kernels (csrc/advect.cu
+says why); rounding B1's output to the storage dtype gives the TPU kernel's
+output bit for bit.  Sources
+and what bounds them: fluidx12_tpu_torch/csrc/advect.cu.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+(or raises).  The plain versions also run on the card, where chip_smoke.py
+compares each kernel with its plain version.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluidx12_tpu_torch.ops.cuda import _build
+
+MAX_DISP = 12.0  # voxels (fluidx12_tpu/ops/pallas/advect.py MAX_DISP)
+
+_STORAGE = (torch.bfloat16, torch.float32)
+
+
+def forces_table(config) -> np.ndarray:
+    """(7, 5) per-channel [A_basis, B_negdz, B_dx, clip_lo, clip_hi]
+    (Impulse.hlsli / CSAdvect.hlsl:57-68 constants; the table of
+    ops/pallas/advect.py `_forces_table`)."""
+    big = 3.0e38
+    fc = np.zeros((7, 5), np.float32)
+    fs = config.force_scale_3d
+    f = np.asarray(config.ext_force, np.float32)
+    fc[0] = [f[0] * fs, config.vort_scale, 0.0, -big, big]
+    fc[1] = [f[1] * fs, 0.0, 0.0, -big, big]
+    fc[2] = [f[2] * fs, 0.0, config.vort_scale, -big, big]
+    rgba = np.asarray((*config.impulse_color, 1.0), np.float32) * config.impulse_density
+    for j in range(4):
+        fc[3 + j] = [rgba[j], 0.0, 0.0, 0.0, 1.0]
+    return fc
+
+
+def force_consts(config):
+    """(ip_x, ip_y, ip_z, radius^2, dissipation) as the f32 values the
+    kernel's arithmetic sees."""
+    ip = config.impulse_pos
+    vals = (ip[0], ip[1], ip[2], config.impulse_radius * config.impulse_radius,
+            config.dissipation)
+    return tuple(float(np.float32(v)) for v in vals)
+
+
+def _check_vol(vol: torch.Tensor, name: str) -> None:
+    if vol.ndim != 4 or vol.dtype not in _STORAGE or not vol.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (C, Z, Y, X) bf16/f32 "
+                         f"tensor, got {tuple(vol.shape)} {vol.dtype}")
+
+
+def _check_f32(t: torch.Tensor, shape, ref: torch.Tensor, name: str) -> None:
+    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.float32
+            or t.device != ref.device or not t.is_contiguous()):
+        raise ValueError(f"{name}: expected contiguous f32 {tuple(shape)} on "
+                         f"{ref.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _axis_ids(n: int, axis: int, ndim: int, device) -> torch.Tensor:
+    shape = [1] * ndim
+    shape[axis] = n
+    return torch.arange(n, dtype=torch.float32, device=device).reshape(shape)
+
+
+def _clamp_disp(u: torch.Tensor, scale: torch.Tensor, axis: int) -> torch.Tensor:
+    """clip(-u * scale, +-MAX_DISP), then into [-i, n-1-i] along `axis` of
+    the (Z, Y, X) displacement."""
+    n = u.shape[axis]
+    ids = _axis_ids(n, axis, u.ndim, u.device)
+    d = torch.clamp(-u * scale, -MAX_DISP, MAX_DISP)
+    return torch.minimum(torch.maximum(d, -ids), (n - 1.0) - ids)
+
+
+def _lerp_axis(q: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
+    """2-tap lerp of f32 q (C, Z, Y, X) at i + d along spatial `axis` (0..2
+    of d); d is in bounds, so floor(d) is always a valid offset."""
+    n = d.shape[axis]
+    a0 = torch.floor(d)
+    w0 = (1.0 - (d - a0).abs()).clamp_min(0.0)
+    w1 = (1.0 - (d - (a0 + 1.0)).abs()).clamp_min(0.0)
+    i0 = (_axis_ids(n, axis, d.ndim, d.device) + a0).to(torch.int64)
+    i1 = (i0 + 1).clamp_max(n - 1)
+    g0 = torch.gather(q, axis + 1, i0.unsqueeze(0).expand_as(q))
+    g1 = torch.gather(q, axis + 1, i1.unsqueeze(0).expand_as(q))
+    return w0 * g0 + w1 * g1
+
+
+def advect_xy_plain(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of B1.  scales = [dt * X, dt * Y] (f32, on vol's
+    device); returns f32."""
+    q = vol.float()
+    dx = _clamp_disp(q[0], scales[0], axis=2)
+    tx = _lerp_axis(q, dx, axis=2).to(vol.dtype).float()   # storage rounding
+    dy = _clamp_disp(tx[1], scales[1], axis=1)
+    return _lerp_axis(tx, dy, axis=1)
+
+
+def advect_z_forces_plain(vol: torch.Tensor, scal: torch.Tensor,
+                          table: torch.Tensor, consts, forces: bool = True,
+                          store: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Plain version of B2 on the f32 `vol`.  scal = [dt_sub * Z, dt];
+    table (C, 5) f32; consts from `force_consts`; returns `store`."""
+    q = vol
+    dz = _clamp_disp(q[2], scal[0], axis=0)
+    out = _lerp_axis(q, dz, axis=0)
+    if not forces:
+        return out.to(store)
+    ip_x, ip_y, ip_z, radius_sq, dissipation = consts
+    _, nz, ny, nx = vol.shape
+    dev = vol.device
+    dt = scal[1]
+    atten = (1.0 - dissipation * dt).clamp_min(0.0)
+    cz = (_axis_ids(nz, 0, 3, dev) + 0.5) / nz
+    cy = (_axis_ids(ny, 1, 3, dev) + 0.5) / ny
+    cx = (_axis_ids(nx, 2, 3, dev) + 0.5) / nx
+    dx = cx - ip_x
+    dy = cy - ip_y
+    dzc = cz - ip_z
+    d2 = dx * dx + dy * dy + dzc * dzc
+    basis = torch.exp(-4.0 * d2 / radius_sq)
+    in_imp = (basis >= 0.01831563889245799).float()
+    ndz = -dzc
+    chans = []
+    for c in range(vol.shape[0]):
+        f = table[c]
+        ext = f[0] * basis + f[1] * ndz + f[2] * dx
+        v = torch.minimum(torch.maximum(out[c] + in_imp * ext * dt, f[3]), f[4])
+        chans.append(v * atten)
+    return torch.stack(chans).to(store)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def advect_xy(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """B1: x then y split backtrace of every channel of vol (C, Z, Y, X)
+    in the storage dtype; the y displacement derives from the x-advected,
+    storage-rounded channel 1.  Returns f32."""
+    _check_vol(vol, "advect_xy")
+    _check_f32(scales, (2,), vol, "advect_xy scales")
+    if vol.shape[0] < 2:
+        raise ValueError("advect_xy: needs velocity channels 0 and 1")
+    if not _on_cuda(vol, "advect_xy"):
+        return advect_xy_plain(vol, scales)
+    c, z, y, x = vol.shape
+    tmp = torch.empty_like(vol)
+    out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
+    err = _build.lib().fx_advect_xy(
+        vol.data_ptr(), tmp.data_ptr(), out.data_ptr(), scales.data_ptr(),
+        int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    advect_xy.launches += 1
+    _build.check(err, "fx_advect_xy")
+    return out
+
+
+advect_xy.launches = 0
+
+
+def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
+                    consts, forces: bool = True,
+                    store: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """B2: z backtrace of the f32 vol (C, Z, Y, X) from B1 (dz from
+    channel 2), then, with `forces`, the impulse/forces/clip/dissipation
+    epilogue; one rounding to `store`."""
+    _check_vol(vol, "advect_z_forces")
+    if vol.dtype != torch.float32 or store not in _STORAGE:
+        raise ValueError(f"advect_z_forces: expected f32 input and a bf16/f32 "
+                         f"output dtype, got {vol.dtype} -> {store}")
+    _check_f32(scal, (2,), vol, "advect_z_forces scal")
+    _check_f32(table, (vol.shape[0], 5), vol, "advect_z_forces table")
+    if vol.shape[0] < 3:
+        raise ValueError("advect_z_forces: needs velocity channel 2")
+    if not _on_cuda(vol, "advect_z_forces"):
+        return advect_z_forces_plain(vol, scal, table, consts, forces, store)
+    c, z, y, x = vol.shape
+    out = torch.empty(vol.shape, dtype=store, device=vol.device)
+    err = _build.lib().fx_advect_z_forces(
+        vol.data_ptr(), out.data_ptr(), scal.data_ptr(), table.data_ptr(),
+        *consts, int(forces), int(store == torch.bfloat16), c, z, y, x,
+        _build.stream_ptr(vol))
+    advect_z_forces.launches += 1
+    _build.check(err, "fx_advect_z_forces")
+    return out
+
+
+advect_z_forces.launches = 0

@@ -1,0 +1,193 @@
+"""Cube-map volume march by slice compositing (mirror of
+fluidx12_tpu/render/slicecomp.py, unsharded compact path).
+
+Cube faces are axis-aligned, so the rays of all texels of a face cut each
+volume slice in a scale + translate of the texel grid: per-slice resampling
+is separable, and front-to-back compositing runs slice by slice.  Kernel B10
+(ops/cuda/composite.py) does both for one face in one pass; every visible
+face goes through it.  (The JAX package keeps an einsum + cumprod twin for
+small stacks, below its `_FUSE_MIN_STACK`; that twin agrees with the kernel
+within 2e-3, tests/test_pallas.py, and is not ported.)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from fluidx12_tpu_torch.core.config import FaceCullMode, FluidConfig
+from fluidx12_tpu_torch.core.state import SceneParams
+from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
+from fluidx12_tpu_torch.ops.transform import transform_point_h
+from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST, face_visibility_in_graph
+from fluidx12_tpu_torch.utils.image import quantize_unorm8
+
+# (axis, sign, (u_axis, u_sign), (v_axis, v_sign)) per face, matching
+# GetLocalPos (CSRayMarch.hlsl:39-64).
+_FACES = [
+    (0, +1, (2, -1), (1, +1)),
+    (0, -1, (2, +1), (1, +1)),
+    (1, +1, (0, +1), (2, -1)),
+    (1, -1, (0, +1), (2, +1)),
+    (2, +1, (0, +1), (1, +1)),
+    (2, -1, (0, -1), (1, +1)),
+]
+
+_ARR_AXIS = {0: 3, 1: 2, 2: 1}       # local axis -> (C, Z, Y, X) array dim
+_ARR_TO_LOCAL = {1: 2, 2: 1, 3: 0}   # array dim -> local axis
+
+
+def mxu16(device) -> torch.dtype:
+    """Half-precision matmul dtype: bf16 on the card, f32 on the CPU (the
+    JAX package's `_mxu16` rule)."""
+    return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
+
+
+def mxu_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with both operands rounded to `mxu16` and an f32 result --
+    JAX's `einsum(a.astype(mx), b.astype(mx), preferred_element_type=f32)`.
+    Products of bf16 values are exact in f32, so an f32 contraction of the
+    rounded operands (TF32 off) gives the same numbers."""
+    mx = mxu16(a.device)
+    return torch.einsum(eq, a.to(mx).float(), b.to(mx).float())
+
+
+def _axis_volume(vol: torch.Tensor, axis: int, config: FluidConfig,
+                 lod: int = 0) -> torch.Tensor:
+    """(C, Z, Y, X) -> (C, n_s, A, B) slice-axis-major, box-pooled view of
+    the volume for one march axis, in the matmul dtype."""
+    n_m = config.grid_size[axis]
+    cap = max(config.max_ray_samples >> lod, 1)
+    stride = max(-(-n_m // cap), 1)
+    n_s = n_m // stride
+    mx = mxu16(vol.device)
+    v16 = vol.to(mx)
+    if axis == 2 and stride == 1:
+        return v16
+    if axis == 2 and n_s * stride == n_m:
+        return (v16.reshape(v16.shape[0], n_s, stride, *v16.shape[2:])
+                .float().mean(dim=2).to(mx))
+    pool = torch.zeros((n_m, n_s), dtype=torch.float32, device=vol.device)
+    pool[torch.arange(n_s * stride, device=vol.device),
+         torch.arange(n_s, device=vol.device).repeat_interleave(stride)] = 1.0 / stride
+    if axis == 0:
+        return mxu_einsum("czyx,xm->czym", v16, pool).to(mx).movedim(3, 1)
+    eq = {2: "czyx,zm->cmyx", 1: "czyx,ym->cmzx"}[axis]
+    return mxu_einsum(eq, v16, pool).to(mx)
+
+
+def _local_from_uv(face_id, u, v, dtype, device):
+    axis, sign, (ua, us), (va, vs) = _FACES[face_id]
+    comps = [None, None, None]
+    comps[axis] = torch.tensor(float(sign), dtype=dtype, device=device)
+    comps[ua] = u * us
+    comps[va] = v * vs
+    return comps
+
+
+def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
+                  num_samples: torch.Tensor, config: FluidConfig, dtype,
+                  lod: int = 0):
+    """Kernel B10's per-face arguments: (h_rows (n_s, R1), h_cols
+    (n_s, R2), valid (n_s,), n_steps (R1, R2)), all f32 and contiguous,
+    plus `swapped` (the X faces resample u along rows, so their image is
+    transposed)."""
+    axis, sign, (ua, us), (va, vs) = _FACES[face_id]
+    dev = local_eye.device
+    z, y, x = config.zyx
+    sizes = (x, y, z)
+    n_m = sizes[axis]
+    stride = -(-n_m // max(config.max_ray_samples >> lod, 1))
+    r = max(config.cube_map_size >> lod, 1)
+
+    line = (torch.arange(r, dtype=dtype, device=dev) + 0.5) / r * 2.0 - 1.0
+    u_line = line * 1.0
+    v_line = -line * 1.0
+    e_m = local_eye[axis]
+    cell = ((torch.arange(n_s, dtype=dtype, device=dev) * stride + 0.5 * stride)
+            / n_m) * 2.0 - 1.0
+    denom = float(sign) - e_m
+    denom = torch.where(denom.abs() < 1e-8, torch.full_like(denom, 1e-8), denom)
+    s = (cell - e_m) / denom
+
+    rem_local = [_ARR_TO_LOCAL[a] for a in (1, 2, 3) if a != _ARR_AXIS[axis]]
+    swapped = rem_local == [ua, va]
+
+    def coords_for(local_axis):
+        if local_axis == ua:
+            q_line, e_q, unit_sign = u_line, local_eye[ua], us
+        else:
+            q_line, e_q, unit_sign = v_line, local_eye[va], vs
+        n_src = sizes[local_axis]
+        h = e_q + (q_line[None, :] * unit_sign - e_q) * s[:, None]
+        return (h + 1.0) * 0.5 * n_src - 0.5
+
+    tex_pos = torch.stack(torch.broadcast_tensors(
+        *_local_from_uv(face_id, u_line[None, :], v_line[:, None], dtype, dev)), dim=-1)
+    rd = tex_pos - local_eye
+    rd = rd / torch.linalg.vector_norm(rd, dim=-1, keepdim=True)
+    dm = rd[..., axis].abs()
+    step_len = (2.0 * stride / n_m) / torch.clamp_min(dm, 1e-4)
+    ref_step = MAX_DIST / num_samples.to(dtype)
+    n_steps = step_len / ref_step
+    if swapped:
+        n_steps = n_steps.T
+    valid = (s > 0.0) & (s <= 1.0)
+    f32 = torch.float32
+    return (coords_for(rem_local[0]).to(f32).contiguous(),
+            coords_for(rem_local[1]).to(f32).contiguous(),
+            valid.to(f32), n_steps.to(f32).contiguous(), swapped)
+
+
+def _march_face(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
+                num_samples: torch.Tensor, config: FluidConfig, dtype,
+                lod: int = 0) -> torch.Tensor:
+    """March one cube face; returns (R, R, 4) = (rgb / 2pi, alpha),
+    R = cube_map_size >> lod."""
+    *args, swapped = face_geometry(face_id, volf.shape[1], local_eye, num_samples,
+                                   config, dtype, lod)
+    acc = composite_resample(volf.to(torch.bfloat16).contiguous(), *args,
+                             float(config.absorption), flip=_FACES[face_id][1] < 0)
+    out_rgb = acc[1:].movedim(0, -1)
+    scatter = torch.cat([out_rgb / (2.0 * math.pi), acc[0][..., None]], dim=-1).to(dtype)
+    if swapped:
+        scatter = scatter.transpose(0, 1)
+    return scatter
+
+
+def ray_march_cube_fast(grid: torch.Tensor, params: SceneParams, config: FluidConfig,
+                        light_map: torch.Tensor, lod: int = 0,
+                        static_mask: Optional[int] = None) -> torch.Tensor:
+    """(6, R, R, 4) cube map of the (4, Z, Y, X) colour grid lit by
+    `light_map`; faces outside `static_mask` are not marched at all."""
+    dtype = config.render_dtype
+    dev = grid.device
+    local_eye = transform_point_h(params.eye_pt, params.world_i)[:3].to(dtype)
+    dens = grid[3:4].to(dtype)
+    prod = grid[:3].to(dtype) * light_map.to(dtype)
+    vol = torch.cat([dens, prod]).to(mxu16(dev))
+
+    if config.face_cull == FaceCullMode.NONE:
+        visible = face_visibility_in_graph(local_eye)
+    else:
+        face_ids = torch.arange(6, dtype=torch.int32, device=dev)
+        visible = ((params.visibility_mask >> face_ids) & 1) > 0
+    live = [f for f in range(6) if static_mask is None or (static_mask >> f) & 1]
+
+    volaxes = {axis: _axis_volume(vol, axis, config, lod)
+               for axis in sorted({_FACES[f][0] for f in live})}
+    r = max(config.cube_map_size >> lod, 1)
+    faces = []
+    for f in range(6):
+        if f not in live:
+            faces.append(torch.zeros((r, r, 4), dtype=dtype, device=dev))
+            continue
+        face = _march_face(f, volaxes[_FACES[f][0]], local_eye, params.num_samples,
+                           config, dtype, lod)
+        faces.append(torch.where(visible[f], face, torch.zeros_like(face)))
+    cube = torch.stack(faces)
+    if config.quantize_cube_map:
+        cube = quantize_unorm8(cube)
+    return cube

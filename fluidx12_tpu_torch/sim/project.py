@@ -1,0 +1,133 @@
+"""Pressure projection: divergence -> Jacobi / multigrid relaxation ->
+gradient subtraction -> boundary damp (mirror of fluidx12_tpu/sim/project.py
+on its XLA-twin path, the one `pallas_jacobi=False` selects).
+
+Dtypes follow the JAX code as written: the divergence, gradient subtract and
+boundary damp run on the storage-dtype (bf16) velocity, the Poisson solve in
+f32.  The projection's TPU kernels (ROADMAP.md B3-B8) are not ported yet, so
+a 3D config that asks for them (`use_pallas and pallas_jacobi`) raises on
+CUDA instead of running these plain ops in their place.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.ops.sampling import neighbor_shift
+
+_AX_Z, _AX_Y, _AX_X = 0, 1, 2
+
+
+def projection_kernels_requested(config: FluidConfig) -> bool:
+    """True when the JAX package would run the projection's Pallas kernels
+    (B3-B8) for this config on its accelerator."""
+    return config.use_pallas and config.pallas_jacobi and config.is_3d
+
+
+def divergence(velocity: torch.Tensor, is_3d: bool) -> torch.Tensor:
+    """Central-difference divergence with edge-clamped neighbours, as f32.
+
+    Every op runs in the velocity's dtype except the last, which runs in
+    f32: that is how XLA compiles the JAX package's
+    `divergence(fields).astype(float32)` (it drops the final rounding before
+    the widening convert), so the port's right-hand side matches it bit for
+    bit on bf16 state."""
+    ux, uy, uz = velocity[0], velocity[1], velocity[2]
+    xy = ((neighbor_shift(ux, _AX_X, +1) - neighbor_shift(ux, _AX_X, -1))
+          + (neighbor_shift(uy, _AX_Y, +1) - neighbor_shift(uy, _AX_Y, -1)))
+    if not is_3d:
+        return 0.5 * xy.to(torch.float32)
+    dz = neighbor_shift(uz, _AX_Z, +1) - neighbor_shift(uz, _AX_Z, -1)
+    return (0.5 * xy).to(torch.float32) + (0.5 * dz).to(torch.float32)
+
+
+def jacobi_sweeps(pressure: torch.Tensor, div: torch.Tensor, iters: int,
+                  is_3d: bool) -> torch.Tensor:
+    """`iters` synchronous Jacobi sweeps of laplace(q) = b."""
+    n = 6.0 if is_3d else 4.0
+    q = pressure
+    for _ in range(iters):
+        s = (neighbor_shift(q, _AX_X, +1) + neighbor_shift(q, _AX_X, -1)
+             + neighbor_shift(q, _AX_Y, +1) + neighbor_shift(q, _AX_Y, -1))
+        if is_3d:
+            s = s + neighbor_shift(q, _AX_Z, +1) + neighbor_shift(q, _AX_Z, -1)
+        q = (s - div) / n
+    return q
+
+
+def subtract_gradient(velocity: torch.Tensor, pressure: torch.Tensor, rho: float,
+                      is_3d: bool) -> torch.Tensor:
+    """u -= 0.5 * grad(q) / rho with edge-clamped central differences."""
+    dtype = velocity.dtype
+    gx = 0.5 * (neighbor_shift(pressure, _AX_X, +1) - neighbor_shift(pressure, _AX_X, -1)) / rho
+    gy = 0.5 * (neighbor_shift(pressure, _AX_Y, +1) - neighbor_shift(pressure, _AX_Y, -1)) / rho
+    comps = [velocity[0] - gx.to(dtype), velocity[1] - gy.to(dtype)]
+    if is_3d:
+        gz = 0.5 * (neighbor_shift(pressure, _AX_Z, +1) - neighbor_shift(pressure, _AX_Z, -1)) / rho
+        comps.append(velocity[2] - gz.to(dtype))
+    else:
+        comps.append(velocity[2])
+    return torch.stack(comps)
+
+
+def boundary_damp(velocity: torch.Tensor, config: FluidConfig) -> torch.Tensor:
+    """Damp/reflect outward velocities in the 3% wall band
+    (CSProject3D.hlsl:104-108), in the velocity's dtype."""
+    z, y, x = config.zyx
+    dtype = velocity.dtype
+    dev = velocity.device
+
+    def axis_pos(n):
+        i = torch.arange(n, device=dev).to(dtype)
+        return ((i + 0.5) / n) * 2.0 - 1.0
+
+    px = axis_pos(x).reshape(1, 1, x)
+    py = axis_pos(y).reshape(1, y, 1)
+    pz = axis_pos(z).reshape(z, 1, 1)
+    # JAX casts a Python constant to the array's dtype before the op, where
+    # torch would apply it in f32: make the bf16 rounding explicit.
+    band_hi = torch.tensor(0.97, dtype=dtype, device=dev)
+    band = torch.tensor(0.03, dtype=dtype, device=dev)
+
+    def damp(u, p):
+        scale = torch.clamp((band_hi - p.abs()) / band, -1.0, 1.0)
+        return torch.where(u * p > 0.0, u * scale, u)
+
+    comps = [damp(velocity[0], px), damp(velocity[1], py)]
+    comps.append(damp(velocity[2], pz) if config.is_3d else velocity[2])
+    return torch.stack(comps)
+
+
+def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
+            config: FluidConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full projection; identity when time_step == 0 (ref ..hlsl:97 guard).
+    `time_step` is the host value (the branch needs no device sync).
+    Returns (fields', pressure')."""
+    if fields.device.type == "cuda" and projection_kernels_requested(config):
+        raise NotImplementedError(
+            "the projection kernels B3-B8 are not ported to CUDA yet "
+            "(ROADMAP.md queue B, next slice); use pallas_jacobi=False")
+    if not float(time_step) > 0.0:
+        return fields, pressure
+    is_3d = config.is_3d
+    rho = config.fluid_density_3d if is_3d else config.fluid_density_2d
+    use_mg = False
+    if config.fast_sim and config.mg_pressure and is_3d:
+        from fluidx12_tpu_torch.sim.mg import mg_supported
+
+        z, y, x = config.zyx
+        use_mg = y * x >= config.mg_min_plane and mg_supported(config.zyx)
+
+    b = divergence(fields, is_3d)
+    if use_mg:
+        from fluidx12_tpu_torch.sim.mg import mg_solve
+
+        q = mg_solve(pressure, b)
+    else:
+        q = jacobi_sweeps(pressure, b, config.num_pressure_iters, is_3d)
+    vel = subtract_gradient(fields, q, rho, is_3d)
+    vel = boundary_damp(vel, config).to(fields.dtype)
+    return torch.cat([vel, fields[3:]]) if fields.shape[0] > 3 else vel, q

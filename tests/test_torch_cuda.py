@@ -1,0 +1,64 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked `cuda`: without a CUDA device every test here skips; on the
+GPU machine run them with `python -m pytest tests/test_torch_cuda.py -m cuda`.
+chip_smoke.py makes the same comparison at the full 128^3 shapes."""
+
+import numpy as np
+import pytest
+import torch
+
+from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.ops.cuda import advect as A
+from fluidx12_tpu_torch.ops.cuda import composite as C
+from fluidx12_tpu_torch.ops.cuda import sweep as S
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def test_advect_kernels_match_plain(dev):
+    """B1 bit-exact (same f32 operations); B2 within one bf16 ulp (expf)."""
+    cfg = FluidConfig(grid_size=(64, 64, 32))
+    rng = np.random.default_rng(0)
+    f = rng.uniform(0, 1, (7,) + cfg.zyx).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 6.0
+    vol = torch.from_numpy(f).to(dev, torch.bfloat16)
+    dt = torch.tensor(cfg.time_step, device=dev)
+    z, y, x = cfg.zyx
+    scales = torch.stack([dt * x, dt * y])
+    xy = A.advect_xy(vol, scales)
+    assert torch.equal(xy, A.advect_xy_plain(vol, scales))
+    args = (torch.stack([dt * z, dt]), torch.from_numpy(A.forces_table(cfg)).to(dev),
+            A.force_consts(cfg))
+    got = A.advect_z_forces(xy, *args).float()
+    ref = A.advect_z_forces_plain(xy, *args).float()
+    assert float((got - ref).abs().max()) <= 2.0 ** -7
+
+
+def test_shear_scan_matches_plain(dev):
+    rng = np.random.default_rng(1)
+    log_att = torch.from_numpy(-rng.uniform(0, 2, (32, 16, 128)).astype(np.float32)).to(dev)
+    s = torch.tensor([0.4, -0.7, 0.0, 128.0], device=dev)
+    torch.testing.assert_close(S.shear_scan(log_att, s), S.shear_scan_plain(log_att, s),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_composite_resample_matches_plain(dev, flip):
+    rng = np.random.default_rng(2)
+    ns, a, b, r1, r2 = 16, 64, 64, 48, 40
+    volf = torch.from_numpy(rng.uniform(0, 1, (4, ns, a, b)).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+    h_rows = torch.from_numpy(rng.uniform(-3, a + 2, (ns, r1)).astype(np.float32)).to(dev)
+    h_cols = torch.from_numpy(rng.uniform(-3, b + 2, (ns, r2)).astype(np.float32)).to(dev)
+    valid = torch.ones(ns, device=dev)
+    nst = torch.from_numpy(rng.uniform(0.5, 2, (r1, r2)).astype(np.float32)).to(dev)
+    args = (volf, h_rows, h_cols, valid, nst, 0.8, flip)
+    torch.testing.assert_close(C.composite_resample(*args), C.composite_resample_plain(*args),
+                               atol=2e-3, rtol=0)
