@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc, checks each
-against its plain PyTorch version on the card at the 128^3 frame's shapes,
-drives `FluidXEngine` for 60 frames of the main path (PRESETS["fluid3d"]
-with pallas_jacobi=False: 128^3 grid, 800x800 viewport) while counting the
-kernel launches, and compares the port on CUDA with the port on the CPU at
-a small grid.  Every phase prints its lines; any failure raises, so the
-exit code is non-zero and the final JSON line is not printed.  The last
+Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc (one nvcc per
+source, in parallel), checks each against its plain PyTorch version on the
+card at the 128^3 frame's shapes and times both, drives `FluidXEngine` for
+60 frames of the main path (PRESETS["fluid3d"] as it is: 128^3 grid,
+800x800 viewport, the projection on kernels B3-B8) and 20 frames of the
+pallas_jacobi=False path while counting the kernel launches, times the
+projection of both, and compares the port on CUDA with the port on the CPU
+at two small grids.  Every phase prints its lines; any failure raises, so
+the exit code is non-zero and the final JSON line is not printed.  The last
 line is {"ok": true, "device": {...}}; the line before it lists each
-kernel's launches, error and time.
+kernel's launches, error, time, plain and library times, and bound.
 """
 
 from __future__ import annotations
@@ -27,35 +29,65 @@ import numpy as np
 import torch
 
 FRAMES = 60
+SLICE_FRAMES = 20
 WARMUP_FRAMES = 10
+# About 10 ms of an H100's clock: longer than the host takes to queue the
+# timed calls of any kernel wrapper.
+SLEEP_CYCLES = 20_000_000
 
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+_ADV = "fluidx12_tpu_torch/csrc/advect.cu"
+_STN = "fluidx12_tpu_torch/csrc/stencil.cu"
+_JAC = "fluidx12_tpu_torch/csrc/jacobi.cu"
+# name: (ID, source, the TPU kernel it replaces), in frame order.
 KERNELS = {
-    "advect_xy": ("fluidx12_tpu_torch/csrc/advect.cu",
-                  "fluidx12_tpu/ops/pallas/advect.py:365"),
-    "advect_z_forces": ("fluidx12_tpu_torch/csrc/advect.cu",
-                        "fluidx12_tpu/ops/pallas/advect.py:712"),
-    "shear_scan": ("fluidx12_tpu_torch/csrc/sweep.cu",
+    "advect_xy": ("B1", _ADV, "fluidx12_tpu/ops/pallas/advect.py:365"),
+    "advect_z_forces": ("B2", _ADV, "fluidx12_tpu/ops/pallas/advect.py:712"),
+    "divergence": ("B3", _STN, "fluidx12_tpu/ops/pallas/stencil.py:57"),
+    "jacobi": ("B4", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:114"),
+    "residual": ("B5", _STN, "fluidx12_tpu/ops/pallas/stencil.py:322"),
+    "jacobi_packed": ("B6", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:798"),
+    "prolong_correct": ("B7", _STN, "fluidx12_tpu/ops/pallas/stencil.py:234"),
+    "grad_damp": ("B8", _STN, "fluidx12_tpu/ops/pallas/stencil.py:78"),
+    "shear_scan": ("B9", "fluidx12_tpu_torch/csrc/sweep.cu",
                    "fluidx12_tpu/ops/pallas/sweep.py:47"),
-    "composite_resample": ("fluidx12_tpu_torch/csrc/composite.cu",
+    "composite_resample": ("B10", "fluidx12_tpu_torch/csrc/composite.cu",
                            "fluidx12_tpu/ops/pallas/composite.py:125"),
+    "advect_z": ("B12", _ADV, "fluidx12_tpu/ops/pallas/advect.py:639"),
 }
+# The projection's kernels: launched on the default preset's path only.
+PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
+              "grad_damp")
 
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of `fn` over `reps` back-to-back calls (CUDA events)."""
+def time_ms(fn, reps: int, warmup: int = 2, what: str | None = None) -> float:
+    """Mean device time of `fn` over `reps` back-to-back calls (CUDA events).
+    A sleep kernel queued before the start event holds the stream while the
+    host queues the calls, so the events see the device's work and not the
+    host's rate of wrapper calls (tens of microseconds each, longer than the
+    smallest kernels).  With `what` given, says so where the sleep ended
+    before the host had queued every call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if what is not None and start.query():
+        print(f"  note: {what}: the host queued its calls slower than the card ran "
+              f"them; its time includes the host's gaps")
     end.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -69,6 +101,19 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
                         b.abs().amax(dim=dims, keepdim=True)).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7.0)
     return float(((a - b).abs() / ulp).max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes moved (each input read once, each output written once) over
+    the HBM rate and the f32 operations over the f32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check(ok: bool, what: str) -> None:
@@ -103,13 +148,16 @@ def phase1_build():
 
 
 def phase2_kernels(dev):
-    """Each kernel against its plain version on the card, at 128^3 shapes."""
+    """Each kernel against its plain version on the card, at 128^3 shapes
+    (B6 at the 64^3 coarse level), with times and bounds."""
     phase("phase 2: kernels vs plain versions at 128^3")
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core import math3d as m3
     from fluidx12_tpu_torch.core.camera import OrbitCamera
     from fluidx12_tpu_torch.ops.cuda import advect as A
     from fluidx12_tpu_torch.ops.cuda import composite as C
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
     from fluidx12_tpu_torch.ops.cuda import sweep as S
     from fluidx12_tpu_torch.render import lightmap_sweep as L
     from fluidx12_tpu_torch.render import slicecomp as SC
@@ -117,8 +165,18 @@ def phase2_kernels(dev):
 
     cfg = PRESETS["fluid3d"]
     z, y, x = cfg.zyx
+    n = z * y * x
     rng = np.random.default_rng(0)
     results = {}
+
+    def record(name, err, kernel, plain, n_bytes, flops, reps=20, plain_reps=5,
+               library=None):
+        bound_ms, bound_by = bound(n_bytes, flops)
+        results[name] = dict(
+            max_abs_err=err, ms=time_ms(kernel, reps, what=name),
+            plain_ms=time_ms(plain, plain_reps),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if library is None else time_ms(library, reps))
 
     # B1 / B2: a bf16 state with velocities up to +-1.5 (|d| <= 3 voxels)
     # and a faster patch (|d| up to the 12-voxel clip).
@@ -133,9 +191,9 @@ def phase2_kernels(dev):
     err = float((got - ref).abs().max())
     print(f"B1 advect_xy: max abs diff {err:.3e} (limit 1e-5: same f32 operations)")
     check(err <= 1e-5, "B1 advect_xy vs plain")
-    results["advect_xy"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: A.advect_xy(vol, scales), 20),
-        plain_ms=time_ms(lambda: A.advect_xy_plain(vol, scales), 5))
+    # Per cell: two displacements and 7 channels x 2 two-tap lerps.
+    record("advect_xy", err, lambda: A.advect_xy(vol, scales),
+           lambda: A.advect_xy_plain(vol, scales), nbytes(vol, scales, got), 66 * n)
 
     table = torch.from_numpy(A.forces_table(cfg)).to(dev)
     consts = A.force_consts(cfg)
@@ -148,9 +206,111 @@ def phase2_kernels(dev):
     print(f"B2 advect_z_forces: max abs diff {err:.3e}, {ulps:.2f} bf16 ulp at each "
           f"channel's scale (limit 1 ulp: expf may differ in its last f32 bit)")
     check(ulps <= 1.0, "B2 advect_z_forces vs plain")
-    results["advect_z_forces"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: A.advect_z_forces(xy, scal, table, consts), 20),
-        plain_ms=time_ms(lambda: A.advect_z_forces_plain(xy, scal, table, consts), 5))
+    record("advect_z_forces", err, lambda: A.advect_z_forces(xy, scal, table, consts),
+           lambda: A.advect_z_forces_plain(xy, scal, table, consts),
+           nbytes(xy, scal, table, got), 110 * n)
+
+    # B12: the same z pass without its forces epilogue.
+    got = A.advect_z(xy, scal)
+    ref = A.advect_z_forces_plain(xy, scal, None, None, forces=False)
+    err = float((got.float() - ref.float()).abs().max())
+    ulps = bf16_ulps(got, ref)
+    print(f"B12 advect_z: max abs diff {err:.3e}, {ulps:.2f} bf16 ulp at each channel's "
+          f"scale (limit 1 ulp, as B2)")
+    check(ulps <= 1.0, "B12 advect_z vs plain")
+    record("advect_z", err, lambda: A.advect_z(xy, scal),
+           lambda: A.advect_z_forces_plain(xy, scal, None, None, forces=False),
+           nbytes(xy, scal, got), 33 * n)
+
+    # B3-B8 on the projection's operands: the advected bf16 state, a smooth
+    # f32 pressure and its right-hand side, the 64^3 coarse level.
+    fields = A.advect_z_forces(xy, scal, table, consts)
+    q = torch.from_numpy(rng.uniform(-0.05, 0.05, (z, y, x)).astype(np.float32)).to(dev)
+    for ax in range(3):
+        q = (q.roll(1, ax) + q + q.roll(-1, ax)) / 3.0
+    b = ST.divergence(fields)
+    ref = ST.divergence_plain(fields)
+    err = float((b - ref).abs().max())
+    print(f"B3 divergence: max abs diff {err:.3e} (limit 0: same f32 operations)")
+    check(err == 0.0, "B3 divergence vs plain")
+    record("divergence", err, lambda: ST.divergence(fields),
+           lambda: ST.divergence_plain(fields), nbytes(fields[:3], b), 6 * n)
+
+    tuning = J.jacobi_tuning(cfg.zyx, 4)
+    got = J.jacobi(q, b, 4, *tuning)
+    ref = J.jacobi_plain(q, b, 4, *tuning)
+    err = float((got - ref).abs().max())
+    lim = 1e-5 * float(ref.abs().max())
+    print(f"B4 jacobi (4 sweeps, TPU plan {tuning}): max abs diff {err:.3e} "
+          f"(limit {lim:.2e}: 1e-5 of the scale)")
+    check(err <= lim, "B4 jacobi vs plain")
+    record("jacobi", err, lambda: J.jacobi(q, b, 4, *tuning),
+           lambda: J.jacobi_plain(q, b, 4, *tuning), nbytes(q, b, got), 7 * 4 * n)
+
+    r = ST.residual(q, b)
+    ref = ST.residual_plain(q, b)
+    err = float((r - ref).abs().max())
+    print(f"B5 residual: max abs diff {err:.3e} (limit 0: same f32 operations)")
+    check(err == 0.0, "B5 residual vs plain")
+    record("residual", err, lambda: ST.residual(q, b), lambda: ST.residual_plain(q, b),
+           nbytes(q, b, r), 8 * n)
+
+    r_c = torch.from_numpy(rng.uniform(-0.1, 0.1, (z // 2, y // 2, x // 2))
+                           .astype(np.float32)).to(dev)
+    zero_c = torch.zeros_like(r_c)
+    check(J.jacobi_packed_supported(r_c.shape), "the TPU packs the 64^3 coarse level")
+    e_c = J.jacobi_packed(zero_c, r_c, 32)
+    ref = J.jacobi_packed_plain(zero_c, r_c, 32)
+    err = float((e_c - ref).abs().max())
+    lim = 1e-5 * float(ref.abs().max())
+    print(f"B6 jacobi_packed (32 sweeps at 64^3): max abs diff {err:.3e} "
+          f"(limit {lim:.2e}: 1e-5 of the scale)")
+    check(err <= lim, "B6 jacobi_packed vs plain")
+    record("jacobi_packed", err, lambda: J.jacobi_packed(zero_c, r_c, 32),
+           lambda: J.jacobi_packed_plain(zero_c, r_c, 32), nbytes(zero_c, r_c, e_c),
+           7 * 32 * r_c.numel())
+
+    got = ST.prolong_correct(q, e_c)
+    ref = ST.prolong_correct_plain(q, e_c)
+    err = float((got - ref).abs().max())
+    print(f"B7 prolong_correct: max abs diff {err:.3e} (limit 0: same f32 operations)")
+    check(err == 0.0, "B7 prolong_correct vs plain")
+
+    def interpolate_add():
+        up = torch.nn.functional.interpolate(e_c[None, None], scale_factor=2,
+                                             mode="trilinear", align_corners=False)
+        return q + up[0, 0]
+
+    lib_err = float((interpolate_add() - ref).abs().max())
+    print(f"  library yardstick q + F.interpolate(trilinear): max abs diff {lib_err:.3e}")
+    # Per fine cell: up to two upsampled planes (9 operations each), the z
+    # lerp and the add.
+    record("prolong_correct", err, lambda: ST.prolong_correct(q, e_c),
+           lambda: ST.prolong_correct_plain(q, e_c), nbytes(q, e_c, got), 22 * n,
+           library=interpolate_add)
+
+    # B8 with a pressure of spread 1, so that its gradient term is many
+    # bf16 ulps of the velocity, held per value: within one bf16 ulp of each
+    # plain result.
+    rho = cfg.fluid_density_3d
+    p = torch.from_numpy(rng.uniform(-1.0, 1.0, (z, y, x)).astype(np.float32)).to(dev)
+    work = fields.clone()
+    got = ST.grad_damp(fields.clone(), p, rho)
+    ref = ST.grad_damp_plain(fields.clone(), p, rho)
+    check(torch.equal(got[3:], fields[3:]), "B8 leaves channels 3.. untouched")
+    diff = (got[:3].float() - ref[:3].float()).abs()
+    err = float(diff.max())
+    ulp = (ref[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    grad = torch.stack([ST._diff(p, ax) * ST.grad_scale(rho)
+                        for ax in (ST._AX_X, ST._AX_Y, ST._AX_Z)]).abs()
+    print(f"B8 grad_damp: max abs diff {err:.3e}, {float((diff / ulp).max()):.2f} bf16 ulp "
+          f"of each value (limit 1 ulp per value); gradient term |(p+ - p-)*0.5/rho| "
+          f"max {float(grad.max()):.3f}, median {float(grad.median()):.3f} against a "
+          f"median limit of {float(ulp.median()):.2e}; channels 3.. untouched")
+    check(bool((diff <= ulp).all()), "B8 grad_damp vs plain, per value")
+    record("grad_damp", err, lambda: ST.grad_damp(work, p, rho),
+           lambda: ST.grad_damp_plain(work, p, rho),
+           2 * nbytes(fields[:3]) + nbytes(p), 39 * n)
 
     # B9: the light sweep's own arguments for a smooth 128^3 density.
     dens = torch.from_numpy(rng.uniform(0.0, 0.6, (z, y, x)).astype(np.float32)).to(dev)
@@ -171,9 +331,10 @@ def phase2_kernels(dev):
     lim = 1e-4 * max(1.0, float(ref.abs().max()))
     print(f"B9 shear_scan: max abs diff {err:.3e} (limit {lim:.2e}: same f32 sum order)")
     check(err <= lim, "B9 shear_scan vs plain")
-    results["shear_scan"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: S.shear_scan(log_att, s), 20),
-        plain_ms=time_ms(lambda: S.shear_scan_plain(log_att, s), 3))
+    # Per output: four taps into the sheared carry and four out of it.
+    record("shear_scan", err, lambda: S.shear_scan(log_att, s),
+           lambda: S.shear_scan_plain(log_att, s), nbytes(log_att, s, got),
+           40 * log_att.numel(), plain_reps=3)
 
     # B10: the +X face of the default camera's view of a lit volume.
     cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
@@ -192,76 +353,132 @@ def phase2_kernels(dev):
     print(f"B10 composite_resample: max abs diff {err:.3e} (limit 2e-3, the JAX "
           f"package's kernel-vs-twin tolerance)")
     check(err <= 2e-3, "B10 composite_resample vs plain")
-    results["composite_resample"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: C.composite_resample(*args), 20),
-        plain_ms=time_ms(lambda: C.composite_resample_plain(*args), 3))
+    # Per slice and face texel: 4 channels x 2 two-tap lerps, then the
+    # front-to-back step.
+    record("composite_resample", err, lambda: C.composite_resample(*args),
+           lambda: C.composite_resample_plain(*args),
+           nbytes(volf, h_rows, h_cols, valid, n_steps, got),
+           40 * volf.shape[1] * n_steps.numel(), plain_reps=3)
     for name, r in results.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {KERNELS[name][0]} {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     return results
 
 
-def phase3_slice(dev, smi_line):
-    """The main path: FRAMES frames of the 128^3 / 800^2 separate-light frame."""
-    phase(f"phase 3: main path, {FRAMES} frames at 128^3 / 800^2")
-    from fluidx12_tpu_torch.core.config import PRESETS
+def projection_span_ms(engine, reps: int = 20) -> float:
+    """CUDA-event span of one `project` call on the engine's state, over
+    `reps` back-to-back calls (each on its own copy of the fields, which
+    `project` consumes)."""
+    from fluidx12_tpu_torch.sim.project import project
+
+    st, cfg = engine.state, engine.config
+    copies = [st.fields.clone() for _ in range(reps + 2)]
+    for f in copies[:2]:
+        project(f, st.pressure, cfg.time_step, cfg)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for f in copies[2:]:
+        project(f, st.pressure, cfg.time_step, cfg)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def run_frames(cfg, frames: int, dev, smi_line, label: str):
+    """`frames` frames of FluidXEngine(cfg) with the launch counts set to 0
+    just before; returns (counts, visible faces, engine)."""
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    cfg = dataclasses.replace(PRESETS["fluid3d"], pallas_jacobi=False)
     engine = FluidXEngine(cfg, device=dev)
     _, _, vis_mask = engine.update_frame()
     faces = bin(vis_mask).count("1")
     reset_launch_counts()
     times = []
     image = None
-    for _ in range(FRAMES):
+    for _ in range(frames):
         t0 = time.perf_counter()
         image = engine.step_frame()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
-    print(f"launches over {FRAMES} frames: {counts} (visible faces per frame: {faces})")
-    expect = {"advect_xy": FRAMES, "advect_z_forces": FRAMES, "shear_scan": FRAMES,
-              "composite_resample": FRAMES * faces}
-    check(counts == expect, f"launch counts {counts} != {expect}")
-
+    print(f"{label}: launches over {frames} frames: {counts} (visible faces per frame: "
+          f"{faces})")
     check(tuple(image.shape) == (cfg.viewport[1], cfg.viewport[0], 3), "image shape")
     check(bool(torch.isfinite(image).all()), "image finite")
     clear = torch.tensor(cfg.clear_color[:3], device=dev)
     smoke = int(((image - clear).abs().amax(-1) > 0.02).sum())
-    print(f"image {tuple(image.shape)}: finite, {smoke} pixels differ from the clear colour")
+    print(f"{label}: image {tuple(image.shape)}: finite, {smoke} pixels differ from the "
+          f"clear colour")
     check(smoke > 1000, "smoke visible in the frame")
     steady = times[WARMUP_FRAMES:]
     med = statistics.median(steady)
-    print(f"median ms/frame (frames {WARMUP_FRAMES + 1}-{FRAMES}, host clock around a "
-          f"synchronized step): {med:.3f} ms = {1e3 / med:.2f} steps/s; "
+    print(f"{label}: median ms/frame (frames {WARMUP_FRAMES + 1}-{frames}, host clock "
+          f"around a synchronized step): {med:.3f} ms = {1e3 / med:.2f} steps/s; "
           f"min {min(steady):.3f}, max {max(steady):.3f}; first frame {times[0]:.1f} ms "
           f"[{smi_line}]")
+    return counts, faces, engine
+
+
+def phase3_main_path(dev, smi_line):
+    """The main path: FRAMES frames of PRESETS["fluid3d"] (128^3 / 800^2,
+    the projection on B3-B8), then SLICE_FRAMES frames of the same preset
+    with pallas_jacobi=False (the projection's twins, no B3-B8)."""
+    phase(f"phase 3: main path, {FRAMES} frames of PRESETS['fluid3d'] at 128^3 / 800^2")
+    from fluidx12_tpu_torch.core.config import PRESETS
+
+    cfg = PRESETS["fluid3d"]
+    counts, faces, engine = run_frames(cfg, FRAMES, dev, smi_line, "fluid3d")
+    expect = {name: FRAMES for name in KERNELS}
+    expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0)
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    span = projection_span_ms(engine)
+    print(f"fluid3d: projection span {span:.3f} ms/call (CUDA events, 20 calls) "
+          f"[{smi_line}]")
+
+    slice_cfg = dataclasses.replace(cfg, pallas_jacobi=False)
+    slice_counts, faces, engine = run_frames(slice_cfg, SLICE_FRAMES, dev, smi_line,
+                                             "pallas_jacobi=False")
+    expect = {name: SLICE_FRAMES for name in KERNELS}
+    expect.update(composite_resample=SLICE_FRAMES * faces, advect_z=0,
+                  **{name: 0 for name in PROJECTION})
+    check(slice_counts == expect, f"launch counts {slice_counts} != {expect}")
+    span = projection_span_ms(engine)
+    print(f"pallas_jacobi=False: projection span {span:.3f} ms/call (CUDA events, "
+          f"20 calls) [{smi_line}]")
     return counts
 
 
 def phase4_cpu_vs_cuda(dev):
-    """The port on CUDA against the port on the CPU, 3 frames at a small grid."""
-    phase("phase 4: port on CUDA vs port on CPU, 3 frames at grid (128, 128, 16)")
+    """The port on CUDA against the port on the CPU, 3 frames at two small
+    grids: the pallas_jacobi=False path at (128, 128, 16), and the default
+    projection kernels at (128, 128, 64)."""
+    phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.utils.image import to_srgb_u8
 
-    cfg = FluidConfig(grid_size=(128, 128, 16), viewport=(96, 96), pallas_jacobi=False)
-    engines = [FluidXEngine(cfg, device=d) for d in ("cpu", dev)]
-    images = []
-    for e in engines:
-        for _ in range(3):
-            img = e.step_frame()
-        images.append(to_srgb_u8(img).astype(np.int32))
-    fa, fb = (e.state.fields.float().cpu() for e in engines)
-    field_err = float((fa - fb).abs().max())
-    ulps = bf16_ulps(fa, fb)
-    img_err = int(np.abs(images[0] - images[1]).max())
-    print(f"fields max abs diff {field_err:.3e} ({ulps:.2f} bf16 ulp at each "
-          f"channel's scale), image max u8 diff {img_err} (limits 1 ulp and 2: only "
-          f"exp/log1p/log differ between the CPU and CUDA math libraries)")
-    check(ulps <= 1.0 and img_err <= 2, "CUDA vs CPU port")
+    for kw in (dict(grid_size=(128, 128, 16), pallas_jacobi=False),
+               dict(grid_size=(128, 128, 64), pallas_jacobi=True)):
+        cfg = FluidConfig(viewport=(96, 96), **kw)
+        engines = [FluidXEngine(cfg, device=d) for d in ("cpu", dev)]
+        images = []
+        for e in engines:
+            for _ in range(3):
+                img = e.step_frame()
+            images.append(to_srgb_u8(img).astype(np.int32))
+        fa, fb = (e.state.fields.float().cpu() for e in engines)
+        field_err = float((fa - fb).abs().max())
+        ulps = bf16_ulps(fa, fb)
+        img_err = int(np.abs(images[0] - images[1]).max())
+        print(f"{kw}: fields max abs diff {field_err:.3e} ({ulps:.2f} bf16 ulp at each "
+              f"channel's scale), image max u8 diff {img_err} (limits 1 ulp and 2: only "
+              f"exp/log1p/log differ between the CPU and CUDA math libraries)")
+        check(ulps <= 1.0 and img_err <= 2, f"CUDA vs CPU port, {kw}")
 
 
 def main() -> int:
@@ -271,15 +488,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase1_build()
     results = phase2_kernels(dev)
-    counts = phase3_slice(dev, smi_line)
+    counts = phase3_main_path(dev, smi_line)
     phase4_cpu_vs_cuda(dev)
     kernels = []
-    for kname, (src, replaces) in KERNELS.items():
+    for kname, (_, src, replaces) in KERNELS.items():
         r = results[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[kname],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     check(all(math.isfinite(k["ms"]) for k in kernels), "kernel times")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

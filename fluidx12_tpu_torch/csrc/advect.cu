@@ -187,7 +187,8 @@ int fx_advect_xy(const void* vol, void* tmp, void* out, const void* scales, int 
 
 // B2: z pass of the f32 `vol` (+ fused forces epilogue when `forces`) into
 // `out` of the storage type.  scal = device [dt_sub*Z, dt]; table = device
-// (C, 5) f32 per-channel force coefficients.
+// (C, 5) f32 per-channel force coefficients, never read (and may be null)
+// without `forces`: that is B12, replacing _zpass_kernel.
 int fx_advect_z_forces(const void* vol, void* out, const void* scal, const void* table,
                        float ip_x, float ip_y, float ip_z, float radius_sq,
                        float dissipation, int forces, int is_bf16, int C, int Z, int Y,

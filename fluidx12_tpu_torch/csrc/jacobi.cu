@@ -1,0 +1,113 @@
+// Jacobi pressure sweeps for Hopper: B4 and B6.
+//
+// fx_jacobi replaces fluidx12_tpu/ops/pallas/jacobi.py _jacobi_fused_kernel /
+// _window_sweeps (B4, via jacobi_pallas; order 0, and order 1 for the
+// plane-sweep plan _planewise_window) and _jacobi_packed_kernel (B6, via
+// jacobi_packed_pallas; order 2).  Each is `iters` synchronous sweeps of
+//     q <- (sum of the 6 edge-clamped neighbours - b) / 6
+// in f32.  The TPU kernels' halo'd VMEM windows (recomputed halos, exact in
+// the centre) and 64-lane packing are layouts with no effect on the result;
+// what they fix is the order of the neighbour sum, which the template
+// argument keeps:
+//   order 0 (B4, whole window): y+, y-, x+, x-, z+, z-   (jacobi.py:88)
+//   order 1 (B4, plane sweep):  y+, y-, x+, x-, z-, z+   (jacobi.py:285-287)
+//   order 2 (B6, packed):       x+, x-, y+, y-, z+, z-   (jacobi.py:833-842)
+// The division is a true f32 division and the file builds with
+// --fmad=false, so each sweep rounds as the Pallas code does.
+//
+// Bound: memory.  Counted once in and once out, a call moves q, b in and q
+// out (12 B per cell): 25.2 MB at 128^3 (7.5 us at 3.35 TB/s) and 3.1 MB at
+// the 64^3 coarse level (0.94 us; its 32 sweeps' 58.7 MFLOP take 0.88 us at
+// 67 TFLOP/s).  Design: one thread per cell per sweep, consecutive threads
+// on consecutive x; the sweeps ping-pong between the output and one scratch
+// buffer, launched `iters` times from this one C entry point, so a call
+// costs one Python call however many sweeps it runs.  Each sweep re-streams
+// q and b: 25 MB at 128^3 and 3 MB at 64^3 fit the 50 MB L2, so the re-reads
+// are L2 traffic.  Temporal blocking in shared memory (several sweeps per
+// launch) is later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <int kOrder>
+__global__ void jacobi_sweep_kernel(const float* __restrict__ q, const float* __restrict__ b,
+                                    float* __restrict__ out, int nz, int ny, int nx) {
+  const int64_t plane = (int64_t)ny * nx;
+  const int64_t n = (int64_t)nz * plane;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int x = (int)(idx % nx);
+  const int y = (int)((idx / nx) % ny);
+  const int z = (int)(idx / plane);
+  const float xp = q[x < nx - 1 ? idx + 1 : idx];
+  const float xm = q[x > 0 ? idx - 1 : idx];
+  const float yp = q[y < ny - 1 ? idx + nx : idx];
+  const float ym = q[y > 0 ? idx - nx : idx];
+  const float zp = q[z < nz - 1 ? idx + plane : idx];
+  const float zm = q[z > 0 ? idx - plane : idx];
+  float s;
+  if (kOrder == 2) {
+    s = xp + xm;
+    s = s + yp;
+    s = s + ym;
+  } else {
+    s = yp + ym;
+    s = s + xp;
+    s = s + xm;
+  }
+  if (kOrder == 1) {
+    s = s + zm;
+    s = s + zp;
+  } else {
+    s = s + zp;
+    s = s + zm;
+  }
+  out[idx] = (s - b[idx]) / 6.0f;
+}
+
+template <int kOrder>
+cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, int iters,
+                   int nz, int ny, int nx, cudaStream_t st) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const float* src = q;
+  for (int k = 0; k < iters; ++k) {
+    // The last sweep writes `out`: count back from it, alternating.
+    float* dst = ((iters - 1 - k) % 2 == 0) ? out : scratch;
+    jacobi_sweep_kernel<kOrder><<<blocks, kThreads, 0, st>>>(src, b, dst, nz, ny, nx);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..2 as above.
+int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters, int order,
+              int nz, int ny, int nx, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* qf = (const float*)q;
+  const float* bf = (const float*)b;
+  float* of = (float*)out;
+  float* sf = (float*)scratch;
+  if (iters == 0) {
+    return (int)cudaMemcpyAsync(of, qf, (size_t)nz * ny * nx * sizeof(float),
+                                cudaMemcpyDeviceToDevice, st);
+  }
+  switch (order) {
+    case 0: return (int)sweeps<0>(qf, bf, of, sf, iters, nz, ny, nx, st);
+    case 1: return (int)sweeps<1>(qf, bf, of, sf, iters, nz, ny, nx, st);
+    case 2: return (int)sweeps<2>(qf, bf, of, sf, iters, nz, ny, nx, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -1,0 +1,230 @@
+// The projection's streaming stencils for Hopper: B3, B5, B7 and B8.
+//
+// B3 (fx_divergence) replaces fluidx12_tpu/ops/pallas/stencil.py _div_kernel
+// (via divergence_pallas), B5 (fx_residual) _residual_kernel (via
+// residual_pallas), B7 (fx_prolong_correct) _prolong_correct_kernel (via
+// prolong_correct_pallas) and B8 (fx_grad_damp) _grad_damp_kernel (via
+// grad_damp_pallas).  Semantics are the kernels', not the XLA twins':
+//   - B3 casts channels 0..2 to f32 and returns 0.5 * ((dx + dy) + dz);
+//   - B5 sums the neighbours x+, x-, y+, y-, z-, z+ in that order;
+//   - B7 upsamples each coarse plane as the kernel's two dots, y then x
+//     (each column of the prolongation matrix has at most two non-zero
+//     taps, summed in ascending order, so the dot is exact to reproduce),
+//     then lerps the upsampled planes in z at 0.25 / 0.75 with clamped
+//     neighbours and adds q;
+//   - B8 forms the gradient with the f32 scale fl32(0.5 / rho), the wall
+//     position ((i + 0.5) / n) * 2 - 1 and the band clip((0.97 - |pos|) /
+//     0.03, -1, 1) in f32 and rounds once to the storage type, in place on
+//     channels 0..2 (the TPU kernel aliases its input); channels 3.. are
+//     never read or written.
+// Every edge is clamped: the neighbour index is min(i + 1, n - 1) /
+// max(i - 1, 0).  Built with --fmad=false, so every product and sum rounds
+// as in the Pallas code and the plain PyTorch versions.
+//
+// Bound: memory (a few operations per byte).  At 128^3: B3 reads 3 bf16
+// channels and writes f32 (10 B per cell, 21.0 MB, 6.3 us at 3.35 TB/s); B5
+// reads q and b and writes r (12 B, 25.2 MB, 7.5 us); B7 reads q and the
+// coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us); B8 reads p and 3 bf16
+// channels and writes them back (16 B, 33.6 MB, 10.0 us).  Design: one
+// thread per cell, consecutive threads on consecutive x, so the centre
+// stream and the x/y/z neighbours are coalesced; the neighbour re-reads
+// (y +-1 rows, z +-1 planes) hit L1/L2, not HBM.  No shared-memory tiling
+// yet: a simple kernel that is right first.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
+  p[i] = __float2bfloat16_rn(v);
+}
+
+// A cell and the linear indices of its six edge-clamped neighbours.
+struct Cell {
+  int z, y, x;
+  int64_t xp, xm, yp, ym, zp, zm;
+};
+
+__device__ __forceinline__ Cell cell_at(int64_t idx, int nz, int ny, int nx) {
+  Cell k;
+  const int64_t plane = (int64_t)ny * nx;
+  k.x = (int)(idx % nx);
+  k.y = (int)((idx / nx) % ny);
+  k.z = (int)(idx / plane);
+  k.xp = k.x < nx - 1 ? idx + 1 : idx;
+  k.xm = k.x > 0 ? idx - 1 : idx;
+  k.yp = k.y < ny - 1 ? idx + nx : idx;
+  k.ym = k.y > 0 ? idx - nx : idx;
+  k.zp = k.z < nz - 1 ? idx + plane : idx;
+  k.zm = k.z > 0 ? idx - plane : idx;
+  return k;
+}
+
+template <typename T>
+__global__ void divergence_kernel(const T* __restrict__ f, float* __restrict__ out,
+                                  int nz, int ny, int nx) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const Cell k = cell_at(idx, nz, ny, nx);
+  const T* ux = f;
+  const T* uy = f + n;
+  const T* uz = f + 2 * n;
+  const float dx = ld(ux, k.xp) - ld(ux, k.xm);
+  const float dy = ld(uy, k.yp) - ld(uy, k.ym);
+  const float dz = ld(uz, k.zp) - ld(uz, k.zm);
+  out[idx] = 0.5f * ((dx + dy) + dz);
+}
+
+__global__ void residual_kernel(const float* __restrict__ q, const float* __restrict__ b,
+                                float* __restrict__ r, int nz, int ny, int nx) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const Cell k = cell_at(idx, nz, ny, nx);
+  float s = q[k.xp] + q[k.xm];
+  s = s + q[k.yp];
+  s = s + q[k.ym];
+  s = s + q[k.zm];
+  s = s + q[k.zp];
+  r[idx] = b[idx] - (s - 6.0f * q[idx]);
+}
+
+// The two non-zero taps of column i of the (n_c, 2 n_c) prolongation
+// matrix, in ascending coarse index; at a clamped edge one tap of weight 1.
+struct Taps {
+  int lo, hi;
+  float wlo, whi;
+};
+
+__device__ __forceinline__ Taps prolong_taps(int i, int nc) {
+  const int m = i >> 1;
+  Taps t;
+  if ((i & 1) == 0) {
+    t.lo = m - 1; t.hi = m; t.wlo = 0.25f; t.whi = 0.75f;
+  } else {
+    t.lo = m; t.hi = m + 1; t.wlo = 0.75f; t.whi = 0.25f;
+  }
+  if (t.lo < 0 || t.hi > nc - 1) {
+    t.lo = max(t.lo, 0);
+    t.hi = t.lo;
+    t.wlo = 1.0f;
+    t.whi = 0.0f;
+  }
+  return t;
+}
+
+// Coarse plane j upsampled to fine (y, x): the y dot, then the x dot.
+__device__ __forceinline__ float upsample(const float* __restrict__ ec, int j, const Taps& ty,
+                                          const Taps& tx, int nyc, int nxc) {
+  const float* p = ec + (int64_t)j * nyc * nxc;
+  const float a_lo = ty.wlo * p[(int64_t)ty.lo * nxc + tx.lo] + ty.whi * p[(int64_t)ty.hi * nxc + tx.lo];
+  const float a_hi = ty.wlo * p[(int64_t)ty.lo * nxc + tx.hi] + ty.whi * p[(int64_t)ty.hi * nxc + tx.hi];
+  return tx.wlo * a_lo + tx.whi * a_hi;
+}
+
+__global__ void prolong_correct_kernel(const float* __restrict__ q, const float* __restrict__ ec,
+                                       float* __restrict__ out, int nz, int ny, int nx) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int x = (int)(idx % nx);
+  const int y = (int)((idx / nx) % ny);
+  const int z = (int)(idx / ((int64_t)ny * nx));
+  const int nzc = nz / 2, nyc = ny / 2, nxc = nx / 2;
+  const Taps ty = prolong_taps(y, nyc);
+  const Taps tx = prolong_taps(x, nxc);
+  const int m = z >> 1;
+  const float c = upsample(ec, m, ty, tx, nyc, nxc);
+  float e;
+  if ((z & 1) == 0) {
+    e = 0.25f * upsample(ec, max(m - 1, 0), ty, tx, nyc, nxc) + 0.75f * c;
+  } else {
+    e = 0.75f * c + 0.25f * upsample(ec, min(m + 1, nzc - 1), ty, tx, nyc, nxc);
+  }
+  out[idx] = q[idx] + e;
+}
+
+// One velocity component: v = u - g, then the wall-band damp along its axis.
+__device__ __forceinline__ float damp(float u, float g, int i, int n) {
+  const float v = u - g;
+  const float pos = (((float)i + 0.5f) / (float)n) * 2.0f - 1.0f;
+  const float scale = fminf(fmaxf((0.97f - fabsf(pos)) / 0.03f, -1.0f), 1.0f);
+  return v * pos > 0.0f ? v * scale : v;
+}
+
+template <typename T>
+__global__ void grad_damp_kernel(T* __restrict__ f, const float* __restrict__ p, float s,
+                                 int nz, int ny, int nx) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const Cell k = cell_at(idx, nz, ny, nx);
+  st(f, idx, damp(ld(f, idx), (p[k.xp] - p[k.xm]) * s, k.x, nx));
+  st(f, n + idx, damp(ld(f, n + idx), (p[k.yp] - p[k.ym]) * s, k.y, ny));
+  st(f, 2 * n + idx, damp(ld(f, 2 * n + idx), (p[k.zp] - p[k.zm]) * s, k.z, nz));
+}
+
+inline unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+// fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32; out (nz, ny, nx) f32.
+int fx_divergence(const void* fields, void* out, int is_bf16, int nz, int ny, int nx,
+                  void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
+  if (is_bf16) {
+    divergence_kernel<<<blocks, kThreads, 0, cs>>>((const __nv_bfloat16*)fields,
+                                                   (float*)out, nz, ny, nx);
+  } else {
+    divergence_kernel<<<blocks, kThreads, 0, cs>>>((const float*)fields, (float*)out,
+                                                   nz, ny, nx);
+  }
+  return (int)cudaGetLastError();
+}
+
+// q, b, r (nz, ny, nx) f32.
+int fx_residual(const void* q, const void* b, void* r, int nz, int ny, int nx, void* stream) {
+  residual_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)b, (float*)r, nz, ny, nx);
+  return (int)cudaGetLastError();
+}
+
+// q, out (nz, ny, nx) f32 with even dims; e_c (nz/2, ny/2, nx/2) f32.
+int fx_prolong_correct(const void* q, const void* e_c, void* out, int nz, int ny, int nx,
+                       void* stream) {
+  prolong_correct_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0,
+                           (cudaStream_t)stream>>>((const float*)q, (const float*)e_c,
+                                                   (float*)out, nz, ny, nx);
+  return (int)cudaGetLastError();
+}
+
+// fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32, updated in place on
+// channels 0..2; p (nz, ny, nx) f32; s = fl32(0.5 / rho).
+int fx_grad_damp(void* fields, const void* p, float s, int is_bf16, int nz, int ny, int nx,
+                 void* stream) {
+  cudaStream_t cs = (cudaStream_t)stream;
+  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
+  if (is_bf16) {
+    grad_damp_kernel<<<blocks, kThreads, 0, cs>>>((__nv_bfloat16*)fields, (const float*)p, s,
+                                                  nz, ny, nx);
+  } else {
+    grad_damp_kernel<<<blocks, kThreads, 0, cs>>>((float*)fields, (const float*)p, s, nz, ny,
+                                                  nx);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,8 +1,9 @@
 """The application engine: per-frame host math + simulate + render (mirror
 of fluidx12_tpu/engine/fluidx.py).
 
-`FluidXEngine(config, device=...)` owns the camera, the state on `device`
-and the per-frame parameters; `step_frame()` advances the simulation one
+`FluidXEngine(config, device="cuda")` owns the camera, the state on
+`device` (the card unless the caller names another) and the per-frame
+parameters; `step_frame()` advances the simulation one
 step and returns the (H, W, 3) f32 image on the same device.  PyTorch runs
 eagerly, so there is no program cache: what the JAX engine keys its jit
 cache on (render method, LOD, face mask, scissor rect) are plain arguments
@@ -28,15 +29,12 @@ from fluidx12_tpu_torch.core.state import (
     unpack_scene_params,
 )
 from fluidx12_tpu_torch.render.pipeline import render_frame, unported_render
-from fluidx12_tpu_torch.sim.project import projection_kernels_requested
 from fluidx12_tpu_torch.sim.step import simulate
 
 
-def unported(config: FluidConfig, device: torch.device) -> Optional[str]:
-    """The ROADMAP item this config still needs on `device`, or None."""
-    if device.type == "cuda" and projection_kernels_requested(config):
-        return ("the projection kernels B3-B8 on CUDA (ROADMAP.md queue B; "
-                "run with pallas_jacobi=False)")
+def unported(config: FluidConfig) -> Optional[str]:
+    """The ROADMAP item this config still needs, or None (on the CPU and on
+    the card alike)."""
     if not config.fast_sim:
         return "the faithful simulation, fast_sim=False (ROADMAP.md queue A, item 7)"
     return unported_render(config, RenderMethod.RAY_MARCH_SEPARATE)
@@ -45,10 +43,10 @@ def unported(config: FluidConfig, device: torch.device) -> Optional[str]:
 class FluidXEngine:
     """Owns config, camera and state; one `step_frame` per frame."""
 
-    def __init__(self, config: FluidConfig, device):
+    def __init__(self, config: FluidConfig, device="cuda"):
         self.config = config.validate()
         self.device = torch.device(device)
-        missing = unported(self.config, self.device)
+        missing = unported(self.config)
         if missing is not None:
             raise NotImplementedError(f"not ported yet: {missing}")
         # Full f32 matmuls and convolutions: TF32 keeps ~3 decimal digits.

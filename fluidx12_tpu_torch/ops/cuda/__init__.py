@@ -12,13 +12,24 @@ from __future__ import annotations
 
 
 def wrappers():
-    """{name: wrapper} of every kernel wrapper, in frame order."""
-    from fluidx12_tpu_torch.ops.cuda.advect import advect_xy, advect_z_forces
+    """{name: wrapper} of every kernel wrapper, in frame order (B12
+    `advect_z`, off the main path, last)."""
+    from fluidx12_tpu_torch.ops.cuda.advect import advect_xy, advect_z, advect_z_forces
     from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
+    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi_packed
+    from fluidx12_tpu_torch.ops.cuda.stencil import (
+        divergence,
+        grad_damp,
+        prolong_correct,
+        residual,
+    )
     from fluidx12_tpu_torch.ops.cuda.sweep import shear_scan
 
     return {"advect_xy": advect_xy, "advect_z_forces": advect_z_forces,
-            "shear_scan": shear_scan, "composite_resample": composite_resample}
+            "divergence": divergence, "jacobi": jacobi, "residual": residual,
+            "jacobi_packed": jacobi_packed, "prolong_correct": prolong_correct,
+            "grad_damp": grad_damp, "shear_scan": shear_scan,
+            "composite_resample": composite_resample, "advect_z": advect_z}
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `fluidx12_tpu_torch/csrc/*.cu` is compiled by `nvcc` into ONE shared
-library with a plain C interface for sm_90a (Hopper), at first use, into
+Every `fluidx12_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` process,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface for sm_90a (Hopper), at first use, into
 `build/kernels/` at the root of the checkout.  The library is named by a
 hash of the sources and flags, so an edited source rebuilds and a stale
 library is never loaded.  It is bound with ctypes: every pointer and the
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -28,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # PyTorch versions and the Pallas kernels, so the kernels agree with them to
 # the last bit wherever the transcendentals do not differ.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -38,6 +40,11 @@ _SIGNATURES = {
     "fx_shear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                               _I, _I, _P],
+    "fx_divergence": [_P, _P, _I, _I, _I, _I, _P],
+    "fx_residual": [_P, _P, _P, _I, _I, _I, _P],
+    "fx_prolong_correct": [_P, _P, _P, _I, _I, _I, _P],
+    "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _P],
+    "fx_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -68,6 +75,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfluidx_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> Path:
     """Compile the library if it is missing; returns its path."""
     global build_seconds
@@ -76,12 +90,17 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    try:
+        with ThreadPoolExecutor(max_workers=len(objs)) as pool:
+            list(pool.map(_run, ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                 for src, obj in zip(_sources(), objs))))
+        _run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

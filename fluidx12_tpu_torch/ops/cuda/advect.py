@@ -3,9 +3,9 @@ plain PyTorch versions.
 
 B1 `advect_xy` replaces fluidx12_tpu/ops/pallas/advect.py
 `_pass_kernel_fused_xy` (via `_run_pass_fused_xy`); B2 `advect_z_forces`
-replaces `_zpass_forces_kernel` (via `_run_zpass`; with forces=False, the
-plain `_zpass_kernel`).  Both follow the TPU kernels' semantics, not the
-mirror-addressed XLA twin's: clamp addressing folded into the displacement,
+replaces `_zpass_forces_kernel` (via `_run_zpass`), and B12 `advect_z`, the
+same kernel without its forces epilogue, the plain `_zpass_kernel`.  All
+follow the TPU kernels' semantics, not the mirror-addressed XLA twin's: clamp addressing folded into the displacement,
 the x-pass result rounded to the storage dtype before the y pass, and the
 forces epilogue in the per-channel table form of `_forces_table`.  One
 difference: B1 returns its y-pass result in f32 and B2 reads it so, where
@@ -184,30 +184,54 @@ advect_xy.launches = 0
 
 
 def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
-                    consts, forces: bool = True,
-                    store: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    consts, store: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """B2: z backtrace of the f32 vol (C, Z, Y, X) from B1 (dz from
-    channel 2), then, with `forces`, the impulse/forces/clip/dissipation
-    epilogue; one rounding to `store`."""
-    _check_vol(vol, "advect_z_forces")
-    if vol.dtype != torch.float32 or store not in _STORAGE:
-        raise ValueError(f"advect_z_forces: expected f32 input and a bf16/f32 "
-                         f"output dtype, got {vol.dtype} -> {store}")
-    _check_f32(scal, (2,), vol, "advect_z_forces scal")
+    channel 2), then the impulse/forces/clip/dissipation epilogue; one
+    rounding to `store`."""
+    _check_z(vol, scal, store, "advect_z_forces")
     _check_f32(table, (vol.shape[0], 5), vol, "advect_z_forces table")
-    if vol.shape[0] < 3:
-        raise ValueError("advect_z_forces: needs velocity channel 2")
     if not _on_cuda(vol, "advect_z_forces"):
-        return advect_z_forces_plain(vol, scal, table, consts, forces, store)
-    c, z, y, x = vol.shape
-    out = torch.empty(vol.shape, dtype=store, device=vol.device)
-    err = _build.lib().fx_advect_z_forces(
-        vol.data_ptr(), out.data_ptr(), scal.data_ptr(), table.data_ptr(),
-        *consts, int(forces), int(store == torch.bfloat16), c, z, y, x,
-        _build.stream_ptr(vol))
+        return advect_z_forces_plain(vol, scal, table, consts, True, store)
+    out = _launch_z(vol, scal, table.data_ptr(), consts, True, store)
     advect_z_forces.launches += 1
-    _build.check(err, "fx_advect_z_forces")
     return out
 
 
 advect_z_forces.launches = 0
+
+
+def advect_z(vol: torch.Tensor, scal: torch.Tensor,
+             store: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """B12: the z backtrace alone, replacing `_zpass_kernel` (the TPU's z
+    pass when colour is not premultiplied, or between advect sub-steps):
+    B2's kernel with its forces epilogue off.  scal = [dt_sub * Z, dt]."""
+    _check_z(vol, scal, store, "advect_z")
+    if not _on_cuda(vol, "advect_z"):
+        return advect_z_forces_plain(vol, scal, None, None, False, store)
+    out = _launch_z(vol, scal, None, (0.0,) * 5, False, store)
+    advect_z.launches += 1
+    return out
+
+
+advect_z.launches = 0
+
+
+def _check_z(vol: torch.Tensor, scal: torch.Tensor, store: torch.dtype, name: str) -> None:
+    _check_vol(vol, name)
+    if vol.dtype != torch.float32 or store not in _STORAGE:
+        raise ValueError(f"{name}: expected f32 input and a bf16/f32 "
+                         f"output dtype, got {vol.dtype} -> {store}")
+    _check_f32(scal, (2,), vol, f"{name} scal")
+    if vol.shape[0] < 3:
+        raise ValueError(f"{name}: needs velocity channel 2")
+
+
+def _launch_z(vol, scal, table_ptr, consts, forces: bool, store) -> torch.Tensor:
+    c, z, y, x = vol.shape
+    out = torch.empty(vol.shape, dtype=store, device=vol.device)
+    err = _build.lib().fx_advect_z_forces(
+        vol.data_ptr(), out.data_ptr(), scal.data_ptr(), table_ptr,
+        *consts, int(forces), int(store == torch.bfloat16), c, z, y, x,
+        _build.stream_ptr(vol))
+    _build.check(err, "fx_advect_z_forces")
+    return out

@@ -1,0 +1,293 @@
+"""Jacobi pressure sweeps, kernels B4 and B6, with their plain PyTorch
+versions and the JAX package's shape gates.
+
+B4 `jacobi` replaces fluidx12_tpu/ops/pallas/jacobi.py
+`_jacobi_fused_kernel` / `_window_sweeps` (via `jacobi_pallas`); B6
+`jacobi_packed` replaces `_jacobi_packed_kernel` (via
+`jacobi_packed_pallas`).  Both are `iters` synchronous sweeps of
+q <- (sum of the 6 edge-clamped neighbours - b) / 6 in f32.  Their
+halo'd VMEM windows and 64-lane packing are TPU layouts with no effect on
+the result; what differs between them is the order of the neighbour sum,
+which each plain version and the kernel keep:
+
+- B4, whole-window plan (`_window_sweeps`): y+, y-, x+, x-, z+, z-;
+- B4, plane-sweep plan (`_planewise_window`): y+, y-, x+, x-, z-, z+;
+- B6 (`_jacobi_packed_kernel`): x+, x-, y+, y-, z+, z-, the twin's order.
+
+Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu.  The gates
+are pure-Python copies of the TPU's planners, kept because they decide
+which numerics the JAX package runs on a grid (ROADMAP.md C5).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+(or raises).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fluidx12_tpu_torch.ops.cuda import _build
+from fluidx12_tpu_torch.ops.sampling import neighbor_shift
+
+_AX_Z, _AX_Y, _AX_X = 0, 1, 2
+
+# Neighbour orders, as (axis, offset) in summation order; the index is the
+# kernel's `order` argument.
+ORDER_WINDOW, ORDER_PLANEWISE, ORDER_PACKED = 0, 1, 2
+_ORDERS = (
+    ((_AX_Y, 1), (_AX_Y, -1), (_AX_X, 1), (_AX_X, -1), (_AX_Z, 1), (_AX_Z, -1)),
+    ((_AX_Y, 1), (_AX_Y, -1), (_AX_X, 1), (_AX_X, -1), (_AX_Z, -1), (_AX_Z, 1)),
+    ((_AX_X, 1), (_AX_X, -1), (_AX_Y, 1), (_AX_Y, -1), (_AX_Z, 1), (_AX_Z, -1)),
+)
+
+
+# ---------------------------------------------------------------------------
+# Gates (copies of fluidx12_tpu/ops/pallas/jacobi.py)
+# ---------------------------------------------------------------------------
+
+def _plan(shape, slab: int, inner: int):
+    """(slab, ytile) of the whole-window kernel, or None (jacobi.py:880)."""
+    nz, ny, nx = shape
+    halo = inner
+    while slab > 1 and nz % slab:
+        slab //= 2
+    if nz % slab or nz < slab + 2 * halo:
+        return None
+    if ny * nx <= 128 * 128:
+        return slab, ny
+    if halo % 8:
+        return None
+    ytile = 32
+    while ytile > 8 and ny % ytile:
+        ytile //= 2
+    if ny % ytile or ny < ytile + 2 * halo:
+        return None
+    if (slab + 2 * halo) * (ytile + 2 * halo) * nx * 4 > 2 * 1024 * 1024:
+        slab = max(slab // 2, 1)
+        if nz % slab or nz < slab + 2 * halo:
+            return None
+    return slab, ytile
+
+
+_CHUNK = 8
+
+
+def _plan_planewise(shape, inner: int, extra_window: float = 0.0,
+                    extra_center: float = 0.0):
+    """(slab, ytile, halo) of the plane-sweep kernel, or None
+    (jacobi.py:912)."""
+    nz, ny, nx = shape
+    halo = -(-max(inner, 8) // 8) * 8
+    budget = 15 * 1024 * 1024
+    best = None
+    for slab in (64, 32, 16, 8):
+        size_z = slab + 2 * halo
+        if nz % slab or nz < size_z or size_z % _CHUNK:
+            continue
+        for ytile in (256, 128, 64, 32, 16, 8):
+            if ny % ytile or (ytile != ny and ny < ytile + 2 * halo):
+                continue
+            size_y = min(ytile + 2 * halo, ny)
+            size = int((size_z * (3 + extra_window) + slab * extra_center
+                        + _CHUNK * 8) * size_y * nx * 4)
+            if size > budget:
+                continue
+            y_red = 1.0 if ytile == ny else 1 + 2 * halo / ytile
+            key = (round((1 + 2 * halo / slab) * y_red, 4), -ytile)
+            if best is None or key < best[0]:
+                best = (key, slab, ytile, halo)
+    if best is None:
+        return None
+    return best[1], best[2], best[3]
+
+
+def jacobi_tuning(shape, iters: int):
+    """(slab, inner) the TPU runs B4 with on this volume, or None, where
+    it runs the twin sweeps (jacobi.py:952)."""
+    nz, ny, nx = shape
+    if nx % 128:
+        return None
+    if ny * nx <= 128 * 128:
+        for slab, inner in ((32, 4), (16, 8)):
+            if iters % inner == 0 and _plan(shape, slab, inner) is not None:
+                return slab, inner
+    for inner in (8, 4):
+        if iters % inner == 0 and _plan_planewise(shape, inner) is not None:
+            return _plan_planewise(shape, inner)[0], inner
+    for slab, inner in ((32, 4), (16, 8)):
+        if iters % inner == 0 and _plan(shape, slab, inner) is not None:
+            return slab, inner
+    return None
+
+
+def jacobi_packed_supported(shape) -> bool:
+    """True where the TPU runs B6: (Z, Y, 64) volumes that pack into
+    128 lanes and fit VMEM (jacobi.py:847)."""
+    nz, ny, nx = shape
+    return (nx == 64 and ny % 16 == 0 and nz >= 2
+            and nz * ny * nx * 4 * 12 <= 12 * 1024 * 1024)
+
+
+def jacobi_rr_supported(shape, iters: int) -> bool:
+    """True where the TPU's multigrid fuses residual + restrict into the
+    pre-smoother, kernel B13 (jacobi.py:497)."""
+    nz, ny, nx = shape
+    if nx % 128 or nz % 2 or ny % 2 or nx % 2:
+        return False
+    if ny * nx <= 128 * 128:
+        return False
+    pw = _plan_planewise(shape, iters)
+    if pw is None:
+        return False
+    _, ytile, halo = pw
+    return ytile >= 16 and ytile >= halo and halo > iters
+
+
+def _fuse_extra(vel_bytes: int) -> float:
+    return 3.0 * vel_bytes / 4.0
+
+
+def jacobi_divrr_supported(shape, iters: int, vel_bytes: int = 2) -> bool:
+    """Gate of the fused divergence pre-smoother, kernel B18
+    (jacobi.py:601)."""
+    nz, ny, nx = shape
+    if nx % 128 or nz % 2 or ny % 2 or nx % 2:
+        return False
+    if ny * nx <= 128 * 128:
+        return False
+    pw = _plan_planewise(shape, iters, extra_window=_fuse_extra(vel_bytes))
+    if pw is None:
+        return False
+    _, ytile, halo = pw
+    return ytile >= 16 and ytile >= halo and halo > iters
+
+
+def jacobi_grad_supported(shape, iters: int, vel_bytes: int = 2) -> bool:
+    """Gate of the fused grad+damp post-smoother, kernel B18
+    (jacobi.py:621)."""
+    nz, ny, nx = shape
+    if nx % 128 or nz % 2 or ny % 2 or nx % 2:
+        return False
+    if ny * nx <= 128 * 128:
+        return False
+    pw = _plan_planewise(shape, iters, extra_center=_fuse_extra(vel_bytes))
+    if pw is None:
+        return False
+    _, ytile, halo = pw
+    return ytile >= 8 and ytile >= halo and halo > iters
+
+
+def jacobi2d_pallas_supported(shape) -> bool:
+    """True where the TPU runs the 2D sweeps as kernel B14
+    (jacobi.py:781)."""
+    ny, nx = shape
+    return (nx % 128 == 0 and ny % 8 == 0
+            and ny * nx * 4 * 8 <= 12 * 1024 * 1024)
+
+
+def window_order(shape, inner: int) -> int:
+    """The neighbour order of B4 on this volume: `jacobi_pallas` takes the
+    plane-sweep kernel for planes above 128x128 where its plan fits, else
+    the whole-window kernel, which needs a plan (jacobi.py:1009-1022)."""
+    nz, ny, nx = shape
+    if ny * nx > 128 * 128 and _plan_planewise(shape, inner) is not None:
+        return ORDER_PLANEWISE
+    return ORDER_WINDOW
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def sweeps_plain(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
+    """`iters` sweeps of (sum of the neighbours in `order` - b) / 6; the
+    division is a true f32 division on q's device, as in the kernel."""
+    six = torch.tensor(6.0, dtype=torch.float32, device=q.device)
+    (ax0, off0), *rest = _ORDERS[order]
+    for _ in range(iters):
+        s = neighbor_shift(q, ax0, off0)
+        for ax, off in rest:
+            s = s + neighbor_shift(q, ax, off)
+        q = (s - b) / six
+    return q
+
+
+def jacobi_plain(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
+                 inner: int = 8) -> torch.Tensor:
+    """Plain version of B4.  Of the TPU's tuning only `inner` matters: it
+    picks the kernel, and so the neighbour order."""
+    del slab
+    return sweeps_plain(q, b, iters, window_order(q.shape, inner))
+
+
+def jacobi_packed_plain(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of B6."""
+    return sweeps_plain(q, b, iters, ORDER_PACKED)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q: torch.Tensor, b: torch.Tensor, iters: int, name: str) -> bool:
+    """Checks the arguments; True when they lie on the card."""
+    for t, what in ((q, "q"), (b, "b")):
+        if (t.ndim != 3 or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != q.shape or t.device != q.device):
+            raise ValueError(f"{name}: expected contiguous f32 (Z, Y, X) q and b of one "
+                             f"shape and device, got {what} {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    if iters < 0:
+        raise ValueError(f"{name}: iters must be >= 0, got {iters}")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return True
+
+
+def _launch(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty_like(q) if iters > 1 else out
+    err = _build.lib().fx_jacobi(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 scratch.data_ptr(), iters, order, z, y, x,
+                                 _build.stream_ptr(q))
+    _build.check(err, "fx_jacobi")
+    return out
+
+
+def jacobi(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
+           inner: int = 8) -> torch.Tensor:
+    """B4: `iters` Jacobi sweeps of the (Z, Y, X) f32 pressure q against b,
+    with `jacobi_pallas`'s arguments: `(slab, inner)` is the TPU's tuning
+    (`jacobi_tuning`), which fixes the neighbour order; iters must be a
+    multiple of inner, and the volume must have a TPU plan."""
+    on_card = _check(q, b, iters, "jacobi")
+    if iters % inner:
+        raise ValueError("jacobi: iters must be a multiple of inner")
+    order = window_order(q.shape, inner)
+    if order == ORDER_WINDOW and _plan(q.shape, slab, inner) is None:
+        raise ValueError(f"jacobi: unsupported volume shape {tuple(q.shape)}")
+    if not on_card:
+        return jacobi_plain(q, b, iters, slab, inner)
+    out = _launch(q, b, iters, order)
+    jacobi.launches += 1
+    return out
+
+
+jacobi.launches = 0
+
+
+def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """B6: `iters` Jacobi sweeps of a (Z, Y, X) f32 volume in the twin's
+    neighbour order (the TPU runs it on the multigrid's 64-wide coarse
+    level, `jacobi_packed_supported`)."""
+    if not _check(q, b, iters, "jacobi_packed"):
+        return jacobi_packed_plain(q, b, iters)
+    out = _launch(q, b, iters, ORDER_PACKED)
+    jacobi_packed.launches += 1
+    return out
+
+
+jacobi_packed.launches = 0

@@ -1,0 +1,271 @@
+"""The projection's streaming stencils, kernels B3, B5, B7 and B8, with
+their plain PyTorch versions and the JAX package's shape gates.
+
+B3 `divergence` replaces fluidx12_tpu/ops/pallas/stencil.py `_div_kernel`
+(via `divergence_pallas`), B5 `residual` `_residual_kernel` (via
+`residual_pallas`), B7 `prolong_correct` `_prolong_correct_kernel` (via
+`prolong_correct_pallas`) and B8 `grad_damp` `_grad_damp_kernel` (via
+`grad_damp_pallas`).  They follow the kernels, not the XLA twins of
+sim/project.py: the velocity is cast to f32 before any arithmetic, the
+gradient, the wall positions and the 3% band are f32 with one rounding to
+the storage dtype, and each sum runs in the kernel's order.  Sources and
+what bounds them: fluidx12_tpu_torch/csrc/stencil.cu.
+
+The gates are pure-Python copies of the TPU's VMEM planners.  They decide
+nothing about the CUDA kernels' feasibility; they are kept because they
+decide which numerics the JAX package runs on a grid (ROADMAP.md C5).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+(or raises).  Divisions in the plain versions divide by a tensor on the
+operand's device, so on the card they are true divisions as in the
+kernels (PyTorch multiplies by the reciprocal of a host scalar there).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fluidx12_tpu_torch.ops.cuda import _build
+from fluidx12_tpu_torch.ops.sampling import neighbor_shift
+
+_STORAGE = (torch.bfloat16, torch.float32)
+_AX_Z, _AX_Y, _AX_X = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# Gates (copies of fluidx12_tpu/ops/pallas/stencil.py :337-385)
+# ---------------------------------------------------------------------------
+
+def _bz_fits(bz: int, plane_elems: int, budget_bytes: int) -> bool:
+    return bz * plane_elems * budget_bytes * 2 <= 12 * 1024 * 1024
+
+
+def _odd_core(nz: int) -> int:
+    while nz % 2 == 0:
+        nz //= 2
+    return nz
+
+
+def stencil_pallas_supported(zyx, budget_bytes: int = 24) -> bool:
+    """True where the TPU runs B3, B5 and B8: a 128-multiple lane dim, an
+    even Z split, and the odd core of nz within the VMEM model."""
+    nz, ny, nx = zyx
+    if not (nx % 128 == 0 and ny % 8 == 0 and nz % 2 == 0 and nz >= 4):
+        return False
+    return _bz_fits(_odd_core(nz), ny * nx, budget_bytes)
+
+
+def prolong_pallas_supported(zyx) -> bool:
+    """True where the TPU runs B7: the stencil gate at 16 B per element
+    and an even z-block of 2 * odd_core(nz) within it."""
+    nz, ny, nx = zyx
+    if not stencil_pallas_supported(zyx, budget_bytes=16):
+        return False
+    return _bz_fits(2 * _odd_core(nz), ny * nx, 16)
+
+
+# ---------------------------------------------------------------------------
+# Argument checks
+# ---------------------------------------------------------------------------
+
+def _check_fields(fields: torch.Tensor, name: str) -> None:
+    if (fields.ndim != 4 or fields.shape[0] < 3 or fields.dtype not in _STORAGE
+            or not fields.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous (C >= 3, Z, Y, X) bf16/f32 "
+                         f"tensor, got {tuple(fields.shape)} {fields.dtype}")
+
+
+def _check_f32(t: torch.Tensor, shape, ref: torch.Tensor, name: str) -> None:
+    if (t.ndim != 3 or (shape is not None and tuple(t.shape) != tuple(shape))
+            or t.dtype != torch.float32 or t.device != ref.device
+            or not t.is_contiguous()):
+        want = "(Z, Y, X)" if shape is None else str(tuple(shape))
+        raise ValueError(f"{name}: expected a contiguous f32 {want} tensor on "
+                         f"{ref.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d as a true f32 division on x's device."""
+    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _diff(q: torch.Tensor, axis: int) -> torch.Tensor:
+    return neighbor_shift(q, axis, +1) - neighbor_shift(q, axis, -1)
+
+
+def divergence_plain(fields: torch.Tensor) -> torch.Tensor:
+    """Plain version of B3: 0.5 * (dx + dy + (zp - zm)) on f32 casts of
+    channels 0..2, edges clamped (stencil.py:69-75)."""
+    u = fields[:3].float()
+    dx = _diff(u[0], _AX_X)
+    dy = _diff(u[1], _AX_Y)
+    dz = _diff(u[2], _AX_Z)
+    return 0.5 * ((dx + dy) + dz)
+
+
+def residual_plain(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of B5: b - (((x+ + x- + y+ + y-) + z- + z+) - 6 q)
+    in that order (stencil.py:329-334)."""
+    s = neighbor_shift(q, _AX_X, +1) + neighbor_shift(q, _AX_X, -1)
+    s = s + neighbor_shift(q, _AX_Y, +1) + neighbor_shift(q, _AX_Y, -1)
+    s = s + neighbor_shift(q, _AX_Z, -1) + neighbor_shift(q, _AX_Z, +1)
+    return b - (s - 6.0 * q)
+
+
+def _prolong_taps(n_c: int, device):
+    """The two non-zero entries of each column of the cell-centred
+    prolongation matrix (fluidx12_tpu/sim/mg.py _prolong_matrix), in
+    ascending coarse index: fine 2m mixes (m-1, m) at (0.25, 0.75), fine
+    2m+1 mixes (m, m+1) at (0.75, 0.25); at a clamped edge both land on one
+    coarse cell, whose weight is then 1 (and the second tap's 0)."""
+    i = np.arange(2 * n_c)
+    m = i // 2
+    even = i % 2 == 0
+    lo = np.where(even, m - 1, m)
+    hi = lo + 1
+    w_lo = np.where(even, 0.25, 0.75).astype(np.float32)
+    w_hi = (1.0 - w_lo).astype(np.float32)
+    edge = (lo < 0) | (hi > n_c - 1)
+    lo = np.clip(lo, 0, n_c - 1)
+    hi = np.where(edge, lo, hi)
+    w_lo = np.where(edge, np.float32(1.0), w_lo)
+    w_hi = np.where(edge, np.float32(0.0), w_hi)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return as_t(lo), as_t(hi), as_t(w_lo), as_t(w_hi)
+
+
+def prolong_correct_plain(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
+    """Plain version of B7: q + prolong(e_c), the lateral upsample of each
+    coarse plane as the kernel's two dots (y, then x), then the z lerp of
+    the upsampled planes with clamped neighbours (stencil.py:252-267)."""
+    nzc, nyc, nxc = e_c.shape
+    y_lo, y_hi, wy_lo, wy_hi = _prolong_taps(nyc, e_c.device)
+    x_lo, x_hi, wx_lo, wx_hi = _prolong_taps(nxc, e_c.device)
+    a = wy_lo[:, None] * e_c[:, y_lo, :] + wy_hi[:, None] * e_c[:, y_hi, :]
+    up = wx_lo * a[:, :, x_lo] + wx_hi * a[:, :, x_hi]          # (Zc, Y, X)
+    lo = torch.cat([up[:1], up[:-1]])
+    hi = torch.cat([up[1:], up[-1:]])
+    even = 0.25 * lo + 0.75 * up
+    odd = 0.75 * up + 0.25 * hi
+    return q + torch.stack([even, odd], dim=1).reshape(q.shape)
+
+
+def grad_scale(rho: float) -> float:
+    """0.5 / rho as the f32 the kernel multiplies by (stencil.py:95)."""
+    return float(np.float32(0.5 / rho))
+
+
+def grad_damp_plain(fields: torch.Tensor, pressure: torch.Tensor,
+                    rho: float) -> torch.Tensor:
+    """Plain version of B8, in place on channels 0..2 of `fields`: per
+    component v = u - (p+ - p-) * fl32(0.5/rho), then where v * pos > 0,
+    v *= clip((0.97 - |pos|) / 0.03, -1, 1) with pos = ((i + 0.5)/n)*2 - 1,
+    all f32, one rounding to the storage dtype (stencil.py:94-135).
+    Returns `fields`."""
+    s = grad_scale(rho)
+    dev = fields.device
+    for c, axis in enumerate((_AX_X, _AX_Y, _AX_Z)):
+        n = pressure.shape[axis]
+        shape = [1, 1, 1]
+        shape[axis] = n
+        pos = _div(torch.arange(n, dtype=torch.float32, device=dev) + 0.5, float(n))
+        pos = (pos * 2.0 - 1.0).reshape(shape)
+        scale = torch.clamp(_div(0.97 - pos.abs(), 0.03), -1.0, 1.0)
+        v = fields[c].float() - _diff(pressure, axis) * s
+        fields[c] = torch.where(v * pos > 0.0, v * scale, v).to(fields.dtype)
+    return fields
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def divergence(fields: torch.Tensor) -> torch.Tensor:
+    """B3: the edge-clamped divergence of channels 0..2 of the combined
+    (C, Z, Y, X) state, read in place.  Returns (Z, Y, X) f32."""
+    _check_fields(fields, "divergence")
+    if not _on_cuda(fields, "divergence"):
+        return divergence_plain(fields)
+    _, z, y, x = fields.shape
+    out = torch.empty((z, y, x), dtype=torch.float32, device=fields.device)
+    err = _build.lib().fx_divergence(
+        fields.data_ptr(), out.data_ptr(), int(fields.dtype == torch.bfloat16),
+        z, y, x, _build.stream_ptr(fields))
+    divergence.launches += 1
+    _build.check(err, "fx_divergence")
+    return out
+
+
+divergence.launches = 0
+
+
+def residual(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """B5: the Poisson residual b - A q of a (Z, Y, X) f32 pair."""
+    _check_f32(q, None, q, "residual q")
+    _check_f32(b, q.shape, q, "residual b")
+    if not _on_cuda(q, "residual"):
+        return residual_plain(q, b)
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    err = _build.lib().fx_residual(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                   z, y, x, _build.stream_ptr(q))
+    residual.launches += 1
+    _build.check(err, "fx_residual")
+    return out
+
+
+residual.launches = 0
+
+
+def prolong_correct(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
+    """B7: q + prolong(e_c); q (Z, Y, X) f32, e_c (Z/2, Y/2, X/2) f32."""
+    _check_f32(q, None, q, "prolong_correct q")
+    if any(n % 2 for n in q.shape):
+        raise ValueError(f"prolong_correct: fine dims must be even, got {tuple(q.shape)}")
+    _check_f32(e_c, tuple(n // 2 for n in q.shape), q, "prolong_correct e_c")
+    if not _on_cuda(q, "prolong_correct"):
+        return prolong_correct_plain(q, e_c)
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    err = _build.lib().fx_prolong_correct(q.data_ptr(), e_c.data_ptr(), out.data_ptr(),
+                                          z, y, x, _build.stream_ptr(q))
+    prolong_correct.launches += 1
+    _build.check(err, "fx_prolong_correct")
+    return out
+
+
+prolong_correct.launches = 0
+
+
+def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch.Tensor:
+    """B8: velocity -= 0.5 * grad(p) / rho, then the 3% wall-band damp,
+    IN PLACE on channels 0..2 of the combined (C, Z, Y, X) state, as the
+    TPU kernel aliases its input; channels 3.. are not touched.  Returns
+    `fields`."""
+    _check_fields(fields, "grad_damp")
+    _check_f32(pressure, fields.shape[1:], fields, "grad_damp pressure")
+    if not _on_cuda(fields, "grad_damp"):
+        return grad_damp_plain(fields, pressure, rho)
+    _, z, y, x = fields.shape
+    err = _build.lib().fx_grad_damp(
+        fields.data_ptr(), pressure.data_ptr(), grad_scale(rho),
+        int(fields.dtype == torch.bfloat16), z, y, x, _build.stream_ptr(fields))
+    grad_damp.launches += 1
+    _build.check(err, "fx_grad_damp")
+    return fields
+
+
+grad_damp.launches = 0

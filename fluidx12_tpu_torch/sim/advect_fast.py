@@ -16,6 +16,7 @@ import torch
 from fluidx12_tpu_torch.core.config import FluidConfig
 from fluidx12_tpu_torch.ops.cuda.advect import (
     advect_xy,
+    advect_z,
     advect_z_forces,
     force_consts,
     forces_table,
@@ -41,12 +42,14 @@ def advect_fields_fast(fields: torch.Tensor, time_step: torch.Tensor,
     table = torch.from_numpy(forces_table(config)).to(fields.device)
     consts = force_consts(config)
     xy_scales = torch.stack([dt * x, dt * y])
+    z_scal = torch.stack([dt * z, dt_full])
     both = fields
     for i in range(n_sub):
-        last = i == n_sub - 1
         both = advect_xy(both, xy_scales)
-        both = advect_z_forces(both, torch.stack([dt * z, dt_full]), table,
-                               consts, forces=fused and last, store=fields.dtype)
+        if fused and i == n_sub - 1:
+            both = advect_z_forces(both, z_scal, table, consts, store=fields.dtype)
+        else:
+            both = advect_z(both, z_scal, store=fields.dtype)
     if fused:
         return both
     vel, col = apply_impulse_forces(both[:3], both[3:], dt_full, config)

@@ -1,16 +1,38 @@
 """Two-level geometric multigrid for the pressure Poisson solve (mirror of
-fluidx12_tpu/sim/mg.py with use_pallas=False).
+fluidx12_tpu/sim/mg.py).
 
-One V(MG_PRE, MG_POST) cycle with MG_COARSE_ITERS half-grid sweeps.  The
-smoothers are the plain Jacobi sweeps of sim/project.py; the grid transfers
-are the same pooling / interpolation matrices, applied as f32 einsums (TF32
-off), with the z axis by reshape-mean and plane lerps as in the JAX package.
+One V(MG_PRE, MG_POST) cycle with MG_COARSE_ITERS half-grid sweeps.  With
+`use_pallas` each piece takes the kernel the JAX package runs there on its
+TPU, by the same shape gates (ROADMAP.md C5): the smoothers B4
+(`jacobi_tuning` gives a plan) or B6 (`jacobi_packed_supported`), the
+residual B5 and the prolongation B7 (the stencil gates).  Elsewhere, and
+with use_pallas=False, the twins run: the plain Jacobi sweeps of
+sim/project.py and the pooling / interpolation matrices as f32 einsums
+(TF32 off).  The restriction is always two f32 einsums plus a z
+reshape-mean, which JAX computes outside any kernel too.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fluidx12_tpu_torch.ops.cuda.jacobi import (
+    jacobi,
+    jacobi_divrr_supported,
+    jacobi_grad_supported,
+    jacobi_packed,
+    jacobi_packed_supported,
+    jacobi_rr_supported,
+    jacobi_tuning,
+)
+from fluidx12_tpu_torch.ops.cuda.stencil import (
+    prolong_correct,
+    prolong_pallas_supported,
+    residual,
+    stencil_pallas_supported,
+)
+from fluidx12_tpu_torch.ops.sampling import neighbor_shift
 
 MG_PRE = 4
 MG_POST = 4
@@ -63,10 +85,25 @@ def _prolong(e: torch.Tensor) -> torch.Tensor:
     return torch.stack([even, odd], dim=1).reshape(2 * nz, 2 * ny, 2 * nx)
 
 
-def _residual(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """b - (sum of 6 edge-clamped neighbours - 6q)."""
-    from fluidx12_tpu_torch.ops.sampling import neighbor_shift
+def _smooth(q: torch.Tensor, b: torch.Tensor, iters: int,
+            use_pallas: bool = True) -> torch.Tensor:
+    """Jacobi sweeps: B4 where the TPU has a plan, else B6 where it packs
+    the volume, else the twin sweeps (fluidx12_tpu/sim/mg.py:87-107)."""
+    from fluidx12_tpu_torch.sim.project import jacobi_sweeps
 
+    tuning = jacobi_tuning(q.shape, iters) if use_pallas else None
+    if tuning is not None:
+        return jacobi(q, b, iters, *tuning)
+    if use_pallas and jacobi_packed_supported(q.shape):
+        return jacobi_packed(q, b, iters)
+    return jacobi_sweeps(q, b, iters, is_3d=True)
+
+
+def _residual(q: torch.Tensor, b: torch.Tensor, use_pallas: bool = True) -> torch.Tensor:
+    """b - (sum of 6 edge-clamped neighbours - 6q): B5 where the stencil
+    gate holds, else the twin."""
+    if use_pallas and stencil_pallas_supported(q.shape):
+        return residual(q, b)
     s = (neighbor_shift(q, 2, +1) + neighbor_shift(q, 2, -1)
          + neighbor_shift(q, 1, +1) + neighbor_shift(q, 1, -1)
          + neighbor_shift(q, 0, +1) + neighbor_shift(q, 0, -1))
@@ -78,14 +115,31 @@ def mg_supported(zyx) -> bool:
     return all(n % 2 == 0 and n >= 16 for n in zyx)
 
 
-def mg_solve(q: torch.Tensor, b: torch.Tensor, pre: int = MG_PRE,
-             post: int = MG_POST, coarse_iters: int = MG_COARSE_ITERS) -> torch.Tensor:
-    """One V(pre, post) cycle; the restricted residual scales by 4 to keep
-    the unit-coefficient 6-point form on the coarse grid."""
-    from fluidx12_tpu_torch.sim.project import jacobi_sweeps
+def mg_fused_supported(zyx, vel_bytes: int = 2) -> bool:
+    """True where the TPU runs the fully fused projection, kernel B18
+    (fluidx12_tpu/sim/mg.py:140-153)."""
+    return (mg_supported(zyx)
+            and jacobi_divrr_supported(zyx, MG_PRE, vel_bytes)
+            and jacobi_grad_supported(zyx, MG_POST, vel_bytes)
+            and prolong_pallas_supported(zyx))
 
-    q = jacobi_sweeps(q, b, pre, is_3d=True)
-    r_c = _restrict(_residual(q, b)) * 4.0
-    e_c = jacobi_sweeps(torch.zeros_like(r_c), r_c, coarse_iters, is_3d=True)
-    q = q + _prolong(e_c)
-    return jacobi_sweeps(q, b, post, is_3d=True)
+
+def mg_solve(q: torch.Tensor, b: torch.Tensor, pre: int = MG_PRE,
+             post: int = MG_POST, coarse_iters: int = MG_COARSE_ITERS,
+             use_pallas: bool = True) -> torch.Tensor:
+    """One V(pre, post) cycle; the restricted residual scales by 4 to keep
+    the unit-coefficient 6-point form on the coarse grid.  use_pallas=False
+    forces the twins throughout (fluidx12_tpu/sim/mg.py:179-216)."""
+    if use_pallas and jacobi_rr_supported(q.shape, pre):
+        raise NotImplementedError(
+            f"the fused pre-smoother + residual + restrict kernel B13 "
+            f"(jacobi_pallas_rr), which the TPU runs on {tuple(q.shape)}, is not "
+            f"ported yet (ROADMAP.md queue B)")
+    q = _smooth(q, b, pre, use_pallas)
+    r_c = _restrict(_residual(q, b, use_pallas)) * 4.0
+    e_c = _smooth(torch.zeros_like(r_c), r_c, coarse_iters, use_pallas)
+    if use_pallas and prolong_pallas_supported(q.shape):
+        q = prolong_correct(q, e_c)
+    else:
+        q = q + _prolong(e_c)
+    return _smooth(q, b, post, use_pallas)

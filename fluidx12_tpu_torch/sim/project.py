@@ -1,12 +1,16 @@
 """Pressure projection: divergence -> Jacobi / multigrid relaxation ->
-gradient subtraction -> boundary damp (mirror of fluidx12_tpu/sim/project.py
-on its XLA-twin path, the one `pallas_jacobi=False` selects).
+gradient subtraction -> boundary damp (mirror of fluidx12_tpu/sim/project.py).
 
-Dtypes follow the JAX code as written: the divergence, gradient subtract and
-boundary damp run on the storage-dtype (bf16) velocity, the Poisson solve in
-f32.  The projection's TPU kernels (ROADMAP.md B3-B8) are not ported yet, so
-a 3D config that asks for them (`use_pallas and pallas_jacobi`) raises on
-CUDA instead of running these plain ops in their place.
+A 3D config with `use_pallas and pallas_jacobi` runs what the JAX package
+runs on its TPU, chosen by the same shape gates (ROADMAP.md C5): the
+streaming stencils B3 (divergence) and B8 (gradient + damp, in place) where
+`stencil_pallas_supported` holds, the multigrid of sim/mg.py with its
+kernels, or B4 for all the sweeps where `jacobi_tuning` gives a plan.  The
+kernels compute in f32 from the bf16 state.  Everywhere else the XLA twins
+below run, with the dtypes of the JAX code as written: the divergence,
+gradient subtract and boundary damp on the storage-dtype (bf16) velocity,
+the Poisson solve in f32.  Paths the port has no kernel for yet raise
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -16,15 +20,15 @@ from typing import Tuple
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.ops.cuda import stencil
+from fluidx12_tpu_torch.ops.cuda.jacobi import (
+    jacobi,
+    jacobi2d_pallas_supported,
+    jacobi_tuning,
+)
 from fluidx12_tpu_torch.ops.sampling import neighbor_shift
 
 _AX_Z, _AX_Y, _AX_X = 0, 1, 2
-
-
-def projection_kernels_requested(config: FluidConfig) -> bool:
-    """True when the JAX package would run the projection's Pallas kernels
-    (B3-B8) for this config on its accelerator."""
-    return config.use_pallas and config.pallas_jacobi and config.is_3d
 
 
 def divergence(velocity: torch.Tensor, is_3d: bool) -> torch.Tensor:
@@ -105,29 +109,51 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
             config: FluidConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full projection; identity when time_step == 0 (ref ..hlsl:97 guard).
     `time_step` is the host value (the branch needs no device sync).
-    Returns (fields', pressure')."""
-    if fields.device.type == "cuda" and projection_kernels_requested(config):
-        raise NotImplementedError(
-            "the projection kernels B3-B8 are not ported to CUDA yet "
-            "(ROADMAP.md queue B, next slice); use pallas_jacobi=False")
+    Returns (fields', pressure').  Consumes `fields`: where B8 runs, the
+    velocity channels of `fields` are updated in place and `fields` itself
+    is returned (fluidx12_tpu/sim/project.py:142-222, the TPU branch)."""
     if not float(time_step) > 0.0:
         return fields, pressure
     is_3d = config.is_3d
     rho = config.fluid_density_3d if is_3d else config.fluid_density_2d
+    kernels = config.use_pallas and config.pallas_jacobi
+    tuning = None
+    use_stencil = False
+    if kernels and not is_3d:
+        if jacobi2d_pallas_supported(config.zyx[1:]):
+            raise NotImplementedError(
+                "the 2D Jacobi kernel B14 (jacobi2d_pallas) is not ported yet "
+                "(ROADMAP.md queue A, item 5)")
+    if kernels and is_3d:
+        tuning = jacobi_tuning(config.zyx, config.num_pressure_iters)
+        use_stencil = stencil.stencil_pallas_supported(config.zyx)
     use_mg = False
     if config.fast_sim and config.mg_pressure and is_3d:
-        from fluidx12_tpu_torch.sim.mg import mg_supported
+        from fluidx12_tpu_torch.sim.mg import mg_fused_supported, mg_supported
 
         z, y, x = config.zyx
         use_mg = y * x >= config.mg_min_plane and mg_supported(config.zyx)
+        if (use_mg and use_stencil and config.mg_project_fused
+                and mg_fused_supported(config.zyx, vel_bytes=fields.element_size())):
+            raise NotImplementedError(
+                "the fused projection kernel B18 (mg_project_fused: "
+                "jacobi_pallas_divrr / jacobi_pallas_grad) is not ported yet "
+                "(ROADMAP.md queue B)")
 
-    b = divergence(fields, is_3d)
+    if use_stencil:
+        b = stencil.divergence(fields)
+    else:
+        b = divergence(fields, is_3d)
     if use_mg:
         from fluidx12_tpu_torch.sim.mg import mg_solve
 
-        q = mg_solve(pressure, b)
+        q = mg_solve(pressure, b, use_pallas=kernels)
+    elif tuning is not None:
+        q = jacobi(pressure, b, config.num_pressure_iters, *tuning)
     else:
         q = jacobi_sweeps(pressure, b, config.num_pressure_iters, is_3d)
+    if use_stencil:
+        return stencil.grad_damp(fields, q, rho), q
     vel = subtract_gradient(fields, q, rho, is_3d)
     vel = boundary_damp(vel, config).to(fields.dtype)
     return torch.cat([vel, fields[3:]]) if fields.shape[0] > 3 else vel, q

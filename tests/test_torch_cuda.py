@@ -10,6 +10,8 @@ import torch
 from fluidx12_tpu_torch.core.config import FluidConfig
 from fluidx12_tpu_torch.ops.cuda import advect as A
 from fluidx12_tpu_torch.ops.cuda import composite as C
+from fluidx12_tpu_torch.ops.cuda import jacobi as J
+from fluidx12_tpu_torch.ops.cuda import stencil as ST
 from fluidx12_tpu_torch.ops.cuda import sweep as S
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +41,9 @@ def test_advect_kernels_match_plain(dev):
     got = A.advect_z_forces(xy, *args).float()
     ref = A.advect_z_forces_plain(xy, *args).float()
     assert float((got - ref).abs().max()) <= 2.0 ** -7
+    # B12: the z pass alone, no transcendental: bit for bit.
+    assert torch.equal(A.advect_z(xy, args[0]),
+                       A.advect_z_forces_plain(xy, args[0], None, None, forces=False))
 
 
 def test_shear_scan_matches_plain(dev):
@@ -62,3 +67,44 @@ def test_composite_resample_matches_plain(dev, flip):
     args = (volf, h_rows, h_cols, valid, nst, 0.8, flip)
     torch.testing.assert_close(C.composite_resample(*args), C.composite_resample_plain(*args),
                                atol=2e-3, rtol=0)
+
+
+def _randn(dev, shape, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_projection_stencils_match_plain(dev, dtype):
+    """B3, B5 and B7 bit for bit (the same f32 operations, each rounded);
+    B8 within one bf16 ulp of each velocity value, in place, colour
+    channels untouched."""
+    shape = (16, 32, 128)
+    fields = _randn(dev, (7,) + shape, 3).to(dtype)
+    q, b = _randn(dev, shape, 4), _randn(dev, shape, 5)
+    e_c = _randn(dev, tuple(n // 2 for n in shape), 6)
+    assert torch.equal(ST.divergence(fields), ST.divergence_plain(fields))
+    assert torch.equal(ST.residual(q, b), ST.residual_plain(q, b))
+    assert torch.equal(ST.prolong_correct(q, e_c), ST.prolong_correct_plain(q, e_c))
+    got = ST.grad_damp(fields.clone(), q, 0.48)
+    ref = ST.grad_damp_plain(fields.clone(), q, 0.48)
+    assert torch.equal(got[3:], fields[3:])
+    ulp = (ref[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    assert bool(((got[:3].float() - ref[:3].float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("shape,iters,plan", [((64, 32, 128), 4, (32, 4)),
+                                              ((32, 64, 128), 8, (16, 8)),
+                                              ((24, 136, 128), 8, (8, 8)),
+                                              ((16, 48, 64), 32, None)])
+def test_jacobi_kernels_match_plain(dev, shape, iters, plan):
+    """B4 (whole-window and plane-sweep orders) and B6 (the twin's order)
+    against their plain versions: the same neighbour order and true
+    divisions on both sides, so bit for bit (chip_smoke.py allows 1e-5 of
+    the scale)."""
+    q, b = _randn(dev, shape, 7), _randn(dev, shape, 8)
+    if plan is None:
+        got, ref = J.jacobi_packed(q, b, iters), J.jacobi_packed_plain(q, b, iters)
+    else:
+        got, ref = J.jacobi(q, b, iters, *plan), J.jacobi_plain(q, b, iters, *plan)
+    assert torch.equal(got, ref)

@@ -8,6 +8,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -129,7 +130,22 @@ def test_golden_fluid3d_separate():
 
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item, instead of running another path."""
+    its ROADMAP item, instead of running another path.  The default preset
+    (pallas_jacobi=True) is covered.  At zyx (32, 144, 256) the JAX gates
+    take the fused projection B18 with mg_project_fused and the fused
+    pre-smoother B13 without it (tests/test_pallas.py): `project` raises
+    naming each."""
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.sim.project import project
+
+    torch_fluidx.FluidXEngine(PRESETS["fluid3d"], device="cpu")
+    wide = TorchConfig(grid_size=(256, 144, 32))
+    rng = np.random.default_rng(0)
+    for fused, kernel in ((True, "B18"), (False, "B13")):
+        fields = torch.from_numpy(rng.uniform(-1, 1, (7,) + wide.zyx).astype(np.float32))
+        with pytest.raises(NotImplementedError, match=kernel):
+            project(fields.to(torch.bfloat16), torch.zeros(wide.zyx), wide.time_step,
+                    dataclasses.replace(wide, mg_project_fused=fused))
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
     for change in (dict(grid_size=(64, 64, 1)), dict(has_light_probe=True),
                    dict(fast_render=False), dict(point_light=True),

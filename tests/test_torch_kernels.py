@@ -106,9 +106,10 @@ def test_advect_z_forces_matches_pallas_backtrace(handoff):
 
 
 def test_advect_z_without_forces_matches_pallas_zpass_kernel():
-    """B2 with forces=False against the TPU's plain z pass (B12,
-    `_zpass_kernel`, which `backtrace_pallas` runs without `forces_dt`), fed
-    B1's result rounded to bf16 as the TPU stores it: bit for bit."""
+    """B12 (`advect_z`, B2's kernel with its forces epilogue off) against
+    the TPU's plain z pass (`_zpass_kernel`, which `backtrace_pallas` runs
+    without `forces_dt`), fed B1's result rounded to bf16 as the TPU stores
+    it: bit for bit."""
     cfg = FluidConfig(grid_size=(128, 128, 16))
     tcfg = TorchConfig(grid_size=(128, 128, 16))
     rng = np.random.default_rng(3)
@@ -119,9 +120,7 @@ def test_advect_z_without_forces_matches_pallas_zpass_kernel():
     dtt = torch.tensor(dt, dtype=torch.float32)
     z, y, x = tcfg.zyx
     xy = ta.advect_xy(tv, torch.stack([dtt * x, dtt * y])).to(torch.bfloat16).float()
-    got = ta.advect_z_forces(xy, torch.stack([dtt * z, dtt]),
-                             torch.from_numpy(ta.forces_table(tcfg)),
-                             ta.force_consts(tcfg), forces=False)
+    got = ta.advect_z(xy, torch.stack([dtt * z, dtt]))
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
 

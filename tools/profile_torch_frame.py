@@ -1,0 +1,152 @@
+"""Where the time of one frame of the PyTorch port goes, on one NVIDIA GPU.
+
+    python3 tools/profile_torch_frame.py [--pallas-jacobi 0|1] [--frames 10]
+
+Runs `FluidXEngine(PRESETS["fluid3d"])` (128^3 grid, 800x800 viewport;
+`--pallas-jacobi 0` takes the projection's twins instead of kernels B3-B8)
+and prints, each beside the card's name and power limit:
+  - the host ms/frame: median of `--frames` steps, each ending in a
+    synchronize, with no profiler attached;
+  - each layer's CUDA-event span per call, over 20 back-to-back calls on the
+    engine's state: advect (B1 + B2), projection, light map (B9), cube march
+    (B10 per visible face), resolve + composite;
+  - from `torch.profiler` over `--frames` steps: device time and launches
+    per frame (kernels, and copies/sets), the kernels with the most device
+    time, and the device busy share, device time per frame over the
+    unprofiled frame time (the profiler's own host cost stretches the frame
+    it watches, so its wall time is not the denominator).
+Needs a CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+SPAN_CALLS = 20
+
+
+def span_ms(fn, calls: int = SPAN_CALLS) -> float:
+    """CUDA-event span of the calls fn(0) .. fn(calls - 1), per call, after
+    one warm-up call fn(calls)."""
+    fn(calls)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pallas-jacobi", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_frame: no CUDA device")
+
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.render.lightmap_sweep import render_light_map_fast
+    from fluidx12_tpu_torch.render.resolve import resolve_cube
+    from fluidx12_tpu_torch.render.slicecomp import ray_march_cube_fast
+    from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
+    from fluidx12_tpu_torch.sim.project import project
+    from fluidx12_tpu_torch.utils.image import composite_premultiplied
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    card = smi.splitlines()[0]
+    cfg = dataclasses.replace(PRESETS["fluid3d"], pallas_jacobi=bool(args.pallas_jacobi))
+    engine = FluidXEngine(cfg)
+    for _ in range(args.warmup):
+        engine.step_frame()
+    torch.cuda.synchronize()
+
+    times = []
+    for _ in range(args.frames):
+        t0 = time.perf_counter()
+        engine.step_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    frame_ms = statistics.median(times)
+    print(f"[{card}] pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
+          f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
+          f"max {max(times):.3f})")
+
+    # Per-layer spans on the engine's state, as step_frame calls them.
+    st = engine.state
+    packed, lod, vis_mask = engine.update_frame()
+    params = unpack_scene_params(packed)
+    dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=st.fields.device)
+    copies = [st.fields.clone() for _ in range(SPAN_CALLS + 1)]
+    grid = st.color
+    light = render_light_map_fast(grid, params, cfg)
+    cube = ray_march_cube_fast(grid, params, cfg, light, lod=lod, static_mask=vis_mask)
+    rect = engine._screen_rect()
+    bg = torch.tensor(cfg.clear_color[:3], device=grid.device)
+
+    def resolve(_):
+        rgba = resolve_cube(cube, params, cfg, rect=rect)
+        return composite_premultiplied(rgba, bg.expand(rgba.shape[:-1] + (3,)))
+
+    layers = {
+        "advect (B1 + B2)": lambda _: advect_fields_fast(st.fields, dt, cfg),
+        "projection": lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
+        "light map (B9)": lambda _: render_light_map_fast(grid, params, cfg),
+        "cube march (B10)": lambda _: ray_march_cube_fast(grid, params, cfg, light, lod=lod,
+                                                          static_mask=vis_mask),
+        "resolve + composite": resolve,
+    }
+    for name, fn in layers.items():
+        print(f"[{card}] layer {name}: {span_ms(fn):.3f} ms/call (CUDA events, "
+              f"{SPAN_CALLS} calls)")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.frames):
+            engine.step_frame()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copy_like = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / args.frames
+    if dev_ms == 0.0:
+        print("torch.profiler recorded no device time")
+        return 1
+    print(f"[{card}] profiler: {dev_ms:.3f} ms of device time per frame; "
+          f"{len(kernels) / args.frames:.1f} kernel launches and "
+          f"{len(copy_like) / args.frames:.1f} copies/sets per frame; device busy "
+          f"{100.0 * dev_ms / frame_ms:.1f}% of the unprofiled frame")
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    for name, us in by_name.most_common(12):
+        print(f"  {us / 1e3 / args.frames:8.4f} ms/frame  {count[name] / args.frames:6.1f}x  "
+              f"{name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
