@@ -4,20 +4,24 @@
 
 Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc (one nvcc per
 source, in parallel), checks each against its plain PyTorch version on the
-card at the 128^3 frame's shapes and times both, drives `FluidXEngine` for
-60 frames of the main path (PRESETS["fluid3d"] as it is: 128^3 grid,
-800x800 viewport, the projection on kernels B3-B8) and 20 frames of the
-pallas_jacobi=False path while counting the kernel launches, times the
-projection of both, and compares the port on CUDA with the port on the CPU
-at two small grids.  Every phase prints its lines; any failure raises, so
-the exit code is non-zero and the final JSON line is not printed.  The last
-line is {"ok": true, "device": {...}}; the line before it lists each
-kernel's launches, error, time, plain and library times, and bound.
+card at its preset's shapes (the 128^3 frame's; B11 and B14 at the 2D
+preset's 512^2) and times both, drives `FluidXEngine` for 60 frames of the
+main path (PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
+projection on kernels B3-B8), 20 frames of the pallas_jacobi=False path and
+60 frames of PRESETS["fluid2d"] (512x512x1 grid, 800x800 viewport, B11 and
+B14) while counting the kernel launches of each, times the projection of
+the 3D paths, and compares the port on CUDA with the port on the CPU at
+three small grids, one of them 2D.  Every phase prints its lines; any
+failure raises, so the exit code is non-zero and the final JSON line is
+not printed.  The last line is {"ok": true, "device": {...}}; the line
+before it lists each kernel's launches (on its preset's path), error, time,
+plain and library times, and bound.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -30,6 +34,7 @@ import torch
 
 FRAMES = 60
 SLICE_FRAMES = 20
+FRAMES_2D = 60
 WARMUP_FRAMES = 10
 # About 10 ms of an H100's clock: longer than the host takes to queue the
 # timed calls of any kernel wrapper.
@@ -58,10 +63,14 @@ KERNELS = {
     "composite_resample": ("B10", "fluidx12_tpu_torch/csrc/composite.cu",
                            "fluidx12_tpu/ops/pallas/composite.py:125"),
     "advect_z": ("B12", _ADV, "fluidx12_tpu/ops/pallas/advect.py:639"),
+    "advect_axis": ("B11", _ADV, "fluidx12_tpu/ops/pallas/advect.py:176"),
+    "jacobi2d": ("B14", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:760"),
 }
 # The projection's kernels: launched on the default preset's path only.
 PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
               "grad_damp")
+# The 2D preset's kernels, launched on its path only.
+KERNELS_2D = ("advect_axis", "jacobi2d")
 
 
 def phase(name: str) -> None:
@@ -147,9 +156,32 @@ def phase1_build():
           f": {_build.library_path().name}")
 
 
+def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_reps=5,
+            library=None, calls=1):
+    """Times `kernel` and its plain version (and the library call, if any)
+    and stores them with the error and the bound under `name`.  Where
+    `kernel` and `plain` each make `calls` launches (n_bytes and flops are
+    those of one), the times are per launch."""
+    bound_ms, bound_by = bound(n_bytes, flops)
+    results[name] = dict(
+        max_abs_err=err, ms=time_ms(kernel, reps, what=name) / calls,
+        plain_ms=time_ms(plain, plain_reps) / calls,
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None if library is None else time_ms(library, reps))
+
+
+def print_times(results, names) -> None:
+    for name in names:
+        r = results[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {KERNELS[name][0]} {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+
+
 def phase2_kernels(dev):
-    """Each kernel against its plain version on the card, at 128^3 shapes
-    (B6 at the 64^3 coarse level), with times and bounds."""
+    """Each kernel of the 3D paths against its plain version on the card,
+    at 128^3 shapes (B6 at the 64^3 coarse level), with times and bounds."""
     phase("phase 2: kernels vs plain versions at 128^3")
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core import math3d as m3
@@ -168,15 +200,7 @@ def phase2_kernels(dev):
     n = z * y * x
     rng = np.random.default_rng(0)
     results = {}
-
-    def record(name, err, kernel, plain, n_bytes, flops, reps=20, plain_reps=5,
-               library=None):
-        bound_ms, bound_by = bound(n_bytes, flops)
-        results[name] = dict(
-            max_abs_err=err, ms=time_ms(kernel, reps, what=name),
-            plain_ms=time_ms(plain, plain_reps),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None if library is None else time_ms(library, reps))
+    record = functools.partial(measure, results)
 
     # B1 / B2: a bf16 state with velocities up to +-1.5 (|d| <= 3 voxels)
     # and a faster patch (|d| up to the 12-voxel clip).
@@ -359,12 +383,78 @@ def phase2_kernels(dev):
            lambda: C.composite_resample_plain(*args),
            nbytes(volf, h_rows, h_cols, valid, n_steps, got),
            40 * volf.shape[1] * n_steps.numel(), plain_reps=3)
-    for name, r in results.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  {KERNELS[name][0]} {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+    print_times(results, results)
     return results
+
+
+def phase2b_kernels_2d(dev, results):
+    """B11 and B14 against their plain versions on the card at the 2D
+    preset's shapes, (7, 1, 512, 512) bf16 and a 512^2 plane, with times
+    and bounds; B11 also on every axis of a 128^3 volume (the z stride)."""
+    phase("phase 2b: the 2D preset's kernels vs plain versions at 512^2")
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.ops.cuda import advect as A
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+
+    record = functools.partial(measure, results)
+    cfg = PRESETS["fluid2d"]
+    z, y, x = cfg.zyx
+    n = z * y * x
+    rng = np.random.default_rng(1)
+    # Velocities up to +-1.5 voxels per step and a fast patch past the
+    # 12-voxel clip (scale dt * 512 = 1).
+    f = rng.uniform(0.0, 1.0, (7, z, y, x)).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 3.0
+    f[:3, :, 200:260, 200:260] *= 10.0
+    vol = torch.from_numpy(f).to(dev, torch.bfloat16)
+    dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=dev)
+    sx, sy = dt * x, dt * y
+    tx = A.advect_axis(vol, sx, 2, 0)
+    ty = A.advect_axis(tx, sy, 1, 1)
+    err_x = float((tx.float() - A.advect_axis_plain(vol, sx, 2, 0).float()).abs().max())
+    err_y = float((ty.float() - A.advect_axis_plain(tx, sy, 1, 1).float()).abs().max())
+    print(f"B11 advect_axis at {tuple(vol.shape)} bf16: x pass max abs diff {err_x:.3e}, "
+          f"y pass {err_y:.3e} (limit 0: same f32 operations, one rounding)")
+    check(err_x == 0.0 and err_y == 0.0, "B11 advect_axis vs plain at 512^2")
+    v3 = torch.from_numpy(rng.uniform(-1.5, 1.5, (7, 128, 128, 128)).astype(np.float32)
+                          ).to(dev, torch.bfloat16)
+    s3 = torch.tensor(4.0, device=dev)   # displacements up to 6 voxels
+    err_3d = 0.0
+    for axis, ch in ((2, 0), (1, 1), (0, 2)):
+        diff = A.advect_axis(v3, s3, axis, ch).float() - A.advect_axis_plain(v3, s3, axis, ch)
+        err_3d = max(err_3d, float(diff.abs().max()))
+    print(f"B11 advect_axis on each axis of (7, 128, 128, 128) bf16: max abs diff "
+          f"{err_3d:.3e} (limit 0)")
+    check(err_3d == 0.0, "B11 advect_axis vs plain at 128^3")
+
+    def both_passes(fn):
+        return lambda: fn(fn(vol, sx, 2, 0), sy, 1, 1)
+
+    # Per cell and pass: the displacement and its clamps, the two weights,
+    # 7 channels x a two-tap lerp.
+    record("advect_axis", max(err_x, err_y, err_3d), both_passes(A.advect_axis),
+           both_passes(A.advect_axis_plain), nbytes(vol, sx, tx), 33 * n, calls=2)
+
+    # B14: 64 sweeps on a smooth pressure against a smooth right-hand side.
+    q = torch.from_numpy(rng.uniform(-0.05, 0.05, (y, x)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.uniform(-0.01, 0.01, (y, x)).astype(np.float32)).to(dev)
+    for ax in range(2):
+        q = (q.roll(1, ax) + q + q.roll(-1, ax)) / 3.0
+        b = (b.roll(1, ax) + b + b.roll(-1, ax)) / 3.0
+    iters = cfg.num_pressure_iters
+    check(J.jacobi2d_pallas_supported((y, x)), "the TPU runs B14 at 512^2")
+    got = J.jacobi2d(q, b, iters)
+    err = float((got - J.jacobi2d_plain(q, b, iters)).abs().max())
+    print(f"B14 jacobi2d ({iters} sweeps at {y}x{x}): max abs diff {err:.3e} (limit 0: "
+          f"same sum order, exact division by 4)")
+    check(err == 0.0, "B14 jacobi2d vs plain")
+    # Per cell and sweep: three adds, a subtract and a division.  Each call
+    # makes `iters` launches: few calls, so that the host queues them all
+    # before the sleep kernel ends.
+    record("jacobi2d", err, lambda: J.jacobi2d(q, b, iters),
+           lambda: J.jacobi2d_plain(q, b, iters), nbytes(q, b, got), 5 * iters * n,
+           reps=5, plain_reps=3)
+    print_times(results, KERNELS_2D)
 
 
 def projection_span_ms(engine, reps: int = 20) -> float:
@@ -396,7 +486,7 @@ def run_frames(cfg, frames: int, dev, smi_line, label: str):
 
     engine = FluidXEngine(cfg, device=dev)
     _, _, vis_mask = engine.update_frame()
-    faces = bin(vis_mask).count("1")
+    faces = bin(vis_mask).count("1") if cfg.is_3d else 0
     reset_launch_counts()
     times = []
     image = None
@@ -434,7 +524,8 @@ def phase3_main_path(dev, smi_line):
     cfg = PRESETS["fluid3d"]
     counts, faces, engine = run_frames(cfg, FRAMES, dev, smi_line, "fluid3d")
     expect = {name: FRAMES for name in KERNELS}
-    expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0)
+    expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0,
+                  **{name: 0 for name in KERNELS_2D})
     check(counts == expect, f"launch counts {counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"fluid3d: projection span {span:.3f} ms/call (CUDA events, 20 calls) "
@@ -445,7 +536,7 @@ def phase3_main_path(dev, smi_line):
                                              "pallas_jacobi=False")
     expect = {name: SLICE_FRAMES for name in KERNELS}
     expect.update(composite_resample=SLICE_FRAMES * faces, advect_z=0,
-                  **{name: 0 for name in PROJECTION})
+                  **{name: 0 for name in PROJECTION + KERNELS_2D})
     check(slice_counts == expect, f"launch counts {slice_counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"pallas_jacobi=False: projection span {span:.3f} ms/call (CUDA events, "
@@ -453,17 +544,32 @@ def phase3_main_path(dev, smi_line):
     return counts
 
 
+def phase3b_fluid2d(dev, smi_line):
+    """FRAMES_2D frames of PRESETS["fluid2d"] as it is (512x512x1 grid,
+    800x800 viewport): B11 twice and B14 once per frame, no 3D kernel."""
+    phase(f"phase 3b: {FRAMES_2D} frames of PRESETS['fluid2d'] at 512^2 / 800^2")
+    from fluidx12_tpu_torch.core.config import PRESETS
+
+    counts, _, _ = run_frames(PRESETS["fluid2d"], FRAMES_2D, dev, smi_line, "fluid2d")
+    expect = {name: 0 for name in KERNELS}
+    expect.update(advect_axis=2 * FRAMES_2D, jacobi2d=FRAMES_2D)
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    return counts
+
+
 def phase4_cpu_vs_cuda(dev):
-    """The port on CUDA against the port on the CPU, 3 frames at two small
-    grids: the pallas_jacobi=False path at (128, 128, 16), and the default
-    projection kernels at (128, 128, 64)."""
+    """The port on CUDA against the port on the CPU, 3 frames at three
+    small grids: the pallas_jacobi=False path at (128, 128, 16), the
+    default projection kernels at (128, 128, 64), and the 2D path with B11
+    and B14 at (128, 128, 1)."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.utils.image import to_srgb_u8
 
     for kw in (dict(grid_size=(128, 128, 16), pallas_jacobi=False),
-               dict(grid_size=(128, 128, 64), pallas_jacobi=True)):
+               dict(grid_size=(128, 128, 64), pallas_jacobi=True),
+               dict(grid_size=(128, 128, 1), pallas_jacobi=True)):
         cfg = FluidConfig(viewport=(96, 96), **kw)
         engines = [FluidXEngine(cfg, device=d) for d in ("cpu", dev)]
         images = []
@@ -488,13 +594,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase1_build()
     results = phase2_kernels(dev)
+    phase2b_kernels_2d(dev, results)
     counts = phase3_main_path(dev, smi_line)
+    counts_2d = phase3b_fluid2d(dev, smi_line)
     phase4_cpu_vs_cuda(dev)
     kernels = []
     for kname, (_, src, replaces) in KERNELS.items():
         r = results[kname]
+        launches = (counts_2d if kname in KERNELS_2D else counts)[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[kname],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

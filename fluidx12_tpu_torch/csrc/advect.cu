@@ -2,8 +2,14 @@
 //
 // B1 (fx_advect_xy) replaces fluidx12_tpu/ops/pallas/advect.py
 // _pass_kernel_fused_xy (via _run_pass_fused_xy); B2 (fx_advect_z_forces)
-// replaces _zpass_forces_kernel (via _run_zpass).  Semantics are the TPU
-// kernels', not the mirror-addressed XLA twin's:
+// replaces _zpass_forces_kernel (via _run_zpass); B11 (fx_advect_axis)
+// replaces the single-axis passes _pass_kernel_fused_d and
+// _pass_kernel_fused_d1 (via _run_pass_fused: one function under two
+// tilings) and _pass_kernel (via _run_pass, the same function fed a
+// precomputed displacement), which the TPU runs on planes too large for
+// B1, the 2D preset's 512^2 among them.  B11 is B1's per-axis half with
+// its result rounded to storage.  Semantics are the TPU kernels', not the
+// mirror-addressed XLA twin's:
 //   - the displacement d = -u * dt * N is clipped to +-MAX_DISP voxels and
 //     then into [-i, n-1-i] (clamp addressing absorbed into d), after which
 //     the TPU's 26-tap dense sum is exactly this 2-tap lerp at floor(d);
@@ -21,9 +27,12 @@
 //
 // Bound: memory.  The x pass reads the 7-channel bf16 state and writes a
 // bf16 scratch (14 + 14 B per voxel), the y pass reads it and writes f32
-// (14 + 28 B), the z pass reads f32 and writes bf16 (28 + 14 B); the two
-// taps per channel stay within one or two cache lines of the output row.  One thread per voxel, consecutive threads on
-// consecutive x, so every read and write is coalesced.
+// (14 + 28 B), the z pass reads f32 and writes bf16 (28 + 14 B); B11 reads
+// and writes the storage type (14 + 14 B at bf16: 7.3 MB, 2.2 us, at the 2D
+// preset's 512^2).  The two taps per channel stay within one or two cache
+// lines of the output row (x), or in rows the neighbouring threads also
+// read (y, z).  One thread per voxel, consecutive threads on consecutive x,
+// so every read and write is coalesced.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,40 +76,25 @@ __device__ __forceinline__ Taps lerp_taps(float d, int i, int n) {
   return t;
 }
 
-template <typename T>
-__global__ void advect_x_kernel(const T* __restrict__ vol, T* __restrict__ tmp,
-                                const float* __restrict__ scales, int C, int Z,
-                                int Y, int X) {
-  const int64_t vox = (int64_t)Z * Y * X;
+// One-axis resample of every channel, the displacement from channel
+// `disp_ch` of the input itself, one rounding to Tout.  The axis is given by
+// its element stride and extent, so x, y and z share the code: B11 is one
+// launch (Tout = Tin), B1 two (x into Tin, then y into f32).
+template <typename Tin, typename Tout>
+__global__ void advect_axis_kernel(const Tin* __restrict__ vol, Tout* __restrict__ out,
+                                   const float* __restrict__ scale, int disp_ch, int C,
+                                   int64_t vox, int64_t stride, int n) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= vox) return;
-  const int x = (int)(idx % X);
-  const int64_t row = idx - x;
-  const float d = clamp_disp(ld(vol, idx), scales[0], x, X);
-  const Taps t = lerp_taps(d, x, X);
+  const int i = (int)((idx / stride) % n);
+  const int64_t line = idx - (int64_t)i * stride;  // the cell at i = 0
+  const float d = clamp_disp(ld(vol, disp_ch * vox + idx), scale[0], i, n);
+  const Taps t = lerp_taps(d, i, n);
   for (int c = 0; c < C; ++c) {
-    const int64_t base = c * vox + row;
-    st(tmp, c * vox + idx, t.w0 * ld(vol, base + t.i0) + t.w1 * ld(vol, base + t.i1));
-  }
-}
-
-template <typename T>
-__global__ void advect_y_kernel(const T* __restrict__ tmp, float* __restrict__ out,
-                                const float* __restrict__ scales, int C, int Z,
-                                int Y, int X) {
-  const int64_t vox = (int64_t)Z * Y * X;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= vox) return;
-  const int x = (int)(idx % X);
-  const int y = (int)((idx / X) % Y);
-  const int64_t col = idx - (int64_t)y * X;  // (z, 0, x)
-  // dy comes from the x-advected, storage-rounded u_y (channel 1).
-  const float d = clamp_disp(ld(tmp, vox + idx), scales[1], y, Y);
-  const Taps t = lerp_taps(d, y, Y);
-  for (int c = 0; c < C; ++c) {
-    const int64_t base = c * vox + col;
+    const int64_t base = c * vox + line;
     st(out, c * vox + idx,
-       t.w0 * ld(tmp, base + (int64_t)t.i0 * X) + t.w1 * ld(tmp, base + (int64_t)t.i1 * X));
+       t.w0 * ld(vol, base + (int64_t)t.i0 * stride) +
+           t.w1 * ld(vol, base + (int64_t)t.i1 * stride));
   }
 }
 
@@ -155,34 +149,50 @@ __global__ void advect_z_forces_kernel(const float* __restrict__ vol, T* __restr
 
 inline unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
+template <typename Tin, typename Tout>
+cudaError_t launch_axis(const void* vol, void* out, const float* scale, int disp_ch, int C,
+                        int64_t vox, int64_t stride, int n, cudaStream_t s) {
+  advect_axis_kernel<<<blocks_for(vox), kThreads, 0, s>>>(
+      (const Tin*)vol, (Tout*)out, scale, disp_ch, C, vox, stride, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// B1: x pass into `tmp` (storage type), then y pass into `out` (f32).
+// B1: x pass into `tmp` (storage type), then y pass into `out` (f32), its
+// displacement from the x-advected, storage-rounded u_y (channel 1).
 // scales = device [dt*X, dt*Y].
 int fx_advect_xy(const void* vol, void* tmp, void* out, const void* scales, int is_bf16,
                  int C, int Z, int Y, int X, void* stream) {
   const int64_t vox = (int64_t)Z * Y * X;
   cudaStream_t s = (cudaStream_t)stream;
   const float* sc = (const float*)scales;
-  if (is_bf16) {
-    advect_x_kernel<<<blocks_for(vox), kThreads, 0, s>>>(
-        (const __nv_bfloat16*)vol, (__nv_bfloat16*)tmp, sc, C, Z, Y, X);
-  } else {
-    advect_x_kernel<<<blocks_for(vox), kThreads, 0, s>>>((const float*)vol, (float*)tmp, sc,
-                                                         C, Z, Y, X);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      is_bf16 ? launch_axis<__nv_bfloat16, __nv_bfloat16>(vol, tmp, sc, 0, C, vox, 1, X, s)
+              : launch_axis<float, float>(vol, tmp, sc, 0, C, vox, 1, X, s);
   if (err != cudaSuccess) return (int)err;
-  if (is_bf16) {
-    advect_y_kernel<<<blocks_for(vox), kThreads, 0, s>>>((const __nv_bfloat16*)tmp,
-                                                         (float*)out, sc, C, Z, Y, X);
-  } else {
-    advect_y_kernel<<<blocks_for(vox), kThreads, 0, s>>>((const float*)tmp, (float*)out, sc,
-                                                         C, Z, Y, X);
-  }
-  return (int)cudaGetLastError();
+  err = is_bf16 ? launch_axis<__nv_bfloat16, float>(tmp, out, sc + 1, 1, C, vox, X, Y, s)
+                : launch_axis<float, float>(tmp, out, sc + 1, 1, C, vox, X, Y, s);
+  return (int)err;
+}
+
+// B11: resample along `axis` (0 z, 1 y, 2 x of the (Z, Y, X) volume) with
+// the displacement from channel `disp_ch`, into `out` of vol's storage
+// type.  scale = device [dt * N].
+int fx_advect_axis(const void* vol, void* out, const void* scale, int disp_ch, int axis,
+                   int is_bf16, int C, int Z, int Y, int X, void* stream) {
+  if (axis < 0 || axis > 2 || disp_ch < 0 || disp_ch >= C) return (int)cudaErrorInvalidValue;
+  const int64_t vox = (int64_t)Z * Y * X;
+  const int64_t stride = axis == 2 ? 1 : axis == 1 ? (int64_t)X : (int64_t)Y * X;
+  const int n = axis == 2 ? X : axis == 1 ? Y : Z;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* sc = (const float*)scale;
+  return (int)(is_bf16
+                   ? launch_axis<__nv_bfloat16, __nv_bfloat16>(vol, out, sc, disp_ch, C, vox,
+                                                              stride, n, s)
+                   : launch_axis<float, float>(vol, out, sc, disp_ch, C, vox, stride, n, s));
 }
 
 // B2: z pass of the f32 `vol` (+ fused forces epilogue when `forces`) into

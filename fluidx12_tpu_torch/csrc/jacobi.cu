@@ -1,27 +1,36 @@
-// Jacobi pressure sweeps for Hopper: B4 and B6.
+// Jacobi pressure sweeps for Hopper: B4, B6 and B14.
 //
 // fx_jacobi replaces fluidx12_tpu/ops/pallas/jacobi.py _jacobi_fused_kernel /
 // _window_sweeps (B4, via jacobi_pallas; order 0, and order 1 for the
-// plane-sweep plan _planewise_window) and _jacobi_packed_kernel (B6, via
-// jacobi_packed_pallas; order 2).  Each is `iters` synchronous sweeps of
+// plane-sweep plan _planewise_window), _jacobi_packed_kernel (B6, via
+// jacobi_packed_pallas; order 2) and _jacobi2d_kernel (B14, via
+// jacobi2d_pallas; order 3, on one (Y, X) plane).  Each is `iters`
+// synchronous sweeps of
 //     q <- (sum of the 6 edge-clamped neighbours - b) / 6
-// in f32.  The TPU kernels' halo'd VMEM windows (recomputed halos, exact in
-// the centre) and 64-lane packing are layouts with no effect on the result;
-// what they fix is the order of the neighbour sum, which the template
-// argument keeps:
+// in f32 (in 2D the 4 neighbours, over 4).  The TPU kernels' halo'd VMEM
+// windows (recomputed halos, exact in the centre), 64-lane packing and
+// resident 2D plane are layouts with no effect on the result; what they fix
+// is the order of the neighbour sum, which the template argument keeps:
 //   order 0 (B4, whole window): y+, y-, x+, x-, z+, z-   (jacobi.py:88)
 //   order 1 (B4, plane sweep):  y+, y-, x+, x-, z-, z+   (jacobi.py:285-287)
 //   order 2 (B6, packed):       x+, x-, y+, y-, z+, z-   (jacobi.py:833-842)
+//   order 3 (B14, 2D):          y+, y-, x+, x-           (jacobi.py:773-774)
 // The division is a true f32 division and the file builds with
-// --fmad=false, so each sweep rounds as the Pallas code does.
+// --fmad=false, so each sweep rounds as the Pallas code does (B14's
+// division by 4 is exact, so it matches interpret mode bit for bit).
 //
 // Bound: memory.  Counted once in and once out, a call moves q, b in and q
 // out (12 B per cell): 25.2 MB at 128^3 (7.5 us at 3.35 TB/s) and 3.1 MB at
 // the 64^3 coarse level (0.94 us; its 32 sweeps' 58.7 MFLOP take 0.88 us at
-// 67 TFLOP/s).  Design: one thread per cell per sweep, consecutive threads
-// on consecutive x; the sweeps ping-pong between the output and one scratch
-// buffer, launched `iters` times from this one C entry point, so a call
-// costs one Python call however many sweeps it runs.  Each sweep re-streams
+// 67 TFLOP/s).  B14 at the 2D preset's 512^2 moves 3.1 MB (0.94 us) and
+// does 64 sweeps of 5 operations per cell, 83.9 MFLOP (1.25 us): bound by
+// operations.  The TPU keeps the 1 MiB plane in VMEM for all 64 sweeps; it
+// is larger than one SM's shared memory, so here each sweep is a launch
+// over the plane, which stays in L2 between sweeps.  Design: one thread per
+// cell per sweep, consecutive threads on consecutive x; the sweeps ping-pong
+// between the output and one scratch buffer, launched `iters` times from
+// this one C entry point, so a call costs one Python call however many
+// sweeps it runs.  Each sweep re-streams
 // q and b: 25 MB at 128^3 and 3 MB at 64^3 fit the 50 MB L2, so the re-reads
 // are L2 traffic.  Temporal blocking in shared memory (several sweeps per
 // launch) is later work.
@@ -47,6 +56,13 @@ __global__ void jacobi_sweep_kernel(const float* __restrict__ q, const float* __
   const float xm = q[x > 0 ? idx - 1 : idx];
   const float yp = q[y < ny - 1 ? idx + nx : idx];
   const float ym = q[y > 0 ? idx - nx : idx];
+  if (kOrder == 3) {  // 2D: one plane, four neighbours
+    float s = yp + ym;
+    s = s + xp;
+    s = s + xm;
+    out[idx] = (s - b[idx]) / 4.0f;
+    return;
+  }
   const float zp = q[z < nz - 1 ? idx + plane : idx];
   const float zm = q[z > 0 ? idx - plane : idx];
   float s;
@@ -90,7 +106,7 @@ cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, i
 
 extern "C" {
 
-// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..2 as above.
+// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..3 as above.
 int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters, int order,
               int nz, int ny, int nx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -106,6 +122,7 @@ int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters,
     case 0: return (int)sweeps<0>(qf, bf, of, sf, iters, nz, ny, nx, st);
     case 1: return (int)sweeps<1>(qf, bf, of, sf, iters, nz, ny, nx, st);
     case 2: return (int)sweeps<2>(qf, bf, of, sf, iters, nz, ny, nx, st);
+    case 3: return (int)sweeps<3>(qf, bf, of, sf, iters, nz, ny, nx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -83,10 +83,13 @@ class FluidXEngine:
         wvp = self.world @ self.camera.view_proj
         wvp_i = m3.inverse(wvp)
         screen_to_world = m3.inverse(self.camera.view_proj)
-        lod, ray_samples = estimate_cube_map_lod(
-            cfg.max_ray_samples, cfg.num_cube_mips, float(cfg.cube_map_size),
-            wvp, cfg.viewport)
-        mask = gen_visibility_mask(self.world_i, self.camera.eye)
+        lod, ray_samples = 0, cfg.max_ray_samples
+        mask = 0b111111
+        if cfg.is_3d:
+            lod, ray_samples = estimate_cube_map_lod(
+                cfg.max_ray_samples, cfg.num_cube_mips, float(cfg.cube_map_size),
+                wvp, cfg.viewport)
+            mask = gen_visibility_mask(self.world_i, self.camera.eye)
         flat = pack_scene_params_host(
             dt, (self.frame_index * 2654435761) % (1 << 24),
             np.asarray(self.camera.eye, np.float32),
@@ -102,7 +105,9 @@ class FluidXEngine:
 
     def _screen_rect(self):
         """Host-static screen bbox of the volume (core.lod.screen_bbox),
-        cached on the camera pose."""
+        cached on the camera pose; None in 2D."""
+        if not self.config.is_3d:
+            return None
         pose = (self.camera.view.tobytes(), self.camera.proj.tobytes())
         if pose == self._rect_key:
             return self._rect_cache

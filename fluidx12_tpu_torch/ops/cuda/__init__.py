@@ -12,11 +12,17 @@ from __future__ import annotations
 
 
 def wrappers():
-    """{name: wrapper} of every kernel wrapper, in frame order (B12
-    `advect_z`, off the main path, last)."""
-    from fluidx12_tpu_torch.ops.cuda.advect import advect_xy, advect_z, advect_z_forces
+    """{name: wrapper} of every kernel wrapper: the default preset's in
+    frame order, then B12 `advect_z` (on neither preset's path), then the
+    2D preset's B11 and B14."""
+    from fluidx12_tpu_torch.ops.cuda.advect import (
+        advect_axis,
+        advect_xy,
+        advect_z,
+        advect_z_forces,
+    )
     from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
-    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi_packed
+    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi2d, jacobi_packed
     from fluidx12_tpu_torch.ops.cuda.stencil import (
         divergence,
         grad_damp,
@@ -29,7 +35,8 @@ def wrappers():
             "divergence": divergence, "jacobi": jacobi, "residual": residual,
             "jacobi_packed": jacobi_packed, "prolong_correct": prolong_correct,
             "grad_damp": grad_damp, "shear_scan": shear_scan,
-            "composite_resample": composite_resample, "advect_z": advect_z}
+            "composite_resample": composite_resample, "advect_z": advect_z,
+            "advect_axis": advect_axis, "jacobi2d": jacobi2d}
 
 
 def reset_launch_counts() -> None:

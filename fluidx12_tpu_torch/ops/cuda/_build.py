@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fx_advect_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fx_advect_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_z_forces": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
                            _I, _I, _I, _I, _P],
     "fx_shear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],

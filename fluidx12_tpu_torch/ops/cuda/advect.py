@@ -1,10 +1,14 @@
-"""Advection kernels B1 (x then y) and B2 (z + fused forces), with their
-plain PyTorch versions.
+"""Advection kernels B1 (x then y), B11 (one axis) and B2 (z + fused
+forces), with their plain PyTorch versions.
 
 B1 `advect_xy` replaces fluidx12_tpu/ops/pallas/advect.py
-`_pass_kernel_fused_xy` (via `_run_pass_fused_xy`); B2 `advect_z_forces`
-replaces `_zpass_forces_kernel` (via `_run_zpass`), and B12 `advect_z`, the
-same kernel without its forces epilogue, the plain `_zpass_kernel`.  All
+`_pass_kernel_fused_xy` (via `_run_pass_fused_xy`); B11 `advect_axis`
+replaces the single-axis passes `_pass_kernel_fused_d`/`_pass_kernel_fused_d1`
+(via `_run_pass_fused`) and `_pass_kernel` (via `_run_pass`), which the TPU
+runs where a plane is too large for B1 (the 2D preset's x then y passes);
+B2 `advect_z_forces` replaces `_zpass_forces_kernel` (via `_run_zpass`),
+and B12 `advect_z`, the same kernel without its forces epilogue, the plain
+`_zpass_kernel`.  All
 follow the TPU kernels' semantics, not the mirror-addressed XLA twin's: clamp addressing folded into the displacement,
 the x-pass result rounded to the storage dtype before the y pass, and the
 forces epilogue in the per-channel table form of `_forces_table`.  One
@@ -111,12 +115,19 @@ def _lerp_axis(q: torch.Tensor, d: torch.Tensor, axis: int) -> torch.Tensor:
     return w0 * g0 + w1 * g1
 
 
-def advect_xy_plain(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of B1.  scales = [dt * X, dt * Y] (f32, on vol's
-    device); returns f32."""
+def advect_axis_plain(vol: torch.Tensor, scale: torch.Tensor, axis: int,
+                      disp_ch: int) -> torch.Tensor:
+    """Plain version of B11.  `axis` 0..2 of the (Z, Y, X) volume; scale =
+    dt * N (f32, on vol's device); returns vol's storage dtype."""
     q = vol.float()
-    dx = _clamp_disp(q[0], scales[0], axis=2)
-    tx = _lerp_axis(q, dx, axis=2).to(vol.dtype).float()   # storage rounding
+    d = _clamp_disp(q[disp_ch], scale, axis)
+    return _lerp_axis(q, d, axis).to(vol.dtype)
+
+
+def advect_xy_plain(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of B1: B11's x pass, then its y pass kept in f32.
+    scales = [dt * X, dt * Y] (f32, on vol's device); returns f32."""
+    tx = advect_axis_plain(vol, scales[0], 2, 0).float()
     dy = _clamp_disp(tx[1], scales[1], axis=1)
     return _lerp_axis(tx, dy, axis=1)
 
@@ -181,6 +192,32 @@ def advect_xy(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 advect_xy.launches = 0
+
+
+def advect_axis(vol: torch.Tensor, scale: torch.Tensor, axis: int,
+                disp_ch: int) -> torch.Tensor:
+    """B11: backtrace of every channel of vol (C, Z, Y, X) along `axis`
+    (0 z, 1 y, 2 x), the displacement clip(-vol[disp_ch] * scale) from the
+    input itself; one rounding to vol's storage dtype.  scale = dt * N, a
+    0-d f32 tensor on vol's device."""
+    _check_vol(vol, "advect_axis")
+    _check_f32(scale, (), vol, "advect_axis scale")
+    if axis not in (0, 1, 2) or not 0 <= disp_ch < vol.shape[0]:
+        raise ValueError(f"advect_axis: axis {axis} / displacement channel {disp_ch} "
+                         f"out of range for {tuple(vol.shape)}")
+    if not _on_cuda(vol, "advect_axis"):
+        return advect_axis_plain(vol, scale, axis, disp_ch)
+    c, z, y, x = vol.shape
+    out = torch.empty_like(vol)
+    err = _build.lib().fx_advect_axis(
+        vol.data_ptr(), out.data_ptr(), scale.data_ptr(), disp_ch, axis,
+        int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    advect_axis.launches += 1
+    _build.check(err, "fx_advect_axis")
+    return out
+
+
+advect_axis.launches = 0
 
 
 def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,

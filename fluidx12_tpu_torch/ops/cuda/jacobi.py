@@ -1,18 +1,22 @@
-"""Jacobi pressure sweeps, kernels B4 and B6, with their plain PyTorch
-versions and the JAX package's shape gates.
+"""Jacobi pressure sweeps, kernels B4, B6 and B14, with their plain
+PyTorch versions and the JAX package's shape gates.
 
 B4 `jacobi` replaces fluidx12_tpu/ops/pallas/jacobi.py
 `_jacobi_fused_kernel` / `_window_sweeps` (via `jacobi_pallas`); B6
 `jacobi_packed` replaces `_jacobi_packed_kernel` (via
-`jacobi_packed_pallas`).  Both are `iters` synchronous sweeps of
-q <- (sum of the 6 edge-clamped neighbours - b) / 6 in f32.  Their
-halo'd VMEM windows and 64-lane packing are TPU layouts with no effect on
-the result; what differs between them is the order of the neighbour sum,
-which each plain version and the kernel keep:
+`jacobi_packed_pallas`); B14 `jacobi2d` replaces `_jacobi2d_kernel` (via
+`jacobi2d_pallas`).  Each is `iters` synchronous sweeps of
+q <- (sum of the 6 edge-clamped neighbours - b) / 6 in f32 (B14: the 4 of a
+(Y, X) plane, over 4).  Their halo'd VMEM windows, 64-lane packing and
+resident plane are TPU layouts with no effect on the result; what differs
+between them is the order of the neighbour sum, which each plain version
+and the kernel keep:
 
 - B4, whole-window plan (`_window_sweeps`): y+, y-, x+, x-, z+, z-;
 - B4, plane-sweep plan (`_planewise_window`): y+, y-, x+, x-, z-, z+;
-- B6 (`_jacobi_packed_kernel`): x+, x-, y+, y-, z+, z-, the twin's order.
+- B6 (`_jacobi_packed_kernel`): x+, x-, y+, y-, z+, z-, the twin's order;
+- B14 (`_jacobi2d_kernel`): y+, y-, x+, x-, where the 2D twin
+  (sim/project.jacobi_sweeps) adds x first.
 
 Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu.  The gates
 are pure-Python copies of the TPU's planners, kept because they decide
@@ -33,11 +37,12 @@ _AX_Z, _AX_Y, _AX_X = 0, 1, 2
 
 # Neighbour orders, as (axis, offset) in summation order; the index is the
 # kernel's `order` argument.
-ORDER_WINDOW, ORDER_PLANEWISE, ORDER_PACKED = 0, 1, 2
+ORDER_WINDOW, ORDER_PLANEWISE, ORDER_PACKED, ORDER_2D = 0, 1, 2, 3
 _ORDERS = (
     ((_AX_Y, 1), (_AX_Y, -1), (_AX_X, 1), (_AX_X, -1), (_AX_Z, 1), (_AX_Z, -1)),
     ((_AX_Y, 1), (_AX_Y, -1), (_AX_X, 1), (_AX_X, -1), (_AX_Z, -1), (_AX_Z, 1)),
     ((_AX_X, 1), (_AX_X, -1), (_AX_Y, 1), (_AX_Y, -1), (_AX_Z, 1), (_AX_Z, -1)),
+    ((_AX_Y, 1), (_AX_Y, -1), (_AX_X, 1), (_AX_X, -1)),
 )
 
 
@@ -200,15 +205,16 @@ def window_order(shape, inner: int) -> int:
 # ---------------------------------------------------------------------------
 
 def sweeps_plain(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
-    """`iters` sweeps of (sum of the neighbours in `order` - b) / 6; the
-    division is a true f32 division on q's device, as in the kernel."""
-    six = torch.tensor(6.0, dtype=torch.float32, device=q.device)
+    """`iters` sweeps of (sum of the neighbours in `order` - b) / their
+    count (6, or 4 in 2D); the division is a true f32 division on q's
+    device, as in the kernel."""
     (ax0, off0), *rest = _ORDERS[order]
+    count = torch.tensor(float(len(rest) + 1), dtype=torch.float32, device=q.device)
     for _ in range(iters):
         s = neighbor_shift(q, ax0, off0)
         for ax, off in rest:
             s = s + neighbor_shift(q, ax, off)
-        q = (s - b) / six
+        q = (s - b) / count
     return q
 
 
@@ -225,16 +231,22 @@ def jacobi_packed_plain(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.T
     return sweeps_plain(q, b, iters, ORDER_PACKED)
 
 
+def jacobi2d_plain(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of B14 on a (Y, X) plane."""
+    return sweeps_plain(q[None], b[None], iters, ORDER_2D)[0]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(q: torch.Tensor, b: torch.Tensor, iters: int, name: str) -> bool:
+def _check(q: torch.Tensor, b: torch.Tensor, iters: int, name: str, ndim: int = 3) -> bool:
     """Checks the arguments; True when they lie on the card."""
+    dims = "(Z, Y, X)" if ndim == 3 else "(Y, X)"
     for t, what in ((q, "q"), (b, "b")):
-        if (t.ndim != 3 or t.dtype != torch.float32 or not t.is_contiguous()
+        if (t.ndim != ndim or t.dtype != torch.float32 or not t.is_contiguous()
                 or t.shape != q.shape or t.device != q.device):
-            raise ValueError(f"{name}: expected contiguous f32 (Z, Y, X) q and b of one "
+            raise ValueError(f"{name}: expected contiguous f32 {dims} q and b of one "
                              f"shape and device, got {what} {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
     if iters < 0:
@@ -291,3 +303,17 @@ def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 jacobi_packed.launches = 0
+
+
+def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """B14: `iters` 2D Jacobi sweeps of the (Y, X) f32 pressure q against b,
+    q <- (q[y+1] + q[y-1] + q[x+1] + q[x-1] - b) / 4 with clamped edges (the
+    TPU runs it where `jacobi2d_pallas_supported` holds)."""
+    if not _check(q, b, iters, "jacobi2d", ndim=2):
+        return jacobi2d_plain(q, b, iters)
+    out = _launch(q[None], b[None], iters, ORDER_2D)[0]
+    jacobi2d.launches += 1
+    return out
+
+
+jacobi2d.launches = 0

@@ -4,7 +4,8 @@ Impulse.hlsli).
 
 The fast path fuses this step into kernel B2's epilogue
 (ops/cuda/advect.py); this form runs after an advect whose z pass did not
-fuse it (more than one sub-step, or un-premultiplied colour).
+fuse it (more than one sub-step, or un-premultiplied colour) and after
+every 2D advect, which has no z pass.
 """
 
 from __future__ import annotations

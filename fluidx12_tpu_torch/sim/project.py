@@ -1,12 +1,13 @@
 """Pressure projection: divergence -> Jacobi / multigrid relaxation ->
 gradient subtraction -> boundary damp (mirror of fluidx12_tpu/sim/project.py).
 
-A 3D config with `use_pallas and pallas_jacobi` runs what the JAX package
-runs on its TPU, chosen by the same shape gates (ROADMAP.md C5): the
+A config with `use_pallas and pallas_jacobi` runs what the JAX package
+runs on its TPU, chosen by the same shape gates (ROADMAP.md C5).  In 3D: the
 streaming stencils B3 (divergence) and B8 (gradient + damp, in place) where
 `stencil_pallas_supported` holds, the multigrid of sim/mg.py with its
 kernels, or B4 for all the sweeps where `jacobi_tuning` gives a plan.  The
-kernels compute in f32 from the bf16 state.  Everywhere else the XLA twins
+kernels compute in f32 from the bf16 state.  In 2D: B14 for all the sweeps
+where `jacobi2d_pallas_supported` holds, between the bf16 twins.  Everywhere else the XLA twins
 below run, with the dtypes of the JAX code as written: the divergence,
 gradient subtract and boundary damp on the storage-dtype (bf16) velocity,
 the Poisson solve in f32.  Paths the port has no kernel for yet raise
@@ -23,6 +24,7 @@ from fluidx12_tpu_torch.core.config import FluidConfig
 from fluidx12_tpu_torch.ops.cuda import stencil
 from fluidx12_tpu_torch.ops.cuda.jacobi import (
     jacobi,
+    jacobi2d,
     jacobi2d_pallas_supported,
     jacobi_tuning,
 )
@@ -119,11 +121,7 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
     kernels = config.use_pallas and config.pallas_jacobi
     tuning = None
     use_stencil = False
-    if kernels and not is_3d:
-        if jacobi2d_pallas_supported(config.zyx[1:]):
-            raise NotImplementedError(
-                "the 2D Jacobi kernel B14 (jacobi2d_pallas) is not ported yet "
-                "(ROADMAP.md queue A, item 5)")
+    use_j2d = kernels and not is_3d and jacobi2d_pallas_supported(config.zyx[1:])
     if kernels and is_3d:
         tuning = jacobi_tuning(config.zyx, config.num_pressure_iters)
         use_stencil = stencil.stencil_pallas_supported(config.zyx)
@@ -144,7 +142,9 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
         b = stencil.divergence(fields)
     else:
         b = divergence(fields, is_3d)
-    if use_mg:
+    if use_j2d:
+        q = jacobi2d(pressure[0], b[0], config.num_pressure_iters)[None]
+    elif use_mg:
         from fluidx12_tpu_torch.sim.mg import mg_solve
 
         q = mg_solve(pressure, b, use_pallas=kernels)

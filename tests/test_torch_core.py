@@ -24,6 +24,9 @@ from fluidx12_tpu_torch.core import state as tstate
 from fluidx12_tpu_torch.ops import sampling as tsampling
 from fluidx12_tpu_torch.ops import transform as ttransform
 
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 _DTYPES = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Marked `cuda`: without a CUDA device every test here skips; on the
-GPU machine run them with `python -m pytest tests/test_torch_cuda.py -m cuda`.
-chip_smoke.py makes the same comparison at the full 128^3 shapes."""
+GPU machine run them with
+`python -m pytest tests/test_torch_cuda.py -m cuda --noconftest` (that
+machine has no JAX, which tests/conftest.py imports).  chip_smoke.py makes
+the same comparison at the presets' full shapes."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,9 @@ from fluidx12_tpu_torch.ops.cuda import stencil as ST
 from fluidx12_tpu_torch.ops.cuda import sweep as S
 
 pytestmark = pytest.mark.cuda
+
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
 
 
 @pytest.fixture
@@ -108,3 +113,28 @@ def test_jacobi_kernels_match_plain(dev, shape, iters, plan):
     else:
         got, ref = J.jacobi(q, b, iters, *plan), J.jacobi_plain(q, b, iters, *plan)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("zyx", [(1, 64, 128), (8, 32, 64)])
+def test_advect_axis_matches_plain(dev, zyx, dtype):
+    """B11 on every axis of a 2D plane and a 3D volume (the z stride),
+    displacements past the 12-voxel clip: bit for bit (the same f32
+    operations, one rounding to storage)."""
+    rng = np.random.default_rng(9)
+    f = rng.uniform(0, 1, (7,) + zyx).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 3.0
+    vol = torch.from_numpy(f).to(dev, dtype)
+    scale = torch.tensor(8.0, device=dev)
+    for axis, ch in ((2, 0), (1, 1), (0, 2)):
+        got = A.advect_axis(vol, scale, axis, ch)
+        assert got.dtype == dtype
+        assert torch.equal(got, A.advect_axis_plain(vol, scale, axis, ch))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (8, 256)])
+def test_jacobi2d_matches_plain(dev, shape):
+    """B14, 16 sweeps: the same sum order and an exact division by 4 on
+    both sides, so bit for bit."""
+    q, b = _randn(dev, shape, 10), _randn(dev, shape, 11)
+    assert torch.equal(J.jacobi2d(q, b, 16), J.jacobi2d_plain(q, b, 16))

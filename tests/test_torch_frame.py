@@ -15,20 +15,22 @@ import jax.numpy as jnp
 
 from fluidx12_tpu.core.config import FluidConfig, RenderMethod
 from fluidx12_tpu.core.state import unpack_scene_params
-from fluidx12_tpu.engine.fluidx import FluidXEngine as JaxEngine
 from fluidx12_tpu.ops.pallas import composite as jax_composite
 from fluidx12_tpu.ops.pallas.advect import backtrace_pallas, zpass_forces_supported
 from fluidx12_tpu.render import slicecomp as jax_slicecomp
 from fluidx12_tpu.render.pipeline import render_frame
 from fluidx12_tpu_torch.core.config import FluidConfig as TorchConfig
-from fluidx12_tpu_torch.core.state import state_from_numpy
 from fluidx12_tpu_torch.engine import fluidx as torch_fluidx
 from fluidx12_tpu_torch.utils.image import to_srgb_u8
 from fluidx12_tpu_torch.utils.png import read_png
 
 jax_project = importlib.import_module("fluidx12_tpu.sim.project").project
 
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "fluid3d_separate.png")
+GOLDEN_2D = os.path.join(os.path.dirname(__file__), "goldens", "fluid2d.png")
 
 
 def channel_ulps(a, b) -> float:
@@ -43,9 +45,9 @@ def channel_ulps(a, b) -> float:
 
 
 def test_frame_matches_kernel_semantics_jax_frame(monkeypatch):
-    """(a) Grid (128, 128, 16), 64^2 viewport, pallas_jacobi=False.  A JAX
-    engine runs 6 CPU frames; its state carries over, and 2 frames of the
-    port's `step_frame` run against the JAX frame composed from its
+    """(a) Grid (128, 128, 16), 64^2 viewport, pallas_jacobi=False.  The
+    port runs 6 frames from rest to raise a plume; from that state 2 frames
+    of the port's `step_frame` run against the JAX frame composed from its
     kernels: `backtrace_pallas` (interpret) + `project` + `render_frame`
     at lod 0 with the fused march kernel forced on (`_FUSED_ON_CPU`, the
     package's own test hook), so the X and Y faces ride
@@ -73,14 +75,11 @@ def test_frame_matches_kernel_semantics_jax_frame(monkeypatch):
     monkeypatch.setattr(torch_fluidx, "estimate_cube_map_lod",
                         lambda *a, **k: (0, cfg.max_ray_samples))
 
-    jax_engine = JaxEngine(cfg)
-    for _ in range(6):
-        jax_engine.step_frame()
-    fields, pressure = jax_engine.state.fields, jax_engine.state.pressure
-
     port = torch_fluidx.FluidXEngine(tcfg, device="cpu")
-    port.state = state_from_numpy(np.asarray(fields.astype(jnp.float32)),
-                                  np.asarray(pressure), "cpu")
+    for _ in range(6):
+        port.step_frame()
+    fields = jnp.asarray(port.state.fields.float().numpy()).astype(jnp.bfloat16)
+    pressure = jnp.asarray(port.state.pressure.numpy())
     packed, lod, vis_mask = port.update_frame()
     assert lod == 0
     rect = port._screen_rect()
@@ -128,10 +127,25 @@ def test_golden_fluid3d_separate():
     assert (diff > 25).mean() < 0.01, (diff > 25).mean()
 
 
+def test_golden_fluid2d():
+    """(c) The port renders tests/test_golden.py's `fluid2d` case (64^2
+    grid and viewport, 16 Jacobi sweeps, 40 frames) and passes that test's
+    gates against the committed golden.  B11 advects it; B14's gate needs
+    a multiple of 128 lanes, so the twin sweeps run, as on the TPU.  The
+    JAX golden mirrors at the walls and the port clamps (ROADMAP.md C1)."""
+    cfg = TorchConfig(grid_size=(64, 64, 1), viewport=(64, 64), num_pressure_iters=16)
+    engine = torch_fluidx.FluidXEngine(cfg, device="cpu")
+    for _ in range(40):
+        img = engine.step_frame()
+    diff = np.abs(to_srgb_u8(img).astype(np.int32) - read_png(GOLDEN_2D).astype(np.int32))
+    assert diff.mean() < 2.0, diff.mean()
+    assert (diff > 25).mean() < 0.01, (diff > 25).mean()
+
+
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
     its ROADMAP item, instead of running another path.  The default preset
-    (pallas_jacobi=True) is covered.  At zyx (32, 144, 256) the JAX gates
+    (pallas_jacobi=True) and the 2D preset are covered.  At zyx (32, 144, 256) the JAX gates
     take the fused projection B18 with mg_project_fused and the fused
     pre-smoother B13 without it (tests/test_pallas.py): `project` raises
     naming each."""
@@ -147,7 +161,7 @@ def test_unported_configs_raise():
             project(fields.to(torch.bfloat16), torch.zeros(wide.zyx), wide.time_step,
                     dataclasses.replace(wide, mg_project_fused=fused))
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
-    for change in (dict(grid_size=(64, 64, 1)), dict(has_light_probe=True),
+    for change in (dict(grid_size=(64, 64, 1), fast_sim=False), dict(has_light_probe=True),
                    dict(fast_render=False), dict(point_light=True),
                    dict(fast_sim=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -21,6 +21,9 @@ from fluidx12_tpu_torch.ops.cuda import advect as ta
 from fluidx12_tpu_torch.ops.cuda import composite as tc
 from fluidx12_tpu_torch.ops.cuda import sweep as ts
 
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 
 def bf16_ulps(a, b) -> float:
     """Largest |a - b| per channel (leading axis) in bf16 ulps at that

@@ -11,6 +11,7 @@ kernel source is written.  The tolerances below say where that shows.
 Inputs are made with numpy from a seed.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -22,7 +23,6 @@ import jax.numpy as jnp
 
 from fluidx12_tpu.core.config import FluidConfig, RenderMethod
 from fluidx12_tpu.core.state import unpack_scene_params
-from fluidx12_tpu.engine.fluidx import FluidXEngine as JaxEngine
 from fluidx12_tpu.ops.pallas import composite as jax_composite
 from fluidx12_tpu.ops.pallas import jacobi as pj
 from fluidx12_tpu.ops.pallas import stencil as ps
@@ -45,6 +45,9 @@ RHO = 0.48
 # The smallest grid on which the TPU runs all six projection kernels, as
 # at 128^3: zyx (64, 128, 128).
 GRID = dict(grid_size=(128, 128, 64))
+
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
 
 
 def bf16_ulps(a, b) -> float:
@@ -278,6 +281,23 @@ EXPECTED_CALLS = {"divergence_plain": 1, "jacobi_plain": 2, "residual_plain": 1,
                   "grad_damp_plain": 1}
 
 
+@pytest.fixture(scope="module")
+def tpu_step():
+    """The JAX step as the TPU runs it at GRID, compiled once for the
+    module: `backtrace_pallas(..., forces_dt=dt)` then `_tpu_projection`,
+    the state rounded to bf16 at the end."""
+    cfg = FluidConfig(**GRID)
+    _pin_tpu_path(cfg)
+    dt = cfg.time_step
+
+    @jax.jit
+    def step(f, q):
+        f, q = _tpu_projection(backtrace_pallas(f, dt, cfg, forces_dt=dt), q)
+        return f.astype(jnp.bfloat16), q
+
+    return step
+
+
 def test_project_matches_tpu_chain(spies):
     """The port's `project` with pallas_jacobi=True against the TPU chain
     (`_tpu_projection`), from the same bf16 state: fields within one bf16
@@ -301,7 +321,7 @@ def test_project_matches_tpu_chain(spies):
                                rtol=0)
 
 
-def test_simulate_matches_tpu_step(spies):
+def test_simulate_matches_tpu_step(spies, tpu_step):
     """One `simulate` against `backtrace_pallas(..., forces_dt=dt)` followed
     by the TPU's projection chain.  The port hands B1's result to B2 in f32
     where the TPU rounds it to bf16 (ROADMAP.md C2): one bf16 ulp, whose
@@ -310,20 +330,12 @@ def test_simulate_matches_tpu_step(spies):
     tests/test_torch_sim.py: fields within 2 ulps, pressure within
     5e-3 * max|p|."""
     cfg, tcfg = FluidConfig(**GRID), TorchConfig(**GRID)
-    _pin_tpu_path(cfg)
     rng = np.random.default_rng(11)
     jf, tf = _fields(rng, cfg.zyx, umax=0.75)
     jq, tq = _pair(rng, cfg.zyx, scale=0.05)
-    dt = cfg.time_step
-
-    @jax.jit
-    def step(f, q):
-        f, q = _tpu_projection(backtrace_pallas(f, dt, cfg, forces_dt=dt), q)
-        return f.astype(jnp.bfloat16), q
-
-    ref_f, ref_q = step(jf, jq)
+    ref_f, ref_q = tpu_step(jf, jq)
     out = simulate(state_from_numpy(np.asarray(jf.astype(jnp.float32)), tq.numpy(), "cpu"),
-                   dt, tcfg)
+                   cfg.time_step, tcfg)
     assert spies == EXPECTED_CALLS
     assert out.fields.dtype == torch.bfloat16
     assert bf16_ulps(out.fields.float().numpy(), np.asarray(ref_f.astype(jnp.float32))) <= 2.0
@@ -332,11 +344,11 @@ def test_simulate_matches_tpu_step(spies):
                                atol=5e-3 * np.abs(ref_q).max(), rtol=0)
 
 
-def test_frame_matches_tpu_frame(monkeypatch, spies):
-    """A JAX engine makes a state in 2 CPU frames; then one port
+def test_frame_matches_tpu_frame(monkeypatch, spies, tpu_step):
+    """The port makes a state in 2 CPU frames from rest; then one port
     `step_frame` runs against the JAX frame composed as the TPU runs it:
-    `backtrace_pallas` + the projection chain + `render_frame` at lod 0 with
-    the fused march kernel forced on for the faces it serves
+    `backtrace_pallas` + the projection chain (`tpu_step`) + `render_frame`
+    at lod 0 with the fused march kernel forced on for the faces it serves
     (`_FUSED_ON_CPU`).  Image within 2 u8 levels, mean below 0.05, as
     tests/test_torch_frame.py holds the pallas_jacobi=False frame."""
     kw = dict(GRID, viewport=(64, 64))
@@ -354,29 +366,21 @@ def test_frame_matches_tpu_frame(monkeypatch, spies):
     monkeypatch.setattr(torch_fluidx, "estimate_cube_map_lod",
                         lambda *a, **k: (0, cfg.max_ray_samples))
 
-    jax_engine = JaxEngine(cfg)
-    for _ in range(2):
-        jax_engine.step_frame()
-    fields, pressure = jax_engine.state.fields, jax_engine.state.pressure
-
     port = torch_fluidx.FluidXEngine(tcfg, device="cpu")
-    port.state = state_from_numpy(np.asarray(fields.astype(jnp.float32)),
-                                  np.asarray(pressure), "cpu")
+    for _ in range(2):
+        port.step_frame()
+    fields = jnp.asarray(port.state.fields.float().numpy()).astype(jnp.bfloat16)
+    pressure = jnp.asarray(port.state.pressure.numpy())
     packed, lod, vis_mask = port.update_frame()
     assert lod == 0
     params = unpack_scene_params(jnp.asarray(packed.numpy()))
-    dt = cfg.time_step
+    render = jax.jit(functools.partial(
+        render_frame, params=params, config=cfg, method=RenderMethod.RAY_MARCH_SEPARATE,
+        lod=0, vis_mask=vis_mask, rect=port._screen_rect()))
 
-    @jax.jit
-    def jax_frame(f, q):
-        f, q = _tpu_projection(backtrace_pallas(f, dt, cfg, forces_dt=dt), q)
-        f = f.astype(jnp.bfloat16)
-        img = render_frame(f[3:], params, config=cfg,
-                           method=RenderMethod.RAY_MARCH_SEPARATE, lod=0,
-                           vis_mask=vis_mask, rect=port._screen_rect())
-        return f, img
-
-    ref_f, ref_img = jax_frame(fields, pressure)
+    ref_f, _ = tpu_step(fields, pressure)
+    ref_img = render(ref_f[3:])
+    spies.clear()
     img = port.step_frame()
     assert spies == EXPECTED_CALLS
     assert fused_faces, "the fused march kernel served no face"

@@ -32,6 +32,9 @@ jmg = importlib.import_module("fluidx12_tpu.sim.mg")
 tp = importlib.import_module("fluidx12_tpu_torch.sim.project")
 tmg = importlib.import_module("fluidx12_tpu_torch.sim.mg")
 
+# Several pytest workers share the machine's cores: one torch thread each.
+torch.set_num_threads(1)
+
 CASES = {
     # The 64-sweep schedule's small-grid path (16 sweeps as in the goldens).
     "jacobi_24": dict(grid_size=(24, 24, 24), num_pressure_iters=16, pallas_jacobi=False),

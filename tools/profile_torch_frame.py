@@ -1,15 +1,18 @@
 """Where the time of one frame of the PyTorch port goes, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_frame.py [--pallas-jacobi 0|1] [--frames 10]
+    python3 tools/profile_torch_frame.py [--preset fluid3d|fluid2d]
+                                         [--pallas-jacobi 0|1] [--frames 10]
 
-Runs `FluidXEngine(PRESETS["fluid3d"])` (128^3 grid, 800x800 viewport;
-`--pallas-jacobi 0` takes the projection's twins instead of kernels B3-B8)
-and prints, each beside the card's name and power limit:
+Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
+512x512x1 grid, both with an 800x800 viewport; `--pallas-jacobi 0` takes
+the projection's twins instead of its kernels) and prints, each beside the
+card's name and power limit:
   - the host ms/frame: median of `--frames` steps, each ending in a
     synchronize, with no profiler attached;
   - each layer's CUDA-event span per call, over 20 back-to-back calls on the
-    engine's state: advect (B1 + B2), projection, light map (B9), cube march
-    (B10 per visible face), resolve + composite;
+    engine's state.  fluid3d: advect (B1 + B2), projection, light map (B9),
+    cube march (B10 per visible face), resolve + composite.  fluid2d: advect
+    (B11 twice + forces), projection (B14), visualize + composite;
   - from `torch.profiler` over `--frames` steps: device time and launches
     per frame (kernels, and copies/sets), the kernels with the most device
     time, and the device busy share, device time per frame over the
@@ -53,6 +56,7 @@ def span_ms(fn, calls: int = SPAN_CALLS) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", default="fluid3d", choices=("fluid3d", "fluid2d"))
     ap.add_argument("--pallas-jacobi", type=int, default=1, choices=(0, 1))
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=20)
@@ -64,6 +68,7 @@ def main() -> int:
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.render.lightmap_sweep import render_light_map_fast
+    from fluidx12_tpu_torch.render.pipeline import render_frame
     from fluidx12_tpu_torch.render.resolve import resolve_cube
     from fluidx12_tpu_torch.render.slicecomp import ray_march_cube_fast
     from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
@@ -74,7 +79,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
-    cfg = dataclasses.replace(PRESETS["fluid3d"], pallas_jacobi=bool(args.pallas_jacobi))
+    cfg = dataclasses.replace(PRESETS[args.preset], pallas_jacobi=bool(args.pallas_jacobi))
     engine = FluidXEngine(cfg)
     for _ in range(args.warmup):
         engine.step_frame()
@@ -87,7 +92,7 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     frame_ms = statistics.median(times)
-    print(f"[{card}] pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
+    print(f"[{card}] {args.preset}, pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
           f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
           f"max {max(times):.3f})")
 
@@ -98,23 +103,30 @@ def main() -> int:
     dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=st.fields.device)
     copies = [st.fields.clone() for _ in range(SPAN_CALLS + 1)]
     grid = st.color
-    light = render_light_map_fast(grid, params, cfg)
-    cube = ray_march_cube_fast(grid, params, cfg, light, lod=lod, static_mask=vis_mask)
-    rect = engine._screen_rect()
-    bg = torch.tensor(cfg.clear_color[:3], device=grid.device)
-
-    def resolve(_):
-        rgba = resolve_cube(cube, params, cfg, rect=rect)
-        return composite_premultiplied(rgba, bg.expand(rgba.shape[:-1] + (3,)))
-
     layers = {
-        "advect (B1 + B2)": lambda _: advect_fields_fast(st.fields, dt, cfg),
+        "advect (B1 + B2)" if cfg.is_3d else "advect (B11 x2 + forces)":
+            lambda _: advect_fields_fast(st.fields, dt, cfg),
         "projection": lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
-        "light map (B9)": lambda _: render_light_map_fast(grid, params, cfg),
-        "cube march (B10)": lambda _: ray_march_cube_fast(grid, params, cfg, light, lod=lod,
-                                                          static_mask=vis_mask),
-        "resolve + composite": resolve,
     }
+    if cfg.is_3d:
+        light = render_light_map_fast(grid, params, cfg)
+        cube = ray_march_cube_fast(grid, params, cfg, light, lod=lod, static_mask=vis_mask)
+        rect = engine._screen_rect()
+        bg = torch.tensor(cfg.clear_color[:3], device=grid.device)
+
+        def resolve(_):
+            rgba = resolve_cube(cube, params, cfg, rect=rect)
+            return composite_premultiplied(rgba, bg.expand(rgba.shape[:-1] + (3,)))
+
+        layers.update({
+            "light map (B9)": lambda _: render_light_map_fast(grid, params, cfg),
+            "cube march (B10)": lambda _: ray_march_cube_fast(grid, params, cfg, light,
+                                                              lod=lod, static_mask=vis_mask),
+            "resolve + composite": resolve,
+        })
+    else:
+        layers["visualize + composite"] = lambda _: render_frame(
+            grid, params, cfg, engine.render_method)
     for name, fn in layers.items():
         print(f"[{card}] layer {name}: {span_ms(fn):.3f} ms/call (CUDA events, "
               f"{SPAN_CALLS} calls)")
