@@ -4,18 +4,21 @@
 
 Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc (one nvcc per
 source, in parallel), checks each against its plain PyTorch version on the
-card at its preset's shapes (the 128^3 frame's; B11 and B14 at the 2D
-preset's 512^2) and times both, drives `FluidXEngine` for 60 frames of the
-main path (PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
-projection on kernels B3-B8), 20 frames of the pallas_jacobi=False path and
-60 frames of PRESETS["fluid2d"] (512x512x1 grid, 800x800 viewport, B11 and
-B14) while counting the kernel launches of each, times the projection of
-the 3D paths, and compares the port on CUDA with the port on the CPU at
-three small grids, one of them 2D.  Every phase prints its lines; any
-failure raises, so the exit code is non-zero and the final JSON line is
-not printed.  The last line is {"ok": true, "device": {...}}; the line
-before it lists each kernel's launches (on its preset's path), error, time,
-plain and library times, and bound.
+card at its path's shapes (the 128^3 frame's; B11 and B14 at the 2D
+preset's 512^2; B13, B4's plane-sweep order and B16 at 256^3) and times
+both, drives `FluidXEngine` for 60 frames of the main path
+(PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the projection
+on kernels B3-B8), 20 frames of the pallas_jacobi=False path, 60 frames of
+PRESETS["fluid2d"] (512x512x1 grid, 800x800 viewport, B11 and B14), 30
+frames of the 256^3 GI frame (bench.py's "FluidGI SH irradiance 256^3":
+the in-repo light probe, B13 and B16) and 20 of 256^3 without the probe,
+counting the kernel launches of each, times the projection of the 128^3
+paths, and compares the port on CUDA with the port on the CPU at four
+small grids, one of them 2D and one with the probe.  Every phase prints
+its lines; any failure raises, so the exit code is non-zero and the final
+JSON line is not printed.  The last line is {"ok": true, "device": {...}};
+the line before it lists each kernel's launches (on its path), error,
+time, plain and library times, and bound.
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ import torch
 FRAMES = 60
 SLICE_FRAMES = 20
 FRAMES_2D = 60
+FRAMES_GI = 30
+FRAMES_256 = 20
 WARMUP_FRAMES = 10
+GRID_256 = (256, 256, 256)
+PROBE = "assets/rnl_cross.npz"
 # About 10 ms of an H100's clock: longer than the host takes to queue the
 # timed calls of any kernel wrapper.
 SLEEP_CYCLES = 20_000_000
@@ -65,12 +72,16 @@ KERNELS = {
     "advect_z": ("B12", _ADV, "fluidx12_tpu/ops/pallas/advect.py:639"),
     "advect_axis": ("B11", _ADV, "fluidx12_tpu/ops/pallas/advect.py:176"),
     "jacobi2d": ("B14", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:760"),
+    "jacobi_rr": ("B13", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:481"),
+    "gi_light": ("B16", _STN, "fluidx12_tpu/ops/pallas/stencil.py:162"),
 }
 # The projection's kernels: launched on the default preset's path only.
 PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
               "grad_damp")
 # The 2D preset's kernels, launched on its path only.
 KERNELS_2D = ("advect_axis", "jacobi2d")
+# The 256^3 path's own kernels (B16 with the probe only).
+KERNELS_256 = ("jacobi_rr", "gi_light")
 
 
 def phase(name: str) -> None:
@@ -174,7 +185,8 @@ def print_times(results, names) -> None:
     for name in names:
         r = results[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"  {KERNELS[name][0]} {name}: kernel {r['ms']:.4f} ms, plain "
+        kid = KERNELS[name][0] if name in KERNELS else "B4"
+        print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
 
@@ -457,6 +469,87 @@ def phase2b_kernels_2d(dev, results):
     print_times(results, KERNELS_2D)
 
 
+def phase2c_kernels_256(dev, results):
+    """B13, B4 in its plane-sweep order and B16 against their plain
+    versions on the card at 256^3, the shapes of the 256^3 GI frame, with
+    times and bounds."""
+    phase("phase 2c: the 256^3 path's kernels vs plain versions at 256^3")
+    from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+    from fluidx12_tpu_torch.sim.mg import MG_POST, MG_PRE
+
+    record = functools.partial(measure, results)
+    z, y, x = GRID_256[::-1]
+    n = z * y * x
+    rng = np.random.default_rng(2)
+
+    def smooth(lo, hi):
+        v = torch.from_numpy(rng.uniform(lo, hi, (z, y, x)).astype(np.float32)).to(dev)
+        for ax in range(3):
+            v = (v.roll(1, ax) + v + v.roll(-1, ax)) / 3.0
+        return v
+
+    # B13 and B4 on a smooth pressure and a right-hand side of spread 1, as
+    # the multigrid's fine level sees them.
+    q, b = smooth(-0.05, 0.05), smooth(-1.0, 1.0)
+    check(J.jacobi_rr_supported(q.shape, MG_PRE), "the TPU runs B13 at 256^3")
+    got_q, got_rc = J.jacobi_rr(q, b, MG_PRE, 4.0)
+    ref_q, ref_rc = J.jacobi_rr_plain(q, b, MG_PRE, 4.0)
+    err = max(float((got_q - ref_q).abs().max()), float((got_rc - ref_rc).abs().max()))
+    print(f"B13 jacobi_rr ({MG_PRE} sweeps + residual + restrict x4 at 256^3): max abs diff "
+          f"{err:.3e} over q and r_c (limit 0: the same f32 operations in the same order)")
+    check(err == 0.0, "B13 jacobi_rr vs plain")
+    # Per fine cell: 4 sweeps of 7 operations, the residual's 8, the pooling's
+    # z pair; per coarse cell the x and y pools (6).
+    record("jacobi_rr", err, lambda: J.jacobi_rr(q, b, MG_PRE, 4.0),
+           lambda: J.jacobi_rr_plain(q, b, MG_PRE, 4.0),
+           nbytes(q, b, got_q, got_rc), (7 * MG_PRE + 8 + 1) * n + 6 * got_rc.numel(),
+           reps=10, plain_reps=3)
+
+    tuning = J.jacobi_tuning(q.shape, MG_POST)
+    check(J.window_order(q.shape, tuning[1]) == J.ORDER_PLANEWISE,
+          "B4 runs in its plane-sweep order at 256^3")
+    got = J.jacobi(q, b, MG_POST, *tuning)
+    err = float((got - J.jacobi_plain(q, b, MG_POST, *tuning)).abs().max())
+    print(f"B4 jacobi, plane-sweep order ({MG_POST} sweeps, TPU plan {tuning}, 256^3): max "
+          f"abs diff {err:.3e} (limit 0: the same neighbour order and true divisions)")
+    check(err == 0.0, "B4 jacobi (plane-sweep order) vs plain")
+    record("jacobi_planewise", err, lambda: J.jacobi(q, b, MG_POST, *tuning),
+           lambda: J.jacobi_plain(q, b, MG_POST, *tuning), nbytes(q, b, got),
+           7 * MG_POST * n, reps=10, plain_reps=3)
+
+    # B16 on a smooth density with an empty slab (radial fallback, zero
+    # ambient), the probe's SH coefficients, the engine's world rotation
+    # and light colour.
+    dens = smooth(0.0, 0.6)
+    dens[:, :32] = 0.0
+    shadow = torch.from_numpy(rng.uniform(0.2, 1.0, (z, y, x)).astype(np.float32)).to(dev)
+    ao = torch.from_numpy(rng.uniform(0.0, 1.0, (z, y, x)).astype(np.float32)).to(dev)
+    radiance = torch.from_numpy(np.load(PROBE)["radiance"].astype(np.float32)).to(dev)
+    sh = project_cubemap_sh(radiance, 3)[:9]
+    world3 = torch.eye(3, device=dev) * 10.0
+    from fluidx12_tpu_torch.core.config import FluidConfig
+
+    cfg = FluidConfig(grid_size=GRID_256, has_light_probe=True)
+    lc = torch.tensor(cfg.light_color, device=dev)
+    env = lc[:3] * lc[3]
+    args = (dens, shadow, ao, sh, world3, env, cfg.zero_threshold)
+    got = ST.gi_light(*args)
+    ref = ST.gi_light_plain(*args)
+    err = float((got - ref).abs().max())
+    lim = 1e-6 * float(ref.abs().max())
+    print(f"B16 gi_light at 256^3: max abs diff {err:.3e} (limit {lim:.2e}: 1e-6 of the "
+          f"scale; both take a correctly rounded 1 / sqrt)")
+    check(err <= lim, "B16 gi_light vs plain")
+    # Per voxel: the gradient and fallback (~15), rotation and normalisation
+    # (~20), the basis (~12), three channels of irradiance, ambient and sum
+    # (~63).
+    record("gi_light", err, lambda: ST.gi_light(*args), lambda: ST.gi_light_plain(*args),
+           nbytes(dens, shadow, ao, got), 110 * n, reps=10, plain_reps=3)
+    print_times(results, ("jacobi_rr", "jacobi_planewise", "gi_light"))
+
+
 def projection_span_ms(engine, reps: int = 20) -> float:
     """CUDA-event span of one `project` call on the engine's state, over
     `reps` back-to-back calls (each on its own copy of the fields, which
@@ -478,13 +571,14 @@ def projection_span_ms(engine, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_frames(cfg, frames: int, dev, smi_line, label: str):
-    """`frames` frames of FluidXEngine(cfg) with the launch counts set to 0
-    just before; returns (counts, visible faces, engine)."""
+def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None):
+    """`frames` frames of FluidXEngine(cfg, radiance) with the launch counts
+    set to 0 just before; returns (counts, visible faces, engine)."""
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    engine = FluidXEngine(cfg, device=dev)
+    engine = FluidXEngine(cfg, radiance=radiance, device=dev)
     _, _, vis_mask = engine.update_frame()
     faces = bin(vis_mask).count("1") if cfg.is_3d else 0
     reset_launch_counts()
@@ -500,10 +594,16 @@ def run_frames(cfg, frames: int, dev, smi_line, label: str):
           f"{faces})")
     check(tuple(image.shape) == (cfg.viewport[1], cfg.viewport[0], 3), "image shape")
     check(bool(torch.isfinite(image).all()), "image finite")
-    clear = torch.tensor(cfg.clear_color[:3], device=dev)
-    smoke = int(((image - clear).abs().amax(-1) > 0.02).sum())
-    print(f"{label}: image {tuple(image.shape)}: finite, {smoke} pixels differ from the "
-          f"clear colour")
+    if engine.radiance is None:
+        bg = torch.tensor(cfg.clear_color[:3], device=dev)
+        what = "the clear colour"
+    else:
+        bg = engine._env_bg(unpack_scene_params(engine.update_frame()[0]))
+        check(bool(((bg - torch.tensor(cfg.clear_color[:3], device=dev)).abs().amax(-1)
+                    > 0.02).float().mean() > 0.5), "the sky is drawn")
+        what = "the sky"
+    smoke = int(((image - bg).abs().amax(-1) > 0.02).sum())
+    print(f"{label}: image {tuple(image.shape)}: finite, {smoke} pixels differ from {what}")
     check(smoke > 1000, "smoke visible in the frame")
     steady = times[WARMUP_FRAMES:]
     med = statistics.median(steady)
@@ -525,7 +625,7 @@ def phase3_main_path(dev, smi_line):
     counts, faces, engine = run_frames(cfg, FRAMES, dev, smi_line, "fluid3d")
     expect = {name: FRAMES for name in KERNELS}
     expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0,
-                  **{name: 0 for name in KERNELS_2D})
+                  jacobi_planewise=0, **{name: 0 for name in KERNELS_2D + KERNELS_256})
     check(counts == expect, f"launch counts {counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"fluid3d: projection span {span:.3f} ms/call (CUDA events, 20 calls) "
@@ -535,8 +635,8 @@ def phase3_main_path(dev, smi_line):
     slice_counts, faces, engine = run_frames(slice_cfg, SLICE_FRAMES, dev, smi_line,
                                              "pallas_jacobi=False")
     expect = {name: SLICE_FRAMES for name in KERNELS}
-    expect.update(composite_resample=SLICE_FRAMES * faces, advect_z=0,
-                  **{name: 0 for name in PROJECTION + KERNELS_2D})
+    expect.update(composite_resample=SLICE_FRAMES * faces, advect_z=0, jacobi_planewise=0,
+                  **{name: 0 for name in PROJECTION + KERNELS_2D + KERNELS_256})
     check(slice_counts == expect, f"launch counts {slice_counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"pallas_jacobi=False: projection span {span:.3f} ms/call (CUDA events, "
@@ -552,26 +652,61 @@ def phase3b_fluid2d(dev, smi_line):
 
     counts, _, _ = run_frames(PRESETS["fluid2d"], FRAMES_2D, dev, smi_line, "fluid2d")
     expect = {name: 0 for name in KERNELS}
-    expect.update(advect_axis=2 * FRAMES_2D, jacobi2d=FRAMES_2D)
+    expect.update(advect_axis=2 * FRAMES_2D, jacobi2d=FRAMES_2D, jacobi_planewise=0)
     check(counts == expect, f"launch counts {counts} != {expect}")
     return counts
 
 
+def phase3c_256(dev, smi_line):
+    """FRAMES_GI frames of the 256^3 GI frame (bench.py's "FluidGI SH
+    irradiance 256^3": FluidConfig(grid_size=(256, 256, 256),
+    has_light_probe=True), 800x800 viewport, the in-repo probe), then
+    FRAMES_256 frames of 256^3 without it.  Per frame: B13 once, B4 twice
+    (the plane-sweep post-smoother and the whole-window coarse sweeps), B16
+    once with the probe; B5, B6, B11, B12 and B14 never."""
+    phase(f"phase 3c: {FRAMES_GI} frames of the 256^3 GI frame, {FRAMES_256} without the "
+          f"probe")
+    from fluidx12_tpu_torch.core.config import FluidConfig
+
+    radiance = np.load(PROBE)["radiance"]
+    out = {}
+    for probe, frames in ((True, FRAMES_GI), (False, FRAMES_256)):
+        cfg = FluidConfig(grid_size=GRID_256, has_light_probe=probe)
+        label = "256^3 GI" if probe else "256^3"
+        counts, faces, _ = run_frames(cfg, frames, dev, smi_line, label,
+                                      radiance=radiance if probe else None)
+        expect = {name: frames for name in KERNELS}
+        expect.update(jacobi=2 * frames, jacobi_planewise=frames,
+                      composite_resample=frames * faces, gi_light=frames if probe else 0,
+                      **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
+                         + KERNELS_2D})
+        check(counts == expect, f"launch counts {counts} != {expect}")
+        out[probe] = counts
+    return out[True]
+
+
 def phase4_cpu_vs_cuda(dev):
-    """The port on CUDA against the port on the CPU, 3 frames at three
+    """The port on CUDA against the port on the CPU, 3 frames at four
     small grids: the pallas_jacobi=False path at (128, 128, 16), the
-    default projection kernels at (128, 128, 64), and the 2D path with B11
-    and B14 at (128, 128, 1)."""
+    default projection kernels at (128, 128, 64), the 2D path with B11
+    and B14 at (128, 128, 1), and with the probe at (384, 384, 32), where
+    the TPU runs B13, B4's plane-sweep order and B16 (and the AO at half
+    resolution, 192 lanes, no B15)."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.utils.image import to_srgb_u8
 
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    radiance = np.load(PROBE)["radiance"]
     for kw in (dict(grid_size=(128, 128, 16), pallas_jacobi=False),
                dict(grid_size=(128, 128, 64), pallas_jacobi=True),
-               dict(grid_size=(128, 128, 1), pallas_jacobi=True)):
+               dict(grid_size=(128, 128, 1), pallas_jacobi=True),
+               dict(grid_size=(384, 384, 32), has_light_probe=True)):
         cfg = FluidConfig(viewport=(96, 96), **kw)
-        engines = [FluidXEngine(cfg, device=d) for d in ("cpu", dev)]
+        engines = [FluidXEngine(cfg, radiance=radiance, device=d) for d in ("cpu", dev)]
+        reset_launch_counts()
         images = []
         for e in engines:
             for _ in range(3):
@@ -585,6 +720,10 @@ def phase4_cpu_vs_cuda(dev):
               f"channel's scale), image max u8 diff {img_err} (limits 1 ulp and 2: only "
               f"exp/log1p/log differ between the CPU and CUDA math libraries)")
         check(ulps <= 1.0 and img_err <= 2, f"CUDA vs CPU port, {kw}")
+        if cfg.has_light_probe:
+            counts = launch_counts()
+            check(counts["jacobi_rr"] == counts["jacobi_planewise"] == counts["gi_light"] == 3,
+                  f"B13, plane-sweep B4 and B16 ran on {kw}: {counts}")
 
 
 def main() -> int:
@@ -595,13 +734,20 @@ def main() -> int:
     phase1_build()
     results = phase2_kernels(dev)
     phase2b_kernels_2d(dev, results)
+    phase2c_kernels_256(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
+    counts_gi = phase3c_256(dev, smi_line)
     phase4_cpu_vs_cuda(dev)
     kernels = []
-    for kname, (_, src, replaces) in KERNELS.items():
+    # B4's plane-sweep order is B4's wrapper and source; its launches are
+    # those of the 256^3 GI frame.
+    rows = dict(KERNELS, jacobi_planewise=("B4", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:461"))
+    for kname, (_, src, replaces) in rows.items():
         r = results[kname]
-        launches = (counts_2d if kname in KERNELS_2D else counts)[kname]
+        path = (counts_2d if kname in KERNELS_2D
+                else counts_gi if kname in KERNELS_256 + ("jacobi_planewise",) else counts)
+        launches = path[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,10 +1,13 @@
-// Jacobi pressure sweeps for Hopper: B4, B6 and B14.
+// Jacobi pressure sweeps for Hopper: B4, B6, B13 and B14.
 //
 // fx_jacobi replaces fluidx12_tpu/ops/pallas/jacobi.py _jacobi_fused_kernel /
 // _window_sweeps (B4, via jacobi_pallas; order 0, and order 1 for the
-// plane-sweep plan _planewise_window), _jacobi_packed_kernel (B6, via
-// jacobi_packed_pallas; order 2) and _jacobi2d_kernel (B14, via
-// jacobi2d_pallas; order 3, on one (Y, X) plane).  Each is `iters`
+// plane-sweep plan _planewise_window / _planewise_fused_kernel),
+// _jacobi_packed_kernel (B6, via jacobi_packed_pallas; order 2) and
+// _jacobi2d_kernel (B14, via jacobi2d_pallas; order 3, on one (Y, X)
+// plane).  fx_jacobi_rr replaces _planewise_rr_kernel (B13, via
+// jacobi_pallas_rr): the order-1 sweeps, then the multigrid's residual and
+// 2x restriction in one more launch (see residual_restrict_kernel).  Each is `iters`
 // synchronous sweeps of
 //     q <- (sum of the 6 edge-clamped neighbours - b) / 6
 // in f32 (in 2D the 4 neighbours, over 4).  The TPU kernels' halo'd VMEM
@@ -34,6 +37,21 @@
 // q and b: 25 MB at 128^3 and 3 MB at 64^3 fit the 50 MB L2, so the re-reads
 // are L2 traffic.  Temporal blocking in shared memory (several sweeps per
 // launch) is later work.
+//
+// B13 at 256^3 moves q, b in and q out (201 MB) plus the (128^3) f32 coarse
+// residual out (8.4 MB): 62.6 us at 3.35 TB/s, bound by bytes.  There each
+// volume is 67 MB, more than L2, so each of its 4 sweeps streams q, b and
+// the result through HBM, and the epilogue reads q and b once more.  The TPU
+// keeps the window in VMEM and writes only the coarse residual; here the
+// epilogue is a second launch, one thread per coarse cell, that forms the
+// eight fine residuals of its 2x2x2 block from q and b (the full residual is
+// never stored) and pools them in the TPU epilogue's order
+// (jacobi.py:321-351):
+//   r    = b - (y+ + y- + x+ + x- + z- + z+ - 6 q), edges clamped;
+//   s    = r[2zc] + r[2zc+1]                   (the z pair first)
+//   xz   = (s[x=2xc] * w + s[x=2xc+1] * w) * 0.5, w = fl32(0.5 * scale)
+//   r_c  = 0.5 * xz[y=2yc] + 0.5 * xz[y=2yc+1]
+// The two dots of the TPU code have exactly these two non-zero terms each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,6 +120,47 @@ cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, i
   return cudaSuccess;
 }
 
+// The residual b - A q of fine cell (z, y, x), summed in the plane-sweep
+// order y+, y-, x+, x-, z-, z+.
+__device__ __forceinline__ float planewise_residual(const float* __restrict__ q,
+                                                    const float* __restrict__ b, int z, int y,
+                                                    int x, int nz, int ny, int nx) {
+  const int64_t plane = (int64_t)ny * nx;
+  const int64_t idx = (int64_t)z * plane + (int64_t)y * nx + x;
+  float s = q[y < ny - 1 ? idx + nx : idx] + q[y > 0 ? idx - nx : idx];
+  s = s + q[x < nx - 1 ? idx + 1 : idx];
+  s = s + q[x > 0 ? idx - 1 : idx];
+  s = s + q[z > 0 ? idx - plane : idx];
+  s = s + q[z < nz - 1 ? idx + plane : idx];
+  return b[idx] - (s - 6.0f * q[idx]);
+}
+
+// One thread per coarse cell (nz/2, ny/2, nx/2); w = fl32(0.5 * scale).
+__global__ void residual_restrict_kernel(const float* __restrict__ q,
+                                         const float* __restrict__ b,
+                                         float* __restrict__ rc, float w, int nz, int ny,
+                                         int nx) {
+  const int nzc = nz / 2, nyc = ny / 2, nxc = nx / 2;
+  const int64_t n = (int64_t)nzc * nyc * nxc;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int xc = (int)(idx % nxc);
+  const int yc = (int)((idx / nxc) % nyc);
+  const int zc = (int)(idx / ((int64_t)nyc * nxc));
+  float xz[2];
+  for (int j = 0; j < 2; ++j) {
+    const int y = 2 * yc + j;
+    float s[2];
+    for (int i = 0; i < 2; ++i) {
+      const int x = 2 * xc + i;
+      s[i] = planewise_residual(q, b, 2 * zc, y, x, nz, ny, nx) +
+             planewise_residual(q, b, 2 * zc + 1, y, x, nz, ny, nx);
+    }
+    xz[j] = (s[0] * w + s[1] * w) * 0.5f;
+  }
+  rc[idx] = 0.5f * xz[0] + 0.5f * xz[1];
+}
+
 }  // namespace
 
 extern "C" {
@@ -125,6 +184,20 @@ int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters,
     case 3: return (int)sweeps<3>(qf, bf, of, sf, iters, nz, ny, nx, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// B13: `iters` order-1 sweeps of q (out_q, with scratch as fx_jacobi), then
+// rc (nz/2, ny/2, nx/2) = restrict(b - A out_q) * scale, w = fl32(0.5 * scale).
+// All dims even.
+int fx_jacobi_rr(const void* q, const void* b, void* out_q, void* scratch, void* rc,
+                 int iters, float w, int nz, int ny, int nx, void* stream) {
+  int err = fx_jacobi(q, b, out_q, scratch, iters, 1, nz, ny, nx, stream);
+  if (err != 0) return err;
+  const int64_t n = (int64_t)(nz / 2) * (ny / 2) * (nx / 2);
+  residual_restrict_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                             (cudaStream_t)stream>>>((const float*)out_q, (const float*)b,
+                                                     (float*)rc, w, nz, ny, nx);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

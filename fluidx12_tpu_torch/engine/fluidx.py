@@ -1,10 +1,13 @@
 """The application engine: per-frame host math + simulate + render (mirror
 of fluidx12_tpu/engine/fluidx.py).
 
-`FluidXEngine(config, device="cuda")` owns the camera, the state on
-`device` (the card unless the caller names another) and the per-frame
-parameters; `step_frame()` advances the simulation one
-step and returns the (H, W, 3) f32 image on the same device.  PyTorch runs
+`FluidXEngine(config, radiance=None, device="cuda")` owns the camera,
+the state on `device` (the card unless the caller names another), the
+light probe and the per-frame parameters; `step_frame()` advances the
+simulation one step and returns the (H, W, 3) f32 image on the same device.
+`radiance` is the probe's (6, S, S, 3) cube map as a numpy array (the JAX
+package's `assets/rnl_cross.npz` holds one); with a config that has a
+light probe it lights the smoke with SH GI and draws the sky.  PyTorch runs
 eagerly, so there is no program cache: what the JAX engine keys its jit
 cache on (render method, LOD, face mask, scissor rect) are plain arguments
 here.  Configurations the port does not cover yet raise NotImplementedError
@@ -28,6 +31,8 @@ from fluidx12_tpu_torch.core.state import (
     pack_scene_params_host,
     unpack_scene_params,
 )
+from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
+from fluidx12_tpu_torch.render.environment import render_environment
 from fluidx12_tpu_torch.render.pipeline import render_frame, unported_render
 from fluidx12_tpu_torch.sim.step import simulate
 
@@ -36,14 +41,16 @@ def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
     if not config.fast_sim:
-        return "the faithful simulation, fast_sim=False (ROADMAP.md queue A, item 7)"
+        return ("the faithful simulation, fast_sim=False (ROADMAP.md queue A, "
+                "'The faithful simulation')")
     return unported_render(config, RenderMethod.RAY_MARCH_SEPARATE)
 
 
 class FluidXEngine:
     """Owns config, camera and state; one `step_frame` per frame."""
 
-    def __init__(self, config: FluidConfig, device="cuda"):
+    def __init__(self, config: FluidConfig, radiance: Optional[np.ndarray] = None,
+                 device="cuda"):
         self.config = config.validate()
         self.device = torch.device(device)
         missing = unported(self.config)
@@ -68,6 +75,15 @@ class FluidXEngine:
         self._frame_cache: Optional[Tuple[torch.Tensor, int, Optional[int]]] = None
         self._rect_key = None
         self._rect_cache = None
+        # The light probe: SH coefficients once, at start-up (ref: TransformSH
+        # on the first frame, FluidX12.cpp:455-461); the sky per camera pose.
+        self.radiance = None
+        self.sh_coeffs = None
+        if radiance is not None and self.config.has_light_probe:
+            self.radiance = torch.from_numpy(np.asarray(radiance, np.float32)).to(self.device)
+            self.sh_coeffs = project_cubemap_sh(self.radiance, order=3)[:9]
+        self._env_key = None
+        self._env_cache = None
 
     def _time_step(self) -> float:
         return 0.0 if self.is_paused else self.config.time_step
@@ -118,12 +134,25 @@ class FluidXEngine:
                                        self.config.viewport)
         return self._rect_cache
 
+    def _env_bg(self, params) -> Optional[torch.Tensor]:
+        """The sky behind the volume, rendered once per camera pose (it
+        depends on the pose and the probe, not on the state); None without
+        a probe or in 2D."""
+        if self.radiance is None or not self.config.is_3d:
+            return None
+        pose = (self.camera.view.tobytes(), self.camera.proj.tobytes())
+        if pose != self._env_key:
+            self._env_key = pose
+            self._env_cache = render_environment(self.radiance, params, self.config)
+        return self._env_cache
+
     def step_frame(self) -> torch.Tensor:
         """One full frame; returns the (H, W, 3) f32 image on the device."""
         packed, lod, vis_mask = self.update_frame()
         params = unpack_scene_params(packed)
         self.state = simulate(self.state, self._time_step(), self.config)
         image = render_frame(self.state.color, params, self.config, self.render_method,
-                             lod=lod, vis_mask=vis_mask, rect=self._screen_rect())
+                             self.sh_coeffs, lod=lod, vis_mask=vis_mask,
+                             rect=self._screen_rect(), env_bg=self._env_bg(params))
         self.frame_index += 1
         return image

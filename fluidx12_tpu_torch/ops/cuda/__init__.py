@@ -13,8 +13,8 @@ from __future__ import annotations
 
 def wrappers():
     """{name: wrapper} of every kernel wrapper: the default preset's in
-    frame order, then B12 `advect_z` (on neither preset's path), then the
-    2D preset's B11 and B14."""
+    frame order, then B12 `advect_z` (on no preset's path), the 2D
+    preset's B11 and B14, and the 256^3 GI frame's B13 and B16."""
     from fluidx12_tpu_torch.ops.cuda.advect import (
         advect_axis,
         advect_xy,
@@ -22,9 +22,10 @@ def wrappers():
         advect_z_forces,
     )
     from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
-    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi2d, jacobi_packed
+    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi2d, jacobi_packed, jacobi_rr
     from fluidx12_tpu_torch.ops.cuda.stencil import (
         divergence,
+        gi_light,
         grad_damp,
         prolong_correct,
         residual,
@@ -36,13 +37,20 @@ def wrappers():
             "jacobi_packed": jacobi_packed, "prolong_correct": prolong_correct,
             "grad_damp": grad_damp, "shear_scan": shear_scan,
             "composite_resample": composite_resample, "advect_z": advect_z,
-            "advect_axis": advect_axis, "jacobi2d": jacobi2d}
+            "advect_axis": advect_axis, "jacobi2d": jacobi2d, "jacobi_rr": jacobi_rr,
+            "gi_light": gi_light}
 
 
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["jacobi"].planewise_launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """{name: launches} of every wrapper, and under "jacobi_planewise" the
+    launches of B4 in its plane-sweep order (also counted in "jacobi")."""
+    fns = wrappers()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts["jacobi_planewise"] = fns["jacobi"].planewise_launches
+    return counts

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "fx_prolong_correct": [_P, _P, _P, _I, _I, _I, _P],
     "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _P],
     "fx_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fx_jacobi_rr": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
+    "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,10 +1,13 @@
-"""Jacobi pressure sweeps, kernels B4, B6 and B14, with their plain
+"""Jacobi pressure sweeps, kernels B4, B6, B13 and B14, with their plain
 PyTorch versions and the JAX package's shape gates.
 
 B4 `jacobi` replaces fluidx12_tpu/ops/pallas/jacobi.py
-`_jacobi_fused_kernel` / `_window_sweeps` (via `jacobi_pallas`); B6
-`jacobi_packed` replaces `_jacobi_packed_kernel` (via
-`jacobi_packed_pallas`); B14 `jacobi2d` replaces `_jacobi2d_kernel` (via
+`_jacobi_fused_kernel` / `_window_sweeps` and, for planes above 128x128,
+`_planewise_fused_kernel` (B4's plane-sweep order; via `jacobi_pallas`);
+B6 `jacobi_packed` replaces `_jacobi_packed_kernel` (via
+`jacobi_packed_pallas`); B13 `jacobi_rr` replaces `_planewise_rr_kernel`
+(via `jacobi_pallas_rr`): plane-sweep sweeps with the multigrid's residual
+and 2x restriction fused in; B14 `jacobi2d` replaces `_jacobi2d_kernel` (via
 `jacobi2d_pallas`).  Each is `iters` synchronous sweeps of
 q <- (sum of the 6 edge-clamped neighbours - b) / 6 in f32 (B14: the 4 of a
 (Y, X) plane, over 4).  Their halo'd VMEM windows, 64-lane packing and
@@ -28,6 +31,7 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fluidx12_tpu_torch.ops.cuda import _build
@@ -236,6 +240,30 @@ def jacobi2d_plain(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor
     return sweeps_plain(q[None], b[None], iters, ORDER_2D)[0]
 
 
+def rr_weight(scale: float) -> float:
+    """The f32 weight of B13's x pooling, 0.5 * scale (jacobi.py:540)."""
+    return float(np.float32(0.5 * scale))
+
+
+def jacobi_rr_plain(q: torch.Tensor, b: torch.Tensor, iters: int,
+                    scale: float = 1.0):
+    """Plain version of B13: (q', r_c) with q' the plane-sweep sweeps and
+    r_c = restrict(b - A q') * scale, the residual summed y+, y-, x+, x-,
+    z-, z+ and pooled as the TPU epilogue pools it: the z pair, then x with
+    weights 0.5 * scale and a factor 0.5, then the y pair at 0.5
+    (jacobi.py:321-351)."""
+    q = sweeps_plain(q, b, iters, ORDER_PLANEWISE)
+    (ax0, off0), *rest = _ORDERS[ORDER_PLANEWISE]
+    s = neighbor_shift(q, ax0, off0)
+    for ax, off in rest:
+        s = s + neighbor_shift(q, ax, off)
+    r = b - (s - 6.0 * q)
+    r = r[0::2] + r[1::2]
+    w = rr_weight(scale)
+    xz = (r[..., 0::2] * w + r[..., 1::2] * w) * 0.5
+    return q, 0.5 * xz[:, 0::2] + 0.5 * xz[:, 1::2]
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -285,10 +313,13 @@ def jacobi(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
         return jacobi_plain(q, b, iters, slab, inner)
     out = _launch(q, b, iters, order)
     jacobi.launches += 1
+    jacobi.planewise_launches += order == ORDER_PLANEWISE
     return out
 
 
+# Launches of either order, and of the plane-sweep order alone.
 jacobi.launches = 0
+jacobi.planewise_launches = 0
 
 
 def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -303,6 +334,32 @@ def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 jacobi_packed.launches = 0
+
+
+def jacobi_rr(q: torch.Tensor, b: torch.Tensor, iters: int, scale: float = 1.0):
+    """B13: `iters` Jacobi sweeps of the (Z, Y, X) f32 pressure q against b
+    in the plane-sweep order, with the multigrid's next two passes fused
+    in: returns (q', r_c), r_c = restrict(b - A q') * scale at half
+    resolution, f32 (`jacobi_pallas_rr`; the TPU runs it where
+    `jacobi_rr_supported` holds).  Every dim must be even."""
+    on_card = _check(q, b, iters, "jacobi_rr")
+    if any(n % 2 for n in q.shape):
+        raise ValueError(f"jacobi_rr: dims must be even, got {tuple(q.shape)}")
+    if not on_card:
+        return jacobi_rr_plain(q, b, iters, scale)
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty_like(q) if iters > 1 else out
+    r_c = torch.empty((z // 2, y // 2, x // 2), dtype=torch.float32, device=q.device)
+    err = _build.lib().fx_jacobi_rr(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), r_c.data_ptr(), iters,
+                                    rr_weight(scale), z, y, x, _build.stream_ptr(q))
+    _build.check(err, "fx_jacobi_rr")
+    jacobi_rr.launches += 1
+    return out, r_c
+
+
+jacobi_rr.launches = 0
 
 
 def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:

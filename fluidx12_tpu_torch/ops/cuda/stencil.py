@@ -1,15 +1,18 @@
-"""The projection's streaming stencils, kernels B3, B5, B7 and B8, with
-their plain PyTorch versions and the JAX package's shape gates.
+"""The streaming stencils, kernels B3, B5, B7, B8 (the projection's) and
+B16 (the GI light map), with their plain PyTorch versions and the JAX
+package's shape gates.
 
 B3 `divergence` replaces fluidx12_tpu/ops/pallas/stencil.py `_div_kernel`
 (via `divergence_pallas`), B5 `residual` `_residual_kernel` (via
 `residual_pallas`), B7 `prolong_correct` `_prolong_correct_kernel` (via
-`prolong_correct_pallas`) and B8 `grad_damp` `_grad_damp_kernel` (via
-`grad_damp_pallas`).  They follow the kernels, not the XLA twins of
-sim/project.py: the velocity is cast to f32 before any arithmetic, the
-gradient, the wall positions and the 3% band are f32 with one rounding to
-the storage dtype, and each sum runs in the kernel's order.  Sources and
-what bounds them: fluidx12_tpu_torch/csrc/stencil.cu.
+`prolong_correct_pallas`), B8 `grad_damp` `_grad_damp_kernel` (via
+`grad_damp_pallas`) and B16 `gi_light` `_gi_light_kernel` (via
+`gi_light_pallas`).  They follow the kernels, not the XLA twins of
+sim/project.py and render/lightmap_sweep.py: the velocity is cast to f32
+before any arithmetic, the gradient, the wall positions and the 3% band
+are f32 with one rounding to the storage dtype, and each sum runs in the
+kernel's order.  Sources and what bounds them:
+fluidx12_tpu_torch/csrc/stencil.cu.
 
 The gates are pure-Python copies of the TPU's VMEM planners.  They decide
 nothing about the CUDA kernels' feasibility; they are kept because they
@@ -94,8 +97,9 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """x / d as a true f32 division on x's device."""
-    return x / torch.tensor(d, dtype=torch.float32, device=x.device)
+    """x / d as a true f32 division on x's device (the divisor is filled
+    there: a tensor made from a host value would be a synchronising copy)."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +193,80 @@ def grad_damp_plain(fields: torch.Tensor, pressure: torch.Tensor,
     return fields
 
 
+# Ramamoorthi's irradiance constants as the kernel multiplies by them:
+# C1, C3, C4, and 2 * C1 and 2 * C2 formed in double (stencil.py:212-229).
+_C1 = 0.42904276540489171563379376569857
+_C3 = 0.24770795610037568833406429782001
+_C4 = 0.88622692545275801364908374167057
+_C1X2 = 2.0 * _C1
+_C2X2 = 2.0 * 0.51166335397324424423977581244463
+
+
+def gradient_axis(q: torch.Tensor, axis: int) -> torch.Tensor:
+    """jnp.gradient of a (Z, Y, X) volume along `axis`: (q+ - q-) with
+    clamped neighbours, times 0.5 inside and 1 at the two boundary cells,
+    where it is the one-sided difference (stencil.py:146-150)."""
+    n = q.shape[axis]
+    scale = torch.full((n,), 0.5, dtype=q.dtype, device=q.device)
+    scale[0] = 1.0
+    scale[n - 1] = 1.0
+    shape = [1, 1, 1]
+    shape[axis] = n
+    return _diff(q, axis) * scale.reshape(shape)
+
+
+def fallback_normal_dirs(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor):
+    """-(gx, gy, gz), with the voxel centre (i + 0.5) / n * 2 - 1 per axis
+    where its squared length is below 1e-16: the reference's radial
+    fallback for a degenerate gradient (RayMarch.hlsli:279)."""
+    n1, n2, n3 = -gx, -gy, -gz
+    degenerate = n1 * n1 + n2 * n2 + n3 * n3 < 1e-16
+
+    def centres(axis):
+        n = gx.shape[axis]
+        shape = [1, 1, 1]
+        shape[axis] = n
+        i = torch.arange(n, dtype=gx.dtype, device=gx.device) + 0.5
+        return (_div(i, float(n)) * 2.0 - 1.0).reshape(shape)
+
+    return (torch.where(degenerate, centres(_AX_X), n1),
+            torch.where(degenerate, centres(_AX_Y), n2),
+            torch.where(degenerate, centres(_AX_Z), n3))
+
+
+def gi_light_plain(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
+                   sh_coeffs: torch.Tensor, world3: torch.Tensor, env: torch.Tensor,
+                   zero_threshold: float) -> torch.Tensor:
+    """Plain version of B16 on f32 (Z, Y, X) inputs: the kernel's
+    expressions in its order, one rounding per operation
+    (stencil.py:175-231).  Returns (3, Z, Y, X) f32."""
+    n1, n2, n3 = fallback_normal_dirs(*(gradient_axis(density, ax)
+                                        for ax in (_AX_X, _AX_Y, _AX_Z)))
+    c, w = sh_coeffs.to(torch.float32), world3.to(torch.float32)
+    env = env.to(torch.float32)
+    wx = n1 * w[0, 0] + n2 * w[1, 0] + n3 * w[2, 0]
+    wy = n1 * w[0, 1] + n2 * w[1, 1] + n3 * w[2, 1]
+    wz = n1 * w[0, 2] + n2 * w[1, 2] + n3 * w[2, 2]
+    inv = 1.0 / torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 1e-24))
+    x = -wx * inv
+    y = -wy * inv
+    z = wz * inv
+    b8 = _C1 * (x * x - y * y)
+    b6 = _C3 * (3.0 * z * z - 1.0)
+    bxy = _C1X2 * (x * y)
+    bxz = _C1X2 * (x * z)
+    byz = _C1X2 * (y * z)
+    dense = density >= zero_threshold
+    out = []
+    for ch in range(3):
+        irr = (b8 * c[8, ch] + b6 * c[6, ch] + _C4 * c[0, ch] + bxy * c[4, ch]
+               + bxz * c[7, ch] + byz * c[5, ch]
+               + _C2X2 * (x * c[3, ch] + y * c[1, ch] + z * c[2, ch]))
+        ambient = torch.where(dense, torch.clamp_min(irr, 0.0) * ao, torch.zeros_like(irr))
+        out.append(env[ch] * shadow + ambient)
+    return torch.stack(out)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -269,3 +347,37 @@ def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch
 
 
 grad_damp.launches = 0
+
+
+def gi_light(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
+             sh_coeffs: torch.Tensor, world3: torch.Tensor, env: torch.Tensor,
+             zero_threshold: float) -> torch.Tensor:
+    """B16: the GI light map env * shadow + (dense ? max(SH irradiance
+    along -grad density, 0) * ao : 0) from f32 (Z, Y, X) density, shadow
+    and ao, the (9, 3) SH coefficients, the (3, 3) world rotation and the
+    (3,) env light.  Returns (3, Z, Y, X) f32."""
+    _check_f32(density, None, density, "gi_light density")
+    _check_f32(shadow, density.shape, density, "gi_light shadow")
+    _check_f32(ao, density.shape, density, "gi_light ao")
+    if (tuple(sh_coeffs.shape) != (9, 3) or tuple(world3.shape) != (3, 3)
+            or tuple(env.shape) != (3,)):
+        raise ValueError(f"gi_light: expected sh_coeffs (9, 3), world3 (3, 3), env (3,), "
+                         f"got {tuple(sh_coeffs.shape)}, {tuple(world3.shape)}, "
+                         f"{tuple(env.shape)}")
+    if not _on_cuda(density, "gi_light"):
+        return gi_light_plain(density, shadow, ao, sh_coeffs, world3, env, zero_threshold)
+    # The 39 constants row-major in one f32 tensor on the card: no copy to
+    # the host.
+    consts = torch.cat([sh_coeffs.reshape(-1), world3.reshape(-1), env.reshape(-1)]
+                       ).to(device=density.device, dtype=torch.float32).contiguous()
+    z, y, x = density.shape
+    out = torch.empty((3, z, y, x), dtype=torch.float32, device=density.device)
+    err = _build.lib().fx_gi_light(density.data_ptr(), shadow.data_ptr(), ao.data_ptr(),
+                                   consts.data_ptr(), out.data_ptr(), float(zero_threshold),
+                                   z, y, x, _build.stream_ptr(density))
+    gi_light.launches += 1
+    _build.check(err, "fx_gi_light")
+    return out
+
+
+gi_light.launches = 0

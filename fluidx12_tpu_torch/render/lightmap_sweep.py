@@ -1,5 +1,6 @@
-"""Light map for a directional light: the sheared slice sweep (mirror of
-fluidx12_tpu/render/lightmap_sweep.py, directional branch without GI).
+"""Light map for a directional light: the sheared slice sweep, and the GI
+ambient from the light probe (mirror of fluidx12_tpu/render/lightmap_sweep.py,
+directional branch).
 
 For parallel rays the accumulated optical depth is, in a frame sheared by
 the light's lateral slope, an exclusive cumulative sum over slices:
@@ -11,7 +12,15 @@ slice-major relayout + box pooling around it are matmuls against pooling
 matrices, in bf16 on the card (`mxu_einsum`), as the JAX package runs them.
 The port takes the scan on every grid; the JAX package falls back to an
 einsum shear form where its kernel does not tile (n_b % 128), which agrees
-with the scan to f32 summation order (tests/test_pallas.py).
+with the scan to f32 summation order (tests/test_pallas.py).  Lateral dims
+of 256 and more sweep at half lateral resolution (`_pool2_lat`).
+
+With a light probe (`sh_coeffs`), the ambient term is the SH irradiance
+along the density's negated gradient, times a six-sweep ambient occlusion,
+where the voxel is dense.  Where the TPU runs it, that whole chain is kernel
+B16 (ops/cuda/stencil.gi_light); elsewhere it runs as the XLA chain's
+plain-torch twin, whose gradient is kernel B15 where the stencil gate holds
+(not ported: it raises).
 """
 
 from __future__ import annotations
@@ -21,10 +30,18 @@ import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
 from fluidx12_tpu_torch.core.state import SceneParams
+from fluidx12_tpu_torch.gi.sh import evaluate_sh_irradiance_planar
+from fluidx12_tpu_torch.ops.cuda.stencil import (
+    fallback_normal_dirs,
+    gi_light,
+    gradient_axis,
+    stencil_pallas_supported,
+)
 from fluidx12_tpu_torch.ops.cuda.sweep import shear_scan
 from fluidx12_tpu_torch.ops.transform import transform_vector
 from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST
 from fluidx12_tpu_torch.render.slicecomp import mxu_einsum
+from fluidx12_tpu_torch.sim.mg import _mat, _prolong, _prolong_matrix, _restrict, _restrict_matrix
 
 _ARR_TO_LOCAL = {0: 2, 1: 1, 2: 0}
 
@@ -89,33 +106,166 @@ _MAX_SLICES = 128
 
 def directional_transmittance(density: torch.Tensor, light_dir: torch.Tensor,
                               major_axis: int, ref_step: torch.Tensor,
-                              absorption: float, flip: bool) -> torch.Tensor:
-    """Per-voxel transmittance toward a directional light; (Z, Y, X)."""
+                              absorption: float, flip: bool,
+                              max_slices: int = _MAX_SLICES,
+                              axis_aligned: bool = False) -> torch.Tensor:
+    """Per-voxel transmittance toward a directional light; (Z, Y, X).
+    `axis_aligned` (a light exactly along the major axis, as the AO's six
+    sweeps are) replaces the shear by a bare exclusive cumsum over the
+    slices, which is what the shear computes at zero slope."""
     dtype = density.dtype
     z, y, x = density.shape
     sizes = (x, y, z)
     n_m = sizes[major_axis]
-    stride = max(-(-n_m // _MAX_SLICES), 1)
+    stride = max(-(-n_m // max_slices), 1)
     n_s = n_m // stride
     pool, up = _pool_mats(n_m, n_s, stride, flip, density.device)
     eq = {0: "zyx,xm->mzy", 1: "zyx,ym->mzx", 2: "zyx,zm->myx"}[major_axis]
     dens_o = mxu_einsum(eq, density, pool).to(dtype)
-    transm = _sweep_pooled(dens_o, light_dir, major_axis, sizes, stride,
-                           ref_step, absorption)
+    if axis_aligned:
+        step_len = torch.full_like(ref_step, 2.0 * stride / n_m)  # |l_major| == 1
+        n_steps = step_len / ref_step
+        att = torch.clamp(1.0 - dens_o * absorption, 1e-6, 1.0)
+        log_att = torch.log(att) * n_steps
+        excl = torch.cumsum(log_att, dim=0) - log_att
+        transm = torch.exp(torch.clamp_max(excl, 0.0))
+    else:
+        transm = _sweep_pooled(dens_o, light_dir, major_axis, sizes, stride,
+                               ref_step, absorption)
     eq_up = {0: "mzy,mx->zyx", 1: "mzx,my->zyx", 2: "myx,mz->zyx"}[major_axis]
     return mxu_einsum(eq_up, transm, up).to(dtype)
 
 
-# Lateral dims at/above this make the JAX package sweep at half lateral
-# resolution (its `_pool2_lat`), which the port does not do yet.
+# Lateral dims at/above this sweep the shadow at half lateral resolution
+# (tests monkeypatch it down to exercise the path, as the JAX tests do).
 _LAT_POOL_MIN = 256
 
 
+def _pool2_lat(vol: torch.Tensor, arr_axis: int) -> torch.Tensor:
+    """2x box-pool the two non-major array dims of a (Z, Y, X) volume:
+    trailing dims as matmuls against the restriction matrix, the leading
+    dim as a pair mean (lightmap_sweep.py:440-457)."""
+    if arr_axis != 2:
+        vol = torch.einsum("zyx,xm->zym", vol, _mat(_restrict_matrix(vol.shape[2]), vol))
+    if arr_axis != 1:
+        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_restrict_matrix(vol.shape[1]), vol))
+    if arr_axis != 0:
+        vol = vol.reshape(vol.shape[0] // 2, 2, *vol.shape[1:]).mean(dim=1)
+    return vol
+
+
+def _unpool2_lat(vol: torch.Tensor, arr_axis: int) -> torch.Tensor:
+    """Linear 2x upsample of the two non-major array dims, the inverse
+    layout of `_pool2_lat` (cell-centred lerp, as sim/mg._prolong)."""
+    if arr_axis != 2:
+        vol = torch.einsum("zyx,xm->zym", vol, _mat(_prolong_matrix(vol.shape[2]), vol))
+    if arr_axis != 1:
+        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_prolong_matrix(vol.shape[1]), vol))
+    if arr_axis != 0:
+        lo = torch.cat([vol[:1], vol])
+        hi = torch.cat([vol, vol[-1:]])
+        even = 0.25 * lo[:-1] + 0.75 * vol
+        odd = 0.75 * vol + 0.25 * hi[1:]
+        vol = torch.stack([even, odd], dim=1).reshape(2 * vol.shape[0], *vol.shape[1:])
+    return vol
+
+
+def _lat_pooled_ok(shape, arr_axis: int) -> bool:
+    lat = [n for d, n in enumerate(shape) if d != arr_axis]
+    return all(n % 2 == 0 and n >= _LAT_POOL_MIN for n in lat)
+
+
+# ---------------------------------------------------------------------------
+# GI: the SH ambient
+# ---------------------------------------------------------------------------
+
+_AXIS_SWEEPS = ((0, +1), (0, -1), (1, +1), (1, -1), (2, +1), (2, -1))
+
+
+def gi_ambient_from_parts(dense, nx_, ny_, nz_, ao, sh_coeffs, world3):
+    """The GI ambient from its parts: world-rotate + normalise the normal
+    direction, evaluate the SH irradiance, mask by density and modulate by
+    the AO (CSRayMarchL.hlsl:44-79); (3, Z, Y, X)."""
+    wx = nx_ * world3[0, 0] + ny_ * world3[1, 0] + nz_ * world3[2, 0]
+    wy = nx_ * world3[0, 1] + ny_ * world3[1, 1] + nz_ * world3[2, 1]
+    wz = nx_ * world3[0, 2] + ny_ * world3[1, 2] + nz_ * world3[2, 2]
+    inv = 1.0 / torch.sqrt(torch.clamp_min(wx * wx + wy * wy + wz * wz, 1e-24))
+    irradiance = evaluate_sh_irradiance_planar(sh_coeffs.to(nx_.dtype), wx * inv,
+                                               wy * inv, wz * inv)
+    return torch.where(dense[None], irradiance * ao[None], torch.zeros_like(irradiance))
+
+
+def _gradient(density: torch.Tensor, use_pallas: bool = True):
+    """(gz, gy, gx) like jnp.gradient.  Where the stencil gate holds the
+    TPU computes it with kernel B15, which the port does not have yet."""
+    if use_pallas and stencil_pallas_supported(density.shape):
+        raise NotImplementedError(
+            f"the gradient kernel B15 (gradient3_pallas), which the TPU runs on "
+            f"{tuple(density.shape)}, is not ported yet (ROADMAP.md queue B)")
+    return tuple(gradient_axis(density, axis) for axis in range(3))
+
+
+def _ao_half_res(shape) -> bool:
+    """True where the AO sweeps may run on a 2x box-downsampled field (the
+    predicate shared by the B16 gate and `_ambient_occlusion`)."""
+    return all(n % 2 == 0 and n >= 32 for n in shape)
+
+
+def _ao_levels(shape) -> int:
+    """Box-downsample levels of the AO sweeps: 2 (quarter resolution) on
+    grids of 256 and more, 1 (half) on medium ones, else 0."""
+    if all(n % 4 == 0 and n >= 256 for n in shape):
+        return 2
+    if _ao_half_res(shape):
+        return 1
+    return 0
+
+
+def _ambient_occlusion(density, nx_, ny_, nz_, ref_step, config: FluidConfig):
+    """Six axis sweeps blended by the (unnormalised) gradient direction.
+    On a downsampled field (`_ao_levels`) the blend weights come from its
+    own gradient, and the normal directions passed in are not read (None
+    on the B16 path)."""
+    dtype = density.dtype
+    levels = _ao_levels(density.shape)
+    if levels:
+        dens_s = density.float()
+        for _ in range(levels):
+            dens_s = _restrict(dens_s)
+        dens_s = dens_s.to(dtype)
+        gz, gy, gx = _gradient(dens_s, config.use_pallas)
+        cx, cy, cz = fallback_normal_dirs(gx, gy, gz)
+    else:
+        dens_s = density
+        cx, cy, cz = nx_, ny_, nz_
+
+    sweeps = []
+    for ax, sgn in _AXIS_SWEEPS:
+        d6 = torch.zeros(3, dtype=dtype, device=density.device)
+        d6[ax] = float(sgn)
+        sweeps.append(directional_transmittance(
+            dens_s, d6, ax, ref_step, config.absorption, flip=sgn > 0,
+            max_slices=64, axis_aligned=True))
+    comp = [torch.clamp_min(cx, 0.0), torch.clamp_min(-cx, 0.0),
+            torch.clamp_min(cy, 0.0), torch.clamp_min(-cy, 0.0),
+            torch.clamp_min(cz, 0.0), torch.clamp_min(-cz, 0.0)]
+    total = torch.clamp_min(sum(comp), 1e-8)
+    ao = sum(s * c for s, c in zip(sweeps, comp)) / total
+    if levels:
+        ao = ao.float()
+        for _ in range(levels):
+            ao = _prolong(ao)
+        ao = ao.to(dtype)
+    return ao
+
+
 def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
-                          config: FluidConfig) -> torch.Tensor:
+                          config: FluidConfig,
+                          sh_coeffs: torch.Tensor | None = None) -> torch.Tensor:
     """(3, Z, Y, X) incident light per voxel for the configured directional
-    light: light colour * shadow + flat ambient (no GI; point lights and
-    the light probe are rejected by render/pipeline.unported_render)."""
+    light: light colour * shadow, plus the flat ambient or, with a light
+    probe and its (9, 3) `sh_coeffs`, the GI ambient (point lights are
+    rejected by render/pipeline.unported_render)."""
     dtype = config.render_dtype
     density = grid[3].to(dtype)
     local_light = transform_vector(params.light_pt, params.world_i)
@@ -127,15 +277,34 @@ def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
     flip = bool(lp[major_axis] > 0)
     ref_step = MAX_DIST / params.num_light_samples.to(dtype)
     arr_axis = _ARR_TO_LOCAL[major_axis]
-    lateral = [n for d, n in enumerate(density.shape) if d != arr_axis]
-    if all(n % 2 == 0 and n >= _LAT_POOL_MIN for n in lateral):
-        raise NotImplementedError(
-            "the half-resolution light sweep for lateral dims >= 256 is not "
-            "ported yet (ROADMAP.md queue A, item 2)")
-    shadow = directional_transmittance(density, light_dir, major_axis, ref_step,
-                                       config.absorption, flip)
-    env3 = (params.light_color[:3] * params.light_color[3])[:, None, None, None]
+    if _lat_pooled_ok(density.shape, arr_axis):
+        # Big grids sweep at half lateral resolution: the slope math reads
+        # the lateral sizes from the pooled shape.
+        shadow = _unpool2_lat(directional_transmittance(
+            _pool2_lat(density, arr_axis), light_dir, major_axis, ref_step,
+            config.absorption, flip), arr_axis)
+    else:
+        shadow = directional_transmittance(density, light_dir, major_axis, ref_step,
+                                           config.absorption, flip)
+    env3 = params.light_color[:3] * params.light_color[3]
     dense = density >= config.zero_threshold
     shadow = torch.where(dense, shadow, torch.ones_like(shadow))
-    ambient = (params.ambient[:3] * params.ambient[3])[:, None, None, None]
-    return (env3 * shadow[None] + ambient).to(dtype)
+
+    if config.has_light_probe and sh_coeffs is not None:
+        if (config.use_pallas and stencil_pallas_supported(density.shape)
+                and _ao_half_res(density.shape)):
+            # B16 fuses gradient -> fallback -> rotate -> normalise -> SH
+            # irradiance -> mask -> light combine, as the TPU runs it; the
+            # AO is downsampled here, so the full-res gradient lives only
+            # inside the kernel.
+            ao = _ambient_occlusion(density, None, None, None, ref_step, config)
+            return gi_light(density.float(), shadow.float(), ao.float(), sh_coeffs,
+                            params.world[:3, :3], env3, config.zero_threshold).to(dtype)
+        gz, gy, gx = _gradient(density, config.use_pallas)
+        nx_, ny_, nz_ = fallback_normal_dirs(gx, gy, gz)
+        ao = _ambient_occlusion(density, nx_, ny_, nz_, ref_step, config)
+        ambient = gi_ambient_from_parts(dense, nx_, ny_, nz_, ao, sh_coeffs,
+                                        params.world[:3, :3])
+    else:
+        ambient = (params.ambient[:3] * params.ambient[3])[:, None, None, None]
+    return (env3[:, None, None, None] * shadow[None] + ambient).to(dtype)

@@ -3,13 +3,15 @@ fluidx12_tpu/sim/mg.py).
 
 One V(MG_PRE, MG_POST) cycle with MG_COARSE_ITERS half-grid sweeps.  With
 `use_pallas` each piece takes the kernel the JAX package runs there on its
-TPU, by the same shape gates (ROADMAP.md C5): the smoothers B4
-(`jacobi_tuning` gives a plan) or B6 (`jacobi_packed_supported`), the
-residual B5 and the prolongation B7 (the stencil gates).  Elsewhere, and
-with use_pallas=False, the twins run: the plain Jacobi sweeps of
-sim/project.py and the pooling / interpolation matrices as f32 einsums
-(TF32 off).  The restriction is always two f32 einsums plus a z
-reshape-mean, which JAX computes outside any kernel too.
+TPU, by the same shape gates (ROADMAP.md C5): the pre-smoother with the
+residual and restriction fused in, B13 (`jacobi_rr_supported`: planes above
+128x128, 256^3 among them); else the smoothers B4 (`jacobi_tuning` gives a
+plan) or B6 (`jacobi_packed_supported`) and the residual B5 (the stencil
+gate); the prolongation B7.  Elsewhere, and with use_pallas=False, the
+twins run: the plain Jacobi sweeps of sim/project.py and the pooling /
+interpolation matrices as f32 einsums (TF32 off).  Outside B13 the
+restriction is two f32 einsums plus a z reshape-mean, which JAX computes
+outside any kernel too.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from fluidx12_tpu_torch.ops.cuda.jacobi import (
     jacobi_grad_supported,
     jacobi_packed,
     jacobi_packed_supported,
+    jacobi_rr,
     jacobi_rr_supported,
     jacobi_tuning,
 )
@@ -62,7 +65,7 @@ def _prolong_matrix(n_c: int) -> np.ndarray:
 
 
 def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(m).to(like.device)
+    return torch.from_numpy(m).to(device=like.device, dtype=like.dtype)
 
 
 def _restrict(r: torch.Tensor) -> torch.Tensor:
@@ -131,12 +134,12 @@ def mg_solve(q: torch.Tensor, b: torch.Tensor, pre: int = MG_PRE,
     the unit-coefficient 6-point form on the coarse grid.  use_pallas=False
     forces the twins throughout (fluidx12_tpu/sim/mg.py:179-216)."""
     if use_pallas and jacobi_rr_supported(q.shape, pre):
-        raise NotImplementedError(
-            f"the fused pre-smoother + residual + restrict kernel B13 "
-            f"(jacobi_pallas_rr), which the TPU runs on {tuple(q.shape)}, is not "
-            f"ported yet (ROADMAP.md queue B)")
-    q = _smooth(q, b, pre, use_pallas)
-    r_c = _restrict(_residual(q, b, use_pallas)) * 4.0
+        # B13: the pre-smoother with the residual and the 2x restriction
+        # fused in, as the TPU runs planes above 128x128.
+        q, r_c = jacobi_rr(q, b, pre, scale=4.0)
+    else:
+        q = _smooth(q, b, pre, use_pallas)
+        r_c = _restrict(_residual(q, b, use_pallas)) * 4.0
     e_c = _smooth(torch.zeros_like(r_c), r_c, coarse_iters, use_pallas)
     if use_pallas and prolong_pallas_supported(q.shape):
         q = prolong_correct(q, e_c)

@@ -17,7 +17,7 @@ def simulate(state: FluidState, time_step: float, config: FluidConfig) -> FluidS
     if not config.fast_sim:
         raise NotImplementedError(
             "the faithful gather advect (fast_sim=False) is not ported yet "
-            "(ROADMAP.md queue A, item 7)")
+            "(ROADMAP.md queue A, 'The faithful simulation')")
     from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
 
     store = state.fields.dtype

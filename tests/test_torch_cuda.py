@@ -138,3 +138,35 @@ def test_jacobi2d_matches_plain(dev, shape):
     both sides, so bit for bit."""
     q, b = _randn(dev, shape, 10), _randn(dev, shape, 11)
     assert torch.equal(J.jacobi2d(q, b, 16), J.jacobi2d_plain(q, b, 16))
+
+
+@pytest.mark.parametrize("shape", [(24, 144, 128), (16, 64, 128)])
+def test_jacobi_rr_matches_plain(dev, shape):
+    """B13, 4 sweeps in the plane-sweep order then the residual and its
+    restriction x4: the same f32 operations in the same order on both
+    sides, so q and r_c bit for bit."""
+    q, b = _randn(dev, shape, 12, 0.05), _randn(dev, shape, 13)
+    got_q, got_rc = J.jacobi_rr(q, b, 4, 4.0)
+    ref_q, ref_rc = J.jacobi_rr_plain(q, b, 4, 4.0)
+    assert got_rc.shape == tuple(n // 2 for n in shape)
+    assert torch.equal(got_q, ref_q) and torch.equal(got_rc, ref_rc)
+
+
+def test_gi_light_matches_plain(dev):
+    """B16 on a smooth density with an empty slab (radial fallback, zero
+    ambient) and a rotated world: within 1e-6 of the scale (both sides take
+    a correctly rounded 1 / sqrt; chip_smoke.py holds it at 256^3)."""
+    shape = (16, 32, 128)
+    dens = _randn(dev, shape, 14).abs() * 0.3
+    for ax in range(3):
+        dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
+    dens[4:7] = 0.0
+    shadow = _randn(dev, shape, 15).abs().clamp(max=1.0)
+    ao = _randn(dev, shape, 16).abs().clamp(max=1.0)
+    sh = _randn(dev, (9, 3), 17, 0.2)
+    rot = torch.tensor([[0.8, 0.6, 0.0], [-0.6, 0.8, 0.0], [0.0, 0.0, 1.0]], device=dev) * 10.0
+    env = torch.tensor([3.0, 2.1, 0.9], device=dev)
+    got = ST.gi_light(dens, shadow, ao, sh, rot, env, 0.01)
+    ref = ST.gi_light_plain(dens, shadow, ao, sh, rot, env, 0.01)
+    assert got.shape == (3,) + shape
+    assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())

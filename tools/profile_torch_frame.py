@@ -1,21 +1,25 @@
 """Where the time of one frame of the PyTorch port goes, on one NVIDIA GPU.
 
     python3 tools/profile_torch_frame.py [--preset fluid3d|fluid2d]
+                                         [--grid X Y Z] [--probe]
                                          [--pallas-jacobi 0|1] [--frames 10]
 
 Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
-512x512x1 grid, both with an 800x800 viewport; `--pallas-jacobi 0` takes
-the projection's twins instead of its kernels) and prints, each beside the
-card's name and power limit:
+512x512x1 grid, both with an 800x800 viewport; `--grid` replaces the
+preset's grid, `--probe` adds the light probe assets/rnl_cross.npz, so
+`--grid 256 256 256 --probe` is bench.py's "FluidGI SH irradiance 256^3";
+`--pallas-jacobi 0` takes the projection's twins instead of its kernels)
+and prints, each beside the card's name and power limit:
   - the host ms/frame: median of `--frames` steps, each ending in a
     synchronize, with no profiler attached;
   - each layer's CUDA-event span per call, over 20 back-to-back calls on the
-    engine's state.  fluid3d: advect (B1 + B2), projection, light map (B9),
-    cube march (B10 per visible face), resolve + composite.  fluid2d: advect
-    (B11 twice + forces), projection (B14), visualize + composite;
+    engine's state.  3D: advect (B1 + B2), projection, light map (B9; with
+    the probe also the AO and B16), cube march (B10 per visible face),
+    resolve + composite.  fluid2d: advect (B11 twice + forces),
+    projection (B14), visualize + composite;
   - from `torch.profiler` over `--frames` steps: device time and launches
-    per frame (kernels, and copies/sets), the kernels with the most device
-    time, and the device busy share, device time per frame over the
+    per frame (kernels, and copies/sets by kind), the kernels with the
+    most device time, and the device busy share, device time per frame over the
     unprofiled frame time (the profiler's own host cost stretches the frame
     it watches, so its wall time is not the denominator).
 Needs a CUDA device; exits non-zero without one.
@@ -57,6 +61,8 @@ def span_ms(fn, calls: int = SPAN_CALLS) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="fluid3d", choices=("fluid3d", "fluid2d"))
+    ap.add_argument("--grid", type=int, nargs=3, metavar=("X", "Y", "Z"))
+    ap.add_argument("--probe", action="store_true")
     ap.add_argument("--pallas-jacobi", type=int, default=1, choices=(0, 1))
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=20)
@@ -79,8 +85,17 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
-    cfg = dataclasses.replace(PRESETS[args.preset], pallas_jacobi=bool(args.pallas_jacobi))
-    engine = FluidXEngine(cfg)
+    cfg = dataclasses.replace(PRESETS[args.preset], pallas_jacobi=bool(args.pallas_jacobi),
+                              has_light_probe=args.probe)
+    if args.grid:
+        cfg = dataclasses.replace(cfg, grid_size=tuple(args.grid))
+    radiance = None
+    if args.probe:
+        import numpy as np
+
+        radiance = np.load(Path(__file__).resolve().parents[1] / "assets" / "rnl_cross.npz")[
+            "radiance"]
+    engine = FluidXEngine(cfg, radiance=radiance)
     for _ in range(args.warmup):
         engine.step_frame()
     torch.cuda.synchronize()
@@ -92,7 +107,8 @@ def main() -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     frame_ms = statistics.median(times)
-    print(f"[{card}] {args.preset}, pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
+    print(f"[{card}] {args.preset}, grid {cfg.grid_size}, probe {args.probe}, "
+          f"pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
           f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
           f"max {max(times):.3f})")
 
@@ -109,17 +125,22 @@ def main() -> int:
         "projection": lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
     }
     if cfg.is_3d:
-        light = render_light_map_fast(grid, params, cfg)
+        sh = engine.sh_coeffs
+        light = render_light_map_fast(grid, params, cfg, sh)
         cube = ray_march_cube_fast(grid, params, cfg, light, lod=lod, static_mask=vis_mask)
         rect = engine._screen_rect()
         bg = torch.tensor(cfg.clear_color[:3], device=grid.device)
 
+        env_bg = engine._env_bg(params)
+
         def resolve(_):
             rgba = resolve_cube(cube, params, cfg, rect=rect)
-            return composite_premultiplied(rgba, bg.expand(rgba.shape[:-1] + (3,)))
+            back = bg.expand(rgba.shape[:-1] + (3,)) if env_bg is None else env_bg
+            return composite_premultiplied(rgba, back)
 
         layers.update({
-            "light map (B9)": lambda _: render_light_map_fast(grid, params, cfg),
+            "light map (B9)" if sh is None else "light map (B9, AO, B16)":
+                lambda _: render_light_map_fast(grid, params, cfg, sh),
             "cube march (B10)": lambda _: ray_march_cube_fast(grid, params, cfg, light,
                                                               lod=lod, static_mask=vis_mask),
             "resolve + composite": resolve,
@@ -149,6 +170,9 @@ def main() -> int:
           f"{len(kernels) / args.frames:.1f} kernel launches and "
           f"{len(copy_like) / args.frames:.1f} copies/sets per frame; device busy "
           f"{100.0 * dev_ms / frame_ms:.1f}% of the unprofiled frame")
+    copies = collections.Counter(e.name for e in copy_like)
+    print(f"[{card}] copies/sets per frame by kind: " + ", ".join(
+        f"{name} {n / args.frames:.1f}" for name, n in copies.most_common()))
     by_name = collections.Counter()
     count = collections.Counter()
     for e in device:
