@@ -5,20 +5,23 @@
 Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc (one nvcc per
 source, in parallel), checks each against its plain PyTorch version on the
 card at its path's shapes (the 128^3 frame's; B11 and B14 at the 2D
-preset's 512^2; B13, B4's plane-sweep order and B16 at 256^3) and times
-both, drives `FluidXEngine` for 60 frames of the main path
-(PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the projection
-on kernels B3-B8), 20 frames of the pallas_jacobi=False path, 60 frames of
-PRESETS["fluid2d"] (512x512x1 grid, 800x800 viewport, B11 and B14), 30
-frames of the 256^3 GI frame (bench.py's "FluidGI SH irradiance 256^3":
-the in-repo light probe, B13 and B16) and 20 of 256^3 without the probe,
-counting the kernel launches of each, times the projection of the 128^3
-paths, and compares the port on CUDA with the port on the CPU at four
-small grids, one of them 2D and one with the probe.  Every phase prints
-its lines; any failure raises, so the exit code is non-zero and the final
-JSON line is not printed.  The last line is {"ok": true, "device": {...}};
-the line before it lists each kernel's launches (on its path), error,
-time, plain and library times, and bound.
+preset's 512^2; B13, B4's plane-sweep order, B16 and the fused projection
+B18 at 256^3; B15 and B17 at the 256x256x60 GI frame's) and times both,
+drives `FluidXEngine` for 60 frames of the main path (PRESETS["fluid3d"]
+as it is: 128^3 grid, 800x800 viewport, the projection on kernels B3-B8),
+20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
+(512x512x1 grid, 800x800 viewport, B11 and B14), 30 frames of the 256^3 GI
+frame (bench.py's "FluidGI SH irradiance 256^3": the in-repo light probe,
+B13 and B16), 20 of 256^3 without the probe, 20 of 256^3 with the fused
+projection (mg_project_fused=True: B18) and 20 of the 256x256x60 GI frame
+(the in-repo probe: B15 and B17), counting the kernel launches of each,
+times the projection of the 128^3 paths and of the fused and unfused 256^3
+ones, and compares the port on CUDA with the port on the CPU at six small
+grids, one of them 2D and three with the probe.  Every phase prints its
+lines; any failure raises, so the exit code is non-zero and the final JSON
+line is not printed.  The last line is {"ok": true, "device": {...}}; the
+line before it lists each kernel's launches (on its path), error, time,
+plain and library times, and bound.
 """
 
 from __future__ import annotations
@@ -40,8 +43,12 @@ SLICE_FRAMES = 20
 FRAMES_2D = 60
 FRAMES_GI = 30
 FRAMES_256 = 20
+FRAMES_FUSED = 20
+FRAMES_SLAB = 20
 WARMUP_FRAMES = 10
 GRID_256 = (256, 256, 256)
+# The 256x256x60 GI frame: a wide, shallow smoke layer.
+GRID_SLAB = (256, 256, 60)
 PROBE = "assets/rnl_cross.npz"
 # About 10 ms of an H100's clock: longer than the host takes to queue the
 # timed calls of any kernel wrapper.
@@ -74,6 +81,11 @@ KERNELS = {
     "jacobi2d": ("B14", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:760"),
     "jacobi_rr": ("B13", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:481"),
     "gi_light": ("B16", _STN, "fluidx12_tpu/ops/pallas/stencil.py:162"),
+    "jacobi_divrr": ("B18", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:564"),
+    "jacobi_grad": ("B18", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:580"),
+    "gradient3": ("B15", _STN, "fluidx12_tpu/ops/pallas/stencil.py:138"),
+    "composite": ("B17", "fluidx12_tpu_torch/csrc/composite.cu",
+                  "fluidx12_tpu/ops/pallas/composite.py:33"),
 }
 # The projection's kernels: launched on the default preset's path only.
 PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
@@ -82,6 +94,12 @@ PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_corr
 KERNELS_2D = ("advect_axis", "jacobi2d")
 # The 256^3 path's own kernels (B16 with the probe only).
 KERNELS_256 = ("jacobi_rr", "gi_light")
+# The fused projection's B18, on the mg_project_fused path only.
+KERNELS_FUSED = ("jacobi_divrr", "jacobi_grad")
+# B15 and B17, on the 256x256x60 GI frame only.
+KERNELS_SLAB = ("gradient3", "composite")
+# Each path's own kernels: launched on no other path of phase 3.
+OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB
 
 
 def phase(name: str) -> None:
@@ -550,6 +568,141 @@ def phase2c_kernels_256(dev, results):
     print_times(results, ("jacobi_rr", "jacobi_planewise", "gi_light"))
 
 
+def slab_face_stack(dev, face: int = 0):
+    """B17's operands on the 256x256x60 GI frame's path: the resampled
+    (128, 256, 256) stack of cube face `face` (X+ by default) of a smooth
+    smoke volume as the default camera sees it, at lod 0."""
+    from fluidx12_tpu_torch.core.camera import OrbitCamera
+    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.core import math3d as m3
+    from fluidx12_tpu_torch.render import slicecomp as SC
+
+    cfg = FluidConfig(grid_size=GRID_SLAB, has_light_probe=True)
+    z, y, x = cfg.zyx
+    rng = np.random.default_rng(4)
+    dens = torch.from_numpy(rng.uniform(0.0, 0.6, (z, y, x)).astype(np.float32)).to(dev)
+    for ax in range(3):
+        dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
+    dens[:, :64] = 0.0
+    vol = torch.cat([dens[None], dens[None].expand(3, -1, -1, -1) * 0.4]).to(torch.bfloat16)
+    axis = SC._FACES[face][0]
+    volf = SC._axis_volume(vol, axis, cfg)
+    cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
+    eye = torch.from_numpy(np.append(cam.eye, 1.0).astype(np.float32)).to(dev)
+    world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(dev)
+    local_eye = (eye @ world_i)[:3]
+    h_rows, h_cols, valid, n_steps, _ = SC.face_geometry(
+        face, volf.shape[1], local_eye, torch.tensor(cfg.max_ray_samples, device=dev), cfg,
+        torch.float32)
+    check(SC._takes_b17(*volf.shape[1:], h_rows.shape[1], cfg), "the face takes B17")
+    dens_m, prod = SC.resampled_stack(volf, h_rows, h_cols, valid)
+    return cfg, dens_m, prod, n_steps
+
+
+def phase2d_kernels_fused_slab(dev, results):
+    """B18's two halves at 256^3, and B15 and B17 at the 256x256x60 GI
+    frame's shapes ((30, 128, 128), the AO's half field; a 128x256x256
+    face stack), against their plain versions on the card, with times and
+    bounds."""
+    phase("phase 2d: B18 at 256^3, B15 and B17 at the 256x256x60 frame's shapes")
+    from fluidx12_tpu_torch.ops.cuda import composite as C
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+    from fluidx12_tpu_torch.sim.mg import MG_POST, MG_PRE, mg_fused_supported
+
+    record = functools.partial(measure, results)
+    zyx = GRID_256[::-1]
+    n = math.prod(zyx)
+    rng = np.random.default_rng(3)
+
+    def smooth(shape, lo, hi):
+        v = torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+        for ax in range(-3, 0):
+            v = (v.roll(1, ax) + v + v.roll(-1, ax)) / 3.0
+        return v
+
+    check(mg_fused_supported(zyx, vel_bytes=2), "the TPU runs B18 at 256^3")
+    # The combined state: three bf16 velocity channels and one colour
+    # channel, which B18 must not touch.
+    fields = smooth((4,) + zyx, -0.75, 0.75).to(torch.bfloat16)
+    q = smooth(zyx, -0.05, 0.05)
+    got = J.jacobi_divrr(fields, q, MG_PRE, 4.0)
+    ref = J.jacobi_divrr_plain(fields, q, MG_PRE, 4.0)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    print(f"B18 jacobi_divrr (divergence + {MG_PRE} sweeps + residual + restrict x4 at "
+          f"256^3): max abs diff {err:.3e} over q, b and r_c (limit 0: B3's and B13's f32 "
+          f"operations in their order)")
+    check(err == 0.0, "B18 jacobi_divrr vs plain")
+    # Per fine cell: the divergence (6), 4 sweeps of 7 operations, the
+    # residual's 8 and the z pair; per coarse cell the x and y pools (6).
+    record("jacobi_divrr", err, lambda: J.jacobi_divrr(fields, q, MG_PRE, 4.0),
+           lambda: J.jacobi_divrr_plain(fields, q, MG_PRE, 4.0),
+           nbytes(q, fields[:3]) + nbytes(*got),
+           (6 + 7 * MG_PRE + 8 + 1) * n + 6 * got[2].numel(), reps=10, plain_reps=3)
+
+    # The tail on a pressure uniform in +-1, so that its gradient is many
+    # bf16 ulps of the velocity, held per value.
+    rho = 0.48
+    p = torch.from_numpy(rng.uniform(-1.0, 1.0, zyx).astype(np.float32)).to(dev)
+    b = smooth(zyx, -1.0, 1.0)
+    got_q, got_f = J.jacobi_grad(p, b, fields.clone(), MG_POST, rho)
+    ref_q, ref_f = J.jacobi_grad_plain(p, b, fields.clone(), MG_POST, rho)
+    check(torch.equal(got_f[3:], fields[3:]), "B18 jacobi_grad leaves the colour untouched")
+    err_q = float((got_q - ref_q).abs().max())
+    diff = (got_f[:3].float() - ref_f[:3].float()).abs()
+    ulp = (ref_f[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    moved = float((ref_f[:3].float() - fields[:3].float()).abs().median())
+    print(f"B18 jacobi_grad ({MG_POST} sweeps + gradient + damp at 256^3): q max abs diff "
+          f"{err_q:.3e} (limit 0), velocity max abs diff {float(diff.max()):.3e}, "
+          f"{float((diff / ulp).max()):.2f} bf16 ulp of each value (limit 1 ulp per value); "
+          f"median change of the velocity {moved:.3f}; colour untouched")
+    check(err_q == 0.0 and bool((diff <= ulp).all()), "B18 jacobi_grad vs plain")
+    work = fields.clone()
+    record("jacobi_grad", max(err_q, float(diff.max())),
+           lambda: J.jacobi_grad(p, b, work, MG_POST, rho),
+           lambda: J.jacobi_grad_plain(p, b, work, MG_POST, rho),
+           nbytes(p, b, got_q) + 2 * nbytes(fields[:3]), (7 * MG_POST + 39) * n,
+           reps=10, plain_reps=3)
+
+    # B15 on the AO's half field of the 256x256x60 frame.
+    half = tuple(k // 2 for k in GRID_SLAB[::-1])
+    check(ST.stencil_pallas_supported(half), "the TPU runs B15 on the half field")
+    dens = smooth(half, 0.0, 0.6)
+    got = ST.gradient3(dens)
+    ref = ST.gradient3_plain(dens)
+    err = float((got - ref).abs().max())
+
+    def library():
+        return torch.gradient(dens, dim=(0, 1, 2))
+
+    lib_err = float((torch.stack(library()[::-1]) - ref).abs().max())
+    print(f"B15 gradient3 at {half}: max abs diff {err:.3e} (limit 0: one difference and "
+          f"one exact scale); library torch.gradient max abs diff {lib_err:.3e}")
+    check(err == 0.0, "B15 gradient3 vs plain")
+    # Per cell and axis: a difference and a scale.
+    record("gradient3", err, lambda: ST.gradient3(dens), lambda: ST.gradient3_plain(dens),
+           nbytes(dens, got), 6 * dens.numel(), library=library)
+
+    # B17 on the X+ face's stack of the 256x256x60 frame, both directions.
+    _, dens_m, prod, n_steps = slab_face_stack(dev)
+    err = 0.0
+    for flip in (False, True):
+        got = C.composite(dens_m, prod, n_steps, 0.8, flip)
+        ref = C.composite_plain(dens_m, prod, n_steps, 0.8, flip)
+        scale = float(ref.abs().max())
+        e = float((got - ref).abs().max())
+        print(f"B17 composite on a {tuple(dens_m.shape)} stack, flip={flip}: max abs diff "
+              f"{e:.3e} (limit {2e-6 * scale:.2e}: 2e-6 of the scale, expf and log1pf)")
+        check(e <= 2e-6 * scale, f"B17 composite vs plain, flip={flip}")
+        err = max(err, e)
+    # Per stack element: the clips, the alpha (two transcendentals), the
+    # weight, its rate and four accumulations.
+    record("composite", err, lambda: C.composite(dens_m, prod, n_steps, 0.8, False),
+           lambda: C.composite_plain(dens_m, prod, n_steps, 0.8, False),
+           nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
+    print_times(results, KERNELS_FUSED + KERNELS_SLAB)
+
+
 def projection_span_ms(engine, reps: int = 20) -> float:
     """CUDA-event span of one `project` call on the engine's state, over
     `reps` back-to-back calls (each on its own copy of the fields, which
@@ -625,7 +778,7 @@ def phase3_main_path(dev, smi_line):
     counts, faces, engine = run_frames(cfg, FRAMES, dev, smi_line, "fluid3d")
     expect = {name: FRAMES for name in KERNELS}
     expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0,
-                  jacobi_planewise=0, **{name: 0 for name in KERNELS_2D + KERNELS_256})
+                  jacobi_planewise=0, **{name: 0 for name in OWN})
     check(counts == expect, f"launch counts {counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"fluid3d: projection span {span:.3f} ms/call (CUDA events, 20 calls) "
@@ -636,7 +789,7 @@ def phase3_main_path(dev, smi_line):
                                              "pallas_jacobi=False")
     expect = {name: SLICE_FRAMES for name in KERNELS}
     expect.update(composite_resample=SLICE_FRAMES * faces, advect_z=0, jacobi_planewise=0,
-                  **{name: 0 for name in PROJECTION + KERNELS_2D + KERNELS_256})
+                  **{name: 0 for name in PROJECTION + OWN})
     check(slice_counts == expect, f"launch counts {slice_counts} != {expect}")
     span = projection_span_ms(engine)
     print(f"pallas_jacobi=False: projection span {span:.3f} ms/call (CUDA events, "
@@ -663,7 +816,9 @@ def phase3c_256(dev, smi_line):
     has_light_probe=True), 800x800 viewport, the in-repo probe), then
     FRAMES_256 frames of 256^3 without it.  Per frame: B13 once, B4 twice
     (the plane-sweep post-smoother and the whole-window coarse sweeps), B16
-    once with the probe; B5, B6, B11, B12 and B14 never."""
+    once with the probe; B5, B6, B11, B12, B14, B15, B17 and B18 never.
+    Returns the GI frame's counts and the engine without the probe, whose
+    projection phase 3d times beside the fused one."""
     phase(f"phase 3c: {FRAMES_GI} frames of the 256^3 GI frame, {FRAMES_256} without the "
           f"probe")
     from fluidx12_tpu_torch.core.config import FluidConfig
@@ -673,25 +828,116 @@ def phase3c_256(dev, smi_line):
     for probe, frames in ((True, FRAMES_GI), (False, FRAMES_256)):
         cfg = FluidConfig(grid_size=GRID_256, has_light_probe=probe)
         label = "256^3 GI" if probe else "256^3"
-        counts, faces, _ = run_frames(cfg, frames, dev, smi_line, label,
-                                      radiance=radiance if probe else None)
+        counts, faces, engine = run_frames(cfg, frames, dev, smi_line, label,
+                                           radiance=radiance if probe else None)
         expect = {name: frames for name in KERNELS}
         expect.update(jacobi=2 * frames, jacobi_planewise=frames,
                       composite_resample=frames * faces, gi_light=frames if probe else 0,
                       **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
-                         + KERNELS_2D})
+                         + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB})
         check(counts == expect, f"launch counts {counts} != {expect}")
-        out[probe] = counts
-    return out[True]
+        out[probe] = counts, engine
+    return out[True][0], out[False][1]
+
+
+def march_routes(cfg, vis_mask: int, lod: int):
+    """(faces taking B17, faces taking B10) among the visible faces, by the
+    port's copies of the JAX march gates (render/slicecomp._takes_b17)."""
+    from fluidx12_tpu_torch.render import slicecomp as SC
+
+    r = max(cfg.cube_map_size >> lod, 1)
+    lateral = {0: (cfg.grid_size[2], cfg.grid_size[1]), 1: (cfg.grid_size[2], cfg.grid_size[0]),
+               2: (cfg.grid_size[1], cfg.grid_size[0])}
+    b17 = 0
+    faces = [f for f in range(6) if (vis_mask >> f) & 1]
+    for f in faces:
+        axis = SC._FACES[f][0]
+        n_m = cfg.grid_size[axis]
+        n_s = n_m // max(-(-n_m // max(cfg.max_ray_samples >> lod, 1)), 1)
+        b17 += SC._takes_b17(n_s, *lateral[axis], r, cfg)
+    return b17, len(faces) - b17
+
+
+def phase3d_fused_and_slab(dev, smi_line, engine_256):
+    """FRAMES_FUSED frames of 256^3 with the fused projection
+    (FluidConfig(grid_size=(256, 256, 256), mg_project_fused=True), 800x800
+    viewport, no probe) and FRAMES_SLAB frames of the 256x256x60 GI frame
+    (the in-repo probe), with their launch counts derived from the copied
+    JAX gates; then the projection span of the fused 256^3 frame beside the
+    unfused one of phase 3c (`engine_256`), in turns."""
+    phase(f"phase 3d: {FRAMES_FUSED} frames of 256^3 with mg_project_fused, {FRAMES_SLAB} of "
+          f"the 256x256x60 GI frame")
+    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+    from fluidx12_tpu_torch.render import lightmap_sweep as L
+    from fluidx12_tpu_torch.sim import mg
+
+    # Path A: B18's head and tail once a frame in place of B3, B13, B4's
+    # plane-sweep post-smoother and B8; the coarse level's whole-window B4
+    # and B7 as in the unfused frame.
+    cfg = FluidConfig(grid_size=GRID_256, mg_project_fused=True)
+    zyx, coarse = cfg.zyx, tuple(n // 2 for n in cfg.zyx)
+    check(mg.mg_fused_supported(zyx, vel_bytes=2) and ST.stencil_pallas_supported(zyx),
+          "the TPU takes B18 at 256^3")
+    check(J.window_order(coarse, J.jacobi_tuning(coarse, mg.MG_COARSE_ITERS)[1])
+          == J.ORDER_WINDOW, "the coarse level takes the whole-window B4")
+    frames = FRAMES_FUSED
+    counts_a, faces, engine_a = run_frames(cfg, frames, dev, smi_line, "256^3 fused")
+    expect = {name: 0 for name in KERNELS}
+    expect.update(advect_xy=frames, advect_z_forces=frames, jacobi=frames, jacobi_planewise=0,
+                  prolong_correct=frames, shear_scan=frames,
+                  composite_resample=frames * faces, jacobi_divrr=frames, jacobi_grad=frames)
+    check(counts_a == expect, f"launch counts {counts_a} != {expect}")
+
+    # Path B: the fine projection runs the twins (no plan for 4 sweeps at
+    # nz = 60, no stencil gate), the 30x128x128 coarse level the
+    # whole-window B4; the GI normals' gradient the twin, the AO's half
+    # field B15; the faces B17 or B10 by the march gates.
+    cfg = FluidConfig(grid_size=GRID_SLAB, has_light_probe=True)
+    zyx = cfg.zyx
+    coarse = half = tuple(n // 2 for n in zyx)
+    check(not ST.stencil_pallas_supported(zyx) and J.jacobi_tuning(zyx, mg.MG_PRE) is None
+          and not J.jacobi_rr_supported(zyx, mg.MG_PRE), "the fine level runs the twins")
+    check(J.jacobi_tuning(coarse, mg.MG_COARSE_ITERS) is not None, "the coarse level takes B4")
+    check(L._ao_levels(zyx) == 1 and ST.stencil_pallas_supported(half),
+          "the AO's half field takes B15")
+    frames = FRAMES_SLAB
+    counts_b, faces, engine_b = run_frames(cfg, frames, dev, smi_line, "256x256x60 GI",
+                                           radiance=np.load(PROBE)["radiance"])
+    _, lod, vis_mask = engine_b.update_frame()
+    b17, b10 = march_routes(cfg, vis_mask, lod)
+    check((vis_mask, lod, b17, b10) == (0b11011, 0, 3, 1),
+          f"the default camera: X+, X-, Y- take B17 and Z+ B10 ({vis_mask:#b}, lod {lod}, "
+          f"{b17}, {b10})")
+    expect = {name: 0 for name in KERNELS}
+    expect.update(advect_xy=frames, advect_z_forces=frames, jacobi=frames, jacobi_planewise=0,
+                  shear_scan=frames, gradient3=frames, composite=frames * b17,
+                  composite_resample=frames * b10)
+    check(counts_b == expect, f"launch counts {counts_b} != {expect}")
+
+    spans = {}
+    for label, engine in (("unfused", engine_256), ("fused", engine_a), ("fused", engine_a),
+                          ("unfused", engine_256)):
+        spans.setdefault(label, []).append(projection_span_ms(engine))
+    for label, ms in spans.items():
+        print(f"256^3 {label} projection span: {ms[0]:.3f}, {ms[1]:.3f} ms/call (CUDA events, "
+              f"20 calls each, in turns) [{smi_line}]")
+    return counts_a, counts_b
 
 
 def phase4_cpu_vs_cuda(dev):
-    """The port on CUDA against the port on the CPU, 3 frames at four
-    small grids: the pallas_jacobi=False path at (128, 128, 16), the
-    default projection kernels at (128, 128, 64), the 2D path with B11
-    and B14 at (128, 128, 1), and with the probe at (384, 384, 32), where
-    the TPU runs B13, B4's plane-sweep order and B16 (and the AO at half
-    resolution, 192 lanes, no B15)."""
+    """The port on CUDA against the port on the CPU, 3 frames at six small
+    grids: the pallas_jacobi=False path at (128, 128, 16), the default
+    projection kernels at (128, 128, 64), the 2D path with B11 and B14 at
+    (128, 128, 1), and with the probe at (384, 384, 32), where the TPU runs
+    B13, B4's plane-sweep order and B16 (and the AO at half resolution, 192
+    lanes, no B15); at (256, 256, 32) with the fused projection, where it
+    runs B18, B16 and B15 (the AO's (16, 128, 128) half field); and at
+    (128, 128, 20), where it runs B15 on the full-resolution GI normals and
+    B17 on the X and Y faces.  That grid takes a 256x256 viewport: at 96^2
+    the cube map drops to lod 1, whose face stacks are below the size at
+    which the TPU composites in a kernel."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
@@ -703,8 +949,10 @@ def phase4_cpu_vs_cuda(dev):
     for kw in (dict(grid_size=(128, 128, 16), pallas_jacobi=False),
                dict(grid_size=(128, 128, 64), pallas_jacobi=True),
                dict(grid_size=(128, 128, 1), pallas_jacobi=True),
-               dict(grid_size=(384, 384, 32), has_light_probe=True)):
-        cfg = FluidConfig(viewport=(96, 96), **kw)
+               dict(grid_size=(384, 384, 32), has_light_probe=True),
+               dict(grid_size=(256, 256, 32), has_light_probe=True, mg_project_fused=True),
+               dict(grid_size=(128, 128, 20), has_light_probe=True, viewport=(256, 256))):
+        cfg = FluidConfig(**dict(dict(viewport=(96, 96)), **kw))
         engines = [FluidXEngine(cfg, radiance=radiance, device=d) for d in ("cpu", dev)]
         reset_launch_counts()
         images = []
@@ -720,10 +968,20 @@ def phase4_cpu_vs_cuda(dev):
               f"channel's scale), image max u8 diff {img_err} (limits 1 ulp and 2: only "
               f"exp/log1p/log differ between the CPU and CUDA math libraries)")
         check(ulps <= 1.0 and img_err <= 2, f"CUDA vs CPU port, {kw}")
-        if cfg.has_light_probe:
-            counts = launch_counts()
+        counts = launch_counts()
+        if cfg.grid_size == (384, 384, 32):
             check(counts["jacobi_rr"] == counts["jacobi_planewise"] == counts["gi_light"] == 3,
                   f"B13, plane-sweep B4 and B16 ran on {kw}: {counts}")
+        if cfg.mg_project_fused:
+            check(counts["jacobi_divrr"] == counts["jacobi_grad"] == counts["gradient3"]
+                  == counts["gi_light"] == 3 and counts["jacobi_rr"] == 0,
+                  f"B18, B15 and B16 ran on {kw}: {counts}")
+        if cfg.grid_size == (128, 128, 20):
+            _, lod, vis_mask = engines[1].update_frame()
+            b17, b10 = march_routes(cfg, vis_mask, lod)
+            check(b17 == 3 and counts["gradient3"] == 3 and counts["gi_light"] == 0
+                  and counts["composite"] == 3 * b17 and counts["composite_resample"] == 3 * b10,
+                  f"B15 and B17 ran on {kw}: {counts}")
 
 
 def main() -> int:
@@ -735,9 +993,12 @@ def main() -> int:
     results = phase2_kernels(dev)
     phase2b_kernels_2d(dev, results)
     phase2c_kernels_256(dev, results)
+    phase2d_kernels_fused_slab(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
-    counts_gi = phase3c_256(dev, smi_line)
+    counts_gi, engine_256 = phase3c_256(dev, smi_line)
+    counts_fused, counts_slab = phase3d_fused_and_slab(dev, smi_line, engine_256)
+    del engine_256
     phase4_cpu_vs_cuda(dev)
     kernels = []
     # B4's plane-sweep order is B4's wrapper and source; its launches are
@@ -746,8 +1007,12 @@ def main() -> int:
     for kname, (_, src, replaces) in rows.items():
         r = results[kname]
         path = (counts_2d if kname in KERNELS_2D
-                else counts_gi if kname in KERNELS_256 + ("jacobi_planewise",) else counts)
+                else counts_gi if kname in KERNELS_256 + ("jacobi_planewise",)
+                else counts_fused if kname in KERNELS_FUSED
+                else counts_slab if kname in KERNELS_SLAB else counts)
         launches = path[kname]
+        # B12 is on no path of the port yet (ROADMAP.md, queue B).
+        check(launches > 0 or kname == "advect_z", f"{kname} launched on its path")
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

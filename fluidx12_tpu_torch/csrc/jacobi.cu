@@ -1,4 +1,4 @@
-// Jacobi pressure sweeps for Hopper: B4, B6, B13 and B14.
+// Jacobi pressure sweeps for Hopper: B4, B6, B13, B14 and B18.
 //
 // fx_jacobi replaces fluidx12_tpu/ops/pallas/jacobi.py _jacobi_fused_kernel /
 // _window_sweeps (B4, via jacobi_pallas; order 0, and order 1 for the
@@ -52,13 +52,34 @@
 //   xz   = (s[x=2xc] * w + s[x=2xc+1] * w) * 0.5, w = fl32(0.5 * scale)
 //   r_c  = 0.5 * xz[y=2yc] + 0.5 * xz[y=2yc+1]
 // The two dots of the TPU code have exactly these two non-zero terms each.
+//
+// B18, the fused projection (sim/mg.py mg_project_fused), is two entry
+// points.  fx_jacobi_divrr replaces _planewise_divrr_kernel (via
+// jacobi_pallas_divrr): b = divergence of the velocity channels, computed
+// as B3 computes it (stencil.cuh divergence_at; the Pallas prologue sums
+// 0.5 * (dx + dy + (zp - zm)), the same order), then B13's sweeps and
+// epilogue; it returns q, b and r_c.  A sweep reads b only at its own
+// cell, so the first launch computes b per cell, writes it and makes the
+// first sweep in the same pass (divergence_sweep_kernel): exact, and one
+// velocity read, b's re-read and one launch fewer than B3 then B13.
+// fx_jacobi_grad replaces _planewise_grad_kernel (via jacobi_pallas_grad):
+// the order-1 sweeps, then B8's gradient + wall-band damp (stencil.cuh
+// grad_damp_kernel) on the final q, in place on channels 0..2 of the
+// state; the Pallas epilogue's arithmetic is B8's (gy through a one-hot
+// dot with two non-zero terms, the same wall positions and band).  So B18
+// gives the port's unfused chain B3 -> B13 -> ... -> B4 -> B8 bit for bit,
+// as the TPU kernels give theirs (core/config.py:133).
+// Bound at 256^3: the head reads q and the three bf16 velocity channels
+// and writes q, b and the coarse r_c, 18.5 B per cell, 310.4 MB, 92.7 us at
+// 3.35 TB/s; the tail reads q, b and the velocity and writes q and the
+// velocity, 24 B per cell, 402.7 MB, 120.2 us.  Each of their sweeps
+// streams 201 MB through HBM as B13's do; holding several sweeps of a
+// z-slab in shared memory (the TPU's windows), and the last sweep inside
+// the gradient epilogue, is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stencil.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 template <int kOrder>
 __global__ void jacobi_sweep_kernel(const float* __restrict__ q, const float* __restrict__ b,
@@ -103,15 +124,20 @@ __global__ void jacobi_sweep_kernel(const float* __restrict__ q, const float* __
   out[idx] = (s - b[idx]) / 6.0f;
 }
 
+// Where sweep k of `iters` writes: the last one writes `out`; count back
+// from it, alternating with `scratch`.
+inline float* sweep_dst(int k, int iters, float* out, float* scratch) {
+  return ((iters - 1 - k) % 2 == 0) ? out : scratch;
+}
+
+// Sweeps k0 .. iters - 1 of q (the result of sweep k0 - 1, or the input).
 template <int kOrder>
-cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, int iters,
-                   int nz, int ny, int nx, cudaStream_t st) {
-  const int64_t n = (int64_t)nz * ny * nx;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, int k0,
+                   int iters, int nz, int ny, int nx, cudaStream_t st) {
+  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
   const float* src = q;
-  for (int k = 0; k < iters; ++k) {
-    // The last sweep writes `out`: count back from it, alternating.
-    float* dst = ((iters - 1 - k) % 2 == 0) ? out : scratch;
+  for (int k = k0; k < iters; ++k) {
+    float* dst = sweep_dst(k, iters, out, scratch);
     jacobi_sweep_kernel<kOrder><<<blocks, kThreads, 0, st>>>(src, b, dst, nz, ny, nx);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -120,8 +146,18 @@ cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, i
   return cudaSuccess;
 }
 
+// The neighbour sum of cell k in the plane-sweep order y+, y-, x+, x-,
+// z-, z+ (jacobi_sweep_kernel<1>'s).
+__device__ __forceinline__ float planewise_sum(const float* __restrict__ q, const Cell& k) {
+  float s = q[k.yp] + q[k.ym];
+  s = s + q[k.xp];
+  s = s + q[k.xm];
+  s = s + q[k.zm];
+  return s + q[k.zp];
+}
+
 // The residual b - A q of fine cell (z, y, x), summed in the plane-sweep
-// order y+, y-, x+, x-, z-, z+.
+// order.
 __device__ __forceinline__ float planewise_residual(const float* __restrict__ q,
                                                     const float* __restrict__ b, int z, int y,
                                                     int x, int nz, int ny, int nx) {
@@ -133,6 +169,22 @@ __device__ __forceinline__ float planewise_residual(const float* __restrict__ q,
   s = s + q[z > 0 ? idx - plane : idx];
   s = s + q[z < nz - 1 ? idx + plane : idx];
   return b[idx] - (s - 6.0f * q[idx]);
+}
+
+// B18's first launch: b = the divergence of channels 0..2 of f at each cell,
+// written to b, and (with out non-null) the first order-1 sweep of q
+// against it, written to out.
+template <typename T>
+__global__ void divergence_sweep_kernel(const T* __restrict__ f, const float* __restrict__ q,
+                                        float* __restrict__ b, float* __restrict__ out, int nz,
+                                        int ny, int nx) {
+  const int64_t n = (int64_t)nz * ny * nx;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const Cell k = cell_at(idx, nz, ny, nx);
+  const float bv = divergence_at(f, k, n);
+  b[idx] = bv;
+  if (out != nullptr) out[idx] = (planewise_sum(q, k) - bv) / 6.0f;
 }
 
 // One thread per coarse cell (nz/2, ny/2, nx/2); w = fl32(0.5 * scale).
@@ -178,10 +230,10 @@ int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters,
                                 cudaMemcpyDeviceToDevice, st);
   }
   switch (order) {
-    case 0: return (int)sweeps<0>(qf, bf, of, sf, iters, nz, ny, nx, st);
-    case 1: return (int)sweeps<1>(qf, bf, of, sf, iters, nz, ny, nx, st);
-    case 2: return (int)sweeps<2>(qf, bf, of, sf, iters, nz, ny, nx, st);
-    case 3: return (int)sweeps<3>(qf, bf, of, sf, iters, nz, ny, nx, st);
+    case 0: return (int)sweeps<0>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
+    case 1: return (int)sweeps<1>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
+    case 2: return (int)sweeps<2>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
+    case 3: return (int)sweeps<3>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -193,11 +245,55 @@ int fx_jacobi_rr(const void* q, const void* b, void* out_q, void* scratch, void*
                  int iters, float w, int nz, int ny, int nx, void* stream) {
   int err = fx_jacobi(q, b, out_q, scratch, iters, 1, nz, ny, nx, stream);
   if (err != 0) return err;
-  const int64_t n = (int64_t)(nz / 2) * (ny / 2) * (nx / 2);
-  residual_restrict_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+  residual_restrict_kernel<<<blocks_for((int64_t)(nz / 2) * (ny / 2) * (nx / 2)), kThreads, 0,
                              (cudaStream_t)stream>>>((const float*)out_q, (const float*)b,
                                                      (float*)rc, w, nz, ny, nx);
   return (int)cudaGetLastError();
+}
+
+// B18 head: b (nz, ny, nx) f32 = the divergence of channels 0..2 of fields
+// (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32; then as fx_jacobi_rr: `iters`
+// order-1 sweeps of q against b into out_q (with scratch), and rc =
+// restrict(b - A out_q) * scale, w = fl32(0.5 * scale).  All dims even.
+int fx_jacobi_divrr(const void* fields, int is_bf16, const void* q, void* out_q, void* scratch,
+                    void* b, void* rc, int iters, float w, int nz, int ny, int nx,
+                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
+  const float* qf = (const float*)q;
+  float* bf = (float*)b;
+  float* first = iters > 0 ? sweep_dst(0, iters, (float*)out_q, (float*)scratch) : nullptr;
+  if (is_bf16) {
+    divergence_sweep_kernel<<<blocks, kThreads, 0, st>>>((const __nv_bfloat16*)fields, qf, bf,
+                                                         first, nz, ny, nx);
+  } else {
+    divergence_sweep_kernel<<<blocks, kThreads, 0, st>>>((const float*)fields, qf, bf, first,
+                                                         nz, ny, nx);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (iters == 0) {
+    err = cudaMemcpyAsync(out_q, q, (size_t)nz * ny * nx * sizeof(float),
+                          cudaMemcpyDeviceToDevice, st);
+  } else {
+    err = sweeps<1>(first, bf, (float*)out_q, (float*)scratch, 1, iters, nz, ny, nx, st);
+  }
+  if (err != cudaSuccess) return (int)err;
+  residual_restrict_kernel<<<blocks_for((int64_t)(nz / 2) * (ny / 2) * (nx / 2)), kThreads, 0,
+                             st>>>((const float*)out_q, bf, (float*)rc, w, nz, ny, nx);
+  return (int)cudaGetLastError();
+}
+
+// B18 tail: `iters` order-1 sweeps of q against b into out_q (with
+// scratch, as fx_jacobi), then channels 0..2 of fields (C >= 3, nz, ny, nx)
+// bf16 (is_bf16) or f32 -= the gradient of out_q times s = fl32(0.5 / rho),
+// with the wall-band damp, in place.
+int fx_jacobi_grad(const void* q, const void* b, void* out_q, void* scratch, void* fields,
+                   int is_bf16, float s, int iters, int nz, int ny, int nx, void* stream) {
+  int err = fx_jacobi(q, b, out_q, scratch, iters, 1, nz, ny, nx, stream);
+  if (err != 0) return err;
+  return (int)launch_grad_damp(fields, (const float*)out_q, s, is_bf16, nz, ny, nx,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

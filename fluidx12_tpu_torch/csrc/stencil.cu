@@ -1,13 +1,14 @@
 // The streaming stencils for Hopper: the projection's B3, B5, B7 and B8,
-// and the GI light map's B16.
+// and the GI light map's B15 and B16.
 //
 // B3 (fx_divergence) replaces fluidx12_tpu/ops/pallas/stencil.py _div_kernel
 // (via divergence_pallas), B5 (fx_residual) _residual_kernel (via
 // residual_pallas), B7 (fx_prolong_correct) _prolong_correct_kernel (via
 // prolong_correct_pallas), B8 (fx_grad_damp) _grad_damp_kernel (via
-// grad_damp_pallas) and B16 (fx_gi_light) _gi_light_kernel (via
-// gi_light_pallas; see gi_light_kernel below).  Semantics are the kernels',
-// not the XLA twins':
+// grad_damp_pallas), B15 (fx_gradient3) _gradient_kernel (via
+// gradient3_pallas; see gradient3_kernel below) and B16 (fx_gi_light)
+// _gi_light_kernel (via gi_light_pallas; see gi_light_kernel below).
+// Semantics are the kernels', not the XLA twins':
 //   - B3 casts channels 0..2 to f32 and returns 0.5 * ((dx + dy) + dz);
 //   - B5 sums the neighbours x+, x-, y+, y-, z-, z+ in that order;
 //   - B7 upsamples each coarse plane as the kernel's two dots, y then x
@@ -20,9 +21,10 @@
 //     0.03, -1, 1) in f32 and rounds once to the storage type, in place on
 //     channels 0..2 (the TPU kernel aliases its input); channels 3.. are
 //     never read or written.
-// Every edge is clamped: the neighbour index is min(i + 1, n - 1) /
-// max(i - 1, 0).  Built with --fmad=false, so every product and sum rounds
-// as in the Pallas code and the plain PyTorch versions.
+// B3's and B8's device code lives in stencil.cuh, which B18 (jacobi.cu)
+// shares.  Every edge is clamped.  Built with --fmad=false, so every
+// product and sum rounds as in the Pallas code and the plain PyTorch
+// versions.
 //
 // Bound: memory (a few operations per byte).  At 128^3: B3 reads 3 bf16
 // channels and writes f32 (10 B per cell, 21.0 MB, 6.3 us at 3.35 TB/s); B5
@@ -34,43 +36,9 @@
 // (y +-1 rows, z +-1 planes) hit L1/L2, not HBM.  No shared-memory tiling
 // yet: a simple kernel that is right first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stencil.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void st(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// A cell and the linear indices of its six edge-clamped neighbours.
-struct Cell {
-  int z, y, x;
-  int64_t xp, xm, yp, ym, zp, zm;
-};
-
-__device__ __forceinline__ Cell cell_at(int64_t idx, int nz, int ny, int nx) {
-  Cell k;
-  const int64_t plane = (int64_t)ny * nx;
-  k.x = (int)(idx % nx);
-  k.y = (int)((idx / nx) % ny);
-  k.z = (int)(idx / plane);
-  k.xp = k.x < nx - 1 ? idx + 1 : idx;
-  k.xm = k.x > 0 ? idx - 1 : idx;
-  k.yp = k.y < ny - 1 ? idx + nx : idx;
-  k.ym = k.y > 0 ? idx - nx : idx;
-  k.zp = k.z < nz - 1 ? idx + plane : idx;
-  k.zm = k.z > 0 ? idx - plane : idx;
-  return k;
-}
 
 template <typename T>
 __global__ void divergence_kernel(const T* __restrict__ f, float* __restrict__ out,
@@ -78,14 +46,7 @@ __global__ void divergence_kernel(const T* __restrict__ f, float* __restrict__ o
   const int64_t n = (int64_t)nz * ny * nx;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const Cell k = cell_at(idx, nz, ny, nx);
-  const T* ux = f;
-  const T* uy = f + n;
-  const T* uz = f + 2 * n;
-  const float dx = ld(ux, k.xp) - ld(ux, k.xm);
-  const float dy = ld(uy, k.yp) - ld(uy, k.ym);
-  const float dz = ld(uz, k.zp) - ld(uz, k.zm);
-  out[idx] = 0.5f * ((dx + dy) + dz);
+  out[idx] = divergence_at(f, cell_at(idx, nz, ny, nx), n);
 }
 
 __global__ void residual_kernel(const float* __restrict__ q, const float* __restrict__ b,
@@ -157,24 +118,25 @@ __global__ void prolong_correct_kernel(const float* __restrict__ q, const float*
   out[idx] = q[idx] + e;
 }
 
-// One velocity component: v = u - g, then the wall-band damp along its axis.
-__device__ __forceinline__ float damp(float u, float g, int i, int n) {
-  const float v = u - g;
-  const float pos = (((float)i + 0.5f) / (float)n) * 2.0f - 1.0f;
-  const float scale = fminf(fmaxf((0.97f - fabsf(pos)) / 0.03f, -1.0f), 1.0f);
-  return v * pos > 0.0f ? v * scale : v;
-}
-
-template <typename T>
-__global__ void grad_damp_kernel(T* __restrict__ f, const float* __restrict__ p, float s,
-                                 int nz, int ny, int nx) {
+// B15: (gx, gy, gz) of an f32 (Z, Y, X) field as jnp.gradient computes it
+// (stencil.py:138-159): the clamped central difference times 0.5 inside,
+// the full one-sided difference at each boundary cell; out (3, Z, Y, X)
+// f32, channel-leading.  Bound: memory, 4 B in and 12 B out per cell (the
+// AO's (30, 128, 128) half field of the 256x256x60 GI frame: 7.9 MB, 2.3 us
+// at 3.35 TB/s).  Design: one thread per cell, consecutive threads on
+// consecutive x; the neighbour re-reads hit L1/L2.
+__global__ void gradient3_kernel(const float* __restrict__ q, float* __restrict__ out, int nz,
+                                 int ny, int nx) {
   const int64_t n = (int64_t)nz * ny * nx;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const Cell k = cell_at(idx, nz, ny, nx);
-  st(f, idx, damp(ld(f, idx), (p[k.xp] - p[k.xm]) * s, k.x, nx));
-  st(f, n + idx, damp(ld(f, n + idx), (p[k.yp] - p[k.ym]) * s, k.y, ny));
-  st(f, 2 * n + idx, damp(ld(f, 2 * n + idx), (p[k.zp] - p[k.zm]) * s, k.z, nz));
+  const float sx = (k.x == 0 || k.x == nx - 1) ? 1.0f : 0.5f;
+  const float sy = (k.y == 0 || k.y == ny - 1) ? 1.0f : 0.5f;
+  const float sz = (k.z == 0 || k.z == nz - 1) ? 1.0f : 0.5f;
+  out[idx] = (q[k.xp] - q[k.xm]) * sx;
+  out[n + idx] = (q[k.yp] - q[k.ym]) * sy;
+  out[2 * n + idx] = (q[k.zp] - q[k.zm]) * sz;
 }
 
 // B16: the fused GI light map (stencil.py:162-231), one thread per voxel:
@@ -252,8 +214,6 @@ __global__ void gi_light_kernel(const float* __restrict__ density,
   }
 }
 
-inline unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
@@ -293,15 +253,14 @@ int fx_prolong_correct(const void* q, const void* e_c, void* out, int nz, int ny
 // channels 0..2; p (nz, ny, nx) f32; s = fl32(0.5 / rho).
 int fx_grad_damp(void* fields, const void* p, float s, int is_bf16, int nz, int ny, int nx,
                  void* stream) {
-  cudaStream_t cs = (cudaStream_t)stream;
-  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
-  if (is_bf16) {
-    grad_damp_kernel<<<blocks, kThreads, 0, cs>>>((__nv_bfloat16*)fields, (const float*)p, s,
-                                                  nz, ny, nx);
-  } else {
-    grad_damp_kernel<<<blocks, kThreads, 0, cs>>>((float*)fields, (const float*)p, s, nz, ny,
-                                                  nx);
-  }
+  return (int)launch_grad_damp(fields, (const float*)p, s, is_bf16, nz, ny, nx,
+                               (cudaStream_t)stream);
+}
+
+// q (nz, ny, nx) f32; out (3, nz, ny, nx) f32 = (gx, gy, gz).
+int fx_gradient3(const void* q, void* out, int nz, int ny, int nx, void* stream) {
+  gradient3_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (float*)out, nz, ny, nx);
   return (int)cudaGetLastError();
 }
 

@@ -14,19 +14,29 @@ from __future__ import annotations
 def wrappers():
     """{name: wrapper} of every kernel wrapper: the default preset's in
     frame order, then B12 `advect_z` (on no preset's path), the 2D
-    preset's B11 and B14, and the 256^3 GI frame's B13 and B16."""
+    preset's B11 and B14, the 256^3 GI frame's B13 and B16, the fused
+    projection's B18 (`jacobi_divrr`, `jacobi_grad`) and the 256x256x60 GI
+    frame's B15 and B17."""
     from fluidx12_tpu_torch.ops.cuda.advect import (
         advect_axis,
         advect_xy,
         advect_z,
         advect_z_forces,
     )
-    from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
-    from fluidx12_tpu_torch.ops.cuda.jacobi import jacobi, jacobi2d, jacobi_packed, jacobi_rr
+    from fluidx12_tpu_torch.ops.cuda.composite import composite, composite_resample
+    from fluidx12_tpu_torch.ops.cuda.jacobi import (
+        jacobi,
+        jacobi2d,
+        jacobi_divrr,
+        jacobi_grad,
+        jacobi_packed,
+        jacobi_rr,
+    )
     from fluidx12_tpu_torch.ops.cuda.stencil import (
         divergence,
         gi_light,
         grad_damp,
+        gradient3,
         prolong_correct,
         residual,
     )
@@ -38,7 +48,8 @@ def wrappers():
             "grad_damp": grad_damp, "shear_scan": shear_scan,
             "composite_resample": composite_resample, "advect_z": advect_z,
             "advect_axis": advect_axis, "jacobi2d": jacobi2d, "jacobi_rr": jacobi_rr,
-            "gi_light": gi_light}
+            "gi_light": gi_light, "jacobi_divrr": jacobi_divrr, "jacobi_grad": jacobi_grad,
+            "gradient3": gradient3, "composite": composite}
 
 
 def reset_launch_counts() -> None:

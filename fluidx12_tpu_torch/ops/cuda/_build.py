@@ -4,11 +4,11 @@ Every `fluidx12_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` process,
 all started together, and the objects are linked into ONE shared library
 with a plain C interface for sm_90a (Hopper), at first use, into
 `build/kernels/` at the root of the checkout.  The library is named by a
-hash of the sources and flags, so an edited source rebuilds and a stale
-library is never loaded.  It is bound with ctypes: every pointer and the
-stream travel as `c_void_p`, and every C function returns
-`cudaGetLastError()` after its launches, which `check` turns into an
-exception.  Nothing here runs at import time.
+hash of the sources, the headers they share (`csrc/*.cuh`) and the flags,
+so an edited source rebuilds and a stale library is never loaded.  It is
+bound with ctypes: every pointer and the stream travel as `c_void_p`, and
+every C function returns `cudaGetLastError()` after its launches, which
+`check` turns into an exception.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -41,12 +41,16 @@ _SIGNATURES = {
     "fx_shear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                               _I, _I, _P],
+    "fx_composite": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fx_divergence": [_P, _P, _I, _I, _I, _I, _P],
     "fx_residual": [_P, _P, _P, _I, _I, _I, _P],
     "fx_prolong_correct": [_P, _P, _P, _I, _I, _I, _P],
     "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _P],
     "fx_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fx_jacobi_rr": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
+    "fx_jacobi_divrr": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
+    "fx_jacobi_grad": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P],
+    "fx_gradient3": [_P, _P, _I, _I, _I, _P],
     "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
 }
 
@@ -72,7 +76,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfluidx_kernels_{h.hexdigest()[:16]}.so"

@@ -1,15 +1,27 @@
-"""Fused slice resample + front-to-back composite, kernel B10, with its
-plain PyTorch version.
+"""Slice compositing of a cube face: kernels B10 (fused slice resample +
+front-to-back composite) and B17 (the composite alone, over a
+pre-resampled stack), with their plain PyTorch versions and the JAX
+package's shape gates.
 
-Replaces fluidx12_tpu/ops/pallas/composite.py `_composite_resample_kernel`
-(via `composite_resample_pallas`), with its arguments: volf (4, n_s, A, B)
-bf16 slice-major volume, h_rows (n_s, R1) / h_cols (n_s, R2) f32 source
-coordinates, valid (n_s,) f32 mask, n_steps (R1, R2) f32.  Returns
-(4, R1, R2) f32: accumulated alpha, then rgb (before the 1/2pi scatter
-normalisation).  Only the compact layout is served (no a_log/b_log), and
+B10 `composite_resample` replaces fluidx12_tpu/ops/pallas/composite.py
+`_composite_resample_kernel` (via `composite_resample_pallas`), with its
+arguments: volf (4, n_s, A, B) bf16 slice-major volume, h_rows (n_s, R1) /
+h_cols (n_s, R2) f32 source coordinates, valid (n_s,) f32 mask, n_steps
+(R1, R2) f32.  Only the compact layout is served (no a_log/b_log), and
 zero_outside -- which only the DIRECT base-plane march uses -- is not
-ported.  The Hopper design and what bounds it:
+ported.  B17 `composite` replaces `_composite_kernel` (via
+`composite_pallas`): dens (n_s, R1, R2) premasked density and prod
+(3, n_s, R1, R2) premultiplied rgb * light, in the march's matmul dtype
+(bf16 on the card, which is what the kernel takes; f32 on the CPU), and
+n_steps (R1, R2) f32.  Both return (4, R1, R2)
+f32: accumulated alpha, then rgb (before the 1/2pi scatter normalisation).
+The Hopper designs and what bounds them:
 fluidx12_tpu_torch/csrc/composite.cu.
+
+The gates are pure-Python copies of the TPU's VMEM planners
+(composite.py:70-95, 190-240).  They decide nothing about the CUDA
+kernels; they say which route the JAX package takes on a face
+(render/slicecomp.py).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).
@@ -22,6 +34,72 @@ import torch
 from fluidx12_tpu_torch.ops.cuda import _build
 
 _EPS_ALPHA = 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Gates (copies of fluidx12_tpu/ops/pallas/composite.py)
+# ---------------------------------------------------------------------------
+
+def _pick_bs(n_s: int) -> int:
+    bs = 16
+    while bs > 1 and n_s % bs:
+        bs //= 2
+    return bs
+
+
+def composite_supported(n_s: int, r_rows: int, r_cols: int) -> bool:
+    """True where the TPU can run B17 on an (n_s, R1, R2) stack
+    (composite.py:70)."""
+    return (r_cols % 128 == 0 and r_rows % 8 == 0
+            and n_s % _pick_bs(n_s) == 0 and n_s >= 8)
+
+
+def _pick_tile(r_rows: int, r_cols: int, bs: int):
+    """B17's lateral VMEM tile, or None (composite.py:84)."""
+    tr, tc = r_rows, r_cols
+    while tr * tc * (16 * bs + 20) > 8 * 1024 * 1024 and tr % 16 == 0 and tr > 8:
+        tr //= 2
+    while tr * tc * (16 * bs + 20) > 8 * 1024 * 1024 and tc % 256 == 0 and tc > 128:
+        tc //= 2
+    if r_rows % tr or r_cols % tc:
+        return None
+    return tr, tc
+
+
+def _pick_rows_tile(r1: int, r2: int, a: int, b: int, n_s: int):
+    """B10's row tile, or None where no tile fits VMEM (composite.py:190)."""
+
+    def budget(tr):
+        fixed = r2 * b * 6 + r2 * n_s * 4 + 2 * 4 * a * b * 2
+        per_row = (a * 6 + n_s * 4 + 4 * (b * 6 + r2 * 6) + 4 * r2 * 4 + 5 * r2 * 4
+                   + 2 * r2 * 4)
+        return fixed + tr * per_row
+
+    tr = r1
+    while tr > 8:
+        if budget(tr) <= 10 * 1024 * 1024:
+            break
+        if r1 % (tr // 2) or (tr // 2) % 8:
+            break
+        tr //= 2
+    if budget(tr) > 12 * 1024 * 1024:
+        return None
+    if tr != r1 and tr % 8:
+        return None
+    return tr
+
+
+def composite_resample_supported(n_s: int, a: int, b: int, r1: int, r2: int) -> bool:
+    """True where the TPU runs B10 on a face: lateral dims A % 8 and B % 16
+    and a row tile within VMEM (composite.py:225)."""
+    if a % 8 or b % 16 or n_s < 2:
+        return False
+    return _pick_rows_tile(r1, r2, a, b, n_s) is not None
+
+
+# ---------------------------------------------------------------------------
+# B10
+# ---------------------------------------------------------------------------
 
 
 def _taps(h: torch.Tensor, n: int):
@@ -111,3 +189,60 @@ def composite_resample(volf, h_rows, h_cols, valid, n_steps,
 
 
 composite_resample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B17
+# ---------------------------------------------------------------------------
+
+def composite_plain(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tensor:
+    """Plain version of B17, slice by slice in march order (composite.py:
+    49-67): the composite of B10 without its resample and valid mask."""
+    n_s = dens.shape[0]
+    absorption = float(torch.tensor(absorption, dtype=torch.float32))
+    t = torch.ones(n_steps.shape, dtype=torch.float32, device=dens.device)
+    acc_a = torch.zeros_like(t)
+    rgb = torch.zeros((3,) + tuple(n_steps.shape), dtype=torch.float32, device=dens.device)
+    for k in range(n_s):
+        sl = n_s - 1 - k if flip else k
+        d = torch.clamp(dens[sl].float(), 0.0, 1.0)
+        a_ref = torch.clamp(d * absorption, 0.0, 0.999)
+        alpha = 1.0 - torch.exp(n_steps * torch.log1p(-a_ref))
+        alpha = torch.clamp(alpha, 0.0, 1.0 - _EPS_ALPHA)
+        w = alpha * t
+        w_rate = torch.where(d > 0.0, w / torch.clamp_min(d, 1e-6), torch.zeros_like(w))
+        rgb = rgb + prod[:, sl].float() * w_rate
+        acc_a = acc_a + w
+        t = t * (1.0 - alpha)
+    return torch.cat([acc_a[None], rgb], dim=0)
+
+
+def composite(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tensor:
+    """B17: front-to-back composite of a pre-resampled (n_s, R1, R2) stack;
+    see the module docstring for the arguments."""
+    if (dens.ndim != 3 or dens.dtype not in (torch.bfloat16, torch.float32)
+            or not dens.is_contiguous()):
+        raise ValueError(f"composite: dens must be contiguous bf16/f32 (n_s, R1, R2), "
+                         f"got {tuple(dens.shape)} {dens.dtype}")
+    n_s, r1, r2 = dens.shape
+    for t, shape, dtype, name in ((prod, (3, n_s, r1, r2), dens.dtype, "prod"),
+                                  (n_steps, (r1, r2), torch.float32, "n_steps")):
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dens.device
+                or not t.is_contiguous()):
+            raise ValueError(f"composite: {name} must be contiguous {dtype} {shape} on "
+                             f"{dens.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if dens.device.type == "cpu":
+        return composite_plain(dens, prod, n_steps, absorption, flip)
+    if dens.device.type != "cuda" or dens.dtype != torch.bfloat16:
+        raise ValueError(f"composite: the kernel takes bf16 stacks on a CUDA device, got "
+                         f"{dens.dtype} on {dens.device}")
+    out = torch.empty((4, r1, r2), dtype=torch.float32, device=dens.device)
+    err = _build.lib().fx_composite(
+        dens.data_ptr(), prod.data_ptr(), n_steps.data_ptr(), out.data_ptr(),
+        float(absorption), int(flip), n_s, r1, r2, _build.stream_ptr(dens))
+    composite.launches += 1
+    _build.check(err, "fx_composite")
+    return out
+
+
+composite.launches = 0

@@ -1,5 +1,5 @@
-"""Jacobi pressure sweeps, kernels B4, B6, B13 and B14, with their plain
-PyTorch versions and the JAX package's shape gates.
+"""Jacobi pressure sweeps, kernels B4, B6, B13, B14 and B18, with their
+plain PyTorch versions and the JAX package's shape gates.
 
 B4 `jacobi` replaces fluidx12_tpu/ops/pallas/jacobi.py
 `_jacobi_fused_kernel` / `_window_sweeps` and, for planes above 128x128,
@@ -8,7 +8,10 @@ B6 `jacobi_packed` replaces `_jacobi_packed_kernel` (via
 `jacobi_packed_pallas`); B13 `jacobi_rr` replaces `_planewise_rr_kernel`
 (via `jacobi_pallas_rr`): plane-sweep sweeps with the multigrid's residual
 and 2x restriction fused in; B14 `jacobi2d` replaces `_jacobi2d_kernel` (via
-`jacobi2d_pallas`).  Each is `iters` synchronous sweeps of
+`jacobi2d_pallas`); B18, the fused projection, is `jacobi_divrr` (replaces
+`_planewise_divrr_kernel`, via `jacobi_pallas_divrr`: B3's divergence, then
+B13) and `jacobi_grad` (`_planewise_grad_kernel`, via `jacobi_pallas_grad`:
+B4's plane-sweep sweeps, then B8's gradient and damp).  Each is `iters` synchronous sweeps of
 q <- (sum of the 6 edge-clamped neighbours - b) / 6 in f32 (B14: the 4 of a
 (Y, X) plane, over 4).  Their halo'd VMEM windows, 64-lane packing and
 resident plane are TPU layouts with no effect on the result; what differs
@@ -35,6 +38,12 @@ import numpy as np
 import torch
 
 from fluidx12_tpu_torch.ops.cuda import _build
+from fluidx12_tpu_torch.ops.cuda.stencil import (
+    _check_fields,
+    divergence_plain,
+    grad_damp_plain,
+    grad_scale,
+)
 from fluidx12_tpu_torch.ops.sampling import neighbor_shift
 
 _AX_Z, _AX_Y, _AX_X = 0, 1, 2
@@ -264,6 +273,26 @@ def jacobi_rr_plain(q: torch.Tensor, b: torch.Tensor, iters: int,
     return q, 0.5 * xz[:, 0::2] + 0.5 * xz[:, 1::2]
 
 
+def jacobi_divrr_plain(fields: torch.Tensor, q: torch.Tensor, iters: int,
+                       scale: float = 1.0):
+    """Plain version of B18's head: b = B3's divergence of channels 0..2
+    (the Pallas prologue's `0.5 * (dx + dy + (zp - zm))`, jacobi.py:249, is
+    B3's order), then B13 on (q, b).  Returns (q', b, r_c)."""
+    b = divergence_plain(fields)
+    q, r_c = jacobi_rr_plain(q, b, iters, scale)
+    return q, b, r_c
+
+
+def jacobi_grad_plain(q: torch.Tensor, b: torch.Tensor, fields: torch.Tensor,
+                      iters: int, rho: float):
+    """Plain version of B18's tail: B4's plane-sweep sweeps, then B8 on
+    the final q, in place on channels 0..2 of `fields` (the Pallas
+    epilogue's arithmetic is B8's, jacobi.py:364-431).  Returns (q',
+    fields)."""
+    q = sweeps_plain(q, b, iters, ORDER_PLANEWISE)
+    return q, grad_damp_plain(fields, q, rho)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -284,6 +313,18 @@ def _check(q: torch.Tensor, b: torch.Tensor, iters: int, name: str, ndim: int = 
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     return True
+
+
+def _check_even(q: torch.Tensor, name: str) -> None:
+    if any(n % 2 for n in q.shape):
+        raise ValueError(f"{name}: dims must be even, got {tuple(q.shape)}")
+
+
+def _check_velocity(fields: torch.Tensor, q: torch.Tensor, name: str) -> None:
+    _check_fields(fields, name)
+    if tuple(fields.shape[1:]) != tuple(q.shape) or fields.device != q.device:
+        raise ValueError(f"{name}: fields {tuple(fields.shape)} on {fields.device} do not "
+                         f"match the pressure {tuple(q.shape)} on {q.device}")
 
 
 def _launch(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
@@ -343,8 +384,7 @@ def jacobi_rr(q: torch.Tensor, b: torch.Tensor, iters: int, scale: float = 1.0):
     resolution, f32 (`jacobi_pallas_rr`; the TPU runs it where
     `jacobi_rr_supported` holds).  Every dim must be even."""
     on_card = _check(q, b, iters, "jacobi_rr")
-    if any(n % 2 for n in q.shape):
-        raise ValueError(f"jacobi_rr: dims must be even, got {tuple(q.shape)}")
+    _check_even(q, "jacobi_rr")
     if not on_card:
         return jacobi_rr_plain(q, b, iters, scale)
     z, y, x = q.shape
@@ -360,6 +400,60 @@ def jacobi_rr(q: torch.Tensor, b: torch.Tensor, iters: int, scale: float = 1.0):
 
 
 jacobi_rr.launches = 0
+
+
+def jacobi_divrr(fields: torch.Tensor, q: torch.Tensor, iters: int, scale: float = 1.0):
+    """B18's head: b = the divergence of channels 0..2 of the combined
+    (C, Z, Y, X) bf16/f32 state, read in place, then B13: `iters` sweeps of
+    the f32 pressure q against b in the plane-sweep order and r_c =
+    restrict(b - A q') * scale.  Returns (q', b, r_c), f32 (the TPU runs it
+    where `jacobi_divrr_supported` holds).  Every dim must be even."""
+    on_card = _check(q, q, iters, "jacobi_divrr")
+    _check_velocity(fields, q, "jacobi_divrr")
+    _check_even(q, "jacobi_divrr")
+    if not on_card:
+        return jacobi_divrr_plain(fields, q, iters, scale)
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty_like(q) if iters > 1 else out
+    b = torch.empty_like(q)
+    r_c = torch.empty((z // 2, y // 2, x // 2), dtype=torch.float32, device=q.device)
+    err = _build.lib().fx_jacobi_divrr(
+        fields.data_ptr(), int(fields.dtype == torch.bfloat16), q.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), b.data_ptr(), r_c.data_ptr(), iters, rr_weight(scale), z, y, x,
+        _build.stream_ptr(q))
+    _build.check(err, "fx_jacobi_divrr")
+    jacobi_divrr.launches += 1
+    return out, b, r_c
+
+
+jacobi_divrr.launches = 0
+
+
+def jacobi_grad(q: torch.Tensor, b: torch.Tensor, fields: torch.Tensor, iters: int,
+                rho: float):
+    """B18's tail: `iters` sweeps of the f32 pressure q against b in the
+    plane-sweep order, then velocity -= 0.5 * grad(q') / rho with the 3%
+    wall-band damp IN PLACE on channels 0..2 of the combined (C, Z, Y, X)
+    state, as the TPU kernel aliases it; channels 3.. are not touched.
+    Returns (q', fields)."""
+    on_card = _check(q, b, iters, "jacobi_grad")
+    _check_velocity(fields, q, "jacobi_grad")
+    if not on_card:
+        return jacobi_grad_plain(q, b, fields, iters, rho)
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty_like(q) if iters > 1 else out
+    err = _build.lib().fx_jacobi_grad(
+        q.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), fields.data_ptr(),
+        int(fields.dtype == torch.bfloat16), grad_scale(rho), iters, z, y, x,
+        _build.stream_ptr(q))
+    _build.check(err, "fx_jacobi_grad")
+    jacobi_grad.launches += 1
+    return out, fields
+
+
+jacobi_grad.launches = 0
 
 
 def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:

@@ -1,12 +1,13 @@
-"""The streaming stencils, kernels B3, B5, B7, B8 (the projection's) and
-B16 (the GI light map), with their plain PyTorch versions and the JAX
-package's shape gates.
+"""The streaming stencils, kernels B3, B5, B7, B8 (the projection's), B15
+(the GI gradient) and B16 (the GI light map), with their plain PyTorch
+versions and the JAX package's shape gates.
 
 B3 `divergence` replaces fluidx12_tpu/ops/pallas/stencil.py `_div_kernel`
 (via `divergence_pallas`), B5 `residual` `_residual_kernel` (via
 `residual_pallas`), B7 `prolong_correct` `_prolong_correct_kernel` (via
 `prolong_correct_pallas`), B8 `grad_damp` `_grad_damp_kernel` (via
-`grad_damp_pallas`) and B16 `gi_light` `_gi_light_kernel` (via
+`grad_damp_pallas`), B15 `gradient3` `_gradient_kernel` (via
+`gradient3_pallas`) and B16 `gi_light` `_gi_light_kernel` (via
 `gi_light_pallas`).  They follow the kernels, not the XLA twins of
 sim/project.py and render/lightmap_sweep.py: the velocity is cast to f32
 before any arithmetic, the gradient, the wall positions and the 3% band
@@ -215,6 +216,12 @@ def gradient_axis(q: torch.Tensor, axis: int) -> torch.Tensor:
     return _diff(q, axis) * scale.reshape(shape)
 
 
+def gradient3_plain(q: torch.Tensor) -> torch.Tensor:
+    """Plain version of B15: (gx, gy, gz) of a (Z, Y, X) f32 volume as
+    jnp.gradient computes them; (3, Z, Y, X)."""
+    return torch.stack([gradient_axis(q, ax) for ax in (_AX_X, _AX_Y, _AX_Z)])
+
+
 def fallback_normal_dirs(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor):
     """-(gx, gy, gz), with the voxel centre (i + 0.5) / n * 2 - 1 per axis
     where its squared length is below 1e-16: the reference's radial
@@ -347,6 +354,26 @@ def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch
 
 
 grad_damp.launches = 0
+
+
+def gradient3(q: torch.Tensor) -> torch.Tensor:
+    """B15: the (gx, gy, gz) gradient of a (Z, Y, X) f32 volume, central
+    differences inside and one-sided ones at the boundary cells, as
+    jnp.gradient; every dim must be at least 2.  Returns (3, Z, Y, X) f32."""
+    _check_f32(q, None, q, "gradient3")
+    if min(q.shape) < 2:
+        raise ValueError(f"gradient3: every dim must be >= 2, got {tuple(q.shape)}")
+    if not _on_cuda(q, "gradient3"):
+        return gradient3_plain(q)
+    z, y, x = q.shape
+    out = torch.empty((3, z, y, x), dtype=torch.float32, device=q.device)
+    err = _build.lib().fx_gradient3(q.data_ptr(), out.data_ptr(), z, y, x, _build.stream_ptr(q))
+    gradient3.launches += 1
+    _build.check(err, "fx_gradient3")
+    return out
+
+
+gradient3.launches = 0
 
 
 def gi_light(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,

@@ -19,8 +19,9 @@ With a light probe (`sh_coeffs`), the ambient term is the SH irradiance
 along the density's negated gradient, times a six-sweep ambient occlusion,
 where the voxel is dense.  Where the TPU runs it, that whole chain is kernel
 B16 (ops/cuda/stencil.gi_light); elsewhere it runs as the XLA chain's
-plain-torch twin, whose gradient is kernel B15 where the stencil gate holds
-(not ported: it raises).
+plain-torch twin.  The gradients of the GI normals and of the AO's
+downsampled field are kernel B15 (ops/cuda/stencil.gradient3) where the
+stencil gate holds, as on the TPU, and the twin elsewhere.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from fluidx12_tpu_torch.gi.sh import evaluate_sh_irradiance_planar
 from fluidx12_tpu_torch.ops.cuda.stencil import (
     fallback_normal_dirs,
     gi_light,
+    gradient3,
     gradient_axis,
     stencil_pallas_supported,
 )
@@ -196,12 +198,12 @@ def gi_ambient_from_parts(dense, nx_, ny_, nz_, ao, sh_coeffs, world3):
 
 
 def _gradient(density: torch.Tensor, use_pallas: bool = True):
-    """(gz, gy, gx) like jnp.gradient.  Where the stencil gate holds the
-    TPU computes it with kernel B15, which the port does not have yet."""
+    """(gz, gy, gx) like jnp.gradient: kernel B15 on the f32 density, cast
+    back to its dtype, where the stencil gate holds, as the TPU runs it
+    (fluidx12_tpu/render/lightmap_sweep.py:623-636); else the twin."""
     if use_pallas and stencil_pallas_supported(density.shape):
-        raise NotImplementedError(
-            f"the gradient kernel B15 (gradient3_pallas), which the TPU runs on "
-            f"{tuple(density.shape)}, is not ported yet (ROADMAP.md queue B)")
+        g = gradient3(density.float().contiguous()).to(density.dtype)
+        return g[2], g[1], g[0]
     return tuple(gradient_axis(density, axis) for axis in range(3))
 
 

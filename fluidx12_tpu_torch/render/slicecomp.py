@@ -4,10 +4,13 @@ fluidx12_tpu/render/slicecomp.py, unsharded compact path).
 Cube faces are axis-aligned, so the rays of all texels of a face cut each
 volume slice in a scale + translate of the texel grid: per-slice resampling
 is separable, and front-to-back compositing runs slice by slice.  Kernel B10
-(ops/cuda/composite.py) does both for one face in one pass; every visible
-face goes through it.  (The JAX package keeps an einsum + cumprod twin for
-small stacks, below its `_FUSE_MIN_STACK`; that twin agrees with the kernel
-within 2e-3, tests/test_pallas.py, and is not ported.)
+(ops/cuda/composite.py) does both for one face in one pass.  Where the TPU
+cannot run B10 on a big stack (`_takes_b17`: a lateral dim that does not
+tile), it resamples the stack with two matmuls and composites it with
+kernel B17; the port does the same there, and takes B10 on every other
+face.  (The JAX package keeps an einsum + cumprod twin for small stacks,
+below its `_FUSE_MIN_STACK`; that twin agrees with the kernel within 2e-3,
+tests/test_pallas.py, and is not ported.)
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import torch
 
 from fluidx12_tpu_torch.core.config import FaceCullMode, FluidConfig
 from fluidx12_tpu_torch.core.state import SceneParams
-from fluidx12_tpu_torch.ops.cuda.composite import composite_resample
+from fluidx12_tpu_torch.ops.cuda.composite import (
+    composite,
+    composite_resample,
+    composite_resample_supported,
+    composite_supported,
+)
 from fluidx12_tpu_torch.ops.transform import transform_point_h
 from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST, face_visibility_in_graph
 from fluidx12_tpu_torch.utils.image import quantize_unorm8
@@ -37,6 +45,10 @@ _FACES = [
 
 _ARR_AXIS = {0: 3, 1: 2, 2: 1}       # local axis -> (C, Z, Y, X) array dim
 _ARR_TO_LOCAL = {1: 2, 2: 1, 3: 0}   # array dim -> local axis
+
+# Stack size (slices x rows x cols) from which the TPU composites a face in
+# a kernel rather than its XLA chain (fluidx12_tpu/render/slicecomp.py:71).
+_FUSE_MIN_STACK = 1024 * 1024
 
 
 def mxu16(device) -> torch.dtype:
@@ -141,15 +153,61 @@ def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
             valid.to(f32), n_steps.to(f32).contiguous(), swapped)
 
 
+def _takes_b17(n_s: int, a: int, b: int, r: int, config: FluidConfig) -> bool:
+    """True where the TPU composites an (n_s, r, r) face stack of an
+    (A, B)-sliced volume with B17: a big stack (`_FUSE_MIN_STACK`) that
+    B10's gate rejects and B17's takes (fluidx12_tpu/render/slicecomp.py:
+    288-378, the unsharded compact layout)."""
+    return (config.use_pallas and n_s * r * r >= _FUSE_MIN_STACK
+            and not composite_resample_supported(n_s, a, b, r, r)
+            and composite_supported(n_s, r, r))
+
+
+def _interp_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
+    """(..., n_out) source coordinates -> (..., n_out, n_src) dense lerp
+    weights, edges clamped (fluidx12_tpu/render/slicecomp.py:80-102)."""
+    c = torch.clamp(coords, 0.0, n_src - 1.0)
+    i0 = torch.floor(c)
+    frac = c - i0
+    i0 = i0.long()
+    i1 = torch.clamp_max(i0 + 1, n_src - 1)
+    src = torch.arange(n_src, device=coords.device)
+    m0 = (src == i0[..., None]).to(coords.dtype) * (1.0 - frac)[..., None]
+    m1 = (src == i1[..., None]).to(coords.dtype) * frac[..., None]
+    return m0 + m1
+
+
+def resampled_stack(volf: torch.Tensor, h_rows: torch.Tensor, h_cols: torch.Tensor,
+                    valid: torch.Tensor):
+    """B17's stack: the (4, n_s, A, B) slice-major volume resampled to the
+    face by the two matmuls of fluidx12_tpu/render/slicecomp.py:338-363
+    (operands and results rounded to the matmul dtype, f32 accumulation),
+    then the density masked by `valid`.  Returns (dens (n_s, R1, R2), prod
+    (3, n_s, R1, R2)), contiguous, in the matmul dtype."""
+    mx = mxu16(volf.device)
+    w_rows = _interp_weights(h_rows, volf.shape[2])    # (n_s, R1, A)
+    w_cols = _interp_weights(h_cols, volf.shape[3])    # (n_s, R2, B)
+    t1 = mxu_einsum("mrv,cmvu->cmru", w_rows, volf).to(mx)
+    res = mxu_einsum("msu,cmru->cmrs", w_cols, t1).to(mx)
+    dens = torch.where(valid[:, None, None] > 0.0, res[0], torch.zeros_like(res[0]))
+    return dens.contiguous(), res[1:4].contiguous()
+
+
 def _march_face(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
                 num_samples: torch.Tensor, config: FluidConfig, dtype,
                 lod: int = 0) -> torch.Tensor:
     """March one cube face; returns (R, R, 4) = (rgb / 2pi, alpha),
     R = cube_map_size >> lod."""
-    *args, swapped = face_geometry(face_id, volf.shape[1], local_eye, num_samples,
-                                   config, dtype, lod)
-    acc = composite_resample(volf.to(torch.bfloat16).contiguous(), *args,
-                             float(config.absorption), flip=_FACES[face_id][1] < 0)
+    h_rows, h_cols, valid, n_steps, swapped = face_geometry(
+        face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod)
+    n_s, a, b = volf.shape[1:]
+    flip = _FACES[face_id][1] < 0
+    if _takes_b17(n_s, a, b, h_rows.shape[1], config):
+        acc = composite(*resampled_stack(volf, h_rows, h_cols, valid), n_steps,
+                        float(config.absorption), flip=flip)
+    else:
+        acc = composite_resample(volf.to(torch.bfloat16).contiguous(), h_rows, h_cols, valid,
+                                 n_steps, float(config.absorption), flip=flip)
     out_rgb = acc[1:].movedim(0, -1)
     scatter = torch.cat([out_rgb / (2.0 * math.pi), acc[0][..., None]], dim=-1).to(dtype)
     if swapped:

@@ -11,7 +11,8 @@ gate); the prolongation B7.  Elsewhere, and with use_pallas=False, the
 twins run: the plain Jacobi sweeps of sim/project.py and the pooling /
 interpolation matrices as f32 einsums (TF32 off).  Outside B13 the
 restriction is two f32 einsums plus a z reshape-mean, which JAX computes
-outside any kernel too.
+outside any kernel too.  `mg_project_fused` is the whole projection as one
+V-cycle with kernel B18 at both ends (the opt-in `mg_project_fused`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import torch
 
 from fluidx12_tpu_torch.ops.cuda.jacobi import (
     jacobi,
+    jacobi_divrr,
     jacobi_divrr_supported,
+    jacobi_grad,
     jacobi_grad_supported,
     jacobi_packed,
     jacobi_packed_supported,
@@ -125,6 +128,20 @@ def mg_fused_supported(zyx, vel_bytes: int = 2) -> bool:
             and jacobi_divrr_supported(zyx, MG_PRE, vel_bytes)
             and jacobi_grad_supported(zyx, MG_POST, vel_bytes)
             and prolong_pallas_supported(zyx))
+
+
+def mg_project_fused(fields: torch.Tensor, q: torch.Tensor, rho: float):
+    """The whole projection as one V-cycle (fluidx12_tpu/sim/mg.py:156-176):
+    B18's head computes the divergence in the pre-smoother's first launch
+    and fuses in the residual and restriction, the coarse sweeps and B7 run
+    as in `mg_solve`, and B18's tail subtracts the gradient and damps the
+    velocity after the post-smoother, in place on channels 0..2 of
+    `fields`.  Returns (fields, q')."""
+    q, b, r_c = jacobi_divrr(fields, q, MG_PRE, scale=4.0)
+    e_c = _smooth(torch.zeros_like(r_c), r_c, MG_COARSE_ITERS, use_pallas=True)
+    q = prolong_correct(q, e_c)
+    q, fields = jacobi_grad(q, b, fields, MG_POST, rho)
+    return fields, q
 
 
 def mg_solve(q: torch.Tensor, b: torch.Tensor, pre: int = MG_PRE,

@@ -5,7 +5,9 @@ A config with `use_pallas and pallas_jacobi` runs what the JAX package
 runs on its TPU, chosen by the same shape gates (ROADMAP.md C5).  In 3D: the
 streaming stencils B3 (divergence) and B8 (gradient + damp, in place) where
 `stencil_pallas_supported` holds, the multigrid of sim/mg.py with its
-kernels, or B4 for all the sweeps where `jacobi_tuning` gives a plan.  The
+kernels, or B4 for all the sweeps where `jacobi_tuning` gives a plan; with
+`mg_project_fused`, where `mg_fused_supported` holds, the fused V-cycle
+with B18 at both ends in place of B3, the fine smoothers and B8.  The
 kernels compute in f32 from the bf16 state.  In 2D: B14 for all the sweeps
 where `jacobi2d_pallas_supported` holds, between the bf16 twins.  Everywhere else the XLA twins
 below run, with the dtypes of the JAX code as written: the divergence,
@@ -111,9 +113,10 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
             config: FluidConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full projection; identity when time_step == 0 (ref ..hlsl:97 guard).
     `time_step` is the host value (the branch needs no device sync).
-    Returns (fields', pressure').  Consumes `fields`: where B8 runs, the
-    velocity channels of `fields` are updated in place and `fields` itself
-    is returned (fluidx12_tpu/sim/project.py:142-222, the TPU branch)."""
+    Returns (fields', pressure').  Consumes `fields`: where B8 or B18 runs,
+    the velocity channels of `fields` are updated in place and `fields`
+    itself is returned (fluidx12_tpu/sim/project.py:142-222, the TPU
+    branch)."""
     if not float(time_step) > 0.0:
         return fields, pressure
     is_3d = config.is_3d
@@ -127,16 +130,19 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
         use_stencil = stencil.stencil_pallas_supported(config.zyx)
     use_mg = False
     if config.fast_sim and config.mg_pressure and is_3d:
-        from fluidx12_tpu_torch.sim.mg import mg_fused_supported, mg_supported
+        from fluidx12_tpu_torch.sim.mg import (
+            mg_fused_supported,
+            mg_project_fused,
+            mg_supported,
+        )
 
         z, y, x = config.zyx
         use_mg = y * x >= config.mg_min_plane and mg_supported(config.zyx)
         if (use_mg and use_stencil and config.mg_project_fused
                 and mg_fused_supported(config.zyx, vel_bytes=fields.element_size())):
-            raise NotImplementedError(
-                "the fused projection kernel B18 (mg_project_fused: "
-                "jacobi_pallas_divrr / jacobi_pallas_grad) is not ported yet "
-                "(ROADMAP.md queue B)")
+            # B18 (fluidx12_tpu/sim/project.py:171-186): B8's in-place
+            # update rides the post-smoother, so `fields` is returned.
+            return mg_project_fused(fields, pressure, rho)
 
     if use_stencil:
         b = stencil.divergence(fields)

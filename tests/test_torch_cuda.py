@@ -5,6 +5,8 @@ GPU machine run them with
 machine has no JAX, which tests/conftest.py imports).  chip_smoke.py makes
 the same comparison at the presets' full shapes."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -170,3 +172,73 @@ def test_gi_light_matches_plain(dev):
     ref = ST.gi_light_plain(dens, shadow, ao, sh, rot, env, 0.01)
     assert got.shape == (3,) + shape
     assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_jacobi_divrr_and_grad_match_plain(dev, dtype):
+    """B18's head: q, b and r_c bit for bit (B3's and B13's f32 operations
+    in their order); its tail: q bit for bit, the velocity within one bf16
+    ulp of each value as B8, in place, the colour channel untouched."""
+    shape = (24, 144, 128)
+    fields = _randn(dev, (4,) + shape, 18).to(dtype)
+    q, b = _randn(dev, shape, 19, 0.05), _randn(dev, shape, 20)
+    got = J.jacobi_divrr(fields, q, 4, 4.0)
+    ref = J.jacobi_divrr_plain(fields, q, 4, 4.0)
+    assert got[2].shape == tuple(n // 2 for n in shape)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    got_q, got_f = J.jacobi_grad(q, b, fields.clone(), 4, 0.48)
+    ref_q, ref_f = J.jacobi_grad_plain(q, b, fields.clone(), 4, 0.48)
+    assert torch.equal(got_q, ref_q) and torch.equal(got_f[3:], fields[3:])
+    ulp = (ref_f[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    assert bool(((got_f[:3].float() - ref_f[:3].float()).abs() <= ulp).all())
+
+
+def test_gradient3_matches_plain(dev):
+    """B15 bit for bit: one difference and one exact scale per value."""
+    q = _randn(dev, (30, 32, 128), 21)
+    assert torch.equal(ST.gradient3(q), ST.gradient3_plain(q))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_composite_matches_plain(dev, flip):
+    """B17 on a bf16 stack premasked with an empty slice: within 2e-6 of the
+    scale (expf and log1pf)."""
+    rng = np.random.default_rng(22)
+    ns, r1, r2 = 24, 16, 256
+    dens = torch.from_numpy(rng.uniform(-0.1, 1, (ns, r1, r2)).astype(np.float32))
+    dens[5] = 0.0
+    prod = torch.from_numpy(rng.uniform(0, 1, (3, ns, r1, r2)).astype(np.float32))
+    nst = torch.from_numpy(rng.uniform(0.5, 2, (r1, r2)).astype(np.float32)).to(dev)
+    args = (dens.to(dev, torch.bfloat16), prod.to(dev, torch.bfloat16), nst, 0.8, flip)
+    got, ref = C.composite(*args), C.composite_plain(*args)
+    assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("path", ["fused", "slab"])
+def test_new_paths_launch_their_kernels(dev, path):
+    """One frame of the fused-projection 256^3 path (B18's two halves once,
+    none of B3, B13, B8 or B4's plane-sweep order) and of the 256x256x60 GI
+    frame (B15 once, B17 on the three X and Y faces the default camera
+    sees, B10 on Z+, no B16 or B13)."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    if path == "fused":
+        engine = FluidXEngine(FluidConfig(grid_size=(256, 256, 256), mg_project_fused=True),
+                              device=dev)
+        want = dict(jacobi_divrr=1, jacobi_grad=1, jacobi=1, prolong_correct=1, divergence=0,
+                    jacobi_rr=0, grad_damp=0, residual=0, jacobi_planewise=0)
+    else:
+        rad = np.load(Path(__file__).resolve().parents[1] / "assets" / "rnl_cross.npz")[
+            "radiance"]
+        engine = FluidXEngine(FluidConfig(grid_size=(256, 256, 60), has_light_probe=True),
+                              radiance=rad, device=dev)
+        want = dict(gradient3=1, composite=3, composite_resample=1, gi_light=0, jacobi_rr=0,
+                    jacobi=1, jacobi_planewise=0)
+    engine.update_frame()
+    reset_launch_counts()
+    image = engine.step_frame()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert {k: counts[k] for k in want} == want
+    assert bool(torch.isfinite(image).all())

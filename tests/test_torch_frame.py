@@ -144,27 +144,13 @@ def test_golden_fluid2d():
 
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item, instead of running another path.  The default preset
-    (pallas_jacobi=True), the 2D preset and GI are covered.  At zyx
-    (32, 144, 256) the JAX gates take the fused projection B18 with
-    mg_project_fused (tests/test_pallas.py): `project` raises naming it.
-    With the probe at zyx (16, 128, 128) the TPU's GI runs the XLA chain
-    (no half-resolution AO, so no B16) with the gradient kernel B15: the
-    light map raises naming it."""
+    its ROADMAP item, instead of running another path: the faithful
+    simulation and render stacks, the point light and the DIRECT methods.
+    The default preset (pallas_jacobi=True), the 2D preset, GI and every
+    kernel the JAX gates choose (B15 and B18 among them) are covered."""
     from fluidx12_tpu_torch.core.config import PRESETS
-    from fluidx12_tpu_torch.sim.project import project
 
     torch_fluidx.FluidXEngine(PRESETS["fluid3d"], device="cpu")
-    wide = TorchConfig(grid_size=(256, 144, 32), mg_project_fused=True)
-    rng = np.random.default_rng(0)
-    fields = torch.from_numpy(rng.uniform(-1, 1, (7,) + wide.zyx).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="B18"):
-        project(fields.to(torch.bfloat16), torch.zeros(wide.zyx), wide.time_step, wide)
-    gi = TorchConfig(grid_size=(128, 128, 16), viewport=(32, 32), has_light_probe=True)
-    radiance = rng.uniform(0.0, 2.0, (6, 16, 16, 3)).astype(np.float32)
-    engine = torch_fluidx.FluidXEngine(gi, radiance=radiance, device="cpu")
-    with pytest.raises(NotImplementedError, match="B15"):
-        engine.step_frame()
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
     for change in (dict(grid_size=(64, 64, 1), fast_sim=False), dict(fast_render=False),
                    dict(point_light=True), dict(fast_sim=False)):

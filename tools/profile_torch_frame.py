@@ -2,14 +2,17 @@
 
     python3 tools/profile_torch_frame.py [--preset fluid3d|fluid2d]
                                          [--grid X Y Z] [--probe]
-                                         [--pallas-jacobi 0|1] [--frames 10]
+                                         [--pallas-jacobi 0|1]
+                                         [--mg-project-fused] [--frames 10]
 
 Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
 512x512x1 grid, both with an 800x800 viewport; `--grid` replaces the
 preset's grid, `--probe` adds the light probe assets/rnl_cross.npz, so
-`--grid 256 256 256 --probe` is bench.py's "FluidGI SH irradiance 256^3";
-`--pallas-jacobi 0` takes the projection's twins instead of its kernels)
-and prints, each beside the card's name and power limit:
+`--grid 256 256 256 --probe` is bench.py's "FluidGI SH irradiance 256^3"
+and `--grid 256 256 60 --probe` the 256x256x60 GI frame (B15, B17);
+`--pallas-jacobi 0` takes the projection's twins instead of its kernels;
+`--mg-project-fused` the fused projection, B18, where its gate holds, as
+at 256^3) and prints, each beside the card's name and power limit:
   - the host ms/frame: median of `--frames` steps, each ending in a
     synchronize, with no profiler attached;
   - each layer's CUDA-event span per call, over 20 back-to-back calls on the
@@ -64,6 +67,7 @@ def main() -> int:
     ap.add_argument("--grid", type=int, nargs=3, metavar=("X", "Y", "Z"))
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--pallas-jacobi", type=int, default=1, choices=(0, 1))
+    ap.add_argument("--mg-project-fused", action="store_true")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=20)
     args = ap.parse_args()
@@ -86,7 +90,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
     cfg = dataclasses.replace(PRESETS[args.preset], pallas_jacobi=bool(args.pallas_jacobi),
-                              has_light_probe=args.probe)
+                              has_light_probe=args.probe,
+                              mg_project_fused=args.mg_project_fused)
     if args.grid:
         cfg = dataclasses.replace(cfg, grid_size=tuple(args.grid))
     radiance = None
@@ -108,7 +113,8 @@ def main() -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     frame_ms = statistics.median(times)
     print(f"[{card}] {args.preset}, grid {cfg.grid_size}, probe {args.probe}, "
-          f"pallas_jacobi={cfg.pallas_jacobi}: host ms/frame median "
+          f"pallas_jacobi={cfg.pallas_jacobi}, mg_project_fused={cfg.mg_project_fused}: "
+          f"host ms/frame median "
           f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
           f"max {max(times):.3f})")
 
@@ -122,7 +128,8 @@ def main() -> int:
     layers = {
         "advect (B1 + B2)" if cfg.is_3d else "advect (B11 x2 + forces)":
             lambda _: advect_fields_fast(st.fields, dt, cfg),
-        "projection": lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
+        "projection (B18)" if cfg.mg_project_fused else "projection":
+            lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
     }
     if cfg.is_3d:
         sh = engine.sh_coeffs
@@ -139,9 +146,9 @@ def main() -> int:
             return composite_premultiplied(rgba, back)
 
         layers.update({
-            "light map (B9)" if sh is None else "light map (B9, AO, B16)":
+            "light map (B9)" if sh is None else "light map (B9, AO, B15 or B16)":
                 lambda _: render_light_map_fast(grid, params, cfg, sh),
-            "cube march (B10)": lambda _: ray_march_cube_fast(grid, params, cfg, light,
+            "cube march (B10, B17)": lambda _: ray_march_cube_fast(grid, params, cfg, light,
                                                               lod=lod, static_mask=vis_mask),
             "resolve + composite": resolve,
         })
