@@ -13,11 +13,16 @@ as it is: 128^3 grid, 800x800 viewport, the projection on kernels B3-B8),
 (512x512x1 grid, 800x800 viewport, B11 and B14), 30 frames of the 256^3 GI
 frame (bench.py's "FluidGI SH irradiance 256^3": the in-repo light probe,
 B13 and B16), 20 of 256^3 without the probe, 20 of 256^3 with the fused
-projection (mg_project_fused=True: B18) and 20 of the 256x256x60 GI frame
-(the in-repo probe: B15 and B17), counting the kernel launches of each,
+projection (mg_project_fused=True: B18), 20 of the 256x256x60 GI frame
+(the in-repo probe: B15; stored padded on the TPU, so the padded
+projection and B10 on every face) and 20 of PRESETS["fluidgi"] (150^3,
+the in-repo probe, stored padded), counting the kernel launches of each,
 times the projection of the 128^3 paths and of the fused and unfused 256^3
-ones, and compares the port on CUDA with the port on the CPU at six small
-grids, one of them 2D and three with the probe.  Every phase prints its
+ones, and compares the port on CUDA with the port on the CPU at seven small
+grids, one of them 2D, four with the probe and two stored padded on the
+TPU.  B10 is also held on a 256^3 face and on 150-lateral faces, and B17,
+which no path takes since the padded route, on the stack the 256x256x60
+frame's X+ face would give it on the compact layout.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -45,6 +50,7 @@ FRAMES_GI = 30
 FRAMES_256 = 20
 FRAMES_FUSED = 20
 FRAMES_SLAB = 20
+FRAMES_FLUIDGI = 20
 WARMUP_FRAMES = 10
 GRID_256 = (256, 256, 256)
 # The 256x256x60 GI frame: a wide, shallow smoke layer.
@@ -209,15 +215,109 @@ def print_times(results, names) -> None:
               f"({r['bound_by']})")
 
 
+def b10_work(volf, h_rows, h_cols, valid, n_steps):
+    """Bytes and operations B10 needs on these inputs.  The output depends
+    only on the live slices (valid != 0), and of each on the source rows
+    and columns its taps touch (every pair of them: all four channels,
+    bf16); valid is read whole, n_steps once, and the live slices' row
+    and column coordinates.  Per live slice and face texel: 4 channels x
+    2 two-tap lerps, then the front-to-back step, 40 operations."""
+    from fluidx12_tpu_torch.ops.cuda import composite as C
+
+    _, _, a_dim, b_dim = volf.shape
+    r1, r2 = n_steps.shape
+    live = valid != 0
+    n_live = int(live.sum())
+
+    def touched(h, n):
+        i0, i1, _, _ = C._taps(h[live], n)
+        hit = torch.zeros((n_live, n), dtype=torch.bool, device=h.device)
+        return hit.scatter_(1, i0, True).scatter_(1, i1, True).sum(1)
+
+    src = int((touched(h_rows, a_dim) * touched(h_cols, b_dim)).sum())
+    n_bytes = (4 * volf.element_size() * src + 4 * n_live * (r1 + r2)
+               + nbytes(valid, n_steps) + 4 * 4 * r1 * r2)
+    return n_bytes, 40 * n_live * r1 * r2
+
+
+def check_b10_face(label, args, absorption, results=None):
+    """B10 against its plain version on one face, both march directions,
+    within 1e-4, and the kernel's time (flip=False) beside its bound; with
+    `results`, also records the face as B10's row of the kernels line."""
+    from fluidx12_tpu_torch.ops.cuda import composite as C
+
+    volf, h_rows, h_cols, valid, n_steps = args
+    err = 0.0
+    for flip in (False, True):
+        got = C.composite_resample(*args, absorption, flip)
+        ref = C.composite_resample_plain(*args, absorption, flip)
+        err = max(err, float((got - ref).abs().max()))
+    check(err <= 1e-4, f"B10 composite_resample vs plain, {label}")
+    n_bytes, flops = b10_work(*args)
+    ms = time_ms(lambda: C.composite_resample(*args, absorption, False), 20, what=label)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    print(f"B10 composite_resample, {label}: volf {tuple(volf.shape)}, face "
+          f"{tuple(n_steps.shape)}, {int((valid != 0).sum())} live slices: max abs diff "
+          f"{err:.3e} over both flips (limit 1e-4: the segments' OVER merge re-associates "
+          f"the serial composite); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if results is not None:
+        measure(results, "composite_resample", err,
+                lambda: C.composite_resample(*args, absorption, False),
+                lambda: C.composite_resample_plain(*args, absorption, False),
+                n_bytes, flops, plain_reps=3)
+
+
+def padded_projection_counts(cfg) -> dict:
+    """Launches of the projection's kernels per frame on a grid the TPU
+    stores padded, from the copied gates on its storage dims
+    (sim/project._project_padded, sim/mg.mg_solve_padded)."""
+    from fluidx12_tpu_torch.core.padding import storage_zyx
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+    from fluidx12_tpu_torch.sim import mg
+
+    storage = storage_zyx(cfg)
+    check(storage != cfg.zyx and mg.mg_supported(cfg.zyx)
+          and cfg.zyx[1] * cfg.zyx[2] >= cfg.mg_min_plane, f"{cfg.grid_size} pads, with MG")
+    stencil = int(ST.stencil_pallas_supported(storage))
+    counts = dict(divergence=stencil, residual=stencil, grad_damp=stencil,
+                  prolong_correct=int(stencil and ST.prolong_pallas_supported(storage)),
+                  jacobi=0, jacobi_planewise=0)
+    coarse = tuple(n // 2 for n in storage)
+    for shape, iters in ((storage, mg.MG_PRE), (coarse, mg.MG_COARSE_ITERS),
+                         (storage, mg.MG_POST)):
+        tuning = J.jacobi_tuning(shape, iters)
+        if tuning is not None:
+            counts["jacobi"] += 1
+            counts["jacobi_planewise"] += J.window_order(shape, tuning[1]) == J.ORDER_PLANEWISE
+    return counts
+
+
+def light_map_counts(cfg) -> dict:
+    """Launches of B15 and B16 per frame of the GI light map, from the
+    copied gates on the compact grid (render/lightmap_sweep.py)."""
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+    from fluidx12_tpu_torch.render import lightmap_sweep as L
+
+    zyx = cfg.zyx
+    if not cfg.has_light_probe:
+        return dict(gi_light=0, gradient3=0)
+    b16 = int(ST.stencil_pallas_supported(zyx) and L._ao_half_res(zyx))
+    ao = zyx
+    for _ in range(L._ao_levels(zyx)):
+        ao = tuple(n // 2 for n in ao)
+    normals = int(not b16 and ST.stencil_pallas_supported(zyx))
+    return dict(gi_light=b16,
+                gradient3=normals + int(ao != zyx and ST.stencil_pallas_supported(ao)))
+
+
 def phase2_kernels(dev):
     """Each kernel of the 3D paths against its plain version on the card,
     at 128^3 shapes (B6 at the 64^3 coarse level), with times and bounds."""
     phase("phase 2: kernels vs plain versions at 128^3")
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core import math3d as m3
-    from fluidx12_tpu_torch.core.camera import OrbitCamera
     from fluidx12_tpu_torch.ops.cuda import advect as A
-    from fluidx12_tpu_torch.ops.cuda import composite as C
     from fluidx12_tpu_torch.ops.cuda import jacobi as J
     from fluidx12_tpu_torch.ops.cuda import stencil as ST
     from fluidx12_tpu_torch.ops.cuda import sweep as S
@@ -390,29 +490,15 @@ def phase2_kernels(dev):
            lambda: S.shear_scan_plain(log_att, s), nbytes(log_att, s, got),
            40 * log_att.numel(), plain_reps=3)
 
-    # B10: the +X face of the default camera's view of a lit volume.
-    cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
-    eye = torch.from_numpy(np.append(cam.eye, 1.0).astype(np.float32)).to(dev)
-    local_eye = (eye @ world_i)[:3]
-    grid = torch.cat([dens[None].expand(3, -1, -1, -1) * 0.5, dens[None]])
-    volf = SC._axis_volume(torch.cat([grid[3:4], grid[:3]]), 0, cfg)
-    volf = volf.to(torch.bfloat16).contiguous()
-    h_rows, h_cols, valid, n_steps, _ = SC.face_geometry(
-        0, volf.shape[1], local_eye, torch.tensor(cfg.max_ray_samples, device=dev),
-        cfg, torch.float32)
-    args = (volf, h_rows, h_cols, valid, n_steps, cfg.absorption, False)
-    got = C.composite_resample(*args)
-    ref = C.composite_resample_plain(*args)
-    err = float((got - ref).abs().max())
-    print(f"B10 composite_resample: max abs diff {err:.3e} (limit 2e-3, the JAX "
-          f"package's kernel-vs-twin tolerance)")
-    check(err <= 2e-3, "B10 composite_resample vs plain")
-    # Per slice and face texel: 4 channels x 2 two-tap lerps, then the
-    # front-to-back step.
-    record("composite_resample", err, lambda: C.composite_resample(*args),
-           lambda: C.composite_resample_plain(*args),
-           nbytes(volf, h_rows, h_cols, valid, n_steps, got),
-           40 * volf.shape[1] * n_steps.numel(), plain_reps=3)
+    # B10: the +X face of the default camera's view of a lit 128^3 volume
+    # (the row of the kernels line), then a 256^3 face and two 150-lateral
+    # faces (PRESETS["fluidgi"], R = 150), each with its own time and bound.
+    check_b10_face("128^3 X+ face", SC.sample_face_inputs((x, y, z), 0, dev), cfg.absorption, results)
+    check_b10_face("128^3 Z+ face", SC.sample_face_inputs((x, y, z), 4, dev), cfg.absorption)
+    check_b10_face("256^3 X+ face", SC.sample_face_inputs(GRID_256, 0, dev), cfg.absorption)
+    for face, name in ((0, "X+"), (4, "Z+")):
+        check_b10_face(f"150^3 {name} face", SC.sample_face_inputs((150, 150, 150), face, dev),
+                       cfg.absorption)
     print_times(results, results)
     return results
 
@@ -569,9 +655,11 @@ def phase2c_kernels_256(dev, results):
 
 
 def slab_face_stack(dev, face: int = 0):
-    """B17's operands on the 256x256x60 GI frame's path: the resampled
+    """B17's operands at the 256x256x60 GI frame's shapes: the resampled
     (128, 256, 256) stack of cube face `face` (X+ by default) of a smooth
-    smoke volume as the default camera sees it, at lod 0."""
+    smoke volume as the default camera sees it, at lod 0, as the compact
+    route would resample it (no path takes B17: the TPU stores that grid
+    padded and marches it with B10)."""
     from fluidx12_tpu_torch.core.camera import OrbitCamera
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.core import math3d as m3
@@ -594,7 +682,12 @@ def slab_face_stack(dev, face: int = 0):
     h_rows, h_cols, valid, n_steps, _ = SC.face_geometry(
         face, volf.shape[1], local_eye, torch.tensor(cfg.max_ray_samples, device=dev), cfg,
         torch.float32)
-    check(SC._takes_b17(*volf.shape[1:], h_rows.shape[1], cfg), "the face takes B17")
+    # The compact gate sends this face to B17; the TPU stores the grid
+    # padded and takes B10 there (render/slicecomp.march_kernels), so B17
+    # is held here on the stack the compact route would give it.
+    check(SC._takes_b17(*volf.shape[1:], h_rows.shape[1], cfg)
+          and SC.march_kernels(cfg, 0, [face])[face] == "B10",
+          "the compact gate takes B17, the padded route B10")
     dens_m, prod = SC.resampled_stack(volf, h_rows, h_cols, valid)
     return cfg, dens_m, prod, n_steps
 
@@ -842,29 +935,22 @@ def phase3c_256(dev, smi_line):
 
 def march_routes(cfg, vis_mask: int, lod: int):
     """(faces taking B17, faces taking B10) among the visible faces, by the
-    port's copies of the JAX march gates (render/slicecomp._takes_b17)."""
+    port's copies of the JAX march gates (render/slicecomp.march_kernels)."""
     from fluidx12_tpu_torch.render import slicecomp as SC
 
-    r = max(cfg.cube_map_size >> lod, 1)
-    lateral = {0: (cfg.grid_size[2], cfg.grid_size[1]), 1: (cfg.grid_size[2], cfg.grid_size[0]),
-               2: (cfg.grid_size[1], cfg.grid_size[0])}
-    b17 = 0
-    faces = [f for f in range(6) if (vis_mask >> f) & 1]
-    for f in faces:
-        axis = SC._FACES[f][0]
-        n_m = cfg.grid_size[axis]
-        n_s = n_m // max(-(-n_m // max(cfg.max_ray_samples >> lod, 1)), 1)
-        b17 += SC._takes_b17(n_s, *lateral[axis], r, cfg)
-    return b17, len(faces) - b17
+    kernels = SC.march_kernels(cfg, lod, [f for f in range(6) if (vis_mask >> f) & 1])
+    b17 = sum(k == "B17" for k in kernels.values())
+    return b17, len(kernels) - b17
 
 
 def phase3d_fused_and_slab(dev, smi_line, engine_256):
     """FRAMES_FUSED frames of 256^3 with the fused projection
     (FluidConfig(grid_size=(256, 256, 256), mg_project_fused=True), 800x800
     viewport, no probe) and FRAMES_SLAB frames of the 256x256x60 GI frame
-    (the in-repo probe), with their launch counts derived from the copied
-    JAX gates; then the projection span of the fused 256^3 frame beside the
-    unfused one of phase 3c (`engine_256`), in turns."""
+    (the in-repo probe; stored padded on the TPU), with their launch counts
+    derived from the copied JAX gates; then the projection span of the
+    fused 256^3 frame beside the unfused one of phase 3c (`engine_256`), in
+    turns."""
     phase(f"phase 3d: {FRAMES_FUSED} frames of 256^3 with mg_project_fused, {FRAMES_SLAB} of "
           f"the 256x256x60 GI frame")
     from fluidx12_tpu_torch.core.config import FluidConfig
@@ -890,30 +976,27 @@ def phase3d_fused_and_slab(dev, smi_line, engine_256):
                   composite_resample=frames * faces, jacobi_divrr=frames, jacobi_grad=frames)
     check(counts_a == expect, f"launch counts {counts_a} != {expect}")
 
-    # Path B: the fine projection runs the twins (no plan for 4 sweeps at
-    # nz = 60, no stencil gate), the 30x128x128 coarse level the
-    # whole-window B4; the GI normals' gradient the twin, the AO's half
-    # field B15; the faces B17 or B10 by the march gates.
+    # Path B: stored (64, 256, 256) on the TPU, so the padded projection
+    # (B3, the plane-sweep B4 twice, B5, the whole-window B4 on the coarse
+    # storage, B7, B8) and B10 on every visible face; the GI normals'
+    # gradient the twin, the AO's half field B15.
     cfg = FluidConfig(grid_size=GRID_SLAB, has_light_probe=True)
-    zyx = cfg.zyx
-    coarse = half = tuple(n // 2 for n in zyx)
-    check(not ST.stencil_pallas_supported(zyx) and J.jacobi_tuning(zyx, mg.MG_PRE) is None
-          and not J.jacobi_rr_supported(zyx, mg.MG_PRE), "the fine level runs the twins")
-    check(J.jacobi_tuning(coarse, mg.MG_COARSE_ITERS) is not None, "the coarse level takes B4")
-    check(L._ao_levels(zyx) == 1 and ST.stencil_pallas_supported(half),
-          "the AO's half field takes B15")
     frames = FRAMES_SLAB
     counts_b, faces, engine_b = run_frames(cfg, frames, dev, smi_line, "256x256x60 GI",
                                            radiance=np.load(PROBE)["radiance"])
     _, lod, vis_mask = engine_b.update_frame()
     b17, b10 = march_routes(cfg, vis_mask, lod)
-    check((vis_mask, lod, b17, b10) == (0b11011, 0, 3, 1),
-          f"the default camera: X+, X-, Y- take B17 and Z+ B10 ({vis_mask:#b}, lod {lod}, "
+    proj = padded_projection_counts(cfg)
+    check((vis_mask, lod, b17, b10) == (0b11011, 0, 0, 4),
+          f"the default camera: B10 on X+, X-, Y- and Z+ ({vis_mask:#b}, lod {lod}, "
           f"{b17}, {b10})")
+    check(proj == dict(divergence=1, residual=1, grad_damp=1, prolong_correct=1, jacobi=3,
+                       jacobi_planewise=2), f"the padded projection's route {proj}")
     expect = {name: 0 for name in KERNELS}
-    expect.update(advect_xy=frames, advect_z_forces=frames, jacobi=frames, jacobi_planewise=0,
-                  shear_scan=frames, gradient3=frames, composite=frames * b17,
-                  composite_resample=frames * b10)
+    expect.update(advect_xy=frames, advect_z_forces=frames, shear_scan=frames,
+                  composite_resample=frames * b10, composite=frames * b17,
+                  **{k: frames * v for k, v in {**proj, **light_map_counts(cfg)}.items()})
+    check(expect["gradient3"] == frames and expect["gi_light"] == 0, "B15, no B16")
     check(counts_b == expect, f"launch counts {counts_b} != {expect}")
 
     spans = {}
@@ -926,6 +1009,35 @@ def phase3d_fused_and_slab(dev, smi_line, engine_256):
     return counts_a, counts_b
 
 
+def phase3e_fluidgi(dev, smi_line):
+    """FRAMES_FLUIDGI frames of PRESETS["fluidgi"] as it is (150^3 grid,
+    800x800 viewport, the in-repo probe), stored (160, 160, 256) on the TPU:
+    the padded projection (B3, B4 in the storage dims' orders, B5, the twin
+    prolongation where B7's gate fails, B8), B10 on every visible face, the
+    GI chain's twins (no gate holds at 150 lanes); launch counts derived
+    from the copied gates, exactly.  Returns the counts."""
+    phase(f"phase 3e: {FRAMES_FLUIDGI} frames of PRESETS['fluidgi'] at 150^3 / 800^2")
+    from fluidx12_tpu_torch.core.config import PRESETS
+
+    cfg = PRESETS["fluidgi"]
+    frames = FRAMES_FLUIDGI
+    counts, faces, engine = run_frames(cfg, frames, dev, smi_line, "fluidgi",
+                                       radiance=np.load(PROBE)["radiance"])
+    _, lod, vis_mask = engine.update_frame()
+    b17, b10 = march_routes(cfg, vis_mask, lod)
+    proj = padded_projection_counts(cfg)
+    check(b17 == 0 and b10 == faces and proj["prolong_correct"] == 0,
+          f"fluidgi: B10 on every face, the twin prolongation ({b17}, {b10}, {proj})")
+    expect = {name: 0 for name in KERNELS}
+    expect.update(advect_xy=frames, advect_z_forces=frames, shear_scan=frames,
+                  composite_resample=frames * b10,
+                  **{k: frames * v for k, v in {**proj, **light_map_counts(cfg)}.items()})
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    span = projection_span_ms(engine)
+    print(f"fluidgi: projection span {span:.3f} ms/call (CUDA events, 20 calls) [{smi_line}]")
+    return counts
+
+
 def phase4_cpu_vs_cuda(dev):
     """The port on CUDA against the port on the CPU, 3 frames at six small
     grids: the pallas_jacobi=False path at (128, 128, 16), the default
@@ -934,10 +1046,11 @@ def phase4_cpu_vs_cuda(dev):
     B13, B4's plane-sweep order and B16 (and the AO at half resolution, 192
     lanes, no B15); at (256, 256, 32) with the fused projection, where it
     runs B18, B16 and B15 (the AO's (16, 128, 128) half field); and at
-    (128, 128, 20), where it runs B15 on the full-resolution GI normals and
-    B17 on the X and Y faces.  That grid takes a 256x256 viewport: at 96^2
-    the cube map drops to lod 1, whose face stacks are below the size at
-    which the TPU composites in a kernel."""
+    (128, 128, 20), stored (32, 128, 128) on the TPU, where it runs B15 on
+    the full-resolution GI normals, the padded projection and B10 on every
+    face, with a 256x256 viewport (lod 0); and at (150, 150, 72), stored
+    (80, 160, 256) as 150^3 is, where the padded projection prolongs with
+    the twin."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
@@ -951,7 +1064,8 @@ def phase4_cpu_vs_cuda(dev):
                dict(grid_size=(128, 128, 1), pallas_jacobi=True),
                dict(grid_size=(384, 384, 32), has_light_probe=True),
                dict(grid_size=(256, 256, 32), has_light_probe=True, mg_project_fused=True),
-               dict(grid_size=(128, 128, 20), has_light_probe=True, viewport=(256, 256))):
+               dict(grid_size=(128, 128, 20), has_light_probe=True, viewport=(256, 256)),
+               dict(grid_size=(150, 150, 72), has_light_probe=True)):
         cfg = FluidConfig(**dict(dict(viewport=(96, 96)), **kw))
         engines = [FluidXEngine(cfg, radiance=radiance, device=d) for d in ("cpu", dev)]
         reset_launch_counts()
@@ -976,12 +1090,14 @@ def phase4_cpu_vs_cuda(dev):
             check(counts["jacobi_divrr"] == counts["jacobi_grad"] == counts["gradient3"]
                   == counts["gi_light"] == 3 and counts["jacobi_rr"] == 0,
                   f"B18, B15 and B16 ran on {kw}: {counts}")
-        if cfg.grid_size == (128, 128, 20):
+        if cfg.grid_size in ((128, 128, 20), (150, 150, 72)):
             _, lod, vis_mask = engines[1].update_frame()
             b17, b10 = march_routes(cfg, vis_mask, lod)
-            check(b17 == 3 and counts["gradient3"] == 3 and counts["gi_light"] == 0
-                  and counts["composite"] == 3 * b17 and counts["composite_resample"] == 3 * b10,
-                  f"B15 and B17 ran on {kw}: {counts}")
+            proj = padded_projection_counts(cfg)
+            want = {k: 3 * v for k, v in {**proj, **light_map_counts(cfg)}.items()}
+            want.update(composite=0, composite_resample=3 * b10)
+            check(b17 == 0 and {k: counts[k] for k in want} == want,
+                  f"the padded route ran on {kw}: {counts}, expected {want}")
 
 
 def main() -> int:
@@ -999,6 +1115,7 @@ def main() -> int:
     counts_gi, engine_256 = phase3c_256(dev, smi_line)
     counts_fused, counts_slab = phase3d_fused_and_slab(dev, smi_line, engine_256)
     del engine_256
+    phase3e_fluidgi(dev, smi_line)
     phase4_cpu_vs_cuda(dev)
     kernels = []
     # B4's plane-sweep order is B4's wrapper and source; its launches are
@@ -1011,8 +1128,9 @@ def main() -> int:
                 else counts_fused if kname in KERNELS_FUSED
                 else counts_slab if kname in KERNELS_SLAB else counts)
         launches = path[kname]
-        # B12 is on no path of the port yet (ROADMAP.md, queue B).
-        check(launches > 0 or kname == "advect_z", f"{kname} launched on its path")
+        # B12 and B17 are on no path of the port (ROADMAP.md, queue B).
+        check(launches > 0 or kname in ("advect_z", "composite"),
+              f"{kname} launched on its path")
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

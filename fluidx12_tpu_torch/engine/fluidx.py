@@ -12,7 +12,12 @@ eagerly, so there is no program cache: what the JAX engine keys its jit
 cache on (render method, LOD, face mask, scissor rect) are plain arguments
 here.  Configurations the port does not cover yet raise NotImplementedError
 at construction, naming their ROADMAP.md item; nothing falls back to
-another path.
+another path.  The config's kernel switches are read as the JAX package
+reads them on its TPU: `pallas_jacobi` and `mg_project_fused` choose the
+projection's kernels (sim/project.py; a grid the TPU stores padded reads
+`use_pallas` alone there), `advect_fuse_xy` B1 or B11 twice
+(sim/advect_fast.py); `use_pallas=False`, `pallas_advect=False` and
+`block_resolve=True` select code the port does not have, and raise.
 """
 
 from __future__ import annotations
@@ -34,16 +39,13 @@ from fluidx12_tpu_torch.core.state import (
 from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
 from fluidx12_tpu_torch.render.environment import render_environment
 from fluidx12_tpu_torch.render.pipeline import render_frame, unported_render
-from fluidx12_tpu_torch.sim.step import simulate
+from fluidx12_tpu_torch.sim.step import simulate, unported_sim
 
 
 def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
-    if not config.fast_sim:
-        return ("the faithful simulation, fast_sim=False (ROADMAP.md queue A, "
-                "'The faithful simulation')")
-    return unported_render(config, RenderMethod.RAY_MARCH_SEPARATE)
+    return unported_sim(config) or unported_render(config, RenderMethod.RAY_MARCH_SEPARATE)
 
 
 class FluidXEngine:

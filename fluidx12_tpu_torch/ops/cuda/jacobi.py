@@ -232,11 +232,12 @@ def sweeps_plain(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> to
 
 
 def jacobi_plain(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
-                 inner: int = 8) -> torch.Tensor:
-    """Plain version of B4.  Of the TPU's tuning only `inner` matters: it
-    picks the kernel, and so the neighbour order."""
+                 inner: int = 8, storage=None) -> torch.Tensor:
+    """Plain version of B4.  Of the TPU's tuning only `inner` matters: with
+    the dims the TPU tiles (`storage`, default q's) it picks the kernel,
+    and so the neighbour order."""
     del slab
-    return sweeps_plain(q, b, iters, window_order(q.shape, inner))
+    return sweeps_plain(q, b, iters, window_order(storage or q.shape, inner))
 
 
 def jacobi_packed_plain(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -339,19 +340,23 @@ def _launch(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.T
 
 
 def jacobi(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
-           inner: int = 8) -> torch.Tensor:
+           inner: int = 8, storage=None) -> torch.Tensor:
     """B4: `iters` Jacobi sweeps of the (Z, Y, X) f32 pressure q against b,
     with `jacobi_pallas`'s arguments: `(slab, inner)` is the TPU's tuning
     (`jacobi_tuning`), which fixes the neighbour order; iters must be a
-    multiple of inner, and the volume must have a TPU plan."""
+    multiple of inner, and the dims the TPU tiles must have a TPU plan.
+    Those are q's own dims, or `storage` where the TPU runs q's grid on
+    padded storage (core/padding.py): q is then the compact logical
+    volume, of any dims."""
     on_card = _check(q, b, iters, "jacobi")
     if iters % inner:
         raise ValueError("jacobi: iters must be a multiple of inner")
-    order = window_order(q.shape, inner)
-    if order == ORDER_WINDOW and _plan(q.shape, slab, inner) is None:
-        raise ValueError(f"jacobi: unsupported volume shape {tuple(q.shape)}")
+    plan_zyx = tuple(storage or q.shape)
+    order = window_order(plan_zyx, inner)
+    if order == ORDER_WINDOW and _plan(plan_zyx, slab, inner) is None:
+        raise ValueError(f"jacobi: unsupported volume shape {plan_zyx}")
     if not on_card:
-        return jacobi_plain(q, b, iters, slab, inner)
+        return jacobi_plain(q, b, iters, slab, inner, plan_zyx)
     out = _launch(q, b, iters, order)
     jacobi.launches += 1
     jacobi.planewise_launches += order == ORDER_PLANEWISE

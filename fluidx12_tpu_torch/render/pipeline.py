@@ -5,8 +5,9 @@ Ported: the 2D visualization (every render method and stack, as in the
 JAX package), and the fast stack for the two cube-map methods
 (RAY_MARCH_SEPARATE and RAY_MARCH_MERGED, which the fast stack renders
 identically) with a directional light, with or without the light probe's
-GI and sky.  The other branches raise NotImplementedError naming their
-ROADMAP.md item rather than running something else.
+GI and sky, on the kernels (`use_pallas`).  The other branches, and
+`block_resolve`, raise NotImplementedError naming their ROADMAP.md item
+rather than running something else.
 """
 
 from __future__ import annotations
@@ -31,6 +32,12 @@ def unported_render(config: FluidConfig, method: RenderMethod):
     renders it."""
     if not config.is_3d:
         return None
+    if not config.use_pallas:
+        return ("the einsum shear sweep and the einsum + cumprod march, "
+                "use_pallas=False (ROADMAP.md queue A, 'The XLA twins')")
+    if config.block_resolve:
+        return ("cube_cast_blocked, block_resolve=True (ROADMAP.md, 'Do not port'; "
+                "queue C, C7)")
     if not config.fast_render:
         return f"the faithful render stack, fast_render=False ({_OTHER_METHODS})"
     if not method.uses_cube_map:

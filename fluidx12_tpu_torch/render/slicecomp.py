@@ -4,13 +4,19 @@ fluidx12_tpu/render/slicecomp.py, unsharded compact path).
 Cube faces are axis-aligned, so the rays of all texels of a face cut each
 volume slice in a scale + translate of the texel grid: per-slice resampling
 is separable, and front-to-back compositing runs slice by slice.  Kernel B10
-(ops/cuda/composite.py) does both for one face in one pass.  Where the TPU
-cannot run B10 on a big stack (`_takes_b17`: a lateral dim that does not
-tile), it resamples the stack with two matmuls and composites it with
-kernel B17; the port does the same there, and takes B10 on every other
-face.  (The JAX package keeps an einsum + cumprod twin for small stacks,
-below its `_FUSE_MIN_STACK`; that twin agrees with the kernel within 2e-3,
-tests/test_pallas.py, and is not ported.)
+(ops/cuda/composite.py) does both for one face in one pass.  The route of
+each face is the TPU's (`march_kernels`).  Where the TPU stores the grid
+padded (core/padding.py) it re-pads the march volume and takes B10 on
+every face, when each live axis passes B10's gate at the padded lateral
+dims (`padded_march`); the port then takes B10 on the compact volume,
+whose clamps at its edges give the padded kernel's zero-weight ghosts.
+Elsewhere, where the TPU cannot run B10 on a big stack (`_takes_b17`: a
+lateral dim that does not tile, which with x = y means a lateral plane of
+768^2 or more), it resamples the stack with two matmuls and composites it
+with kernel B17; the port does the same there, and takes B10 on every
+other face.  (The JAX package keeps an einsum + cumprod twin for small
+stacks, below its `_FUSE_MIN_STACK`; that twin agrees with the kernel
+within 2e-3, tests/test_pallas.py, and is not ported.)
 """
 
 from __future__ import annotations
@@ -18,9 +24,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from fluidx12_tpu_torch.core import math3d as m3
+from fluidx12_tpu_torch.core.camera import OrbitCamera
 from fluidx12_tpu_torch.core.config import FaceCullMode, FluidConfig
+from fluidx12_tpu_torch.core.padding import storage_zyx
 from fluidx12_tpu_torch.core.state import SceneParams
 from fluidx12_tpu_torch.ops.cuda.composite import (
     composite,
@@ -163,6 +173,47 @@ def _takes_b17(n_s: int, a: int, b: int, r: int, config: FluidConfig) -> bool:
             and composite_supported(n_s, r, r))
 
 
+def _lateral(zyx, axis: int):
+    """(A, B), the lateral dims of an axis volume of a (Z, Y, X) grid
+    (`_axis_volume`): X faces (Z, Y), Y faces (Z, X), Z faces (Y, X)."""
+    z, y, x = zyx
+    return {0: (z, y), 1: (z, x), 2: (y, x)}[axis]
+
+
+def _n_slices(config: FluidConfig, axis: int, lod: int) -> int:
+    """Slices of the axis volume: the axis pooled down to the LOD-scaled
+    ray-sample budget (`_axis_volume`)."""
+    n_m = config.grid_size[axis]
+    return n_m // max(-(-n_m // max(config.max_ray_samples >> lod, 1)), 1)
+
+
+def padded_march(config: FluidConfig, lod: int, live) -> bool:
+    """True where the TPU re-pads the march volume to its storage dims and
+    takes B10 on every live face (fluidx12_tpu/render/slicecomp.py:466-498):
+    the grid pads, and every live face's axis passes
+    `composite_resample_supported` at the padded lateral dims with the
+    logical grid's slice count."""
+    storage = storage_zyx(config)
+    if not (config.use_pallas and config.is_3d) or storage == config.zyx:
+        return False
+    r = max(config.cube_map_size >> lod, 1)
+    return all(composite_resample_supported(_n_slices(config, axis, lod),
+                                            *_lateral(storage, axis), r, r)
+               for axis in {_FACES[f][0] for f in live})
+
+
+def march_kernels(config: FluidConfig, lod: int, live) -> dict:
+    """{face: "B10" or "B17"} for the faces in `live`: the TPU's route for
+    each face at this LOD."""
+    if padded_march(config, lod, live):
+        return {f: "B10" for f in live}
+    r = max(config.cube_map_size >> lod, 1)
+    return {f: ("B17" if _takes_b17(_n_slices(config, _FACES[f][0], lod),
+                                     *_lateral(config.zyx, _FACES[f][0]), r, config)
+                else "B10")
+            for f in live}
+
+
 def _interp_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
     """(..., n_out) source coordinates -> (..., n_out, n_src) dense lerp
     weights, edges clamped (fluidx12_tpu/render/slicecomp.py:80-102)."""
@@ -195,14 +246,13 @@ def resampled_stack(volf: torch.Tensor, h_rows: torch.Tensor, h_cols: torch.Tens
 
 def _march_face(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
                 num_samples: torch.Tensor, config: FluidConfig, dtype,
-                lod: int = 0) -> torch.Tensor:
-    """March one cube face; returns (R, R, 4) = (rgb / 2pi, alpha),
-    R = cube_map_size >> lod."""
+                lod: int = 0, b17: bool = False) -> torch.Tensor:
+    """March one cube face with B10, or with the resample and B17 where
+    `b17`; returns (R, R, 4) = (rgb / 2pi, alpha), R = cube_map_size >> lod."""
     h_rows, h_cols, valid, n_steps, swapped = face_geometry(
         face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod)
-    n_s, a, b = volf.shape[1:]
     flip = _FACES[face_id][1] < 0
-    if _takes_b17(n_s, a, b, h_rows.shape[1], config):
+    if b17:
         acc = composite(*resampled_stack(volf, h_rows, h_cols, valid), n_steps,
                         float(config.absorption), flip=flip)
     else:
@@ -233,6 +283,7 @@ def ray_march_cube_fast(grid: torch.Tensor, params: SceneParams, config: FluidCo
         face_ids = torch.arange(6, dtype=torch.int32, device=dev)
         visible = ((params.visibility_mask >> face_ids) & 1) > 0
     live = [f for f in range(6) if static_mask is None or (static_mask >> f) & 1]
+    kernels = march_kernels(config, lod, live)
 
     volaxes = {axis: _axis_volume(vol, axis, config, lod)
                for axis in sorted({_FACES[f][0] for f in live})}
@@ -243,9 +294,30 @@ def ray_march_cube_fast(grid: torch.Tensor, params: SceneParams, config: FluidCo
             faces.append(torch.zeros((r, r, 4), dtype=dtype, device=dev))
             continue
         face = _march_face(f, volaxes[_FACES[f][0]], local_eye, params.num_samples,
-                           config, dtype, lod)
+                           config, dtype, lod, b17=kernels[f] == "B17")
         faces.append(torch.where(visible[f], face, torch.zeros_like(face)))
     cube = torch.stack(faces)
     if config.quantize_cube_map:
         cube = quantize_unorm8(cube)
     return cube
+
+
+def sample_face_inputs(grid, face: int, device, seed: int = 0):
+    """B10's arguments (volf, h_rows, h_cols, valid, n_steps) for cube face
+    `face` of a smooth lit smoke volume on grid `grid` (x, y, z), made from
+    `seed`, as the default camera sees it at lod 0: the march's own shapes
+    and coordinates, for holding B10 against its plain version."""
+    cfg = FluidConfig(grid_size=grid)
+    rng = np.random.default_rng(seed)
+    dens = torch.from_numpy(rng.uniform(0.0, 0.6, cfg.zyx).astype(np.float32)).to(device)
+    for ax in range(3):
+        dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
+    vol = torch.cat([dens[None], dens[None].expand(3, -1, -1, -1) * 0.5]).to(torch.bfloat16)
+    volf = _axis_volume(vol, _FACES[face][0], cfg).to(torch.bfloat16).contiguous()
+    cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
+    eye = torch.from_numpy(np.append(cam.eye, 1.0).astype(np.float32)).to(device)
+    world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(device)
+    h_rows, h_cols, valid, n_steps, _ = face_geometry(
+        face, volf.shape[1], (eye @ world_i)[:3],
+        torch.tensor(cfg.max_ray_samples, device=device), cfg, torch.float32)
+    return volf, h_rows, h_cols, valid, n_steps

@@ -4,7 +4,10 @@
 The port runs the TPU kernels' semantics on every grid, all
 clamp-addressed (ops/cuda/advect.py).  In 3D: kernel B1 (x then y, with the
 x result rounded to storage) and kernel B2 (z, with the forces epilogue
-fused on the last sub-step); B1 hands B2 its result in f32.  In 2D: kernel
+fused on the last sub-step); B1 hands B2 its result in f32.  With
+`advect_fuse_xy=False` the TPU runs x and then y as single-axis kernels,
+each rounded to storage (fluidx12_tpu/ops/pallas/advect.py:957-983), and
+so does the port: B11 twice, then B2 on the stored result.  In 2D: kernel
 B11 on x, then on y, each rounded to storage, as the TPU's
 `backtrace_pallas` runs a plane too large for B1 (the 2D preset's 512^2);
 B1 rounded to storage gives the same bits on a plane it would take, so the
@@ -54,7 +57,11 @@ def advect_fields_fast(fields: torch.Tensor, time_step: torch.Tensor,
         xy_scales = torch.stack([dt * x, dt * y])
         z_scal = torch.stack([dt * z, dt_full])
         for i in range(n_sub):
-            both = advect_xy(both, xy_scales)
+            if config.advect_fuse_xy:
+                both = advect_xy(both, xy_scales)
+            else:
+                both = advect_axis(both, xy_scales[0], axis=2, disp_ch=0)
+                both = advect_axis(both, xy_scales[1], axis=1, disp_ch=1).float()
             if config.pre_multiplied and i == n_sub - 1:
                 return advect_z_forces(both, z_scal, table, consts, store=fields.dtype)
             both = advect_z(both, z_scal, store=fields.dtype)

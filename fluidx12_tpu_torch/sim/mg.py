@@ -13,6 +13,9 @@ interpolation matrices as f32 einsums (TF32 off).  Outside B13 the
 restriction is two f32 einsums plus a z reshape-mean, which JAX computes
 outside any kernel too.  `mg_project_fused` is the whole projection as one
 V-cycle with kernel B18 at both ends (the opt-in `mg_project_fused`).
+`mg_solve_padded` is the V-cycle the TPU runs where it stores the grid
+padded (core/padding.py): its pieces follow fluidx12_tpu/sim/padded.py,
+on the port's compact volumes, with every gate on the storage dims.
 """
 
 from __future__ import annotations
@@ -57,13 +60,16 @@ def _prolong_matrix(n_c: int) -> np.ndarray:
     even fine cells mix (0.25, 0.75) of coarse (m-1, m), odd (0.75, 0.25)
     of (m, m+1); edges clamp."""
     n_f = 2 * n_c
+    cols = np.arange(n_f)
+    c = cols / 2.0 - 0.25
+    c0 = np.floor(c)
+    f = (c - c0).astype(np.float32)
+    c0 = c0.astype(np.int64)
     m = np.zeros((n_c, n_f), np.float32)
-    for i in range(n_f):
-        c = i / 2.0 - 0.25
-        c0 = int(np.floor(c))
-        f = c - c0
-        m[np.clip(c0, 0, n_c - 1), i] += 1.0 - f
-        m[np.clip(c0 + 1, 0, n_c - 1), i] += f
+    # Built on every call of `_prolong`, so in one vectorised pass; at a
+    # clamped edge both taps add into one cell.
+    np.add.at(m, (np.clip(c0, 0, n_c - 1), cols), 1.0 - f)
+    np.add.at(m, (np.clip(c0 + 1, 0, n_c - 1), cols), f)
     return m
 
 
@@ -102,6 +108,20 @@ def _smooth(q: torch.Tensor, b: torch.Tensor, iters: int,
         return jacobi(q, b, iters, *tuning)
     if use_pallas and jacobi_packed_supported(q.shape):
         return jacobi_packed(q, b, iters)
+    return jacobi_sweeps(q, b, iters, is_3d=True)
+
+
+def smooth_padded(q: torch.Tensor, b: torch.Tensor, iters: int, storage,
+                  use_pallas: bool = True) -> torch.Tensor:
+    """Jacobi sweeps of a compact volume whose grid the TPU stores with the
+    dims `storage` (fluidx12_tpu/sim/padded.py:71-84, `_smooth_masked`):
+    B4 with the tuning, and so the neighbour order, of those dims, else
+    the twin sweeps; never B6."""
+    from fluidx12_tpu_torch.sim.project import jacobi_sweeps
+
+    tuning = jacobi_tuning(storage, iters) if use_pallas else None
+    if tuning is not None:
+        return jacobi(q, b, iters, *tuning, storage=storage)
     return jacobi_sweeps(q, b, iters, is_3d=True)
 
 
@@ -163,3 +183,27 @@ def mg_solve(q: torch.Tensor, b: torch.Tensor, pre: int = MG_PRE,
     else:
         q = q + _prolong(e_c)
     return _smooth(q, b, post, use_pallas)
+
+
+def mg_solve_padded(q: torch.Tensor, b: torch.Tensor, storage, pre: int = MG_PRE,
+                    post: int = MG_POST, coarse_iters: int = MG_COARSE_ITERS,
+                    use_pallas: bool = True) -> torch.Tensor:
+    """One V(pre, post) cycle of a compact (Z, Y, X) volume whose grid the
+    TPU stores with the dims `storage`, as it runs `mg_solve_padded`
+    (fluidx12_tpu/sim/padded.py:222-257): the smoothers of
+    `smooth_padded` at the fine and at the coarse storage dims; where the
+    stencil gate holds on the storage dims, B5 and, where B7's gate holds
+    there too, B7 (else the twin prolongation over the logical coarse
+    extent); the restriction as two einsums and a mean.  Never B13.  Each
+    kernel clamps at the compact volume's edges, which are the logical
+    edges the TPU's kernels clamp at."""
+    q = smooth_padded(q, b, pre, storage, use_pallas)
+    kernels = use_pallas and stencil_pallas_supported(storage)
+    r_c = _restrict(residual(q, b) if kernels else _residual(q, b, False)) * 4.0
+    coarse = tuple(n // 2 for n in storage)
+    e_c = smooth_padded(torch.zeros_like(r_c), r_c, coarse_iters, coarse, use_pallas)
+    if kernels and prolong_pallas_supported(storage):
+        q = prolong_correct(q, e_c)
+    else:
+        q = q + _prolong(e_c)
+    return smooth_padded(q, b, post, storage, use_pallas)

@@ -9,7 +9,11 @@ kernels, or B4 for all the sweeps where `jacobi_tuning` gives a plan; with
 `mg_project_fused`, where `mg_fused_supported` holds, the fused V-cycle
 with B18 at both ends in place of B3, the fine smoothers and B8.  The
 kernels compute in f32 from the bf16 state.  In 2D: B14 for all the sweeps
-where `jacobi2d_pallas_supported` holds, between the bf16 twins.  Everywhere else the XLA twins
+where `jacobi2d_pallas_supported` holds, between the bf16 twins.  Where the TPU
+stores a 3D grid padded (core/padding.py), the projection follows its
+`project_padded` instead: B3, B8 and the multigrid of `mg_solve_padded`
+with every gate on the storage dims, on the port's compact state, and
+neither B13 nor B18.  Everywhere else the XLA twins
 below run, with the dtypes of the JAX code as written: the divergence,
 gradient subtract and boundary damp on the storage-dtype (bf16) velocity,
 the Poisson solve in f32.  Paths the port has no kernel for yet raise
@@ -23,6 +27,7 @@ from typing import Tuple
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.core.padding import storage_zyx
 from fluidx12_tpu_torch.ops.cuda import stencil
 from fluidx12_tpu_torch.ops.cuda.jacobi import (
     jacobi,
@@ -121,6 +126,8 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
         return fields, pressure
     is_3d = config.is_3d
     rho = config.fluid_density_3d if is_3d else config.fluid_density_2d
+    if is_3d and storage_zyx(config) != config.zyx:
+        return _project_padded(fields, pressure, config, rho)
     kernels = config.use_pallas and config.pallas_jacobi
     tuning = None
     use_stencil = False
@@ -158,8 +165,38 @@ def project(fields: torch.Tensor, pressure: torch.Tensor, time_step: float,
         q = jacobi(pressure, b, config.num_pressure_iters, *tuning)
     else:
         q = jacobi_sweeps(pressure, b, config.num_pressure_iters, is_3d)
+    return _finish(fields, q, rho, use_stencil, config)
+
+
+def _finish(fields: torch.Tensor, q: torch.Tensor, rho: float, use_stencil: bool,
+            config: FluidConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient subtraction and the wall-band damp: B8 in place, or the
+    twins."""
     if use_stencil:
         return stencil.grad_damp(fields, q, rho), q
-    vel = subtract_gradient(fields, q, rho, is_3d)
+    vel = subtract_gradient(fields, q, rho, config.is_3d)
     vel = boundary_damp(vel, config).to(fields.dtype)
     return torch.cat([vel, fields[3:]]) if fields.shape[0] > 3 else vel, q
+
+
+def _project_padded(fields: torch.Tensor, pressure: torch.Tensor, config: FluidConfig,
+                    rho: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The projection of a 3D grid that the TPU stores padded, as it runs
+    `project_padded` (fluidx12_tpu/sim/padded.py:260-300): the stencil
+    kernels B3 and B8 where their gate holds on the storage dims, the
+    multigrid of `mg_solve_padded` (or the smoother alone below the
+    multigrid's plane), all decided by `use_pallas` (that route does not
+    read `pallas_jacobi`), never B13 or B18.  On the compact state each
+    kernel clamps where the TPU's clamps at the logical extents."""
+    from fluidx12_tpu_torch.sim.mg import mg_solve_padded, mg_supported, smooth_padded
+
+    storage = storage_zyx(config)
+    z, y, x = config.zyx
+    use_stencil = config.use_pallas and stencil.stencil_pallas_supported(storage)
+    b = stencil.divergence(fields) if use_stencil else divergence(fields, True)
+    if (config.fast_sim and config.mg_pressure and y * x >= config.mg_min_plane
+            and mg_supported(config.zyx)):
+        q = mg_solve_padded(pressure, b, storage, use_pallas=config.use_pallas)
+    else:
+        q = smooth_padded(pressure, b, config.num_pressure_iters, storage, config.use_pallas)
+    return _finish(fields, q, rho, use_stencil, config)

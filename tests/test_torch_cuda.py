@@ -17,6 +17,7 @@ from fluidx12_tpu_torch.ops.cuda import composite as C
 from fluidx12_tpu_torch.ops.cuda import jacobi as J
 from fluidx12_tpu_torch.ops.cuda import stencil as ST
 from fluidx12_tpu_torch.ops.cuda import sweep as S
+from fluidx12_tpu_torch.render.slicecomp import sample_face_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -73,7 +74,24 @@ def test_composite_resample_matches_plain(dev, flip):
     nst = torch.from_numpy(rng.uniform(0.5, 2, (r1, r2)).astype(np.float32)).to(dev)
     args = (volf, h_rows, h_cols, valid, nst, 0.8, flip)
     torch.testing.assert_close(C.composite_resample(*args), C.composite_resample_plain(*args),
-                               atol=2e-3, rtol=0)
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("grid,face", [((128, 128, 128), 0), ((128, 128, 128), 4),
+                                       ((256, 256, 256), 0), ((150, 150, 150), 0),
+                                       ((150, 150, 150), 4)],
+                         ids=["128_x", "128_z", "256_x", "150_x", "150_z"])
+def test_composite_resample_faces_match_plain(dev, grid, face, flip):
+    """B10 on the march's own faces, 128^3, 256^3 and 150-lateral (R =
+    150): within 1e-4 of the serial plain version (the segments' OVER
+    merge re-associates the composite; expf and log1pf)."""
+    args = sample_face_inputs(grid, face, dev)
+    got = C.composite_resample(*args, 0.8, flip)
+    ref = C.composite_resample_plain(*args, 0.8, flip)
+    err = float((got - ref).abs().max())
+    print(f"B10 {grid} face {face} flip {flip}: max abs diff {err:.3e}")
+    assert err <= 1e-4
 
 
 def _randn(dev, shape, seed, scale=1.0):
@@ -214,12 +232,16 @@ def test_composite_matches_plain(dev, flip):
     assert float((got - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("path", ["fused", "slab"])
+@pytest.mark.parametrize("path", ["fused", "slab", "padded"])
 def test_new_paths_launch_their_kernels(dev, path):
     """One frame of the fused-projection 256^3 path (B18's two halves once,
-    none of B3, B13, B8 or B4's plane-sweep order) and of the 256x256x60 GI
-    frame (B15 once, B17 on the three X and Y faces the default camera
-    sees, B10 on Z+, no B16 or B13)."""
+    none of B3, B13, B8 or B4's plane-sweep order), of the 256x256x60 GI
+    frame, stored (64, 256, 256) on the TPU (B15 once; the padded
+    projection: B3, B4 in its plane-sweep order twice and on the coarse
+    level once, B5, B7, B8; B10 on the four faces the default camera sees,
+    no B17, B16 or B13), and of grid (128, 128, 20), stored (32, 128, 128)
+    (B4 in its whole-window order twice, the coarse level on the twin, no
+    B6)."""
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
@@ -228,13 +250,18 @@ def test_new_paths_launch_their_kernels(dev, path):
                               device=dev)
         want = dict(jacobi_divrr=1, jacobi_grad=1, jacobi=1, prolong_correct=1, divergence=0,
                     jacobi_rr=0, grad_damp=0, residual=0, jacobi_planewise=0)
+    elif path == "padded":
+        engine = FluidXEngine(FluidConfig(grid_size=(128, 128, 20)), device=dev)
+        want = dict(divergence=1, jacobi=2, jacobi_planewise=0, residual=1, jacobi_packed=0,
+                    prolong_correct=1, grad_damp=1, composite=0, jacobi_rr=0)
     else:
         rad = np.load(Path(__file__).resolve().parents[1] / "assets" / "rnl_cross.npz")[
             "radiance"]
         engine = FluidXEngine(FluidConfig(grid_size=(256, 256, 60), has_light_probe=True),
                               radiance=rad, device=dev)
-        want = dict(gradient3=1, composite=3, composite_resample=1, gi_light=0, jacobi_rr=0,
-                    jacobi=1, jacobi_planewise=0)
+        want = dict(gradient3=1, composite=0, composite_resample=4, gi_light=0, jacobi_rr=0,
+                    divergence=1, jacobi=3, jacobi_planewise=2, residual=1, jacobi_packed=0,
+                    prolong_correct=1, grad_damp=1)
     engine.update_frame()
     reset_launch_counts()
     image = engine.step_frame()

@@ -145,18 +145,43 @@ def test_golden_fluid2d():
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
     its ROADMAP item, instead of running another path: the faithful
-    simulation and render stacks, the point light and the DIRECT methods.
-    The default preset (pallas_jacobi=True), the 2D preset, GI and every
-    kernel the JAX gates choose (B15 and B18 among them) are covered."""
+    simulation and render stacks, the point light and the DIRECT methods;
+    the switches that select the JAX package's XLA twins (`use_pallas=False`,
+    `pallas_advect=False`: the mirror-addressed advect twin, the einsum
+    sweep and march) and `cube_cast_blocked` (`block_resolve=True`), at
+    construction and again in `simulate` and `render_frame`.  The default
+    preset (pallas_jacobi=True), the 2D preset, GI and every kernel the JAX
+    gates choose (B15 and B18 among them) are covered, and so is
+    `advect_fuse_xy=False` (B11 twice, tests/test_torch_padded.py)."""
     from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.core.state import make_initial_state, unpack_scene_params
+    from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
+    from fluidx12_tpu_torch.sim.step import simulate
 
     torch_fluidx.FluidXEngine(PRESETS["fluid3d"], device="cpu")
+    torch_fluidx.FluidXEngine(dataclasses.replace(PRESETS["fluid3d"], advect_fuse_xy=False),
+                              device="cpu")
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
-    for change in (dict(grid_size=(64, 64, 1), fast_sim=False), dict(fast_render=False),
-                   dict(point_light=True), dict(fast_sim=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_fluidx.FluidXEngine(dataclasses.replace(base, **change), device="cpu")
+    twins = "ROADMAP.md queue A, 'The XLA twins'"
+    for change, match in ((dict(grid_size=(64, 64, 1), fast_sim=False), "ROADMAP"),
+                          (dict(fast_render=False), "ROADMAP"),
+                          (dict(point_light=True), "ROADMAP"), (dict(fast_sim=False), "ROADMAP"),
+                          (dict(use_pallas=False), twins), (dict(pallas_advect=False), twins),
+                          (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
+        cfg = dataclasses.replace(base, **change)
+        with pytest.raises(NotImplementedError, match=match):
+            torch_fluidx.FluidXEngine(cfg, device="cpu")
     engine = torch_fluidx.FluidXEngine(base, device="cpu")
+    state = make_initial_state(base, "cpu")
+    params = unpack_scene_params(engine.update_frame()[0])
+    for change in (dict(use_pallas=False), dict(pallas_advect=False)):
+        with pytest.raises(NotImplementedError, match=twins):
+            simulate(state, base.time_step, dataclasses.replace(base, **change))
+    for change, match in ((dict(use_pallas=False), twins),
+                          (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
+        with pytest.raises(NotImplementedError, match=match):
+            torch_render(state.color, params, dataclasses.replace(base, **change),
+                         torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
     engine.render_method = torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_SEPARATE
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.step_frame()

@@ -1,17 +1,18 @@
 """The port's B15 (the GI gradient) and B17 (the compositor over a
 pre-resampled stack) on the CPU against the JAX package: each plain
 version against its Pallas kernel in interpret mode, the copied march
-gates against the JAX originals, and the GI light map and the cube march
-at grid (128, 128, 20) with a light probe, where the TPU's gates take B15
+gates and the march's route against the JAX originals, the GI light map at
+grid (128, 128, 20) with a light probe, where the TPU's gates take B15
 (the full-resolution GI normals: 20 slices are too few for the
-half-resolution AO) and B17 (the X and Y faces, whose 20-wide lateral dim
-does not tile for B10).
+half-resolution AO), and the cube march there.
 
-On the TPU itself such a grid (z % 16 != 0) gets the padded storage layout
-(fluidx12_tpu/core/padding.py), on which the march takes B10 on every
-face; the port has no padded layout (ROADMAP.md, "Do not port"), so these
-tests pin the JAX package's compact routes.  Inputs are made with numpy
-from a seed; every JAX reference is jitted and built once.
+On the TPU such a grid (z % 16 != 0) is stored padded
+(fluidx12_tpu/core/padding.py): the march re-pads its volume and takes
+B10 on every face, and so does the port (render/slicecomp.padded_march).
+With x = y, B17 then serves only grids whose lateral plane is 768^2 or
+more; its route is traced there, and its numerics are held on one face
+with B10's gate closed.  Inputs are made with numpy from a seed; every
+JAX reference is jitted and built once.
 """
 
 import functools
@@ -24,7 +25,6 @@ import jax
 import jax.numpy as jnp
 
 from fluidx12_tpu.core import math3d as m3
-from fluidx12_tpu.core import padding as jpad
 from fluidx12_tpu.core.camera import OrbitCamera
 from fluidx12_tpu.core.config import FluidConfig
 from fluidx12_tpu.core.state import default_scene_params
@@ -36,6 +36,7 @@ from fluidx12_tpu_torch.core.config import FluidConfig as TorchConfig
 from fluidx12_tpu_torch.core.state import SceneParams
 from fluidx12_tpu_torch.ops.cuda import composite as tc
 from fluidx12_tpu_torch.ops.cuda import stencil as ts
+from fluidx12_tpu_torch.ops.transform import transform_point_h
 from fluidx12_tpu_torch.render import lightmap_sweep as tls
 from fluidx12_tpu_torch.render import slicecomp as tsc
 
@@ -141,13 +142,66 @@ def test_march_gates_match_jax(grid):
 
 def test_slab_grids_take_b17_on_x_and_y_faces():
     """At lod 0 the X and Y faces of 256x256x60 (128 slices of 256^2, the
-    lateral Z = 60) and of 128x128x20 take B17; the Z faces do not."""
+    lateral Z = 60) and of 128x128x20 would take B17 on the compact layout
+    (`_takes_b17`); the Z faces would not.  Both grids are stored padded on
+    the TPU, (64, 256, 256) and (32, 128, 128), where every face passes
+    B10's gate, so the march takes B10 on all six (`march_kernels`)."""
     for grid, n_xy in (((256, 256, 60), 128), ((128, 128, 20), 128)):
         cfg = TorchConfig(grid_size=grid)
         r, z = cfg.cube_map_size, grid[2]
         assert tsc._takes_b17(n_xy, z, grid[1], r, cfg)      # X faces: lateral (Z, Y)
         assert tsc._takes_b17(n_xy, z, grid[0], r, cfg)      # Y faces: lateral (Z, X)
         assert not tsc._takes_b17(z, grid[1], grid[0], r, cfg)
+        assert tsc.padded_march(cfg, 0, range(6))
+        assert tsc.march_kernels(cfg, 0, range(6)) == {f: "B10" for f in range(6)}
+
+
+def _jax_route(cfg, lod, monkeypatch):
+    """{face: "B10" | "B17" | "chain"}: the kernel JAX's march takes on each
+    of the six faces on its TPU (`_FUSED_ON_CPU`), traced with
+    `jax.eval_shape`, nothing computed.  The spies stand in for the two
+    Pallas calls with their (4, R1, R2) result, so no kernel is traced."""
+    monkeypatch.setattr(jsc, "_FUSED_ON_CPU", True)
+    route, face = {}, []
+    march_face = jsc._march_face
+
+    def face_spy(face_id, *args, **kwargs):
+        face.append(face_id)
+        route[face_id] = "chain"
+        return march_face(face_id, *args, **kwargs)
+
+    for name, kind, steps in (("composite_resample_pallas", "B10", 4),
+                              ("composite_pallas", "B17", 2)):
+        monkeypatch.setattr(pc, name, lambda *a, _kind=kind, _steps=steps, **k: (
+            route.__setitem__(face[-1], _kind),
+            jnp.zeros((4,) + a[_steps].shape, jnp.float32))[1])
+    monkeypatch.setattr(jsc, "_march_face", face_spy)
+    x, y, z = cfg.grid_size
+    jax.eval_shape(functools.partial(jsc.ray_march_cube_fast, config=cfg, lod=lod),
+                   jax.ShapeDtypeStruct((4, z, y, x), jnp.float32), _jax_params(cfg),
+                   light_map=jax.ShapeDtypeStruct((3, z, y, x), jnp.float32))
+    return route
+
+
+# (128, 128, 20)'s route is run, not traced, below.
+ROUTE_GRIDS = [(256, 256, 60), (150, 150, 150), (96, 96, 44)]
+
+
+@pytest.mark.parametrize("grid", ROUTE_GRIDS, ids=lambda g: "x".join(map(str, g)))
+def test_march_route_matches_jax(grid, monkeypatch):
+    """The port's route for each face (`march_kernels`) at lod 0 is the JAX
+    march's on its TPU, traced without the padded layout patched away: B10 on
+    every face of a grid stored padded, B10 or B17 by the compact gates
+    elsewhere.  Where JAX composites a small stack with its einsum chain
+    (below `_FUSE_MIN_STACK`), the port takes B10 (ROADMAP.md C4)."""
+    cfg, tcfg = FluidConfig(grid_size=grid), TorchConfig(grid_size=grid)
+    want = _jax_route(cfg, 0, monkeypatch)
+    got = tsc.march_kernels(tcfg, 0, range(6))
+    r = tcfg.cube_map_size
+    for f in range(6):
+        small = tsc._n_slices(tcfg, tsc._FACES[f][0], 0) * r * r < tsc._FUSE_MIN_STACK
+        assert got[f] == want[f] or (want[f] == "chain" and got[f] == "B10" and small), (
+            f, got[f], want[f])
 
 
 # ---------------------------------------------------------------------------
@@ -228,34 +282,79 @@ def test_light_map_takes_b15_and_matches_tpu(slab, monkeypatch):
 
 
 def test_march_takes_b17_and_matches_tpu(slab, monkeypatch):
-    """The port's `ray_march_cube_fast` at grid (128, 128, 20), lod 0, the
-    default camera's faces: B17 on X+, X- and Y- (stacks 128 x 128 x 128
-    resampled by the two matmuls), B10 on Z+.  Against JAX's march with the
-    fused kernels forced on for the CPU (`_FUSED_ON_CPU`, as
-    tests/test_pallas.py runs them) on the compact layout: B17's faces
-    within 1e-6 (the same f32 chain on the CPU, where the matmul dtype is
-    f32; only exp, log1p and the matmuls' summation differ); Z+, where the TPU's stack (20 x 128
-    x 128) is below `_FUSE_MIN_STACK` and it takes its XLA chain while the
-    port takes B10 (ROADMAP.md C4), within 2e-3, the JAX package's
-    kernel-against-chain tolerance."""
+    """B17's route and numerics.  With x = y, a face takes B17 only where
+    B10's VMEM plan fails on a big stack of an unpadded grid: a lateral
+    plane of 768^2 or more.  At (768, 768, 16), lod 0, the port's route
+    takes B17 on the Z faces and B10 on the others, as JAX's march does
+    (traced).  Its numerics on one face: grid (128, 128, 20)'s X+ face,
+    128 slices resampled by the two matmuls, with B10's gate closed in the
+    JAX package so that its march takes B17 there too (on the compact
+    layout), against the port's B17 branch of `_march_face`: within 1e-6
+    (the same f32 chain on the CPU, where the matmul dtype is f32; only
+    exp, log1p and the matmuls' summation differ)."""
+    big = (768, 768, 16)
+    with pytest.MonkeyPatch.context() as mp:
+        route = _jax_route(FluidConfig(grid_size=big), 0, mp)
+    assert route == {0: "B10", 1: "B10", 2: "B10", 3: "B10", 4: "B17", 5: "B17"}
+    assert tsc.march_kernels(TorchConfig(grid_size=big), 0, range(6)) == route
+
     cfg, grid, light, _, p = slab
     tcfg = TorchConfig(**SLAB)
     monkeypatch.setattr(jsc, "_FUSED_ON_CPU", True)
-    monkeypatch.setattr(jpad, "storage_zyx", lambda config: config.zyx)
-    jax_faces = []
+    monkeypatch.setattr(pc, "composite_resample_supported", lambda *a: False)
+    stacks = []
     fused = pc.composite_pallas
-
-    def spy(dens, *args, **kwargs):
-        jax_faces.append(dens.shape)
-        return fused(dens, *args, **kwargs)
-
-    monkeypatch.setattr(pc, "composite_pallas", spy)
-    monkeypatch.setattr(pc, "composite_resample_pallas",
-                        lambda *a, **k: pytest.fail("B10 is not the TPU's route here"))
+    monkeypatch.setattr(pc, "composite_pallas",
+                        lambda dens, *a, **k: stacks.append(dens.shape) or fused(dens, *a, **k))
     march = jax.jit(functools.partial(jsc.ray_march_cube_fast, config=cfg, lod=0,
-                                      static_mask=MASK))
+                                      static_mask=0b1))
+    ref = np.asarray(march(jnp.asarray(grid), p, light_map=jnp.asarray(light)))[0]
+    assert stacks == [(128, 128, 128)]
+
+    calls = []
+    plain = tc.composite_plain
+    monkeypatch.setattr(tc, "composite_plain", lambda *a: calls.append(1) or plain(*a))
+    tp_ = _to_torch(p)
+    local_eye = transform_point_h(tp_.eye_pt, tp_.world_i)[:3]
+    tgrid, tlight = torch.from_numpy(grid), torch.from_numpy(light)
+    vol = torch.cat([tgrid[3:4], tgrid[:3] * tlight])
+    volf = tsc._axis_volume(vol, 0, tcfg)
+    got = tsc._march_face(0, volf, local_eye, tp_.num_samples, tcfg, torch.float32, 0,
+                          b17=True).numpy()
+    assert calls == [1] and got.shape == ref.shape == (128, 128, 4)
+    np.testing.assert_allclose(got, ref, atol=1e-6, rtol=0)
+    assert got[..., 3].max() > 0.1
+
+
+def test_march_takes_b10_on_padded_grid_and_matches_tpu(slab, monkeypatch):
+    """The port's `ray_march_cube_fast` at grid (128, 128, 20), stored
+    (32, 128, 128) on the TPU, lod 0, the default camera's faces: B10 on
+    X+, X-, Y- and Z+.  Against JAX's march as its TPU runs it
+    (`_FUSED_ON_CPU`, the layout not patched) on X+, Y- and Z+ (X- is X+'s
+    layout marched the other way; one interpret-mode face less keeps the
+    test inside its budget): it re-pads the volume and takes B10
+    (interpret mode) on X+ and Y-, whose lateral Z = 20 pads to 32 with
+    zero-weight ghosts; within 1e-6 (exp and log1p).  On Z+,
+    whose stack (20 x 128 x 128) is below `_FUSE_MIN_STACK` and does not
+    pad, the TPU takes its XLA chain while the port takes B10 (ROADMAP.md
+    C4): within 2e-3, the JAX package's kernel-against-chain tolerance."""
+    cfg, grid, light, _, p = slab
+    tcfg = TorchConfig(**SLAB)
+    monkeypatch.setattr(jsc, "_FUSED_ON_CPU", True)
+    lateral = []
+    fused = pc.composite_resample_pallas
+
+    def spy(volf, *args, **kwargs):
+        lateral.append(volf.shape[2:])
+        return fused(volf, *args, **kwargs)
+
+    monkeypatch.setattr(pc, "composite_resample_pallas", spy)
+    monkeypatch.setattr(pc, "composite_pallas",
+                        lambda *a, **k: pytest.fail("B17 is not the TPU's route here"))
+    march = jax.jit(functools.partial(jsc.ray_march_cube_fast, config=cfg, lod=0,
+                                      static_mask=MASK & ~0b10))
     ref = np.asarray(march(jnp.asarray(grid), p, light_map=jnp.asarray(light)))
-    assert jax_faces == [(128, 128, 128)] * 3
+    assert sorted(lateral) == [(32, 128), (32, 128)]
 
     routes = []
     for name in ("composite_plain", "composite_resample_plain"):
@@ -268,12 +367,13 @@ def test_march_takes_b17_and_matches_tpu(slab, monkeypatch):
         monkeypatch.setattr(tc, name, count)
     got = tsc.ray_march_cube_fast(torch.from_numpy(grid), _to_torch(p), tcfg,
                                   torch.from_numpy(light), lod=0, static_mask=MASK).numpy()
-    assert sorted(routes) == ["composite_plain"] * 3 + ["composite_resample_plain"]
+    assert routes == ["composite_resample_plain"] * 4
     assert got.shape == ref.shape == (6, 128, 128, 4)
-    np.testing.assert_allclose(got[[0, 1, 3]], ref[[0, 1, 3]], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got[[0, 3]], ref[[0, 3]], atol=1e-6, rtol=0)
     np.testing.assert_allclose(got[4], ref[4], atol=2e-3, rtol=0)
-    assert not got[[2, 5]].any() and not ref[[2, 5]].any()
+    assert not got[[2, 5]].any() and not ref[[1, 2, 5]].any()
     assert got[0, ..., 3].max() > 0.1 and got[3, ..., 3].max() > 0.1
+    assert got[1, ..., 3].max() > 0.1
 
 
 BAD_CALLS = {

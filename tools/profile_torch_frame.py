@@ -8,9 +8,11 @@
 Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
 512x512x1 grid, both with an 800x800 viewport; `--grid` replaces the
 preset's grid, `--probe` adds the light probe assets/rnl_cross.npz, so
-`--grid 256 256 256 --probe` is bench.py's "FluidGI SH irradiance 256^3"
-and `--grid 256 256 60 --probe` the 256x256x60 GI frame (B15, B17);
-`--pallas-jacobi 0` takes the projection's twins instead of its kernels;
+`--grid 256 256 256 --probe` is bench.py's "FluidGI SH irradiance 256^3",
+`--grid 256 256 60 --probe` the 256x256x60 GI frame (B15; stored padded on
+the TPU) and `--grid 150 150 150 --probe` PRESETS["fluidgi"];
+`--pallas-jacobi 0` takes the projection's twins instead of its kernels
+(on grids the TPU does not store padded);
 `--mg-project-fused` the fused projection, B18, where its gate holds, as
 at 256^3) and prints, each beside the card's name and power limit:
   - the host ms/frame: median of `--frames` steps, each ending in a
