@@ -6,7 +6,11 @@ Builds the port's CUDA kernels from fluidx12_tpu_torch/csrc (one nvcc per
 source, in parallel), checks each against its plain PyTorch version on the
 card at its path's shapes (the 128^3 frame's; B11 and B14 at the 2D
 preset's 512^2; B13, B4's plane-sweep order, B16 and the fused projection
-B18 at 256^3; B15 and B17 at the 256x256x60 GI frame's) and times both,
+B18 at 256^3; B15 and B17 at the 256x256x60 GI frame's) and times both.
+The plane-sweep march (B4's plane-sweep order, B13, B18) is also held at
+the compact dims of the two padded frames and at uneven shapes, timed in
+turns with the per-sweep design it replaced (`jacobi.sweepwise`), and its
+branch-free division is checked against x / 6.0f on all 2^32 inputs.  It
 drives `FluidXEngine` for 60 frames of the main path (PRESETS["fluid3d"]
 as it is: 128^3 grid, 800x800 viewport, the projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
@@ -192,17 +196,27 @@ def phase1_build():
 
 
 def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_reps=5,
-            library=None, calls=1):
+            library=None, calls=1, yardstick=None):
     """Times `kernel` and its plain version (and the library call, if any)
     and stores them with the error and the bound under `name`.  Where
     `kernel` and `plain` each make `calls` launches (n_bytes and flops are
-    those of one), the times are per launch."""
+    those of one), the times are per launch.  `yardstick`, an earlier
+    design of the same kernel, is timed in turns with it (yardstick,
+    kernel, kernel, yardstick; `ms` is then the kernel's mean)."""
     bound_ms, bound_by = bound(n_bytes, flops)
-    results[name] = dict(
-        max_abs_err=err, ms=time_ms(kernel, reps, what=name) / calls,
-        plain_ms=time_ms(plain, plain_reps) / calls,
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None if library is None else time_ms(library, reps))
+    row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+    if yardstick is None:
+        row["ms"] = time_ms(kernel, reps, what=name) / calls
+    else:
+        y0 = time_ms(yardstick, reps)
+        k0 = time_ms(kernel, reps, what=name)
+        k1 = time_ms(kernel, reps, what=name)
+        row["yardstick_ms"] = [y0, time_ms(yardstick, reps)]
+        row["kernel_ms"] = [k0, k1]
+        row["ms"] = (k0 + k1) / 2
+    row["plain_ms"] = time_ms(plain, plain_reps) / calls
+    row["library_ms"] = None if library is None else time_ms(library, reps)
+    results[name] = row
 
 
 def print_times(results, names) -> None:
@@ -213,6 +227,11 @@ def print_times(results, names) -> None:
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
+        if "yardstick_ms" in r:
+            k, y = r["kernel_ms"], r["yardstick_ms"]
+            print(f"    {kid} {name}, in turns: per-sweep design {y[0]:.4f} ms, march "
+                  f"{k[0]:.4f}, {k[1]:.4f} ms, per-sweep design {y[1]:.4f} ms; bound "
+                  f"{r['bound_ms']:.4f} ms, march at {r['ms'] / r['bound_ms']:.2f}x it")
 
 
 def b10_work(volf, h_rows, h_cols, valid, n_steps):
@@ -609,7 +628,8 @@ def phase2c_kernels_256(dev, results):
     record("jacobi_rr", err, lambda: J.jacobi_rr(q, b, MG_PRE, 4.0),
            lambda: J.jacobi_rr_plain(q, b, MG_PRE, 4.0),
            nbytes(q, b, got_q, got_rc), (7 * MG_PRE + 8 + 1) * n + 6 * got_rc.numel(),
-           reps=10, plain_reps=3)
+           reps=10, plain_reps=3,
+           yardstick=lambda: J.sweepwise("rr", q, b, MG_PRE, scale=4.0))
 
     tuning = J.jacobi_tuning(q.shape, MG_POST)
     check(J.window_order(q.shape, tuning[1]) == J.ORDER_PLANEWISE,
@@ -621,7 +641,12 @@ def phase2c_kernels_256(dev, results):
     check(err == 0.0, "B4 jacobi (plane-sweep order) vs plain")
     record("jacobi_planewise", err, lambda: J.jacobi(q, b, MG_POST, *tuning),
            lambda: J.jacobi_plain(q, b, MG_POST, *tuning), nbytes(q, b, got),
-           7 * MG_POST * n, reps=10, plain_reps=3)
+           7 * MG_POST * n, reps=10, plain_reps=3,
+           yardstick=lambda: J.sweepwise("sweeps", q, b, MG_POST))
+    bad = J.div6_mismatches(dev)
+    print(f"the plane-sweep march's branch-free division against x / 6.0f: {bad} of the 2^32 "
+          f"f32 bit patterns differ (limit 0)")
+    check(bad == 0, "the march's division is the division")
 
     # B16 on a smooth density with an empty slab (radial fallback, zero
     # ambient), the probe's SH coefficients, the engine's world rotation
@@ -652,6 +677,49 @@ def phase2c_kernels_256(dev, results):
     record("gi_light", err, lambda: ST.gi_light(*args), lambda: ST.gi_light_plain(*args),
            nbytes(dens, shadow, ao, got), 110 * n, reps=10, plain_reps=3)
     print_times(results, ("jacobi_rr", "jacobi_planewise", "gi_light"))
+
+
+# The plane-sweep march off 256^3: the compact dims of the 256x256x60 and
+# 150^3 frames, an even shape and an odd one that no tile divides.
+MARCH_GRIDS = ((60, 256, 256), (150, 150, 150), (30, 130, 98), (33, 130, 97))
+
+
+def check_march_grids(dev):
+    """B4's plane-sweep order, B13 and both B18 halves against their plain
+    versions at MARCH_GRIDS (B13 and B18's head where every dim is even),
+    with the multigrid's 4 sweeps: q, b and r_c at error 0, B18's velocity
+    within one bf16 ulp of each value."""
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.sim.mg import MG_POST, MG_PRE
+
+    rng = np.random.default_rng(6)
+    for zyx in MARCH_GRIDS:
+        def rand(shape, lo=-1.0, hi=1.0):
+            return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+        q, b = rand(zyx, -0.05, 0.05), rand(zyx)
+        fields = rand((4,) + zyx, -0.75, 0.75).to(torch.bfloat16)
+        got = J._launch(q, b, MG_POST, J.ORDER_PLANEWISE)
+        errs = {"B4": float((got - J.sweeps_plain(q, b, MG_POST, J.ORDER_PLANEWISE)).abs().max())}
+        if all(k % 2 == 0 for k in zyx):
+            got = J.jacobi_rr(q, b, MG_PRE, 4.0)
+            ref = J.jacobi_rr_plain(q, b, MG_PRE, 4.0)
+            errs["B13"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            got = J.jacobi_divrr(fields, q, MG_PRE, 4.0)
+            ref = J.jacobi_divrr_plain(fields, q, MG_PRE, 4.0)
+            errs["B18 head"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        p = rand(zyx)
+        got_q, got_f = J.jacobi_grad(p, b, fields.clone(), MG_POST, 0.48)
+        ref_q, ref_f = J.jacobi_grad_plain(p, b, fields.clone(), MG_POST, 0.48)
+        errs["B18 tail q"] = float((got_q - ref_q).abs().max())
+        diff = (got_f[:3].float() - ref_f[:3].float()).abs()
+        ulps = float((diff / (ref_f[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)).max())
+        print(f"plane-sweep march at zyx {zyx}: max abs diff "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit 0); B18 tail velocity {ulps:.2f} bf16 ulp of each value (limit 1); "
+              f"colour untouched")
+        check(all(v == 0.0 for v in errs.values()) and ulps <= 1.0
+              and torch.equal(got_f[3:], fields[3:]), f"the plane-sweep march at {zyx}")
 
 
 def slab_face_stack(dev, face: int = 0):
@@ -731,7 +799,8 @@ def phase2d_kernels_fused_slab(dev, results):
     record("jacobi_divrr", err, lambda: J.jacobi_divrr(fields, q, MG_PRE, 4.0),
            lambda: J.jacobi_divrr_plain(fields, q, MG_PRE, 4.0),
            nbytes(q, fields[:3]) + nbytes(*got),
-           (6 + 7 * MG_PRE + 8 + 1) * n + 6 * got[2].numel(), reps=10, plain_reps=3)
+           (6 + 7 * MG_PRE + 8 + 1) * n + 6 * got[2].numel(), reps=10, plain_reps=3,
+           yardstick=lambda: J.sweepwise("divrr", q, None, MG_PRE, fields, scale=4.0))
 
     # The tail on a pressure uniform in +-1, so that its gradient is many
     # bf16 ulps of the velocity, held per value.
@@ -755,7 +824,9 @@ def phase2d_kernels_fused_slab(dev, results):
            lambda: J.jacobi_grad(p, b, work, MG_POST, rho),
            lambda: J.jacobi_grad_plain(p, b, work, MG_POST, rho),
            nbytes(p, b, got_q) + 2 * nbytes(fields[:3]), (7 * MG_POST + 39) * n,
-           reps=10, plain_reps=3)
+           reps=10, plain_reps=3,
+           yardstick=lambda: J.sweepwise("grad", p, b, MG_POST, work, rho=rho))
+    check_march_grids(dev)
 
     # B15 on the AO's half field of the 256x256x60 frame.
     half = tuple(k // 2 for k in GRID_SLAB[::-1])

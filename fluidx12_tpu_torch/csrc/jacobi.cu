@@ -6,14 +6,13 @@
 // _jacobi_packed_kernel (B6, via jacobi_packed_pallas; order 2) and
 // _jacobi2d_kernel (B14, via jacobi2d_pallas; order 3, on one (Y, X)
 // plane).  fx_jacobi_rr replaces _planewise_rr_kernel (B13, via
-// jacobi_pallas_rr): the order-1 sweeps, then the multigrid's residual and
-// 2x restriction in one more launch (see residual_restrict_kernel).  Each is `iters`
-// synchronous sweeps of
+// jacobi_pallas_rr): the order-1 sweeps with the multigrid's residual and
+// 2x restriction fused in.  Each is `iters` synchronous sweeps of
 //     q <- (sum of the 6 edge-clamped neighbours - b) / 6
 // in f32 (in 2D the 4 neighbours, over 4).  The TPU kernels' halo'd VMEM
 // windows (recomputed halos, exact in the centre), 64-lane packing and
 // resident 2D plane are layouts with no effect on the result; what they fix
-// is the order of the neighbour sum, which the template argument keeps:
+// is the order of the neighbour sum, which each kernel here keeps:
 //   order 0 (B4, whole window): y+, y-, x+, x-, z+, z-   (jacobi.py:88)
 //   order 1 (B4, plane sweep):  y+, y-, x+, x-, z-, z+   (jacobi.py:285-287)
 //   order 2 (B6, packed):       x+, x-, y+, y-, z+, z-   (jacobi.py:833-842)
@@ -22,60 +21,97 @@
 // --fmad=false, so each sweep rounds as the Pallas code does (B14's
 // division by 4 is exact, so it matches interpret mode bit for bit).
 //
-// Bound: memory.  Counted once in and once out, a call moves q, b in and q
-// out (12 B per cell): 25.2 MB at 128^3 (7.5 us at 3.35 TB/s) and 3.1 MB at
-// the 64^3 coarse level (0.94 us; its 32 sweeps' 58.7 MFLOP take 0.88 us at
-// 67 TFLOP/s).  B14 at the 2D preset's 512^2 moves 3.1 MB (0.94 us) and
-// does 64 sweeps of 5 operations per cell, 83.9 MFLOP (1.25 us): bound by
-// operations.  The TPU keeps the 1 MiB plane in VMEM for all 64 sweeps; it
-// is larger than one SM's shared memory, so here each sweep is a launch
-// over the plane, which stays in L2 between sweeps.  Design: one thread per
-// cell per sweep, consecutive threads on consecutive x; the sweeps ping-pong
-// between the output and one scratch buffer, launched `iters` times from
-// this one C entry point, so a call costs one Python call however many
-// sweeps it runs.  Each sweep re-streams
-// q and b: 25 MB at 128^3 and 3 MB at 64^3 fit the 50 MB L2, so the re-reads
-// are L2 traffic.  Temporal blocking in shared memory (several sweeps per
-// launch) is later work.
+// Orders 0, 2 and 3: one thread per cell per sweep (jacobi_sweep_kernel),
+// consecutive threads on consecutive x, the sweeps ping-ponging between the
+// output and one scratch buffer, launched `iters` times from one C call.
+// Their volumes (25 MB at 128^3, 3 MB at 64^3, 1 MB for B14's 512^2 plane)
+// stay in the 50 MB L2 between sweeps, so they are bound by the launches:
+// a call moves 12 B per cell, 7.5 us at 128^3 and 3.35 TB/s; B14 at 512^2
+// does 64 sweeps of 5 operations per cell, 83.9 MFLOP, 1.25 us at
+// 67 TFLOP/s.
 //
-// B13 at 256^3 moves q, b in and q out (201 MB) plus the (128^3) f32 coarse
-// residual out (8.4 MB): 62.6 us at 3.35 TB/s, bound by bytes.  There each
-// volume is 67 MB, more than L2, so each of its 4 sweeps streams q, b and
-// the result through HBM, and the epilogue reads q and b once more.  The TPU
-// keeps the window in VMEM and writes only the coarse residual; here the
-// epilogue is a second launch, one thread per coarse cell, that forms the
-// eight fine residuals of its 2x2x2 block from q and b (the full residual is
-// never stored) and pools them in the TPU epilogue's order
-// (jacobi.py:321-351):
-//   r    = b - (y+ + y- + x+ + x- + z- + z+ - 6 q), edges clamped;
-//   s    = r[2zc] + r[2zc+1]                   (the z pair first)
-//   xz   = (s[x=2xc] * w + s[x=2xc+1] * w) * 0.5, w = fl32(0.5 * scale)
-//   r_c  = 0.5 * xz[y=2yc] + 0.5 * xz[y=2yc+1]
-// The two dots of the TPU code have exactly these two non-zero terms each.
+// Order 1 -- B4's plane-sweep order, B13 and both halves of B18 -- runs on
+// 256^3 and the padded frames' volumes, which do not fit L2 (67 MB at
+// 256^3): one launch per sweep there streamed q, b and its output through
+// HBM each sweep (201 MB, 0.117 ms a sweep), and the epilogues re-read q and
+// b.  So order 1 is one temporally blocked z-march (march_kernel), the
+// TPU's halo'd window turned on its side:
+//   - A CTA owns a (y, x) tile of the plane plus a lateral halo of `halo`
+//     cells -- the window, 32 wide (a warp a row) and 32 high (8 warps, two
+//     CTAs an SM) for the sweeps alone, 64 high (16 warps, one CTA an SM)
+//     with an epilogue or the divergence, whose extra halo ring and
+//     per-cell work cost more in a narrow window -- and a z-chunk plus
+//     `halo` planes either side, and walks z through it.  `halo` = K, the
+//     sweeps of the launch (at most kMaxK = 4, so MG_PRE = MG_POST = 4 is
+//     one launch; K is a template argument), plus one ring for an
+//     epilogue.  The chunk (64, 32 or 16 planes) is the one with the
+//     fewest steps per resident CTA slot on the grid at hand.
+//   - Level l (after l sweeps) of plane z - l is formed at step z, as soon
+//     as level l - 1 holds planes z - l - 1 .. z - l + 1.  A thread owns 4
+//     consecutive rows of one column; each level keeps its three newest
+//     planes of that strip in registers (the cell, its z neighbours and
+//     the strip's inner y neighbours), and its newest plane in shared
+//     memory for the x neighbours and the strip's edge rows (two buffers a
+//     level, written one step and read the next: one __syncthreads a
+//     step).  Halo cells are recomputed: level l is exact l cells inside
+//     the window and the chunk, and everywhere at the volume's own edges,
+//     where each neighbour clamps to the cell.  Windows that reach a
+//     lateral edge of the volume take a copy of the loop with those
+//     clamps; the others read every neighbour at a fixed offset.  Only the
+//     last level is written, for the tile's interior.
+//   - q and b are staged plane by plane with cp.async, kAhead planes ahead
+//     of the step that needs them, into rings in shared memory (b's ring is
+//     deep enough for every level's read of b at its own cell).  So q and b
+//     are read from device memory once per window; the halos' share of the
+//     reads mostly hits L2, where neighbouring CTAs read the same rows.
+//   - The division is the correctly rounded quotient without the IEEE
+//     division's slow-path branch (div6): an FMA residual step, and the
+//     rounding of subnormal ties only in warps where one may occur.
+//     fx_div6_mismatches checks it against x / 6.0f on all 2^32 inputs.
+//   - Indices are 2D thread coordinates; the only 64-bit product is a
+//     plane's offset.  Calls with iters > 4 chain launches of 4 sweeps,
+//     ping-ponging between the output and the scratch buffer; the last
+//     launch takes the remainder and the epilogue.
+// Epilogues, on the last level of the last launch, from planes the CTA
+// holds (the TPU's "the final window already holds q AND b in VMEM with
+// one valid halo ring", jacobi.py:305-318):
+//   - B13 and B18's head (residual_restrict): the residual
+//       r = b - (y+ + y- + x+ + x- + z- + z+ - 6 q), edges clamped,
+//     the z pair summed in a register (planes 2zc, 2zc+1), then the x and
+//     y pools through a shared plane in the TPU epilogue's order
+//     (jacobi.py:321-351; the two dots have exactly these non-zero terms):
+//       s    = r[2zc] + r[2zc+1]
+//       xz   = (s[x=2xc] * w + s[x=2xc+1] * w) * 0.5, w = fl32(0.5 * scale)
+//       r_c  = 0.5 * xz[y=2yc] + 0.5 * xz[y=2yc+1]
+//   - B18's tail: B8's gradient and wall-band damp (stencil.cuh damp) of
+//     the velocity, read once and written once, in place on channels 0..2.
+// B18's head (fx_jacobi_divrr, replaces _planewise_divrr_kernel via
+// jacobi_pallas_divrr) forms b as B3 does (0.5 * ((dx + dy) + dz) of the
+// f32 casts; the Pallas prologue's order) for each window cell of each
+// plane as the march reaches it, writes it once and keeps it in the ring.
+// B18's tail (fx_jacobi_grad) replaces _planewise_grad_kernel via
+// jacobi_pallas_grad.  So B18 gives the port's unfused chain B3 -> B13 ->
+// ... -> B4 -> B8 bit for bit, as the TPU kernels give theirs
+// (core/config.py:133).
 //
-// B18, the fused projection (sim/mg.py mg_project_fused), is two entry
-// points.  fx_jacobi_divrr replaces _planewise_divrr_kernel (via
-// jacobi_pallas_divrr): b = divergence of the velocity channels, computed
-// as B3 computes it (stencil.cuh divergence_at; the Pallas prologue sums
-// 0.5 * (dx + dy + (zp - zm)), the same order), then B13's sweeps and
-// epilogue; it returns q, b and r_c.  A sweep reads b only at its own
-// cell, so the first launch computes b per cell, writes it and makes the
-// first sweep in the same pass (divergence_sweep_kernel): exact, and one
-// velocity read, b's re-read and one launch fewer than B3 then B13.
-// fx_jacobi_grad replaces _planewise_grad_kernel (via jacobi_pallas_grad):
-// the order-1 sweeps, then B8's gradient + wall-band damp (stencil.cuh
-// grad_damp_kernel) on the final q, in place on channels 0..2 of the
-// state; the Pallas epilogue's arithmetic is B8's (gy through a one-hot
-// dot with two non-zero terms, the same wall positions and band).  So B18
-// gives the port's unfused chain B3 -> B13 -> ... -> B4 -> B8 bit for bit,
-// as the TPU kernels give theirs (core/config.py:133).
-// Bound at 256^3: the head reads q and the three bf16 velocity channels
-// and writes q, b and the coarse r_c, 18.5 B per cell, 310.4 MB, 92.7 us at
-// 3.35 TB/s; the tail reads q, b and the velocity and writes q and the
-// velocity, 24 B per cell, 402.7 MB, 120.2 us.  Each of their sweeps
-// streams 201 MB through HBM as B13's do; holding several sweeps of a
-// z-slab in shared memory (the TPU's windows), and the last sweep inside
-// the gradient epilogue, is later work.
+// Bound at 256^3 (each input read once, each output written once, 3.35
+// TB/s): B4's plane-sweep order 201 MB, 60.1 us; B13 210 MB (+ the coarse
+// r_c), 62.6 us; the head reads q and the three bf16 velocity channels and
+// writes q, b and r_c, 310 MB, 92.7 us; the tail reads q, b and the
+// velocity and writes q and the velocity, 403 MB, 120.2 us.  What keeps
+// the march above them is not memory: per output cell it makes about 8
+// cell updates for 4 sweeps (each level runs over the whole window, 1.78
+// window cells per tile cell at 32 x 32, and 1.125 planes per owned plane
+// at a 64-plane chunk), each about 15 instructions at a fixed offset (5
+// for the division), with the levels of a step a chain (level l needs
+// level l - 1's newest plane), so a step is bound by instruction
+// throughput and latency.
+//
+// fx_jacobi_sweepwise keeps the per-sweep design of order 1 (one launch
+// per sweep, the epilogues as separate passes) as a yardstick for timing;
+// no wrapper calls it.
+
+#include <type_traits>
 
 #include "stencil.cuh"
 
@@ -146,6 +182,560 @@ cudaError_t sweeps(const float* q, const float* b, float* out, float* scratch, i
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// Order 1: the temporally blocked z-march
+// ---------------------------------------------------------------------------
+
+constexpr int kWX = 32;             // window width: one warp a row
+constexpr int kRows = 4;            // consecutive window rows a thread
+constexpr int kMaxK = 4;            // sweeps a launch
+constexpr int kAhead = 2;           // planes staged ahead of the step
+constexpr int kQRing = 4;           // level 0's planes z - 1, z, and kAhead more
+constexpr int kBRing = 8;           // b of planes z - kMaxK - 1 .. z + kAhead
+constexpr int kPad = kWX + 1;       // the window's edge cells read garbage here
+static_assert(kQRing >= 2 + kAhead && (kQRing & (kQRing - 1)) == 0, "q ring");
+static_assert(kBRing >= kMaxK + 2 + kAhead && (kBRing & (kBRing - 1)) == 0, "b ring");
+
+enum Epilogue { kNone = 0, kResidualRestrict = 1, kGradDamp = 2 };
+
+// The window of a launch: kBY warps of kRows rows each.  The sweeps alone
+// take 32 x 32 (two CTAs an SM); with an epilogue or the divergence,
+// whose extra halo ring and per-cell work cost more in a narrow window,
+// 32 x 64 (one CTA of 16 warps an SM).
+template <int kEpi, bool kDiv>
+struct Window {
+  static constexpr bool kSweepsOnly = kEpi == kNone && !kDiv;
+  static constexpr int kBY = kSweepsOnly ? 8 : 16;
+  static constexpr int kWY = kBY * kRows;
+  static constexpr int kWin = kWX * kWY;
+  static constexpr int kCtasPerSm = kSweepsOnly ? 2 : 1;
+  // Levels held in shared memory: 1 .. K - 1, and K for an epilogue.
+  static constexpr int kLevBufs = kEpi == kNone ? kMaxK - 1 : kMaxK;
+  static constexpr int kPoolPlane = kEpi == kResidualRestrict ? kWin : 1;
+  // The wall bands of the window's rows and columns (kGradDamp).
+  static constexpr int kBands = kEpi == kGradDamp ? kWY + kWX : 1;
+};
+
+template <typename W>
+struct MarchShared {
+  float pad0[kPad];
+  float lev[W::kLevBufs][2][W::kWin];  // two planes a level
+  float q[kQRing][W::kWin];            // level 0: the staged q planes
+  float b[kBRing][W::kWin];            // the staged (or formed) b planes
+  float s[W::kPoolPlane];              // the z-paired residual, for the x and y pools
+  Band band[W::kBands];                // rows, then columns
+  float pad1[kPad];
+};
+
+struct MarchArgs {
+  const float* q;      // level 0
+  const float* b;      // read where the launch does not form it
+  float* out;          // the last level, on the tile interiors
+  const void* div_f;   // velocity whose divergence is b (kDiv), (C, nz, ny, nx)
+  float* b_out;        // b as formed (kDiv)
+  float* rc;           // (nz/2, ny/2, nx/2) coarse residual (kResidualRestrict)
+  void* f;             // velocity updated in place (kGradDamp), (C, nz, ny, nx)
+  float w;             // fl32(0.5 * scale) of the x pool
+  float s;             // fl32(0.5 / rho) of the gradient
+  int nz, ny, nx;
+  int zchunk;          // planes a CTA owns (even)
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// x / 6.0f, the correctly rounded f32 quotient, without the division's
+// branch: q0 = RN(x * RN(1/6)) corrected by one residual step, which is
+// exact for every quotient but a tie between two subnormals, and q0 itself
+// where the residual is 0 or not a number (zeros of either sign, exact
+// quotients, infinities, NaN).  div6 also rounds that tie to even;
+// div6_near does not, and is taken only where no x of the warp may be
+// such a tie (0 < |x| < 2^-120).  fx_div6_mismatches counts the f32 bit
+// patterns where the march's choice differs from x / 6.0f.
+__device__ __forceinline__ float div6_near(float x, float& q, float& r) {
+  const float c = 0.16666667163372039794921875f;
+  const float q0 = x * c;
+  r = __fmaf_rn(-q0, 6.0f, x);
+  q = __fmaf_rn(r, c, q0);
+  return fabsf(r) > 0.0f ? q : q0;
+}
+
+__device__ __forceinline__ float div6_near(float x) {
+  float q, r;
+  return div6_near(x, q, r);
+}
+
+__device__ __forceinline__ float div6(float x) {
+  float q, r;
+  const float near = div6_near(x, q, r);
+  const float r2 = __fmaf_rn(-q, 6.0f, x);
+  if (fabsf(r2) == 0x1.8p-148f && (__float_as_uint(q) & 1u)) q = q + copysignf(0x1p-149f, r2);
+  return fabsf(r) > 0.0f ? q : near;
+}
+
+__device__ __forceinline__ bool div6_tie_possible(float x) {
+  const unsigned a = __float_as_uint(x) << 1;  // |x|'s bits, shifted
+  return a - 1u < (0x03800000u << 1) - 1u;     // 0 < |x| < 2^-120
+}
+
+// At the volume's first and last plane a level's z neighbour clamps to the
+// cell: there the column's plane below (lo) or above (fresh) is replaced by
+// the cell's own (mid), once for the strip.  Both are overwritten when the
+// step ends (lo) or describe a plane past the volume (fresh), so no exact
+// cell reads the replaced value.
+__device__ __forceinline__ void clamp_z(int p, int nz, float (&lo)[kRows],
+                                        const float (&mid)[kRows], float (&fresh)[kRows]) {
+  if (p <= 0) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) lo[r] = mid[r];
+  }
+  if (p >= nz - 1) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) fresh[r] = mid[r];
+  }
+}
+
+// A thread's view of its window: column wx, rows kRows * ty + r.
+struct Cells {
+  int i0;                      // own cell of row 0 in a window plane
+  int gx, cx;                  // the column, and it clamped to the volume
+  int gy[kRows];
+  int off[kRows];              // clamped (y, x) offset in a volume plane
+  bool interior[kRows];        // in the tile and the volume
+  bool cxp, cxm, cyp[kRows], cym[kRows];  // the neighbour clamps to the cell
+};
+
+// The four lateral neighbours of level-(l-1) cell (row r) at the plane
+// `cin` holds, whose own column the thread keeps in `m` (rows r +- 1 come
+// from there, the strip's edges and x from shared memory), clamped at the
+// volume's edges (kEdge).
+template <bool kEdge>
+__device__ __forceinline__ void lateral(const float* cin, const float (&m)[kRows], int r,
+                                        const Cells& c, float& yp, float& ym, float& xp,
+                                        float& xm) {
+  const int i = c.i0 + r * kWX;
+  yp = r < kRows - 1 ? m[r + 1] : cin[i + kWX];
+  ym = r > 0 ? m[r - 1] : cin[i - kWX];
+  xp = cin[i + 1];
+  xm = cin[i - 1];
+  if (kEdge) {
+    if (c.cyp[r]) yp = m[r];
+    if (c.cym[r]) ym = m[r];
+    if (c.cxp) xp = m[r];
+    if (c.cxm) xm = m[r];
+  }
+}
+
+// K order-1 sweeps of a.q against b (kDiv: b formed from a.div_f) over one
+// window, tile and z-chunk, then the epilogue; kEdge where the window
+// reaches a lateral edge of the volume.  Steps t = zs .. ze + halo - 1:
+// level l forms plane t - l, the epilogue plane t - K - 1.
+template <int K, int kEpi, bool kDiv, bool kEdge, typename T, typename W>
+__device__ __forceinline__ void march_window(const MarchArgs& a, MarchShared<W>& sm,
+                                             const Cells& c) {
+  constexpr int kWY = W::kWY;
+  constexpr int kHalo = K + (kEpi != kNone ? 1 : 0);
+  constexpr int kTileX = kWX - 2 * kHalo, kTileY = kWY - 2 * kHalo;
+  const int nz = a.nz, ny = a.ny, nx = a.nx;
+  const int z0 = (int)blockIdx.z * a.zchunk, z1 = min(z0 + a.zchunk, nz);
+  const int zs = max(z0 - kHalo, 0), ze = min(z1 + kHalo, nz);
+  const int64_t plane = (int64_t)ny * nx;
+  const int64_t n = (int64_t)nz * plane;
+  const T* div_f = (const T*)a.div_f;
+  T* f = (T*)a.f;
+
+  auto stage = [&](int z) {
+    if (z < ze) {
+      const int64_t zb = (int64_t)z * plane;
+      float* dq = sm.q[(z - zs) & (kQRing - 1)];
+      float* db = sm.b[(z - zs) & (kBRing - 1)];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        cp_async4(&dq[c.i0 + r * kWX], a.q + zb + c.off[r]);
+        if (!kDiv) cp_async4(&db[c.i0 + r * kWX], a.b + zb + c.off[r]);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // Level l's own column at the plane it reached this step (fresh), the
+  // one before (mid) and the one before that (lo); levels 0 .. K.
+  float fresh[K + 1][kRows], mid[K + 1][kRows], lo[K + 1][kRows];
+#pragma unroll
+  for (int l = 0; l <= K; ++l) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) fresh[l][r] = mid[l][r] = lo[l][r] = 0.0f;
+  }
+  // The wall bands of the window's rows and columns (kGradDamp), formed
+  // once; the first step's barrier publishes them.
+  if (kEpi == kGradDamp) {
+    const int tid = threadIdx.y * kWX + threadIdx.x;
+    const int gy0 = c.gy[0] - kRows * (int)threadIdx.y, gx0 = c.gx - (int)threadIdx.x;
+    if (tid < kWY) sm.band[tid] = band_at(gy0 + tid, ny);
+    if (tid < kWX) sm.band[kWY + tid] = band_at(gx0 + tid, nx);
+  }
+  float rz[kRows];    // the residual of the even plane of the z pair
+  // Velocity values.  kDiv: the cell's x and y components, z above and
+  // below, and y of the rows either side of the strip; kGradDamp: the
+  // cell's three components.
+  float u[6][kRows];
+
+  // One step; kPhase = (t - zs) & 1 picks the level buffers.
+  auto step = [&](int t, auto phase) {
+    constexpr int kPhase = decltype(phase)::value;
+    cp_async_wait<kAhead - 1>();
+    __syncthreads();
+    stage(t + kAhead);
+
+    // The velocity this step needs, loaded first so that the loads overlap
+    // the sweeps: the divergence's six neighbours at plane t (kDiv), or the
+    // cell's three components at the epilogue's plane (kGradDamp).
+    const int pe = t - K - 1;
+    if (kDiv && t < ze) {
+      // Each window cell loads its clamped cell, so the neighbours' loads
+      // are the clamped neighbours: x from the adjacent lanes, y from the
+      // adjacent rows (the strip's two edge rows loaded once more).
+      const int64_t zb = (int64_t)t * plane;
+      const int64_t zp = (int64_t)(t < nz - 1 ? t + 1 : t) * plane;
+      const int64_t zm = (int64_t)(t > 0 ? t - 1 : t) * plane;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        u[0][r] = ld(div_f, zb + c.off[r]);
+        u[1][r] = ld(div_f, n + zb + c.off[r]);
+        u[2][r] = ld(div_f, 2 * n + zp + c.off[r]);
+        u[3][r] = ld(div_f, 2 * n + zm + c.off[r]);
+      }
+      u[4][0] = ld(div_f, n + zb + min(max(c.gy[0] - 1, 0), ny - 1) * nx + c.cx);
+      u[5][0] = ld(div_f, n + zb + min(max(c.gy[kRows - 1] + 1, 0), ny - 1) * nx + c.cx);
+    }
+    if (kEpi == kGradDamp && pe >= z0 && pe < z1) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (c.interior[r]) {
+          const int64_t g = (int64_t)pe * plane + c.off[r];
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) u[ch][r] = ld(f, ch * n + g);
+        }
+      }
+    }
+
+    // Level 0 at plane t.
+    const float* q_t = sm.q[(t - zs) & (kQRing - 1)];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) fresh[0][r] = q_t[c.i0 + r * kWX];
+    if (K == 0 && t >= z0 && t < z1) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (c.interior[r]) a.out[(int64_t)t * plane + c.off[r]] = fresh[0][r];
+      }
+    }
+
+    // Level l at plane p = t - l from level l - 1 (written last step).
+#pragma unroll
+    for (int l = 1; l <= K; ++l) {
+      const int p = t - l;
+      const float* cin = l == 1 ? sm.q[(p - zs) & (kQRing - 1)]
+                                : sm.lev[l - 2][(kPhase - l) & 1];
+      float* keep = sm.lev[l - 1 < W::kLevBufs ? l - 1 : 0][(kPhase - l) & 1];
+      const float* bp = sm.b[(p - zs) & (kBRing - 1)];
+      clamp_z(p, nz, lo[l - 1], mid[l - 1], fresh[l - 1]);
+      float x[kRows];
+      bool tie = false;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float yp, ym, xp, xm;
+        lateral<kEdge>(cin, mid[l - 1], r, c, yp, ym, xp, xm);
+        float s = yp + ym;
+        s = s + xp;
+        s = s + xm;
+        s = s + lo[l - 1][r];
+        s = s + fresh[l - 1][r];
+        x[r] = s - bp[c.i0 + r * kWX];
+        tie |= div6_tie_possible(x[r]);
+      }
+      if (__any_sync(0xffffffffu, tie)) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) fresh[l][r] = div6(x[r]);
+      } else {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) fresh[l][r] = div6_near(x[r]);
+      }
+      if (l < K || kEpi != kNone) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) keep[c.i0 + r * kWX] = fresh[l][r];
+      }
+      if (l == K && p >= z0 && p < z1) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          if (c.interior[r]) a.out[(int64_t)p * plane + c.off[r]] = fresh[l][r];
+        }
+      }
+    }
+
+    // The epilogue on level K at plane pe (written last step).
+    if (kEpi != kNone && pe >= z0 && pe < z1) {
+      const float* cin = K == 0 ? sm.q[(pe - zs) & (kQRing - 1)]
+                                : sm.lev[K > 0 ? K - 1 : 0][(kPhase - K - 1) & 1];
+      clamp_z(pe, nz, lo[K], mid[K], fresh[K]);
+      if (kEpi == kResidualRestrict) {
+        const float* bp = sm.b[(pe - zs) & (kBRing - 1)];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float own = mid[K][r];
+          float yp, ym, xp, xm;
+          lateral<kEdge>(cin, mid[K], r, c, yp, ym, xp, xm);
+          float s = yp + ym;
+          s = s + xp;
+          s = s + xm;
+          s = s + lo[K][r];
+          s = s + fresh[K][r];
+          const float res = bp[c.i0 + r * kWX] - (s - 6.0f * own);
+          if (pe & 1) {
+            sm.s[c.i0 + r * kWX] = rz[r] + res;
+          } else {
+            rz[r] = res;
+          }
+        }
+        if (pe & 1) {
+          __syncthreads();
+          // One thread per coarse cell of the tile interior (even origin).
+          constexpr int kNxc = kTileX / 2, kNyc = kTileY / 2;
+          const int tid = threadIdx.y * kWX + threadIdx.x;
+          if (tid < kNxc * kNyc) {
+            const int xl = tid % kNxc, yl = tid / kNxc;
+            const int xc = (int)blockIdx.x * kNxc + xl, yc = (int)blockIdx.y * kNyc + yl;
+            if (xc < nx / 2 && yc < ny / 2) {
+              const float* s0 = &sm.s[(kHalo + 2 * yl) * kWX + kHalo + 2 * xl];
+              const float xz0 = (s0[0] * a.w + s0[1] * a.w) * 0.5f;
+              const float xz1 = (s0[kWX] * a.w + s0[kWX + 1] * a.w) * 0.5f;
+              a.rc[((int64_t)(pe / 2) * (ny / 2) + yc) * (nx / 2) + xc] =
+                  0.5f * xz0 + 0.5f * xz1;
+            }
+          }
+        }
+      } else {
+        const Band band_z = band_at(pe, nz);
+        const Band band_x = sm.band[kWY + threadIdx.x];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          float yp, ym, xp, xm;
+          lateral<kEdge>(cin, mid[K], r, c, yp, ym, xp, xm);
+          const float zp = fresh[K][r], zm = lo[K][r];
+          if (c.interior[r]) {
+            const int64_t g = (int64_t)pe * plane + c.off[r];
+            st(f, g, damp(u[0][r], (xp - xm) * a.s, band_x));
+            st(f, n + g, damp(u[1][r], (yp - ym) * a.s, sm.band[kRows * threadIdx.y + r]));
+            st(f, 2 * n + g, damp(u[2][r], (zp - zm) * a.s, band_z));
+          }
+        }
+      }
+    }
+
+    // b at plane t, formed from the velocity (kDiv): kept in the ring for
+    // the levels and written once, on the tile interior.
+    if (kDiv && t < ze) {
+      float* bp = sm.b[(t - zs) & (kBRing - 1)];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float dx = __shfl_down_sync(0xffffffffu, u[0][r], 1) -
+                         __shfl_up_sync(0xffffffffu, u[0][r], 1);
+        const float dy = (r < kRows - 1 ? u[1][r + 1] : u[5][0]) - (r > 0 ? u[1][r - 1] : u[4][0]);
+        const float dz = u[2][r] - u[3][r];
+        const float bv = 0.5f * ((dx + dy) + dz);
+        bp[c.i0 + r * kWX] = bv;
+        if (c.interior[r] && t >= z0 && t < z1) a.b_out[(int64_t)t * plane + c.off[r]] = bv;
+      }
+    }
+
+#pragma unroll
+    for (int l = 0; l <= K; ++l) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        lo[l][r] = mid[l][r];
+        mid[l][r] = fresh[l][r];
+      }
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) stage(zs + j);
+  const int t_end = ze + kHalo;
+  for (int t = zs; t < t_end; t += 2) {
+    step(t, std::integral_constant<int, 0>());
+    if (t + 1 < t_end) step(t + 1, std::integral_constant<int, 1>());
+  }
+  cp_async_wait<0>();
+}
+
+// Grid: (x tiles, y tiles, z-chunks) of (kWX - 2 halo, kWY - 2 halo,
+// a.zchunk), halo = K (+ 1 with an epilogue); block (kWX, kBY).
+template <int K, int kEpi, bool kDiv, typename T, typename W = Window<kEpi, kDiv>>
+__global__ void __launch_bounds__(kWX* W::kBY, W::kCtasPerSm) march_kernel(const MarchArgs a) {
+  constexpr int kWY = W::kWY;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MarchShared<W>& sm = *reinterpret_cast<MarchShared<W>*>(smem_raw);
+  constexpr int kHalo = K + (kEpi != kNone ? 1 : 0);
+  constexpr int kTileX = kWX - 2 * kHalo, kTileY = kWY - 2 * kHalo;
+  const int nx = a.nx, ny = a.ny;
+  const int gx0 = (int)blockIdx.x * kTileX - kHalo, gy0 = (int)blockIdx.y * kTileY - kHalo;
+  Cells c;
+  const int wx = threadIdx.x, wy0 = kRows * (int)threadIdx.y;
+  c.i0 = wy0 * kWX + wx;
+  c.gx = gx0 + wx;
+  const int cx = min(max(c.gx, 0), nx - 1);
+  c.cx = cx;
+  c.cxp = c.gx >= nx - 1;
+  c.cxm = c.gx <= 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int wy = wy0 + r;
+    c.gy[r] = gy0 + wy;
+    c.off[r] = min(max(c.gy[r], 0), ny - 1) * nx + cx;
+    c.cyp[r] = c.gy[r] >= ny - 1;
+    c.cym[r] = c.gy[r] <= 0;
+    c.interior[r] = wx >= kHalo && wx < kWX - kHalo && wy >= kHalo && wy < kWY - kHalo &&
+                    c.gx >= 0 && c.gx < nx && c.gy[r] >= 0 && c.gy[r] < ny;
+  }
+  // Clamps matter only where the window holds the volume's edge cells
+  // inside its outer ring (the ring itself is never exact).
+  if (gx0 < 0 || gy0 < 0 || gx0 + kWX > nx || gy0 + kWY > ny) {
+    march_window<K, kEpi, kDiv, true, T, W>(a, sm, c);
+  } else {
+    march_window<K, kEpi, kDiv, false, T, W>(a, sm, c);
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 1;
+  }
+  return count;
+}
+
+template <int K, int kEpi, bool kDiv, typename T>
+cudaError_t launch_march(MarchArgs a, cudaStream_t st) {
+  using W = Window<kEpi, kDiv>;
+  if ((int64_t)a.ny * a.nx > INT32_MAX) return cudaErrorInvalidValue;  // plane offsets are int
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(march_kernel<K, kEpi, kDiv, T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)sizeof(MarchShared<W>));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  constexpr int kHalo = K + (kEpi != kNone ? 1 : 0);
+  constexpr int tx = kWX - 2 * kHalo, ty = W::kWY - 2 * kHalo;
+  const int lateral = ((a.nx + tx - 1) / tx) * ((a.ny + ty - 1) / ty);
+  // The z-chunk with the fewest steps per CTA slot: rounds of resident
+  // CTAs times the steps a CTA makes.
+  const int slots = W::kCtasPerSm * sm_count();
+  long best = -1;
+  for (int zc = 64; zc >= 16; zc /= 2) {
+    const long ctas = (long)lateral * ((a.nz + zc - 1) / zc);
+    const long cost = ((ctas + slots - 1) / slots) * (min(zc, a.nz) + 2 * kHalo);
+    if (best < 0 || cost < best) {
+      best = cost;
+      a.zchunk = zc;
+    }
+  }
+  const dim3 grid((a.nx + tx - 1) / tx, (a.ny + ty - 1) / ty,
+                  (a.nz + a.zchunk - 1) / a.zchunk);
+  march_kernel<K, kEpi, kDiv, T>
+      <<<grid, dim3(kWX, W::kBY), sizeof(MarchShared<W>), st>>>(a);
+  return cudaGetLastError();
+}
+
+// One launch of k (0 .. kMaxK) sweeps; none only ahead of an epilogue or
+// the divergence (fx_jacobi copies q for iters == 0).
+template <int kEpi, bool kDiv, typename T>
+cudaError_t launch_k(const MarchArgs& a, int k, cudaStream_t st) {
+  switch (k) {
+    case 0:
+      if constexpr (kEpi != kNone || kDiv) return launch_march<0, kEpi, kDiv, T>(a, st);
+      return cudaErrorInvalidValue;
+    case 1: return launch_march<1, kEpi, kDiv, T>(a, st);
+    case 2: return launch_march<2, kEpi, kDiv, T>(a, st);
+    case 3: return launch_march<3, kEpi, kDiv, T>(a, st);
+    case 4: return launch_march<4, kEpi, kDiv, T>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// `iters` order-1 sweeps of q into out as ceil(iters / kMaxK) launches (one
+// with no sweeps where iters == 0: the epilogue alone), ping-ponging between
+// out and scratch so that the last ends at out.  With a.div_f the first
+// launch forms b (into a.b_out) and later ones read it; the last launch runs
+// the epilogue.  T is the velocity's type.
+template <int kEpi, typename T>
+cudaError_t march(MarchArgs a, const float* q, float* out, float* scratch, int iters,
+                  cudaStream_t st) {
+  const int launches = iters == 0 ? 1 : (iters + kMaxK - 1) / kMaxK;
+  const bool div = a.div_f != nullptr;
+  a.q = q;
+  for (int i = 0; i < launches; ++i) {
+    const bool last = i == launches - 1;
+    const int k = last ? iters - kMaxK * (launches - 1) : kMaxK;
+    a.out = (launches - 1 - i) % 2 == 0 ? out : scratch;
+    cudaError_t err;
+    if (div && i == 0) {
+      err = last ? launch_k<kEpi, true, T>(a, k, st)
+                 : launch_march<kMaxK, kNone, true, T>(a, st);
+      a.b = a.b_out;
+    } else if (last) {
+      err = kEpi == kNone ? launch_k<kNone, false, float>(a, k, st)
+                          : launch_k<kEpi, false, std::conditional_t<kEpi == kGradDamp, T, float>>(a, k, st);
+    } else {
+      err = launch_march<kMaxK, kNone, false, float>(a, st);
+    }
+    if (err != cudaSuccess) return err;
+    a.q = a.out;
+  }
+  return cudaSuccess;
+}
+
+MarchArgs march_args(const float* b, int nz, int ny, int nx) {
+  MarchArgs a = {};
+  a.b = b;
+  a.nz = nz;
+  a.ny = ny;
+  a.nx = nx;
+  return a;
+}
+
+// Counts, over a grid-stride range of all 2^32 bit patterns, those where
+// the march's quotient and the division differ (NaN results count as
+// equal).
+__global__ void div6_check_kernel(unsigned long long* bad) {
+  unsigned long long local = 0;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (1ull << 32);
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)i);
+    const float a = x / 6.0f, b = div6_tie_possible(x) ? div6(x) : div6_near(x);
+    local += !(__float_as_uint(a) == __float_as_uint(b) || (isnan(a) && isnan(b)));
+  }
+  if (local) atomicAdd(bad, local);
+}
+
+// ---------------------------------------------------------------------------
+// Order 1, one launch per sweep: the yardstick fx_jacobi_sweepwise times
+// ---------------------------------------------------------------------------
+
 // The neighbour sum of cell k in the plane-sweep order y+, y-, x+, x-,
 // z-, z+ (jacobi_sweep_kernel<1>'s).
 __device__ __forceinline__ float planewise_sum(const float* __restrict__ q, const Cell& k) {
@@ -171,9 +761,9 @@ __device__ __forceinline__ float planewise_residual(const float* __restrict__ q,
   return b[idx] - (s - 6.0f * q[idx]);
 }
 
-// B18's first launch: b = the divergence of channels 0..2 of f at each cell,
-// written to b, and (with out non-null) the first order-1 sweep of q
-// against it, written to out.
+// b = the divergence of channels 0..2 of f at each cell, written to b, and
+// (with out non-null) the first order-1 sweep of q against it, written to
+// out.
 template <typename T>
 __global__ void divergence_sweep_kernel(const T* __restrict__ f, const float* __restrict__ q,
                                         float* __restrict__ b, float* __restrict__ out, int nz,
@@ -213,29 +803,62 @@ __global__ void residual_restrict_kernel(const float* __restrict__ q,
   rc[idx] = 0.5f * xz[0] + 0.5f * xz[1];
 }
 
+cudaError_t launch_residual_restrict(const float* q, const float* b, float* rc, float w, int nz,
+                                     int ny, int nx, cudaStream_t st) {
+  residual_restrict_kernel<<<blocks_for((int64_t)(nz / 2) * (ny / 2) * (nx / 2)), kThreads, 0,
+                             st>>>(q, b, rc, w, nz, ny, nx);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t sweepwise_divrr(const T* f, const float* q, float* out, float* scratch, float* b,
+                            float* rc, int iters, float w, int nz, int ny, int nx,
+                            cudaStream_t st) {
+  float* first = iters > 0 ? sweep_dst(0, iters, out, scratch) : nullptr;
+  divergence_sweep_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0, st>>>(
+      f, q, b, first, nz, ny, nx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (iters == 0) {
+    err = cudaMemcpyAsync(out, q, (size_t)nz * ny * nx * sizeof(float),
+                          cudaMemcpyDeviceToDevice, st);
+  } else {
+    err = sweeps<1>(first, b, out, scratch, 1, iters, nz, ny, nx, st);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_residual_restrict(out, b, rc, w, nz, ny, nx, st);
+}
+
+cudaError_t copy_or_sweeps(const float* q, const float* b, float* out, float* scratch, int iters,
+                           int order, int nz, int ny, int nx, cudaStream_t st) {
+  if (iters == 0) {
+    return cudaMemcpyAsync(out, q, (size_t)nz * ny * nx * sizeof(float),
+                           cudaMemcpyDeviceToDevice, st);
+  }
+  switch (order) {
+    case 0: return sweeps<0>(q, b, out, scratch, 0, iters, nz, ny, nx, st);
+    case 1: return sweeps<1>(q, b, out, scratch, 0, iters, nz, ny, nx, st);
+    case 2: return sweeps<2>(q, b, out, scratch, 0, iters, nz, ny, nx, st);
+    case 3: return sweeps<3>(q, b, out, scratch, 0, iters, nz, ny, nx, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..3 as above.
+// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..3 as above;
+// order 1 is the blocked march.
 int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters, int order,
               int nz, int ny, int nx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const float* qf = (const float*)q;
-  const float* bf = (const float*)b;
-  float* of = (float*)out;
-  float* sf = (float*)scratch;
-  if (iters == 0) {
-    return (int)cudaMemcpyAsync(of, qf, (size_t)nz * ny * nx * sizeof(float),
-                                cudaMemcpyDeviceToDevice, st);
+  if (order == 1 && iters > 0) {
+    return (int)march<kNone, float>(march_args((const float*)b, nz, ny, nx), (const float*)q,
+                             (float*)out, (float*)scratch, iters, st);
   }
-  switch (order) {
-    case 0: return (int)sweeps<0>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
-    case 1: return (int)sweeps<1>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
-    case 2: return (int)sweeps<2>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
-    case 3: return (int)sweeps<3>(qf, bf, of, sf, 0, iters, nz, ny, nx, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)copy_or_sweeps((const float*)q, (const float*)b, (float*)out, (float*)scratch,
+                             iters, order, nz, ny, nx, st);
 }
 
 // B13: `iters` order-1 sweeps of q (out_q, with scratch as fx_jacobi), then
@@ -243,12 +866,11 @@ int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters,
 // All dims even.
 int fx_jacobi_rr(const void* q, const void* b, void* out_q, void* scratch, void* rc,
                  int iters, float w, int nz, int ny, int nx, void* stream) {
-  int err = fx_jacobi(q, b, out_q, scratch, iters, 1, nz, ny, nx, stream);
-  if (err != 0) return err;
-  residual_restrict_kernel<<<blocks_for((int64_t)(nz / 2) * (ny / 2) * (nx / 2)), kThreads, 0,
-                             (cudaStream_t)stream>>>((const float*)out_q, (const float*)b,
-                                                     (float*)rc, w, nz, ny, nx);
-  return (int)cudaGetLastError();
+  MarchArgs a = march_args((const float*)b, nz, ny, nx);
+  a.rc = (float*)rc;
+  a.w = w;
+  return (int)march<kResidualRestrict, float>(a, (const float*)q, (float*)out_q,
+                                              (float*)scratch, iters, (cudaStream_t)stream);
 }
 
 // B18 head: b (nz, ny, nx) f32 = the divergence of channels 0..2 of fields
@@ -259,29 +881,22 @@ int fx_jacobi_divrr(const void* fields, int is_bf16, const void* q, void* out_q,
                     void* b, void* rc, int iters, float w, int nz, int ny, int nx,
                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
-  const float* qf = (const float*)q;
-  float* bf = (float*)b;
-  float* first = iters > 0 ? sweep_dst(0, iters, (float*)out_q, (float*)scratch) : nullptr;
   if (is_bf16) {
-    divergence_sweep_kernel<<<blocks, kThreads, 0, st>>>((const __nv_bfloat16*)fields, qf, bf,
-                                                         first, nz, ny, nx);
-  } else {
-    divergence_sweep_kernel<<<blocks, kThreads, 0, st>>>((const float*)fields, qf, bf, first,
-                                                         nz, ny, nx);
+    MarchArgs a = march_args((const float*)b, nz, ny, nx);
+    a.div_f = fields;
+    a.b_out = (float*)b;
+    a.rc = (float*)rc;
+    a.w = w;
+    return (int)march<kResidualRestrict, __nv_bfloat16>(a, (const float*)q, (float*)out_q,
+                                                        (float*)scratch, iters, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (iters == 0) {
-    err = cudaMemcpyAsync(out_q, q, (size_t)nz * ny * nx * sizeof(float),
-                          cudaMemcpyDeviceToDevice, st);
-  } else {
-    err = sweeps<1>(first, bf, (float*)out_q, (float*)scratch, 1, iters, nz, ny, nx, st);
-  }
-  if (err != cudaSuccess) return (int)err;
-  residual_restrict_kernel<<<blocks_for((int64_t)(nz / 2) * (ny / 2) * (nx / 2)), kThreads, 0,
-                             st>>>((const float*)out_q, bf, (float*)rc, w, nz, ny, nx);
-  return (int)cudaGetLastError();
+  MarchArgs a = march_args((const float*)b, nz, ny, nx);
+  a.div_f = fields;
+  a.b_out = (float*)b;
+  a.rc = (float*)rc;
+  a.w = w;
+  return (int)march<kResidualRestrict, float>(a, (const float*)q, (float*)out_q, (float*)scratch,
+                                              iters, st);
 }
 
 // B18 tail: `iters` order-1 sweeps of q against b into out_q (with
@@ -290,10 +905,62 @@ int fx_jacobi_divrr(const void* fields, int is_bf16, const void* q, void* out_q,
 // with the wall-band damp, in place.
 int fx_jacobi_grad(const void* q, const void* b, void* out_q, void* scratch, void* fields,
                    int is_bf16, float s, int iters, int nz, int ny, int nx, void* stream) {
-  int err = fx_jacobi(q, b, out_q, scratch, iters, 1, nz, ny, nx, stream);
-  if (err != 0) return err;
-  return (int)launch_grad_damp(fields, (const float*)out_q, s, is_bf16, nz, ny, nx,
-                               (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) {
+    MarchArgs a = march_args((const float*)b, nz, ny, nx);
+    a.f = fields;
+    a.s = s;
+    return (int)march<kGradDamp, __nv_bfloat16>(a, (const float*)q, (float*)out_q,
+                                                (float*)scratch, iters, st);
+  }
+  MarchArgs a = march_args((const float*)b, nz, ny, nx);
+  a.f = fields;
+  a.s = s;
+  return (int)march<kGradDamp, float>(a, (const float*)q, (float*)out_q, (float*)scratch, iters,
+                                      st);
+}
+
+// The per-sweep design of order 1, kept to time the march against: one
+// launch per sweep (the head's first also forms b), the epilogues as
+// separate passes.  mode 0: fx_jacobi order 1 (q, b -> out_q); 1:
+// fx_jacobi_rr (q, b -> out_q, rc); 2: fx_jacobi_divrr (fields, q -> out_q,
+// b, rc); 3: fx_jacobi_grad (q, b -> out_q, fields in place).  Arguments a
+// mode does not read may be null.
+int fx_jacobi_sweepwise(int mode, const void* fields, int is_bf16, const void* q, void* b,
+                        void* out_q, void* scratch, void* rc, float w, float s, int iters,
+                        int nz, int ny, int nx, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* qf = (const float*)q;
+  float* bf = (float*)b;
+  float* of = (float*)out_q;
+  float* sf = (float*)scratch;
+  cudaError_t err;
+  switch (mode) {
+    case 0: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 1, nz, ny, nx, st);
+    case 1:
+      err = copy_or_sweeps(qf, bf, of, sf, iters, 1, nz, ny, nx, st);
+      return (int)(err != cudaSuccess ? err
+                                      : launch_residual_restrict(of, bf, (float*)rc, w, nz, ny,
+                                                                 nx, st));
+    case 2:
+      return is_bf16 ? (int)sweepwise_divrr((const __nv_bfloat16*)fields, qf, of, sf, bf,
+                                            (float*)rc, iters, w, nz, ny, nx, st)
+                     : (int)sweepwise_divrr((const float*)fields, qf, of, sf, bf, (float*)rc,
+                                            iters, w, nz, ny, nx, st);
+    case 3:
+      err = copy_or_sweeps(qf, bf, of, sf, iters, 1, nz, ny, nx, st);
+      return (int)(err != cudaSuccess
+                       ? err
+                       : launch_grad_damp((void*)fields, of, s, is_bf16, nz, ny, nx, st));
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Counts into *count (a zeroed u64 on the device) the f32 bit patterns x
+// for which div6(x), the march's division, differs from x / 6.0f.
+int fx_div6_mismatches(void* count, void* stream) {
+  div6_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>((unsigned long long*)count);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

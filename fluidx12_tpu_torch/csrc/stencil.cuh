@@ -62,12 +62,25 @@ __device__ __forceinline__ float divergence_at(const T* __restrict__ f, const Ce
   return 0.5f * ((dx + dy) + dz);
 }
 
-// One velocity component: v = u - g, then the wall-band damp along its axis.
-__device__ __forceinline__ float damp(float u, float g, int i, int n) {
-  const float v = u - g;
+// The wall band at index i of n along an axis: the cell's position in
+// [-1, 1] and the factor a velocity pointing at the nearer wall is scaled by.
+struct Band {
+  float pos, scale;
+};
+
+__device__ __forceinline__ Band band_at(int i, int n) {
   const float pos = (((float)i + 0.5f) / (float)n) * 2.0f - 1.0f;
-  const float scale = fminf(fmaxf((0.97f - fabsf(pos)) / 0.03f, -1.0f), 1.0f);
-  return v * pos > 0.0f ? v * scale : v;
+  return Band{pos, fminf(fmaxf((0.97f - fabsf(pos)) / 0.03f, -1.0f), 1.0f)};
+}
+
+// One velocity component: v = u - g, then the wall-band damp along its axis.
+__device__ __forceinline__ float damp(float u, float g, const Band& band) {
+  const float v = u - g;
+  return v * band.pos > 0.0f ? v * band.scale : v;
+}
+
+__device__ __forceinline__ float damp(float u, float g, int i, int n) {
+  return damp(u, g, band_at(i, n));
 }
 
 // B8, and B18's gradient epilogue (the same arithmetic: jacobi.py:364-431

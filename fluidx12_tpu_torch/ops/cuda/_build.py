@@ -50,6 +50,9 @@ _SIGNATURES = {
     "fx_jacobi_rr": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "fx_jacobi_divrr": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "fx_jacobi_grad": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P],
+    "fx_jacobi_sweepwise": [_I, _P, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+                            _P],
+    "fx_div6_mismatches": [_P, _P],
     "fx_gradient3": [_P, _P, _I, _I, _I, _P],
     "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
 }

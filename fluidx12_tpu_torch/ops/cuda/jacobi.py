@@ -24,9 +24,13 @@ and the kernel keep:
 - B14 (`_jacobi2d_kernel`): y+, y-, x+, x-, where the 2D twin
   (sim/project.jacobi_sweeps) adds x first.
 
-Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu.  The gates
-are pure-Python copies of the TPU's planners, kept because they decide
-which numerics the JAX package runs on a grid (ROADMAP.md C5).
+Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu, where the
+plane-sweep order (B4's, B13's and B18's sweeps) is one temporally blocked
+z-march that makes up to four sweeps a launch and fuses the epilogues.
+`sweepwise` keeps the design it replaced, one launch a sweep, as a
+yardstick for timing.  The gates are pure-Python copies of the TPU's
+planners, kept because they decide which numerics the JAX package runs on
+a grid (ROADMAP.md C5).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).
@@ -459,6 +463,52 @@ def jacobi_grad(q: torch.Tensor, b: torch.Tensor, fields: torch.Tensor, iters: i
 
 
 jacobi_grad.launches = 0
+
+
+_SWEEPWISE_MODES = {"sweeps": 0, "rr": 1, "divrr": 2, "grad": 3}
+
+
+def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
+              fields: torch.Tensor | None = None, scale: float = 1.0, rho: float = 1.0):
+    """The plane-sweep order as one launch per sweep, with the epilogues as
+    passes of their own (`fx_jacobi_sweepwise`): the design the blocked
+    march replaced, kept only as a yardstick to time it against.  No path
+    of the port calls it, and it counts no launch.  `kind` "sweeps" returns
+    q' (`jacobi` in the plane-sweep order), "rr" (q', r_c) (`jacobi_rr`),
+    "divrr" (q', b, r_c) from `fields` and q (`jacobi_divrr`), "grad" (q',
+    fields) with `fields` updated in place (`jacobi_grad`).  Card tensors
+    only."""
+    mode = _SWEEPWISE_MODES[kind]
+    if not _check(q, q if b is None else b, iters, "sweepwise"):
+        raise ValueError("sweepwise: the per-sweep design runs on card tensors only")
+    if fields is not None:
+        _check_velocity(fields, q, "sweepwise")
+    if kind in ("rr", "divrr"):
+        _check_even(q, "sweepwise")
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    scratch = torch.empty_like(q)
+    if b is None:
+        b = torch.empty_like(q)
+    r_c = torch.empty((z // 2, y // 2, x // 2), dtype=torch.float32, device=q.device)
+    f = q if fields is None else fields
+    err = _build.lib().fx_jacobi_sweepwise(
+        mode, f.data_ptr(), int(f.dtype == torch.bfloat16), q.data_ptr(), b.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), r_c.data_ptr(), rr_weight(scale), grad_scale(rho),
+        iters, z, y, x, _build.stream_ptr(q))
+    _build.check(err, "fx_jacobi_sweepwise")
+    return {"sweeps": out, "rr": (out, r_c), "divrr": (out, b, r_c),
+            "grad": (out, fields)}[kind]
+
+
+def div6_mismatches(device) -> int:
+    """How many of the 2^32 f32 bit patterns x give another result in the
+    march's branch-free division than x / 6.0f on the card (NaN results
+    count as equal)."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.check(_build.lib().fx_div6_mismatches(count.data_ptr(), _build.stream_ptr(count)),
+                 "fx_div6_mismatches")
+    return int(count.item())
 
 
 def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:

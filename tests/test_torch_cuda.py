@@ -211,6 +211,64 @@ def test_jacobi_divrr_and_grad_match_plain(dev, dtype):
     assert bool(((got_f[:3].float() - ref_f[:3].float()).abs() <= ulp).all())
 
 
+@pytest.mark.parametrize("shape", [(60, 256, 256), (150, 150, 150), (5, 40, 33), (3, 130, 257)])
+def test_planewise_march_matches_plain(dev, shape):
+    """The blocked z-march of the plane-sweep order (fx_jacobi order 1,
+    called directly: `jacobi` takes that order only where the TPU's plan
+    does) at the padded frames' compact dims and odd ones, with 1, 3, 4, 5
+    and 8 sweeps (one launch, or a chain of four-sweep launches): bit for
+    bit, since each cell's sum order and true division are the plain
+    version's."""
+    q, b = _randn(dev, shape, 21), _randn(dev, shape, 22)
+    for iters in (1, 3, 4, 5, 8):
+        got = J._launch(q, b, iters, J.ORDER_PLANEWISE)
+        assert torch.equal(got, J.sweeps_plain(q, b, iters, J.ORDER_PLANEWISE)), iters
+
+
+@pytest.mark.parametrize("iters", [4, 5])
+def test_march_epilogues_match_plain(dev, iters):
+    """B13 and B18's two halves on an even shape that no tile divides:
+    q, b and r_c bit for bit; the tail's velocity within one bf16 ulp of
+    each value, in place, the colour channel untouched."""
+    shape = (30, 130, 98)
+    q, b = _randn(dev, shape, 23, 0.05), _randn(dev, shape, 24)
+    got = J.jacobi_rr(q, b, iters, 4.0)
+    assert all(torch.equal(g, r) for g, r in zip(got, J.jacobi_rr_plain(q, b, iters, 4.0)))
+    fields = _randn(dev, (4,) + shape, 25).to(torch.bfloat16)
+    got = J.jacobi_divrr(fields, q, iters, 4.0)
+    ref = J.jacobi_divrr_plain(fields, q, iters, 4.0)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    got_q, got_f = J.jacobi_grad(q, b, fields.clone(), iters, 0.48)
+    ref_q, ref_f = J.jacobi_grad_plain(q, b, fields.clone(), iters, 0.48)
+    assert torch.equal(got_q, ref_q) and torch.equal(got_f[3:], fields[3:])
+    ulp = (ref_f[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    assert bool(((got_f[:3].float() - ref_f[:3].float()).abs() <= ulp).all())
+
+
+def test_march_division_is_the_division(dev):
+    """The march's branch-free quotient equals x / 6.0f for every f32 bit
+    pattern x (NaN for NaN)."""
+    assert J.div6_mismatches(dev) == 0
+
+
+def test_sweepwise_yardstick_matches_plain(dev):
+    """The per-sweep design chip_smoke.py times the march against computes
+    the same functions: bit for bit (the velocity within one bf16 ulp)."""
+    shape = (16, 64, 128)
+    q, b = _randn(dev, shape, 26, 0.05), _randn(dev, shape, 27)
+    fields = _randn(dev, (4,) + shape, 28).to(torch.bfloat16)
+    assert torch.equal(J.sweepwise("sweeps", q, b, 4), J.sweeps_plain(q, b, 4, 1))
+    got = J.sweepwise("rr", q, b, 4, scale=4.0)
+    assert all(torch.equal(g, r) for g, r in zip(got, J.jacobi_rr_plain(q, b, 4, 4.0)))
+    got = J.sweepwise("divrr", q, None, 4, fields, scale=4.0)
+    assert all(torch.equal(g, r) for g, r in zip(got, J.jacobi_divrr_plain(fields, q, 4, 4.0)))
+    got_q, got_f = J.sweepwise("grad", q, b, 4, fields.clone(), rho=0.48)
+    ref_q, ref_f = J.jacobi_grad_plain(q, b, fields.clone(), 4, 0.48)
+    ulp = (ref_f[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    assert torch.equal(got_q, ref_q)
+    assert bool(((got_f[:3].float() - ref_f[:3].float()).abs() <= ulp).all())
+
+
 def test_gradient3_matches_plain(dev):
     """B15 bit for bit: one difference and one exact scale per value."""
     q = _randn(dev, (30, 32, 128), 21)

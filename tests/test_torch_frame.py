@@ -29,7 +29,6 @@ jax_project = importlib.import_module("fluidx12_tpu.sim.project").project
 # Several pytest workers share the machine's cores: one torch thread each.
 torch.set_num_threads(1)
 
-GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "fluid3d_separate.png")
 GOLDEN_2D = os.path.join(os.path.dirname(__file__), "goldens", "fluid2d.png")
 
 
@@ -111,18 +110,50 @@ def test_frame_matches_kernel_semantics_jax_frame(monkeypatch):
     assert diff.max() <= 2 and diff.mean() < 0.05, (diff.max(), diff.mean())
 
 
-def test_golden_fluid3d_separate():
-    """(b) The port renders tests/test_golden.py's `fluid3d_separate` case
-    (24^3 grid, 64^2 viewport, 32 ray / 8 light samples, 16 Jacobi sweeps,
-    35 frames) and passes that test's gates against the committed golden:
-    mean abs diff < 2.0 and fewer than 1% of pixel channels off by more
-    than 25."""
+@pytest.fixture(scope="module")
+def golden_3d():
+    """tests/test_golden.py's 24^3 cube-map case (24^3 grid, 64^2 viewport,
+    32 ray / 8 light samples, 16 Jacobi sweeps) run for its 35 frames by
+    the port: (engine, last image).  The render method does not touch the
+    simulation, so the separate and merged cases share the run."""
     cfg = TorchConfig(grid_size=(24, 24, 24), viewport=(64, 64), max_ray_samples=32,
                       max_light_samples=8, num_pressure_iters=16)
     engine = torch_fluidx.FluidXEngine(cfg, device="cpu")
     for _ in range(35):
         img = engine.step_frame()
-    diff = np.abs(to_srgb_u8(img).astype(np.int32) - read_png(GOLDEN).astype(np.int32))
+    return engine, img
+
+
+def _golden_diff(img, name):
+    golden = read_png(os.path.join(os.path.dirname(__file__), "goldens", f"{name}.png"))
+    return np.abs(to_srgb_u8(img).astype(np.int32) - golden.astype(np.int32))
+
+
+def test_golden_fluid3d_separate(golden_3d):
+    """(b) The port renders tests/test_golden.py's `fluid3d_separate` case
+    and passes that test's gates against the committed golden: mean abs
+    diff < 2.0 and fewer than 1% of pixel channels off by more than 25."""
+    diff = _golden_diff(golden_3d[1], "fluid3d_separate")
+    assert diff.mean() < 2.0, diff.mean()
+    assert (diff > 25).mean() < 0.01, (diff > 25).mean()
+
+
+def test_golden_fluid3d_merged(golden_3d):
+    """tests/test_golden.py's `fluid3d_merged` case (RAY_MARCH_MERGED, the
+    same grid and frames): the port renders the 35th frame's state with
+    that method, as its step_frame would, and passes test_golden.py's gates
+    (mean < 2.0, fewer than 1% of channels off by more than 25)."""
+    from fluidx12_tpu_torch.core.config import RenderMethod as TorchMethod
+    from fluidx12_tpu_torch.core.state import unpack_scene_params as torch_unpack
+    from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
+
+    engine = golden_3d[0]
+    packed, lod, vis_mask = engine.update_frame()
+    params = torch_unpack(packed)
+    img = torch_render(engine.state.color, params, engine.config, TorchMethod.RAY_MARCH_MERGED,
+                       engine.sh_coeffs, lod=lod, vis_mask=vis_mask,
+                       rect=engine._screen_rect(), env_bg=engine._env_bg(params))
+    diff = _golden_diff(img, "fluid3d_merged")
     assert diff.mean() < 2.0, diff.mean()
     assert (diff > 25).mean() < 0.01, (diff > 25).mean()
 

@@ -42,6 +42,7 @@ from fluidx12_tpu_torch.ops.cuda import stencil as ts
 from fluidx12_tpu_torch.render import environment as tenv
 from fluidx12_tpu_torch.render import lightmap_sweep as tls
 from fluidx12_tpu_torch.utils.image import to_srgb_u8
+from fluidx12_tpu_torch.utils.png import read_png
 
 jmg = importlib.import_module("fluidx12_tpu.sim.mg")
 tmg = importlib.import_module("fluidx12_tpu_torch.sim.mg")
@@ -328,26 +329,35 @@ def test_render_environment_matches_jax(radiance):
         np.testing.assert_allclose(got, ref, atol=1e-6 * np.abs(radiance).max(), rtol=0)
 
 
-def test_fluidgi_golden_case_renders_as_jax(radiance, jax_sh):
+_GI_GOLDEN = dict(grid_size=(24, 24, 24), viewport=(64, 64), max_ray_samples=32,
+                  max_light_samples=8, num_pressure_iters=16, has_light_probe=True)
+
+
+@pytest.fixture(scope="module")
+def fluidgi_run(radiance):
     """tests/test_golden.py's `fluidgi` case (24^3 grid, 64^2 viewport, 32
-    ray / 8 light samples, 16 Jacobi sweeps, the in-repo probe): the port
-    runs its 35 frames; its last image against JAX's `render_frame`, jitted
+    ray / 8 light samples, 16 Jacobi sweeps, the in-repo probe) run for its
+    35 frames by the port: (engine, last image)."""
+    engine = FluidXEngine(TorchConfig(**_GI_GOLDEN), radiance=radiance, device="cpu")
+    for _ in range(35):
+        img = engine.step_frame()
+    return engine, img
+
+
+def test_fluidgi_golden_case_renders_as_jax(fluidgi_run, radiance, jax_sh):
+    """The `fluidgi` case's last image against JAX's `render_frame`, jitted
     as the JAX engine runs it, of the same state with JAX's own SH
     coefficients and sky.  Within 1 u8 level, mean below 0.02: the GI
     render (light map with the SH ambient and AO, march, resolve, sky) is
     JAX's.  The port's 35th frame against the committed golden itself
-    misses the 1% gate (1.03% of channels off by more than 25, mean 1.17):
-    the simulation seams C1 and C2 of ROADMAP.md, not the render."""
+    misses pytest's 1% gate (1.03% of channels off by more than 25, mean
+    1.17): the simulation seams C1 and C2 of ROADMAP.md, not the render."""
     from fluidx12_tpu.core.config import RenderMethod as JaxMethod
     from fluidx12_tpu.core.state import unpack_scene_params
     from fluidx12_tpu.render.pipeline import render_frame
 
-    kw = dict(grid_size=(24, 24, 24), viewport=(64, 64), max_ray_samples=32,
-              max_light_samples=8, num_pressure_iters=16, has_light_probe=True)
-    cfg, tcfg = FluidConfig(**kw), TorchConfig(**kw)
-    engine = FluidXEngine(tcfg, radiance=radiance, device="cpu")
-    for _ in range(35):
-        img = engine.step_frame()
+    cfg = FluidConfig(**_GI_GOLDEN)
+    engine, img = fluidgi_run
     packed, lod, vis_mask = engine.update_frame()
     params = unpack_scene_params(jnp.asarray(packed.numpy()))
     sh = jax_sh[:9]
@@ -360,3 +370,19 @@ def test_fluidgi_golden_case_renders_as_jax(radiance, jax_sh):
     ref = np.asarray(render(grid, params, sh_coeffs=sh, env_bg=sky))
     diff = np.abs(to_srgb_u8(img).astype(np.int32) - to_srgb_u8(ref).astype(np.int32))
     assert diff.max() <= 1 and diff.mean() < 0.02, (diff.max(), diff.mean())
+
+
+def test_golden_fluidgi_passes_the_device_gate(fluidgi_run):
+    """The `fluidgi` case's last image against the committed golden under
+    the gate the reference holds its own device output to (`bench.py
+    --check`, bench.py:517): mean abs diff < 2.0 and fewer than 0.5% of
+    pixel channels off by more than 60.  Not pytest's > 25 gate: the TPU's
+    own route misses that one too (ROADMAP.md C1: its clamping kernels
+    land at 1.35% of channels off by more than 25 when emulated here, and
+    the chip's own check measured mean 1.376), and the port's render of a
+    state is JAX's within 1 u8 level (the test above), so the gap is the
+    simulation's edge addressing, which follows the TPU kernels."""
+    golden = read_png(os.path.join(os.path.dirname(__file__), "goldens", "fluidgi.png"))
+    diff = np.abs(to_srgb_u8(fluidgi_run[1]).astype(np.int32) - golden.astype(np.int32))
+    assert diff.mean() < 2.0, diff.mean()
+    assert (diff > 60).mean() < 0.005, (diff > 60).mean()
