@@ -1,11 +1,12 @@
 // Jacobi pressure sweeps for Hopper: B4, B6, B13, B14 and B18.
 //
-// fx_jacobi replaces fluidx12_tpu/ops/pallas/jacobi.py _jacobi_fused_kernel /
-// _window_sweeps (B4, via jacobi_pallas; order 0, and order 1 for the
-// plane-sweep plan _planewise_window / _planewise_fused_kernel),
-// _jacobi_packed_kernel (B6, via jacobi_packed_pallas; order 2) and
-// _jacobi2d_kernel (B14, via jacobi2d_pallas; order 3, on one (Y, X)
-// plane).  fx_jacobi_rr replaces _planewise_rr_kernel (B13, via
+// fx_jacobi_window replaces fluidx12_tpu/ops/pallas/jacobi.py
+// _jacobi_fused_kernel / _window_sweeps (B4's whole-window plan, via
+// jacobi_pallas; order 0), fx_jacobi its plane-sweep plan _planewise_window
+// / _planewise_fused_kernel (order 1) and _jacobi2d_kernel (B14, via
+// jacobi2d_pallas; order 3, on one (Y, X) plane), fx_jacobi_packed
+// _jacobi_packed_kernel (B6, via jacobi_packed_pallas; order 2).
+// fx_jacobi_rr replaces _planewise_rr_kernel (B13, via
 // jacobi_pallas_rr): the order-1 sweeps with the multigrid's residual and
 // 2x restriction fused in.  Each is `iters` synchronous sweeps of
 //     q <- (sum of the 6 edge-clamped neighbours - b) / 6
@@ -17,18 +18,40 @@
 //   order 1 (B4, plane sweep):  y+, y-, x+, x-, z-, z+   (jacobi.py:285-287)
 //   order 2 (B6, packed):       x+, x-, y+, y-, z+, z-   (jacobi.py:833-842)
 //   order 3 (B14, 2D):          y+, y-, x+, x-           (jacobi.py:773-774)
-// The division is a true f32 division and the file builds with
-// --fmad=false, so each sweep rounds as the Pallas code does (B14's
-// division by 4 is exact, so it matches interpret mode bit for bit).
+// Every kernel rounds each sum as the Pallas code does (the file builds
+// with --fmad=false) and divides by 6 with the correctly rounded quotient
+// (x / 6.0f, or div6 below, checked on all 2^32 inputs), so each matches
+// its plain version bit for bit; B14's division by 4 is exact.
 //
-// Orders 0, 2 and 3: one thread per cell per sweep (jacobi_sweep_kernel),
-// consecutive threads on consecutive x, the sweeps ping-ponging between the
-// output and one scratch buffer, launched `iters` times from one C call.
-// Their volumes (25 MB at 128^3, 3 MB at 64^3, 1 MB for B14's 512^2 plane)
-// stay in the 50 MB L2 between sweeps, so they are bound by the launches:
-// a call moves 12 B per cell, 7.5 us at 128^3 and 3.35 TB/s; B14 at 512^2
-// does 64 sweeps of 5 operations per cell, 83.9 MFLOP, 1.25 us at
-// 67 TFLOP/s.
+// Orders 0 and 2 sweep volumes that sit in the 50 MB L2: 128^3 (25 MB of
+// q, b and the output) and the padded frames' compact coarse levels (30,
+// 128, 128) and (75, 75, 75) for order 0, at most 4096 rows of 64 floats
+// (64^3: 3 MB) for order 2.  Bound: a call moves 12 B per cell, 7.5 us at
+// 128^3 and 3.35 TB/s; what holds the sweeps back is the L2's rate, the
+// latency of each launch, and for order 2 the shared memory of the 16 SMs
+// one cluster spans.
+//   - Order 0 (zsweep_kernel, B4's whole-window order): one launch a sweep
+//     over (16, 32) (y, x) tiles and chunks of 4-16 planes
+//     (ops/cuda/jacobi.window_plan).  A CTA stages its chunk whole with
+//     cp.async -- b, then q of the chunk and a plane either side with the
+//     tile's halo ring, edge-clamped -- and walks z with its column strip
+//     in registers.  Launches after the first of a call are programmatic
+//     dependent launches: each is scheduled while the sweep before it
+//     finishes and stages its b then, so the launch gap and most of the
+//     staging's latency hide behind the previous sweep.  Two or four
+//     sweeps a launch (the blocked march below, in order 0) or two with a
+//     level-1 ring in shared memory measured no faster at these shapes.
+//   - Order 2 (packed_kernel, B6): all sweeps in one launch of one cluster
+//     of up to 16 CTAs (ops/cuda/jacobi.packed_plan), the volume split into
+//     contiguous row ranges kept in shared memory, neighbour rows of other
+//     CTAs read through distributed shared memory, one cluster barrier a
+//     sweep; q and b of a thread's cells stay in registers.
+//   - Order 3 (B14) and the per-sweep designs orders 0 and 2 replaced
+//     (fx_jacobi_sweepwise, the yardstick): one thread per cell per sweep
+//     (jacobi_sweep_kernel), the sweeps ping-ponging between the output and
+//     one scratch buffer, launched `iters` times from one C call; B14 at
+//     512^2 does 64 sweeps of 5 operations per cell, 83.9 MFLOP, 1.25 us
+//     at 67 TFLOP/s.
 //
 // Order 1 -- B4's plane-sweep order, B13 and both halves of B18 -- runs on
 // 256^3 and the padded frames' volumes, which do not fit L2 (67 MB at
@@ -107,9 +130,11 @@
 // level l - 1's newest plane), so a step is bound by instruction
 // throughput and latency.
 //
-// fx_jacobi_sweepwise keeps the per-sweep design of order 1 (one launch
-// per sweep, the epilogues as separate passes) as a yardstick for timing;
-// no wrapper calls it.
+// fx_jacobi_sweepwise keeps the per-sweep design of orders 0, 1 and 2 (one
+// launch per sweep, the epilogues as separate passes) as a yardstick for
+// timing; no wrapper calls it.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -287,6 +312,20 @@ __device__ __forceinline__ float div6(float x) {
 __device__ __forceinline__ bool div6_tie_possible(float x) {
   const unsigned a = __float_as_uint(x) << 1;  // |x|'s bits, shifted
   return a - 1u < (0x03800000u << 1) - 1u;     // 0 < |x| < 2^-120
+}
+
+// div6_near without its select, for 2^-120 <= |x| < inf: there the
+// quotient is normal, so a zero residual leaves q0 as it is.  div6_slow(x)
+// says where it may not hold -- |x| < 2^-120 (zeros too), infinities and
+// NaN, exponent fields 0..6 and 255 -- with one shift-add and one compare.
+__device__ __forceinline__ float div6_fast(float x) {
+  const float c = 0.16666667163372039794921875f;
+  const float q0 = x * c;
+  return __fmaf_rn(__fmaf_rn(-q0, 6.0f, x), c, q0);
+}
+
+__device__ __forceinline__ bool div6_slow(float x) {
+  return (__float_as_uint(x) << 1) + 0x01000000u < 0x08000000u;
 }
 
 // At the volume's first and last plane a level's z neighbour clamps to the
@@ -719,17 +758,426 @@ MarchArgs march_args(const float* b, int nz, int ny, int nx) {
 }
 
 // Counts, over a grid-stride range of all 2^32 bit patterns, those where
-// the march's quotient and the division differ (NaN results count as
-// equal).
+// a branch-free quotient and the division differ (NaN results count as
+// equal): the march's (div6_near unless div6_tie_possible) and the
+// L2-resident kernels' (div6_fast unless div6_slow), each counted.
 __global__ void div6_check_kernel(unsigned long long* bad) {
   unsigned long long local = 0;
   for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < (1ull << 32);
        i += (uint64_t)gridDim.x * blockDim.x) {
     const float x = __uint_as_float((unsigned)i);
     const float a = x / 6.0f, b = div6_tie_possible(x) ? div6(x) : div6_near(x);
+    const float c = div6_slow(x) ? div6(x) : div6_fast(x);
     local += !(__float_as_uint(a) == __float_as_uint(b) || (isnan(a) && isnan(b)));
+    local += !(__float_as_uint(a) == __float_as_uint(c) || (isnan(a) && isnan(c)));
   }
   if (local) atomicAdd(bad, local);
+}
+
+// ---------------------------------------------------------------------------
+// Order 0 (B4's whole-window order): one sweep a launch, a z-march from L2
+// ---------------------------------------------------------------------------
+
+constexpr int kSX = 32;                  // tile width: a warp a row
+constexpr int kSWarps = 8;               // warps a CTA
+constexpr int kSRows = 2;                // consecutive rows a thread
+constexpr int kSY = kSWarps * kSRows;    // tile height
+constexpr int kSRing = 2 * (kSX + kSY);  // the tile's halo ring, corners left out
+constexpr int kSPX = kSX + 2, kSPlane = (kSY + 2) * kSPX;  // a staged plane with its ring
+static_assert(kSRing <= kSX * kSWarps, "a ring cell a thread at most");
+
+__host__ __device__ constexpr int zsweep_smem(int zchunk) {
+  return ((zchunk + 2) * kSPlane + zchunk * kSY * kSX) * (int)sizeof(float);
+}
+
+// Programmatic dependent launch: a chained sweep waits here for the sweep
+// before it to finish (a no-op in a launch without the attribute), and
+// lets the next one be scheduled once its own loads are issued.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// One order-0 sweep of q into out over a (kSY, kSX) tile and `zchunk`
+// planes.  The whole chunk is staged at once with cp.async: b of its planes
+// first (a chained launch does that while the sweep before it still runs:
+// no sweep writes b), then, past griddepcontrol.wait, q of planes z0 - 1 ..
+// z1 with the tile's halo ring; one wait, one __syncthreads.  Then a
+// thread walks z through its column strip, planes z - 1, z and z + 1 of its
+// cells in registers, the x and y neighbours from the staged plane.  A
+// staged cell is the edge-clamped one, so a neighbour past the volume is
+// the cell itself, as the clamp wants; slots beyond the first past the far
+// edges are not staged (only cells outside the volume read them, and many
+// lanes on one clamped address slow cp.async down).
+__global__ void __launch_bounds__(kSX* kSWarps) zsweep_kernel(const float* __restrict__ q,
+                                                              const float* __restrict__ b,
+                                                              float* __restrict__ out, int nz,
+                                                              int ny, int nx, int zchunk) {
+  extern __shared__ __align__(16) float zsm[];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kSX + tx;
+  const int bx0 = (int)blockIdx.x * kSX, by0 = (int)blockIdx.y * kSY;
+  const int x = bx0 + tx, cx = min(x, nx - 1);
+  int off[kSRows];
+  bool own[kSRows], stage[kSRows];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    const int y = by0 + ty * kSRows + r;
+    off[r] = min(y, ny - 1) * nx + cx;
+    own[r] = x < nx && y < ny;
+    stage[r] = x <= nx && y <= ny;
+  }
+  // The ring slot this thread stages: the rows above and below, then the
+  // columns left and right.
+  bool ring = tid < kSRing;
+  int ring_at = 0, ring_off = 0;
+  if (ring) {
+    int py, px;
+    if (tid < 2 * kSX) {
+      py = tid < kSX ? 0 : kSY + 1;
+      px = tid % kSX + 1;
+    } else {
+      const int k = tid - 2 * kSX;
+      py = k % kSY + 1;
+      px = k < kSY ? 0 : kSX + 1;
+    }
+    ring_at = py * kSPX + px;
+    ring_off = min(max(by0 + py - 1, 0), ny - 1) * nx + min(max(bx0 + px - 1, 0), nx - 1);
+    ring = by0 + py - 1 <= ny && bx0 + px - 1 <= nx;
+  }
+  const int64_t plane = (int64_t)ny * nx;
+  const int z0 = (int)blockIdx.z * zchunk, np = min(zchunk, nz - z0);
+  auto zb = [&](int z) { return (int64_t)min(max(z, 0), nz - 1) * plane; };
+  float* const qs = zsm;                           // planes z0 - 1 .. z0 + np, with the ring
+  float* const bs = zsm + (zchunk + 2) * kSPlane;  // b of planes z0 .. z0 + np - 1
+  const int at0 = (ty * kSRows + 1) * kSPX + tx + 1;
+  const int bat0 = ty * kSRows * kSX + tx;
+  for (int p = 0; p < np; ++p) {
+    const int64_t z = zb(z0 + p);
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (own[r]) cp_async4(&bs[p * kSY * kSX + bat0 + r * kSX], b + z + off[r]);
+    }
+  }
+  griddep_wait();
+  for (int p = 0; p < np + 2; ++p) {
+    const int64_t z = zb(z0 - 1 + p);
+    float* const d = qs + p * kSPlane;
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (stage[r]) cp_async4(&d[at0 + r * kSPX], q + z + off[r]);
+    }
+    if (ring) cp_async4(&d[ring_at], q + z + ring_off);
+  }
+  cp_async_commit();
+  griddep_launch();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float lo[kSRows], mid[kSRows], hi[kSRows];
+#pragma unroll
+  for (int r = 0; r < kSRows; ++r) {
+    lo[r] = qs[at0 + r * kSPX];
+    mid[r] = qs[kSPlane + at0 + r * kSPX];
+  }
+  for (int p = 0; p < np; ++p) {
+    const float* const c = qs + (p + 1) * kSPlane + at0;
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) hi[r] = c[kSPlane + r * kSPX];
+    // Plane z0 + p: y+, y-, x+, x-, z+, z-.
+    float v[kSRows];
+    bool slow = false;
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      const float* const k = c + r * kSPX;
+      float s = (r < kSRows - 1 ? mid[r + 1] : k[kSPX]) + (r > 0 ? mid[r - 1] : k[-kSPX]);
+      s = s + k[1];
+      s = s + k[-1];
+      s = s + hi[r];
+      s = s + lo[r];
+      v[r] = s - bs[p * kSY * kSX + bat0 + r * kSX];
+      slow |= own[r] & div6_slow(v[r]);
+    }
+    if (__any_sync(0xffffffffu, slow)) {
+#pragma unroll
+      for (int r = 0; r < kSRows; ++r) v[r] = div6(v[r]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kSRows; ++r) v[r] = div6_fast(v[r]);
+    }
+    const int64_t zo = (int64_t)(z0 + p) * plane;
+#pragma unroll
+    for (int r = 0; r < kSRows; ++r) {
+      if (own[r]) out[zo + off[r]] = v[r];
+      lo[r] = mid[r];
+      mid[r] = hi[r];
+    }
+  }
+}
+
+// One zsweep launch with the plan ops/cuda/jacobi.window_plan gives: a
+// (ty, tx) tile and `zchunk` planes a CTA, `smem` bytes of shared memory.
+// The kernel is compiled for one tile, so another is refused, as is less
+// shared memory than the chunk stages.  `chained` where a sweep of the same
+// chain came before it, which lets it start while that one finishes
+// (programmatic stream serialization).  The first launch of a chain is an
+// ordinary one: the work before it may still be writing b.
+cudaError_t launch_zsweep(const float* q, const float* b, float* out, int nz, int ny, int nx,
+                          int ty, int tx, int zchunk, int smem, bool chained, cudaStream_t st) {
+  if ((int64_t)ny * nx > INT32_MAX || ty != kSY || tx != kSX || zchunk < 1 ||
+      smem < zsweep_smem(zchunk)) {
+    return cudaErrorInvalidValue;
+  }
+  static int smem_allowed = 0;
+  if (smem > smem_allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(zsweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty, (nz + zchunk - 1) / zchunk);
+  cfg.blockDim = dim3(tx, ty / kSRows);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = chained ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, zsweep_kernel, q, b, out, nz, ny, nx, zchunk);
+}
+
+// `iters` order-0 sweeps of q into out, one zsweep launch a sweep,
+// ping-ponging between out and scratch so that the last ends at out.
+cudaError_t window_sweeps(const float* q, const float* b, float* out, float* scratch, int iters,
+                          int ty, int tx, int zchunk, int smem, int nz, int ny, int nx,
+                          cudaStream_t st) {
+  if (iters == 0) {
+    return cudaMemcpyAsync(out, q, (size_t)nz * ny * nx * sizeof(float),
+                           cudaMemcpyDeviceToDevice, st);
+  }
+  const float* src = q;
+  for (int k = 0; k < iters; ++k) {
+    float* dst = sweep_dst(k, iters, out, scratch);
+    cudaError_t err = launch_zsweep(src, b, dst, nz, ny, nx, ty, tx, zchunk, smem, k > 0, st);
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Order 2 (B6): every sweep in the shared memory of one thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kPChunks = 16;      // float4s in a row of 64 floats
+constexpr int kPMaxCluster = 16;  // CTAs a cluster (16 is non-portable)
+constexpr int kPMaxRows = 256;    // rows a CTA: 3 * 64 KiB of shared memory
+constexpr int kPMaxThreads = 1024;
+
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t cta_addr, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(cta_addr), "r"(rank));
+  return a;
+}
+
+// A float4 of any CTA's shared memory in the cluster.  Volatile, so it stays
+// between the cluster barriers that bracket its sweep.
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// The cluster barrier: every CTA's shared-memory writes before it are seen
+// by every CTA's reads after it; a compiler barrier for every memory access
+// and volatile asm.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// (x+ + x- + y+ + y- + z+ + z-) - b, order 2's sum.
+__device__ __forceinline__ float packed_cell(float xp, float xm, float yp, float ym, float zp,
+                                             float zm, float bq) {
+  float s = xp + xm;
+  s = s + yp;
+  s = s + ym;
+  s = s + zp;
+  s = s + zm;
+  return s - bq;
+}
+
+// All `iters` order-2 sweeps of a (nz, ny, 64) volume in one launch of one
+// cluster.  The volume is nz * ny rows of 64 floats; CTA `rank` owns rows
+// [rank * rpc, (rank + 1) * rpc) (rpc = 2^lg_rpc; the last CTA's tail past
+// the volume is computed from clamped rows and never written) and keeps
+// them in shared memory, twice (ping-pong), for the other threads and
+// CTAs.  A thread takes kItems (row, chunk) items, chunk = 4 consecutive
+// x, rows blockDim / 16 apart, and keeps each item's q and b in registers
+// across the sweeps: a sweep reads from shared memory only the y and z
+// neighbour rows (edge-clamped; through distributed shared memory at
+// cluster addresses formed once with mapa, the own CTA's rows too) and the
+// x neighbours come from the float4 and the 16-lane shuffle of the row.
+// One cluster barrier a sweep: a sweep reads one buffer and writes the
+// other, the last writes global memory, and the last barrier keeps every
+// CTA's buffers alive until the others' reads are done.
+template <int kItems>
+__global__ void __launch_bounds__(kPMaxThreads, 1)
+    packed_kernel(const float* __restrict__ q, const float* __restrict__ b, float* __restrict__ out,
+                  int iters, int nz, int ny, int lg_rpc) {
+  extern __shared__ __align__(16) float4 psm[];
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int rpc = 1 << lg_rpc, rows = nz * ny, row0 = rank * rpc;
+  const int nrow = min(rpc, rows - row0);
+  const int cells = rpc * kPChunks;  // float4s a buffer
+  const int c = threadIdx.x & (kPChunks - 1);
+  const int rstep = blockDim.x / kPChunks;
+  auto lrow = [&](int j) { return (int)(threadIdx.x / kPChunks) + j * rstep; };
+
+  // The items' q and b, all loads first.
+  float4 qv[kItems], bv[kItems];
+  {
+    const float4* q4 = reinterpret_cast<const float4*>(q) + (int64_t)row0 * kPChunks;
+    const float4* b4 = reinterpret_cast<const float4*>(b) + (int64_t)row0 * kPChunks;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int i = lrow(j) * kPChunks + c;
+      if (lrow(j) < nrow) {
+        qv[j] = q4[i];
+        bv[j] = b4[i];
+      } else {
+        qv[j] = bv[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+  // The cluster addresses of each item's y+, y-, z+ and z- neighbours in
+  // their owners' first buffer.
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(psm);
+  uint32_t nb[kItems][4];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int row = min(row0 + lrow(j), rows - 1);
+    const int z = row / ny, y = row - z * ny;
+    const int nbr[4] = {y < ny - 1 ? row + 1 : row, y > 0 ? row - 1 : row,
+                        z < nz - 1 ? row + ny : row, z > 0 ? row - ny : row};
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const uint32_t idx = (uint32_t)((nbr[n] & (rpc - 1)) * kPChunks + c);
+      nb[j][n] = cluster_addr(base + idx * (uint32_t)sizeof(float4), nbr[n] >> lg_rpc);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) psm[lrow(j) * kPChunks + c] = qv[j];
+  cluster_barrier();
+
+  float4* const o4 = reinterpret_cast<float4*>(out);
+  for (int k = 0; k < iters; ++k) {
+    const int src = (k & 1) * cells, dst = cells - src;
+    const uint32_t src_bytes = (uint32_t)src * (uint32_t)sizeof(float4);
+    const bool last = k == iters - 1;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const float4 me = qv[j], bq = bv[j];
+      float xpn = __shfl_down_sync(0xffffffffu, me.x, 1, kPChunks);
+      float xmn = __shfl_up_sync(0xffffffffu, me.w, 1, kPChunks);
+      if (c == kPChunks - 1) xpn = me.w;
+      if (c == 0) xmn = me.x;
+      float4 v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) v[n] = ld_cluster4(nb[j][n] + src_bytes);
+      float4 o;
+      o.x = packed_cell(me.y, xmn, v[0].x, v[1].x, v[2].x, v[3].x, bq.x);
+      o.y = packed_cell(me.z, me.x, v[0].y, v[1].y, v[2].y, v[3].y, bq.y);
+      o.z = packed_cell(me.w, me.y, v[0].z, v[1].z, v[2].z, v[3].z, bq.z);
+      o.w = packed_cell(xpn, me.z, v[0].w, v[1].w, v[2].w, v[3].w, bq.w);
+      const bool slow = div6_slow(o.x) | div6_slow(o.y) | div6_slow(o.z) | div6_slow(o.w);
+      if (__any_sync(0xffffffffu, slow)) {
+        o = make_float4(div6(o.x), div6(o.y), div6(o.z), div6(o.w));
+      } else {
+        o = make_float4(div6_fast(o.x), div6_fast(o.y), div6_fast(o.z), div6_fast(o.w));
+      }
+      qv[j] = o;
+      if (!last) {
+        psm[dst + lrow(j) * kPChunks + c] = o;
+      } else if (lrow(j) < nrow) {
+        o4[(int64_t)(row0 + lrow(j)) * kPChunks + c] = o;
+      }
+    }
+    cluster_barrier();
+  }
+}
+
+template <int kItems>
+cudaError_t launch_packed_items(cudaLaunchConfig_t& cfg, int lg, const float* q, const float* b,
+                                float* out, int iters, int nz, int ny) {
+  static int smem_allowed = 0;
+  if (smem_allowed == 0) {
+    cudaError_t err = cudaFuncSetAttribute(packed_kernel<kItems>,
+                                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  if ((int)cfg.dynamicSmemBytes > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        packed_kernel<kItems>, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.dynamicSmemBytes);
+    if (err != cudaSuccess) return err;
+    smem_allowed = (int)cfg.dynamicSmemBytes;
+  }
+  // Residency, checked once per (cluster, rows a CTA, shared memory).
+  static int resident[kPMaxCluster + 1][9] = {};
+  if (resident[cfg.gridDim.x][lg] != (int)cfg.dynamicSmemBytes) {
+    int active = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&active, packed_kernel<kItems>, &cfg);
+    if (err != cudaSuccess) return err;
+    if (active < 1) return cudaErrorLaunchOutOfResources;
+    resident[cfg.gridDim.x][lg] = (int)cfg.dynamicSmemBytes;
+  }
+  return cudaLaunchKernelEx(&cfg, packed_kernel<kItems>, q, b, out, iters, nz, ny, lg);
+}
+
+// One launch of packed_kernel with the plan ops/cuda/jacobi.packed_plan
+// gives: `cluster` CTAs of `threads` threads, `rpc` rows and `smem` bytes
+// each.  Refuses a plan the kernel cannot run -- one that does not cover
+// the volume's rows once, a range that is not a power of two, threads
+// that are not whole warps or not 1, 2 or 4 float4s of the range each,
+// less shared memory than the two buffers -- and raises
+// cudaErrorLaunchOutOfResources where the card cannot hold such a cluster
+// (cudaOccupancyMaxActiveClusters: none) -- never a fallback.
+cudaError_t launch_packed(const float* q, const float* b, float* out, int iters, int cluster,
+                          int rpc, int threads, int smem, int nz, int ny, int nx,
+                          cudaStream_t st) {
+  const int64_t rows = (int64_t)nz * ny;
+  int lg = 0;
+  while ((1 << lg) < rpc) ++lg;
+  if (nx != kPChunks * 4 || rows < 1 || cluster < 1 || cluster > kPMaxCluster || rpc < 1 ||
+      rpc > kPMaxRows || (1 << lg) != rpc || (int64_t)cluster * rpc < rows ||
+      (int64_t)(cluster - 1) * rpc >= rows || threads < 32 || threads > kPMaxThreads ||
+      threads % 32 || (rpc * kPChunks) % threads ||
+      smem < 2 * rpc * kPChunks * (int)sizeof(float4)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  switch (rpc * kPChunks / threads) {
+    case 1: return launch_packed_items<1>(cfg, lg, q, b, out, iters, nz, ny);
+    case 2: return launch_packed_items<2>(cfg, lg, q, b, out, iters, nz, ny);
+    case 4: return launch_packed_items<4>(cfg, lg, q, b, out, iters, nz, ny);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -848,17 +1296,43 @@ cudaError_t copy_or_sweeps(const float* q, const float* b, float* out, float* sc
 
 extern "C" {
 
-// q, b, out, scratch (nz, ny, nx) f32; q is read only.  order 0..3 as above;
-// order 1 is the blocked march.
+// q, b, out, scratch (nz, ny, nx) f32; q is read only.  Order 1 (the
+// blocked march) or 3 (B14); orders 0 and 2 are fx_jacobi_window and
+// fx_jacobi_packed.
 int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters, int order,
               int nz, int ny, int nx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (order != 1 && order != 3) return (int)cudaErrorInvalidValue;
   if (order == 1 && iters > 0) {
     return (int)march<kNone, float>(march_args((const float*)b, nz, ny, nx), (const float*)q,
                              (float*)out, (float*)scratch, iters, st);
   }
   return (int)copy_or_sweeps((const float*)q, (const float*)b, (float*)out, (float*)scratch,
                              iters, order, nz, ny, nx, st);
+}
+
+// B4's whole-window order (order 0): `iters` sweeps of q into out (with
+// scratch as fx_jacobi), one zsweep launch a sweep with the plan
+// ops/cuda/jacobi.window_plan gives (a (ty, tx) tile and zchunk planes a
+// CTA, smem bytes each).
+int fx_jacobi_window(const void* q, const void* b, void* out, void* scratch, int iters, int ty,
+                     int tx, int zchunk, int smem, int nz, int ny, int nx, void* stream) {
+  return (int)window_sweeps((const float*)q, (const float*)b, (float*)out, (float*)scratch, iters,
+                            ty, tx, zchunk, smem, nz, ny, nx, (cudaStream_t)stream);
+}
+
+// B6 (order 2): `iters` sweeps of a (nz, ny, 64) q into out in one cluster
+// launch with the plan ops/cuda/jacobi.packed_plan gives (cluster CTAs,
+// rpc rows, threads and smem bytes each).
+int fx_jacobi_packed(const void* q, const void* b, void* out, int iters, int cluster, int rpc,
+                     int threads, int smem, int nz, int ny, int nx, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (iters == 0) {
+    return (int)cudaMemcpyAsync(out, q, (size_t)nz * ny * nx * sizeof(float),
+                                cudaMemcpyDeviceToDevice, st);
+  }
+  return (int)launch_packed((const float*)q, (const float*)b, (float*)out, iters, cluster, rpc,
+                            threads, smem, nz, ny, nx, st);
 }
 
 // B13: `iters` order-1 sweeps of q (out_q, with scratch as fx_jacobi), then
@@ -920,12 +1394,13 @@ int fx_jacobi_grad(const void* q, const void* b, void* out_q, void* scratch, voi
                                       st);
 }
 
-// The per-sweep design of order 1, kept to time the march against: one
+// The per-sweep designs, kept to time the redesigned kernels against: one
 // launch per sweep (the head's first also forms b), the epilogues as
 // separate passes.  mode 0: fx_jacobi order 1 (q, b -> out_q); 1:
 // fx_jacobi_rr (q, b -> out_q, rc); 2: fx_jacobi_divrr (fields, q -> out_q,
-// b, rc); 3: fx_jacobi_grad (q, b -> out_q, fields in place).  Arguments a
-// mode does not read may be null.
+// b, rc); 3: fx_jacobi_grad (q, b -> out_q, fields in place); 4: order 0
+// (fx_jacobi_window); 5: order 2 (fx_jacobi_packed).  Arguments a mode does
+// not read may be null.
 int fx_jacobi_sweepwise(int mode, const void* fields, int is_bf16, const void* q, void* b,
                         void* out_q, void* scratch, void* rc, float w, float s, int iters,
                         int nz, int ny, int nx, void* stream) {
@@ -952,12 +1427,15 @@ int fx_jacobi_sweepwise(int mode, const void* fields, int is_bf16, const void* q
       return (int)(err != cudaSuccess
                        ? err
                        : launch_grad_damp((void*)fields, of, s, is_bf16, nz, ny, nx, st));
+    case 4: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 0, nz, ny, nx, st);
+    case 5: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 2, nz, ny, nx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // Counts into *count (a zeroed u64 on the device) the f32 bit patterns x
-// for which div6(x), the march's division, differs from x / 6.0f.
+// for which the branch-free division differs from x / 6.0f, in either of
+// its two forms (the march's, and the z-sweep's and cluster kernel's).
 int fx_div6_mismatches(void* count, void* stream) {
   div6_check_kernel<<<132 * 16, 256, 0, (cudaStream_t)stream>>>((unsigned long long*)count);
   return (int)cudaGetLastError();

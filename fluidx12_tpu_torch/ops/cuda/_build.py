@@ -47,6 +47,8 @@ _SIGNATURES = {
     "fx_prolong_correct": [_P, _P, _P, _I, _I, _I, _P],
     "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _P],
     "fx_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fx_jacobi_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_jacobi_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_jacobi_rr": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "fx_jacobi_divrr": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "fx_jacobi_grad": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P],

@@ -26,8 +26,10 @@ and the kernel keep:
 
 Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu, where the
 plane-sweep order (B4's, B13's and B18's sweeps) is one temporally blocked
-z-march that makes up to four sweeps a launch and fuses the epilogues.
-`sweepwise` keeps the design it replaced, one launch a sweep, as a
+z-march that makes up to four sweeps a launch and fuses the epilogues, B4's
+whole-window order one L2-fed z-sweep a launch (`window_plan`) and B6 all
+its sweeps in one thread-block cluster's shared memory (`packed_plan`).
+`sweepwise` keeps the design they replaced, one launch a sweep, as a
 yardstick for timing.  The gates are pure-Python copies of the TPU's
 planners, kept because they decide which numerics the JAX package runs on
 a grid (ROADMAP.md C5).
@@ -207,6 +209,82 @@ def jacobi2d_pallas_supported(shape) -> bool:
             and ny * nx * 4 * 8 <= 12 * 1024 * 1024)
 
 
+# ---------------------------------------------------------------------------
+# Launch plans of the L2-resident sweeps (what csrc/jacobi.cu receives)
+# ---------------------------------------------------------------------------
+
+# Shared memory a CTA may take on an H100 (227 KB), and its SM count.
+SMEM_PER_CTA = 232448
+H100_SMS = 132
+
+# B4's whole-window order, zsweep_kernel: a (16, 32) (y, x) tile a CTA (the
+# kernel is compiled for it: kSY, kSX) and a chunk of at most 16 planes,
+# staged whole in shared memory: q with the tile's halo ring on the chunk
+# and a plane either side, b on the chunk.
+WINDOW_TILE = (16, 32)
+WINDOW_MAX_CHUNK = 16
+
+
+def window_smem(zchunk: int) -> int:
+    """Bytes of shared memory a zsweep CTA stages for a chunk of `zchunk`
+    planes (csrc/jacobi.cu zsweep_smem)."""
+    ty, tx = WINDOW_TILE
+    return ((zchunk + 2) * (ty + 2) * (tx + 2) + zchunk * ty * tx) * 4
+
+
+def window_plan(shape):
+    """(tile, zchunk, smem) of B4's whole-window order, one sweep a launch,
+    on a (Z, Y, X) volume of any dims: the (y, x) tile and the planes a CTA
+    owns, and the shared memory it stages; `fx_jacobi_window` launches
+    with them.  CTA (k, j, i) owns planes
+    [k * zchunk, (k + 1) * zchunk), rows [j * 16, (j + 1) * 16) and columns
+    [i * 32, (i + 1) * 32), clipped to the volume.  The chunk is the longest
+    of 16, 8 and 4 planes whose full tiles the volume still fills for 0.9
+    CTAs an SM: a sweep of an L2-resident volume is bound by the L2's rate
+    where the card is full (a longer chunk re-reads fewer halo planes: 16
+    planes at 128^3) and by the latency of a CTA's loads where it is not (8
+    planes at (30, 128, 128), 4 at (75, 75, 75))."""
+    nz, ny, nx = shape
+    ty, tx = WINDOW_TILE
+    zchunk = WINDOW_MAX_CHUNK
+    while zchunk > 4 and nz * ny * nx < 0.9 * H100_SMS * ty * tx * zchunk:
+        zchunk //= 2
+    return WINDOW_TILE, zchunk, window_smem(zchunk)
+
+
+# B6, packed_kernel: rows of 64 floats, at most 16 CTAs a cluster (16 is
+# non-portable), at most 256 rows and 1024 threads a CTA.
+PACKED_ROW = 64
+PACKED_MAX_CLUSTER = 16
+PACKED_MAX_ROWS = 256
+
+
+def packed_plan(shape):
+    """(cluster, rows_per_cta, threads, smem) of B6 on a (Z, Y, 64) volume:
+    its Z * Y rows of 64 floats split into contiguous ranges of
+    rows_per_cta rows (a power of two, at least 16), one a CTA, at most 16
+    CTAs; each CTA keeps its rows of q twice (ping-pong) in shared memory,
+    `smem` bytes, and runs one thread per float4 of a range, at most 1024,
+    each holding its float4s of q and b in registers; `fx_jacobi_packed`
+    launches with them.  CTA r owns rows
+    [r * rows_per_cta, (r + 1) * rows_per_cta) clipped to the volume; every
+    CTA owns at least one.
+    Raises ValueError where no plan fits: X other than 64, or more than
+    4096 rows (B6's gate, `jacobi_packed_supported`, admits up to 4096)."""
+    nz, ny, nx = shape
+    rows = nz * ny
+    if nx != PACKED_ROW or rows < 1 or rows > PACKED_MAX_CLUSTER * PACKED_MAX_ROWS:
+        raise ValueError(f"jacobi_packed: no cluster plan for a {tuple(shape)} volume "
+                         f"(X must be {PACKED_ROW}, Z * Y at most "
+                         f"{PACKED_MAX_CLUSTER * PACKED_MAX_ROWS})")
+    rpc = 16
+    while rpc * PACKED_MAX_CLUSTER < rows:
+        rpc *= 2
+    cluster = -(-rows // rpc)
+    threads = min(1024, rpc * PACKED_ROW // 4)
+    return cluster, rpc, threads, 2 * rpc * PACKED_ROW * 4
+
+
 def window_order(shape, inner: int) -> int:
     """The neighbour order of B4 on this volume: `jacobi_pallas` takes the
     plane-sweep kernel for planes above 128x128 where its plan fits, else
@@ -333,12 +411,28 @@ def _check_velocity(fields: torch.Tensor, q: torch.Tensor, name: str) -> None:
 
 
 def _launch(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
+    """`iters` sweeps of card tensors in `order`: order 0 by its
+    `window_plan`, order 2 by its `packed_plan`, orders 1 and 3 as
+    `fx_jacobi` does."""
     z, y, x = q.shape
     out = torch.empty_like(q)
+    stream = _build.stream_ptr(q)
+    if order == ORDER_PACKED:
+        plan = packed_plan(q.shape)
+        err = _build.lib().fx_jacobi_packed(q.data_ptr(), b.data_ptr(), out.data_ptr(), iters,
+                                            *plan, z, y, x, stream)
+        _build.check(err, "fx_jacobi_packed")
+        return out
     scratch = torch.empty_like(q) if iters > 1 else out
+    if order == ORDER_WINDOW:
+        (ty, tx), zchunk, smem = window_plan(q.shape)
+        err = _build.lib().fx_jacobi_window(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                            scratch.data_ptr(), iters, ty, tx, zchunk, smem,
+                                            z, y, x, stream)
+        _build.check(err, "fx_jacobi_window")
+        return out
     err = _build.lib().fx_jacobi(q.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 scratch.data_ptr(), iters, order, z, y, x,
-                                 _build.stream_ptr(q))
+                                 scratch.data_ptr(), iters, order, z, y, x, stream)
     _build.check(err, "fx_jacobi")
     return out
 
@@ -375,7 +469,8 @@ jacobi.planewise_launches = 0
 def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     """B6: `iters` Jacobi sweeps of a (Z, Y, X) f32 volume in the twin's
     neighbour order (the TPU runs it on the multigrid's 64-wide coarse
-    level, `jacobi_packed_supported`)."""
+    level, `jacobi_packed_supported`).  On the card all of them run in one
+    cluster launch, which needs a `packed_plan`: X = 64 and Z * Y <= 4096."""
     if not _check(q, b, iters, "jacobi_packed"):
         return jacobi_packed_plain(q, b, iters)
     out = _launch(q, b, iters, ORDER_PACKED)
@@ -465,20 +560,23 @@ def jacobi_grad(q: torch.Tensor, b: torch.Tensor, fields: torch.Tensor, iters: i
 jacobi_grad.launches = 0
 
 
-_SWEEPWISE_MODES = {"sweeps": 0, "rr": 1, "divrr": 2, "grad": 3}
+_SWEEPWISE_MODES = {"rr": 1, "divrr": 2, "grad": 3}
+_SWEEPWISE_ORDERS = {ORDER_PLANEWISE: 0, ORDER_WINDOW: 4, ORDER_PACKED: 5}
 
 
 def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
-              fields: torch.Tensor | None = None, scale: float = 1.0, rho: float = 1.0):
-    """The plane-sweep order as one launch per sweep, with the epilogues as
+              fields: torch.Tensor | None = None, scale: float = 1.0, rho: float = 1.0,
+              order: int = ORDER_PLANEWISE):
+    """The Jacobi kernels as one launch per sweep, with the epilogues as
     passes of their own (`fx_jacobi_sweepwise`): the design the blocked
-    march replaced, kept only as a yardstick to time it against.  No path
-    of the port calls it, and it counts no launch.  `kind` "sweeps" returns
-    q' (`jacobi` in the plane-sweep order), "rr" (q', r_c) (`jacobi_rr`),
-    "divrr" (q', b, r_c) from `fields` and q (`jacobi_divrr`), "grad" (q',
-    fields) with `fields` updated in place (`jacobi_grad`).  Card tensors
-    only."""
-    mode = _SWEEPWISE_MODES[kind]
+    march, B4's whole-window zsweep and B6's cluster kernel replaced, kept
+    only as a yardstick to time them against.  No path of the port calls
+    it, and it counts no launch.  `kind` "sweeps" returns q' (`jacobi` in
+    the plane-sweep order, or in `order` ORDER_WINDOW or ORDER_PACKED),
+    "rr" (q', r_c) (`jacobi_rr`), "divrr" (q', b, r_c) from `fields` and q
+    (`jacobi_divrr`), "grad" (q', fields) with `fields` updated in place
+    (`jacobi_grad`).  Card tensors only."""
+    mode = _SWEEPWISE_ORDERS[order] if kind == "sweeps" else _SWEEPWISE_MODES[kind]
     if not _check(q, q if b is None else b, iters, "sweepwise"):
         raise ValueError("sweepwise: the per-sweep design runs on card tensors only")
     if fields is not None:
@@ -502,9 +600,10 @@ def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
 
 
 def div6_mismatches(device) -> int:
-    """How many of the 2^32 f32 bit patterns x give another result in the
-    march's branch-free division than x / 6.0f on the card (NaN results
-    count as equal)."""
+    """How many of the 2^32 f32 bit patterns x give another result than
+    x / 6.0f on the card in the branch-free division, in the march's form
+    or in the z-sweep's and cluster kernel's, the two counted together
+    (NaN results count as equal)."""
     count = torch.zeros(1, dtype=torch.int64, device=device)
     _build.check(_build.lib().fx_div6_mismatches(count.data_ptr(), _build.stream_ptr(count)),
                  "fx_div6_mismatches")

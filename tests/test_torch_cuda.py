@@ -124,9 +124,9 @@ def test_projection_stencils_match_plain(dev, dtype):
                                               ((16, 48, 64), 32, None)])
 def test_jacobi_kernels_match_plain(dev, shape, iters, plan):
     """B4 (whole-window and plane-sweep orders) and B6 (the twin's order)
-    against their plain versions: the same neighbour order and true
-    divisions on both sides, so bit for bit (chip_smoke.py allows 1e-5 of
-    the scale)."""
+    against their plain versions: the same neighbour order and correctly
+    rounded divisions on both sides, so bit for bit (as chip_smoke.py
+    holds them)."""
     q, b = _randn(dev, shape, 7), _randn(dev, shape, 8)
     if plan is None:
         got, ref = J.jacobi_packed(q, b, iters), J.jacobi_packed_plain(q, b, iters)
@@ -245,9 +245,69 @@ def test_march_epilogues_match_plain(dev, iters):
     assert bool(((got_f[:3].float() - ref_f[:3].float()).abs() <= ulp).all())
 
 
+@pytest.mark.parametrize("shape", [(128, 128, 128), (30, 128, 128), (75, 75, 75), (3, 5, 7)])
+def test_window_order_matches_plain(dev, shape):
+    """B4's whole-window order, the z-sweep (fx_jacobi_window, called
+    directly: `jacobi` admits only multiples of `inner`), at the main
+    path's 128^3, the padded frames' compact coarse dims and a shape
+    smaller than one tile, with 0 to 5, 8 and 32 sweeps (one launch, or a
+    chain of programmatic dependent launches): bit for bit."""
+    q, b = _randn(dev, shape, 29, 0.05), _randn(dev, shape, 30)
+    for iters in (0, 1, 2, 3, 4, 5, 8, 32):
+        got = J._launch(q, b, iters, J.ORDER_WINDOW)
+        assert torch.equal(got, J.sweeps_plain(q, b, iters, J.ORDER_WINDOW)), iters
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (2, 16, 64), (16, 48, 64), (17, 48, 64),
+                                   (4, 1024, 64)])
+def test_packed_cluster_matches_plain(dev, shape):
+    """B6 in one cluster launch at the main path's 64^3 coarse level, the
+    thinnest shape its gate admits, a middle one, one whose last CTA owns
+    a partial range, and the largest (Z * Y = 4096, 16 CTAs), with 0, 1,
+    31 and 32 sweeps: bit for bit."""
+    q, b = _randn(dev, shape, 31, 0.05), _randn(dev, shape, 32)
+    for iters in (0, 1, 31, 32):
+        got = J.jacobi_packed(q, b, iters)
+        assert torch.equal(got, J.jacobi_packed_plain(q, b, iters)), iters
+
+
+def test_l2_sweeps_refuse_a_plan_their_kernels_cannot_run(dev):
+    """fx_jacobi_window and fx_jacobi_packed launch with the plan they are
+    given and refuse one their kernels cannot run: a tile other than the
+    compiled (16, 32), less shared memory than the chunk stages, a row
+    range not a power of two, fewer threads than whole warps."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    lib, st = _build.lib(), _build.stream_ptr
+    q, b = _randn(dev, (16, 48, 64), 35), _randn(dev, (16, 48, 64), 36)
+    out, scratch = torch.empty_like(q), torch.empty_like(q)
+    (ty, tx), zchunk, smem = J.window_plan(q.shape)
+    for plan in ((ty // 2, tx, zchunk, smem), (ty, tx, zchunk, smem - 4)):
+        assert lib.fx_jacobi_window(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    scratch.data_ptr(), 2, *plan, 16, 48, 64, st(q)) != 0
+    cluster, rpc, threads, smem = J.packed_plan(q.shape)
+    for plan in ((cluster, rpc, threads, smem - 4), (16, 48, 768, 2 * 48 * 64 * 4),
+                 (cluster, rpc, 16, smem)):
+        assert lib.fx_jacobi_packed(q.data_ptr(), b.data_ptr(), out.data_ptr(), 2, *plan,
+                                    16, 48, 64, st(q)) != 0
+    assert torch.equal(J.jacobi_packed(q, b, 2), J.jacobi_packed_plain(q, b, 2))
+
+
+@pytest.mark.parametrize("order", [0, 2], ids=["window", "packed"])
+def test_sweepwise_orders_match_plain(dev, order):
+    """The per-sweep designs chip_smoke.py times B4's whole-window order
+    and B6 against: bit for bit."""
+    shape = (16, 48, 64)
+    q, b = _randn(dev, shape, 33, 0.05), _randn(dev, shape, 34)
+    for iters in (1, 4, 32):
+        got = J.sweepwise("sweeps", q, b, iters, order=order)
+        assert torch.equal(got, J.sweeps_plain(q, b, iters, order)), iters
+
+
 def test_march_division_is_the_division(dev):
-    """The march's branch-free quotient equals x / 6.0f for every f32 bit
-    pattern x (NaN for NaN)."""
+    """The branch-free quotient, in the march's form and in the z-sweep's
+    and cluster kernel's, equals x / 6.0f for every f32 bit pattern x (NaN
+    for NaN)."""
     assert J.div6_mismatches(dev) == 0
 
 

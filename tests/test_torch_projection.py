@@ -13,6 +13,8 @@ Inputs are made with numpy from a seed.
 
 import functools
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -163,6 +165,128 @@ def test_jacobi_packed_matches_pallas(shape):
     ref = np.asarray(pj.jacobi_packed_pallas(jq, jb, 32))
     got = tj.jacobi_packed(tq, tb, 32).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The launch plans of B4's whole-window order and B6 (csrc/jacobi.cu)
+# ---------------------------------------------------------------------------
+
+# B4's whole-window order runs where `jacobi` admits it (the TPU's
+# whole-window plan: 128^3, (64, 32, 128), (32, 64, 128), the 256^3
+# frames' coarse 128^3) and, through `smooth_padded`, on the compact coarse
+# dims of padded grids, which no tile divides: (30, 128, 128), (75, 75, 75).
+WINDOW_SHAPES = [(128, 128, 128), (64, 32, 128), (32, 64, 128), (16, 128, 128),
+                 (30, 128, 128), (75, 75, 75), (40, 80, 128), (3, 5, 7), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("zyx", WINDOW_SHAPES, ids=lambda z: "x".join(map(str, z)))
+def test_window_plan_owns_every_cell_once(zyx):
+    """zsweep_kernel's grid, as `window_plan` gives it: every cell of the
+    volume is owned by exactly one CTA, within the shared memory a CTA may
+    take, and the chunk the longest (of 16, 8 and 4 planes) at which the
+    volume fills 0.9 CTAs an SM."""
+    (ty, tx), zchunk, smem = tj.window_plan(zyx)
+    nz, ny, nx = zyx
+    assert smem == tj.window_smem(zchunk) <= tj.SMEM_PER_CTA
+    grid = (-(-nz // zchunk), -(-ny // ty), -(-nx // tx))
+    owners = np.zeros(zyx, np.int32)
+    for k in range(grid[0]):
+        for j in range(grid[1]):
+            for i in range(grid[2]):
+                owners[k * zchunk:(k + 1) * zchunk, j * ty:(j + 1) * ty,
+                       i * tx:(i + 1) * tx] += 1
+    assert (owners == 1).all()
+    fills = [z for z in (16, 8, 4) if owners.size >= 0.9 * tj.H100_SMS * ty * tx * z]
+    assert zchunk == (fills[0] if fills else 4)
+
+
+def test_launch_plans_match_the_kernel_source():
+    """The constants the plans copy are those csrc/jacobi.cu compiles:
+    zsweep_kernel's tile (kSY = kSWarps * kSRows rows of kSX), which its
+    launch refuses to change, and packed_kernel's row of kPChunks float4s,
+    cluster, range and thread limits."""
+    src = (Path(tj.__file__).parents[2] / "csrc" / "jacobi.cu").read_text()
+    c = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    c = {k: int(v) for k, v in c.items()}
+    assert tj.WINDOW_TILE == (c["kSWarps"] * c["kSRows"], c["kSX"])
+    assert "kSY = kSWarps * kSRows;" in src
+    assert tj.PACKED_ROW == 4 * c["kPChunks"]
+    assert tj.PACKED_MAX_CLUSTER == c["kPMaxCluster"]
+    assert tj.PACKED_MAX_ROWS == c["kPMaxRows"]
+    assert max(tj.packed_plan(s)[2] for s in ((64, 64, 64), (2, 16, 64))) <= c["kPMaxThreads"]
+
+
+PACKED_SHAPES = [(nz, ny, 64) for ny in range(16, 4096 // 2 + 1, 16)
+                 for nz in range(2, 4096 // ny + 1)]
+
+
+def test_packed_plan_covers_every_gated_shape():
+    """B6's cluster plan on every (Z, Y, X) its gate admits (X = 64, Y a
+    multiple of 16, Z >= 2, Z * Y <= 4096): at most 16 CTAs, each owning a
+    non-empty range of rows, together every row exactly once, with its
+    two q buffers within 227 KB of shared memory and one thread per float4
+    of its range."""
+    assert all(tj.jacobi_packed_supported(s) for s in PACKED_SHAPES)
+    assert not tj.jacobi_packed_supported((2, 4096 // 2 + 16, 64))
+    for shape in PACKED_SHAPES:
+        cluster, rpc, threads, smem = tj.packed_plan(shape)
+        rows = shape[0] * shape[1]
+        assert 1 <= cluster <= tj.PACKED_MAX_CLUSTER and rpc & (rpc - 1) == 0
+        assert (cluster - 1) * rpc < rows <= cluster * rpc, shape
+        assert smem == 2 * rpc * 64 * 4 <= tj.SMEM_PER_CTA
+        assert threads == min(1024, rpc * 16) and (rpc * 16) % threads == 0
+    for bad in ((4, 16, 128), (2, 2064, 64)):
+        with pytest.raises(ValueError):
+            tj.packed_plan(bad)
+
+
+def _packed_model(q: np.ndarray, b: np.ndarray, iters: int) -> np.ndarray:
+    """packed_kernel's decomposition in numpy: each CTA's two q buffers and
+    b buffer start as NaN and receive only the rows `packed_plan` gives
+    it; each sweep reads every row's neighbours from whichever CTA owns
+    them (the edge-clamped y+, y-, z+, z- rows; x within the row), sums
+    x+, x-, y+, y-, z+, z- and writes the other buffer, the last sweep the
+    output.  A row read from a CTA that does not own it stays NaN."""
+    nz, ny, nx = q.shape
+    cluster, rpc, _, _ = tj.packed_plan(q.shape)
+    rows = nz * ny
+    own = [range(r * rpc, min((r + 1) * rpc, rows)) for r in range(cluster)]
+    buf = np.full((2, cluster, rpc, nx), np.nan, np.float32)
+    bsm = np.full((cluster, rpc, nx), np.nan, np.float32)
+    for r, rr in enumerate(own):
+        buf[0, r, :len(rr)] = q.reshape(rows, nx)[rr]
+        bsm[r, :len(rr)] = b.reshape(rows, nx)[rr]
+    row = np.minimum(np.arange(cluster * rpc), rows - 1).reshape(cluster, rpc)
+    z, y = row // ny, row % ny
+    nbrs = (np.where(y < ny - 1, row + 1, row), np.where(y > 0, row - 1, row),
+            np.where(z < nz - 1, row + ny, row), np.where(z > 0, row - ny, row))
+    out = np.full((rows, nx), np.nan, np.float32)
+    for k in range(iters):
+        src = buf[k & 1]
+        s = (np.concatenate([src[..., 1:], src[..., -1:]], -1)
+             + np.concatenate([src[..., :1], src[..., :-1]], -1))
+        for n in nbrs:
+            s = s + src[n // rpc, n % rpc]
+        new = (s - bsm) / np.float32(6.0)
+        if k < iters - 1:
+            buf[1 - (k & 1)] = new
+        else:
+            for r, rr in enumerate(own):
+                out[rr] = new[r, :len(rr)]
+    return out.reshape(q.shape)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 64), (17, 48, 64), (4, 1024, 64), (64, 64, 64)])
+def test_packed_row_exchange_matches_plain(shape):
+    """The numpy model of B6's row exchange, NaN wherever a CTA would read
+    a row it was not given, reproduces `jacobi_packed_plain` bit for bit:
+    two CTAs, a partial last range, z neighbours four CTAs away, the
+    default preset's 64^3 coarse level."""
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal(shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    ref = tj.jacobi_packed_plain(torch.from_numpy(q), torch.from_numpy(b), 3).numpy()
+    np.testing.assert_array_equal(_packed_model(q, b, 3), ref)
 
 
 def test_prolong_correct_matches_pallas():

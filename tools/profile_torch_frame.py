@@ -23,10 +23,13 @@ at 256^3) and prints, each beside the card's name and power limit:
     resolve + composite.  fluid2d: advect (B11 twice + forces),
     projection (B14), visualize + composite;
   - from `torch.profiler` over `--frames` steps: device time and launches
-    per frame (kernels, and copies/sets by kind), the kernels with the
-    most device time, and the device busy share, device time per frame over the
-    unprofiled frame time (the profiler's own host cost stretches the frame
-    it watches, so its wall time is not the denominator).
+    per frame (kernels, and copies/sets by kind; the sum of their durations
+    and the union of their intervals, which counts once the overlap of a
+    programmatic dependent launch with the kernel before it), the 12
+    kernels with the most device time, and the device busy share, the union
+    per frame over the unprofiled frame time (the profiler's own host cost
+    stretches the frame it watches, so its wall time is not the
+    denominator).
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -175,10 +178,23 @@ def main() -> int:
     if dev_ms == 0.0:
         print("torch.profiler recorded no device time")
         return 1
-    print(f"[{card}] profiler: {dev_ms:.3f} ms of device time per frame; "
+    # The union of the events' intervals: a kernel started by programmatic
+    # dependent launch runs (waiting) while the one before it finishes, so
+    # the sum of durations counts that overlap twice.
+    busy_us, reach = 0.0, None
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy_ms = busy_us / 1e3 / args.frames
+    print(f"[{card}] profiler: {dev_ms:.3f} ms of device time per frame (sum of "
+          f"durations), {busy_ms:.3f} ms busy (their union); "
           f"{len(kernels) / args.frames:.1f} kernel launches and "
           f"{len(copy_like) / args.frames:.1f} copies/sets per frame; device busy "
-          f"{100.0 * dev_ms / frame_ms:.1f}% of the unprofiled frame")
+          f"{100.0 * busy_ms / frame_ms:.1f}% of the unprofiled frame")
     copies = collections.Counter(e.name for e in copy_like)
     print(f"[{card}] copies/sets per frame by kind: " + ", ".join(
         f"{name} {n / args.frames:.1f}" for name, n in copies.most_common()))
