@@ -15,7 +15,12 @@ whole-window order (the z-sweep) and B6 (one cluster launch) are held at
 error 0 and timed in turns with the per-sweep design they replaced: B4 at
 the default preset's 4 sweeps and on the coarse levels of the 256^3,
 256x256x60 and 150^3 frames (32 sweeps), B6 at 64^3 and at the thinnest
-and the largest shape its gate admits, (2, 16, 64) and (4, 1024, 64).  It
+and the largest shape its gate admits, (2, 16, 64) and (4, 1024, 64).  B14
+(eight sweeps a launch over tiles with a ring) is held at error 0 at the
+2D preset's 64 sweeps of 512^2 and timed in turns with the per-sweep
+design, B9 (one launch, the carry in registers) at error 0 on the stacks
+of the 128^3 (and 256^3), 256x256x60 and 150^3 frames, timed in turns
+with the two-launch design; each must beat its yardstick there.  It
 drives `FluidXEngine` for 60 frames of the main path (PRESETS["fluid3d"]
 as it is: 128^3 grid, 800x800 viewport, the projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
@@ -201,15 +206,17 @@ def phase1_build():
 
 
 def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_reps=5,
-            library=None, calls=1, yardstick=None):
+            library=None, calls=1, yardstick=None, yardstick_name="per-sweep design"):
     """Times `kernel` and its plain version (and the library call, if any)
     and stores them with the error and the bound under `name`.  Where
     `kernel` and `plain` each make `calls` launches (n_bytes and flops are
     those of one), the times are per launch.  `yardstick`, an earlier
-    design of the same kernel, is timed in turns with it (yardstick,
-    kernel, kernel, yardstick; `ms` is then the kernel's mean)."""
+    design of the same kernel (`yardstick_name`), is timed in turns with it
+    (yardstick, kernel, kernel, yardstick; `ms` is then the kernel's
+    mean)."""
     bound_ms, bound_by = bound(n_bytes, flops)
-    row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+    row = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+               yardstick_name=yardstick_name)
     if yardstick is None:
         row["ms"] = time_ms(kernel, reps, what=name) / calls
     else:
@@ -224,20 +231,30 @@ def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_re
     results[name] = row
 
 
+def check_faster(results, name) -> None:
+    """Fails unless both timed runs of `name`'s kernel beat both of its
+    yardstick's, in turns in this call."""
+    r = results[name]
+    check(max(r["kernel_ms"]) < min(r["yardstick_ms"]),
+          f"{name} is faster than the {r['yardstick_name']} in turns")
+
+
 def print_times(results, names) -> None:
     for name in names:
         r = results[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         kid = (KERNELS[name][0] if name in KERNELS
-               else "B6" if name.startswith("jacobi_packed") else "B4")
+               else "B6" if name.startswith("jacobi_packed")
+               else "B9" if name.startswith("shear_scan") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
         if "yardstick_ms" in r:
             k, y = r["kernel_ms"], r["yardstick_ms"]
-            print(f"    {kid} {name}, in turns: per-sweep design {y[0]:.4f} ms, kernel "
-                  f"{k[0]:.4f}, {k[1]:.4f} ms, per-sweep design {y[1]:.4f} ms; bound "
-                  f"{r['bound_ms']:.4f} ms, kernel at {r['ms'] / r['bound_ms']:.2f}x it")
+            yn = r["yardstick_name"]
+            print(f"    {kid} {name}, in turns: {yn} {y[0]:.4f} ms, kernel {k[0]:.4f}, "
+                  f"{k[1]:.4f} ms, {yn} {y[1]:.4f} ms; bound {r['bound_ms']:.4f} ms, kernel "
+                  f"at {r['ms'] / r['bound_ms']:.2f}x it")
 
 
 def b10_work(volf, h_rows, h_cols, valid, n_steps):
@@ -341,14 +358,10 @@ def phase2_kernels(dev):
     at 128^3 shapes (B6 at the 64^3 coarse level), with times and bounds."""
     phase("phase 2: kernels vs plain versions at 128^3")
     from fluidx12_tpu_torch.core.config import PRESETS
-    from fluidx12_tpu_torch.core import math3d as m3
     from fluidx12_tpu_torch.ops.cuda import advect as A
     from fluidx12_tpu_torch.ops.cuda import jacobi as J
     from fluidx12_tpu_torch.ops.cuda import stencil as ST
-    from fluidx12_tpu_torch.ops.cuda import sweep as S
-    from fluidx12_tpu_torch.render import lightmap_sweep as L
     from fluidx12_tpu_torch.render import slicecomp as SC
-    from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST
 
     cfg = PRESETS["fluid3d"]
     z, y, x = cfg.zyx
@@ -496,28 +509,7 @@ def phase2_kernels(dev):
            2 * nbytes(fields[:3]) + nbytes(p), 39 * n)
 
     # B9: the light sweep's own arguments for a smooth 128^3 density.
-    dens = torch.from_numpy(rng.uniform(0.0, 0.6, (z, y, x)).astype(np.float32)).to(dev)
-    for ax in range(3):
-        dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
-    world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(dev)
-    light = torch.tensor(cfg.light_pos, dtype=torch.float32, device=dev) @ world_i[:3, :3]
-    light_dir = light / torch.linalg.vector_norm(light)
-    major = int(np.argmax(np.abs(cfg.light_pos)))
-    pool, _ = L._pool_mats(x, x, 1, cfg.light_pos[major] > 0, dev)
-    dens_o = SC.mxu_einsum("zyx,xm->mzy", dens, pool)
-    ref_step = MAX_DIST / torch.tensor(float(cfg.max_light_samples), device=dev)
-    log_att, s = L.scan_args(dens_o, light_dir, major, (x, y, z), 1, ref_step,
-                             cfg.absorption)
-    got = S.shear_scan(log_att, s)
-    ref = S.shear_scan_plain(log_att, s)
-    err = float((got - ref).abs().max())
-    lim = 1e-4 * max(1.0, float(ref.abs().max()))
-    print(f"B9 shear_scan: max abs diff {err:.3e} (limit {lim:.2e}: same f32 sum order)")
-    check(err <= lim, "B9 shear_scan vs plain")
-    # Per output: four taps into the sheared carry and four out of it.
-    record("shear_scan", err, lambda: S.shear_scan(log_att, s),
-           lambda: S.shear_scan_plain(log_att, s), nbytes(log_att, s, got),
-           40 * log_att.numel(), plain_reps=3)
+    check_b9_stack("fluid3d", cfg.grid_size, dev, results)
 
     # B10: the +X face of the default camera's view of a lit 128^3 volume
     # (the row of the kernels line), then a 256^3 face and two 150-lateral
@@ -530,8 +522,73 @@ def phase2_kernels(dev):
                        cfg.absorption)
     check_coarse_levels(dev, results)
     check_packed_shapes(dev, results)
+    for label, grid in B9_FRAMES:
+        check_b9_stack(label, grid, dev, results, row=f"shear_scan_{label}")
     print_times(results, results)
     return results
+
+
+# The other frames' B9 stacks: the 256x256x60 GI frame's (128, 60, 256) and
+# PRESETS["fluidgi"]'s (75, 150, 150) (the 256^3 frames sweep at half
+# lateral resolution, the 128^3 frame's (128, 128, 128) stack).
+B9_FRAMES = (("256x256x60", GRID_SLAB), ("fluidgi", (150, 150, 150)))
+
+
+def b9_stack(grid, dev, seed: int = 7):
+    """B9's operands (log_att, s) on a grid's frame, as
+    render/lightmap_sweep.render_light_map_fast makes them from a smooth
+    density: the config's light, pooled to at most 128 slices along its
+    major axis, at half lateral resolution where the light map takes it."""
+    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.core import math3d as m3
+    from fluidx12_tpu_torch.render import lightmap_sweep as L
+    from fluidx12_tpu_torch.render import slicecomp as SC
+    from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST
+
+    cfg = FluidConfig(grid_size=grid)
+    rng = np.random.default_rng(seed)
+    dens = torch.from_numpy(rng.uniform(0.0, 0.6, cfg.zyx).astype(np.float32)).to(dev)
+    for ax in range(3):
+        dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
+    world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(dev)
+    light = torch.tensor(cfg.light_pos, dtype=torch.float32, device=dev) @ world_i[:3, :3]
+    light_dir = light / torch.linalg.vector_norm(light)
+    major = int(np.argmax(np.abs(cfg.light_pos)))
+    arr_axis = L._ARR_TO_LOCAL[major]
+    if L._lat_pooled_ok(dens.shape, arr_axis):
+        dens = L._pool2_lat(dens, arr_axis)
+    z, y, x = dens.shape
+    sizes = (x, y, z)
+    stride = max(-(-sizes[major] // L._MAX_SLICES), 1)
+    n_s = sizes[major] // stride
+    pool, _ = L._pool_mats(sizes[major], n_s, stride, cfg.light_pos[major] > 0, dev)
+    eq = {0: "zyx,xm->mzy", 1: "zyx,ym->mzx", 2: "zyx,zm->myx"}[major]
+    dens_o = SC.mxu_einsum(eq, dens, pool)
+    ref_step = MAX_DIST / torch.tensor(float(cfg.max_light_samples), device=dev)
+    return L.scan_args(dens_o, light_dir, major, sizes, stride, ref_step, cfg.absorption)
+
+
+def check_b9_stack(label, grid, dev, results, row="shear_scan"):
+    """B9 on a frame's stack (`b9_stack`) at error 0 against its plain
+    version, timed in turns with the two-launch design it replaced
+    (`sweep.twopass`), under `row` of `results`."""
+    from fluidx12_tpu_torch.ops.cuda import sweep as S
+
+    log_att, s = b9_stack(grid, dev)
+    got = S.shear_scan(log_att, s)
+    ref = S.shear_scan_plain(log_att, s)
+    err = float((got - ref).abs().max())
+    yard_err = float((S.twopass(log_att, s) - ref).abs().max())
+    print(f"B9 shear_scan, the {label} frame's stack {tuple(log_att.shape)} (slopes "
+          f"{float(s[0]):.4f}, {float(s[1]):.4f}; plan {S.shear_plan(log_att.shape)}): max abs "
+          f"diff {err:.3e}, two-launch design {yard_err:.3e} (limit 0: the same f32 sum order)")
+    check(torch.equal(got, ref) and yard_err == 0.0, f"B9 shear_scan vs plain, {label}")
+    # Per output: four taps into the sheared carry and four out of it.
+    measure(results, row, err, lambda: S.shear_scan(log_att, s),
+            lambda: S.shear_scan_plain(log_att, s), nbytes(log_att, s, got),
+            40 * log_att.numel(), plain_reps=3, yardstick=lambda: S.twopass(log_att, s),
+            yardstick_name="two-launch design")
+    check_faster(results, row)
 
 
 # The coarse levels B4's whole-window order smooths with 32 sweeps, by
@@ -668,15 +725,18 @@ def phase2b_kernels_2d(dev, results):
     check(J.jacobi2d_pallas_supported((y, x)), "the TPU runs B14 at 512^2")
     got = J.jacobi2d(q, b, iters)
     err = float((got - J.jacobi2d_plain(q, b, iters)).abs().max())
-    print(f"B14 jacobi2d ({iters} sweeps at {y}x{x}): max abs diff {err:.3e} (limit 0: "
-          f"same sum order, exact division by 4)")
+    print(f"B14 jacobi2d ({iters} sweeps at {y}x{x}, plan {J.jacobi2d_plan((y, x), iters)}): "
+          f"max abs diff {err:.3e} (limit 0: same sum order, exact division by 4)")
     check(err == 0.0, "B14 jacobi2d vs plain")
-    # Per cell and sweep: three adds, a subtract and a division.  Each call
-    # makes `iters` launches: few calls, so that the host queues them all
-    # before the sleep kernel ends.
+    # Per cell and sweep: three adds, a subtract and a division.  A call
+    # makes ceil(iters / ring) launches, the per-sweep design `iters`: few
+    # calls, so that the host queues them all before the sleep kernel ends.
     record("jacobi2d", err, lambda: J.jacobi2d(q, b, iters),
            lambda: J.jacobi2d_plain(q, b, iters), nbytes(q, b, got), 5 * iters * n,
-           reps=5, plain_reps=3)
+           reps=5, plain_reps=3,
+           yardstick=lambda: J.sweepwise("sweeps", q[None], b[None], iters,
+                                         order=J.ORDER_2D))
+    check_faster(results, "jacobi2d")
     print_times(results, KERNELS_2D)
 
 

@@ -3,8 +3,8 @@
 // fx_jacobi_window replaces fluidx12_tpu/ops/pallas/jacobi.py
 // _jacobi_fused_kernel / _window_sweeps (B4's whole-window plan, via
 // jacobi_pallas; order 0), fx_jacobi its plane-sweep plan _planewise_window
-// / _planewise_fused_kernel (order 1) and _jacobi2d_kernel (B14, via
-// jacobi2d_pallas; order 3, on one (Y, X) plane), fx_jacobi_packed
+// / _planewise_fused_kernel (order 1), fx_jacobi2d _jacobi2d_kernel (B14,
+// via jacobi2d_pallas; order 3, on one (Y, X) plane), fx_jacobi_packed
 // _jacobi_packed_kernel (B6, via jacobi_packed_pallas; order 2).
 // fx_jacobi_rr replaces _planewise_rr_kernel (B13, via
 // jacobi_pallas_rr): the order-1 sweeps with the multigrid's residual and
@@ -46,12 +46,23 @@
 //     contiguous row ranges kept in shared memory, neighbour rows of other
 //     CTAs read through distributed shared memory, one cluster barrier a
 //     sweep; q and b of a thread's cells stay in registers.
-//   - Order 3 (B14) and the per-sweep designs orders 0 and 2 replaced
-//     (fx_jacobi_sweepwise, the yardstick): one thread per cell per sweep
-//     (jacobi_sweep_kernel), the sweeps ping-ponging between the output and
-//     one scratch buffer, launched `iters` times from one C call; B14 at
-//     512^2 does 64 sweeps of 5 operations per cell, 83.9 MFLOP, 1.25 us
-//     at 67 TFLOP/s.
+//   - Order 3 (jacobi2d_kernel, B14, on one (Y, X) plane of at most
+//     393216 cells, 1.5 MB): the plane's sweeps temporally blocked, K = 8
+//     a launch (ops/cuda/jacobi.jacobi2d_plan).  A CTA holds a (32, 64)
+//     tile and a ring of K cells around it in registers, a 4 x 4 block of
+//     cells a thread, and runs K sweeps there; blocks trade only their
+//     edges through shared memory, one __syncthreads a sweep.  Sweep l is
+//     exact l cells inside the ring's rim, so the tile is exact after K.
+//     The ring costs (48 * 80) / (32 * 64) = 1.9 times the cell updates.
+//     A call is ceil(iters / K) launches chained by programmatic dependent
+//     launch, each staging its b before the wait.  B14 at 512^2 does 64
+//     sweeps of 5 operations per cell, 83.9 MFLOP, 1.25 us at 67 TFLOP/s;
+//     what holds it back is the launches (about 3.8 us each) more than the
+//     1.9x issue.
+//   - The per-sweep designs orders 0, 2 and 3 replaced (fx_jacobi_sweepwise,
+//     the yardstick): one thread per cell per sweep (jacobi_sweep_kernel),
+//     the sweeps ping-ponging between the output and one scratch buffer,
+//     launched `iters` times from one C call.
 //
 // Order 1 -- B4's plane-sweep order, B13 and both halves of B18 -- runs on
 // 256^3 and the padded frames' volumes, which do not fit L2 (67 MB at
@@ -130,9 +141,9 @@
 // level l - 1's newest plane), so a step is bound by instruction
 // throughput and latency.
 //
-// fx_jacobi_sweepwise keeps the per-sweep design of orders 0, 1 and 2 (one
-// launch per sweep, the epilogues as separate passes) as a yardstick for
-// timing; no wrapper calls it.
+// fx_jacobi_sweepwise keeps the per-sweep design of orders 0, 1, 2 and 3
+// (one launch per sweep, the epilogues as separate passes) as a yardstick
+// for timing; no wrapper calls it.
 
 #include <cooperative_groups.h>
 
@@ -969,6 +980,162 @@ cudaError_t window_sweeps(const float* q, const float* b, float* out, float* scr
 }
 
 // ---------------------------------------------------------------------------
+// Order 3 (B14): K sweeps a launch over a tile and a ring of K cells
+// ---------------------------------------------------------------------------
+
+constexpr int kJ2Block = 4;           // a thread's cells: 4 x 4, one float4 a row
+constexpr int kJ2MaxThreads = 512;    // a CTA's region blocks at most
+
+__host__ __device__ constexpr int jacobi2d_threads(int ty, int tx, int ring) {
+  return ((ty + 2 * ring) / kJ2Block) * ((tx + 2 * ring) / kJ2Block);
+}
+
+// Two buffers of the four edges (top and bottom rows, left and right
+// columns) of every thread's block.
+__host__ __device__ constexpr int jacobi2d_smem(int threads) {
+  return 2 * 4 * threads * (int)sizeof(float4);
+}
+
+// (y+ + y- + x+ + x- - b) / 4 in order 3's order; * 0.25f is the division.
+__device__ __forceinline__ float j2_cell(float yp, float ym, float xp, float xm, float b) {
+  float s = yp + ym;
+  s = s + xp;
+  s = s + xm;
+  return (s - b) * 0.25f;
+}
+
+// `levels` (at most `ring`) order-3 sweeps of the (ny, nx) plane q into out
+// over a (ty, tx) tile.  The CTA holds the tile and a ring of `ring` cells
+// around it, one 4 x 4 block of cells a thread, in registers, with the
+// block's b: read before griddepcontrol.wait (no sweep writes b), q after
+// it.  A sweep publishes each block's four edges to shared memory, one
+// __syncthreads, and reads the four neighbouring blocks' edges that face
+// it; everything else a cell needs is in the thread's registers.  A block
+// at the plane's edge reads its own edge in place of the neighbour's, so
+// each neighbour past the plane clamps to the cell and the plane's edge is
+// exact at every level; a block at the region's rim does the same, which
+// is not exact, but sweep l is exact l cells inside the rim, and the tile
+// is `ring` cells inside.  Blocks past the plane's edge hold nothing (the
+// gate's ny % 8 == 0 and nx % 128 == 0 and the tile's and ring's multiples
+// of 4 keep every block wholly inside or outside).  Only the tile is written.
+__global__ void __launch_bounds__(kJ2MaxThreads)
+    jacobi2d_kernel(const float* __restrict__ q, const float* __restrict__ b,
+                    float* __restrict__ out, int ny, int nx, int ty, int tx, int ring,
+                    int levels) {
+  extern __shared__ __align__(16) float4 j2sm[];
+  const int t = threadIdx.x, n = blockDim.x;
+  const int rbx = (tx + 2 * ring) / kJ2Block, rby = (ty + 2 * ring) / kJ2Block;
+  const int by = t / rbx, bx = t % rbx;
+  const int gy0 = (int)blockIdx.y * ty - ring + by * kJ2Block;
+  const int gx0 = (int)blockIdx.x * tx - ring + bx * kJ2Block;
+  const bool live = gy0 >= 0 && gy0 < ny && gx0 >= 0 && gx0 < nx;
+  const int rb = ring / kJ2Block;
+  const bool owned = live && by >= rb && by < rb + ty / kJ2Block && bx >= rb &&
+                     bx < rb + tx / kJ2Block;
+  // Edge entries: [0, n) top rows, [n, 2n) bottom rows, [2n, 3n) left
+  // columns, [3n, 4n) right columns.  The entry facing each side of this
+  // block: the neighbour's, or this block's own at the plane's edge and the
+  // region's rim.
+  const int above = by > 0 && gy0 > 0 ? n + t - rbx : t;
+  const int below = by < rby - 1 && gy0 + kJ2Block < ny ? t + rbx : n + t;
+  const int left = bx > 0 && gx0 > 0 ? 3 * n + t - 1 : 2 * n + t;
+  const int right = bx < rbx - 1 && gx0 + kJ2Block < nx ? 2 * n + t + 1 : 3 * n + t;
+  const int64_t at = live ? (int64_t)gy0 * nx + gx0 : 0;
+  float4 bv[kJ2Block], qv[kJ2Block];
+#pragma unroll
+  for (int r = 0; r < kJ2Block; ++r) {
+    bv[r] = live ? __ldg((const float4*)(b + at + (int64_t)r * nx)) : make_float4(0, 0, 0, 0);
+  }
+  griddep_wait();
+#pragma unroll
+  for (int r = 0; r < kJ2Block; ++r) {
+    qv[r] = live ? *(const float4*)(q + at + (int64_t)r * nx) : make_float4(0, 0, 0, 0);
+  }
+  griddep_launch();
+  for (int l = 0; l < levels; ++l) {
+    float4* const e = j2sm + (l & 1) * 4 * n;
+    e[t] = qv[0];
+    e[n + t] = qv[kJ2Block - 1];
+    e[2 * n + t] = make_float4(qv[0].x, qv[1].x, qv[2].x, qv[3].x);
+    e[3 * n + t] = make_float4(qv[0].w, qv[1].w, qv[2].w, qv[3].w);
+    __syncthreads();
+    const float4 up = e[above], down = e[below], lf = e[left], rt = e[right];
+    const float xl[kJ2Block] = {lf.x, lf.y, lf.z, lf.w};
+    const float xr[kJ2Block] = {rt.x, rt.y, rt.z, rt.w};
+    float4 nq[kJ2Block];
+#pragma unroll
+    for (int r = 0; r < kJ2Block; ++r) {
+      const float4 yp = r < kJ2Block - 1 ? qv[r + 1] : down;
+      const float4 ym = r > 0 ? qv[r - 1] : up;
+      const float4 c = qv[r], bc = bv[r];
+      nq[r] = make_float4(j2_cell(yp.x, ym.x, c.y, xl[r], bc.x),
+                          j2_cell(yp.y, ym.y, c.z, c.x, bc.y),
+                          j2_cell(yp.z, ym.z, c.w, c.y, bc.z),
+                          j2_cell(yp.w, ym.w, xr[r], c.z, bc.w));
+    }
+#pragma unroll
+    for (int r = 0; r < kJ2Block; ++r) qv[r] = nq[r];
+  }
+  if (owned) {
+#pragma unroll
+    for (int r = 0; r < kJ2Block; ++r) *(float4*)(out + at + (int64_t)r * nx) = qv[r];
+  }
+}
+
+// `iters` order-3 sweeps of the (ny, nx) plane q into out with the plan
+// ops/cuda/jacobi.jacobi2d_plan gives: a (ty, tx) tile and a ring of `ring`
+// cells a CTA, `smem` bytes of shared memory.  ceil(iters / ring) launches,
+// each of `ring` sweeps but the last, which takes the rest, ping-ponging
+// between out and scratch so that the last ends at out; launches after the
+// first are programmatic dependent launches.  Refuses a plan the kernel
+// cannot run: a tile, ring or plane not in whole 4 x 4 blocks, more region
+// blocks than kJ2MaxThreads, less shared memory than the edge buffers, or
+// rows that are not 16-byte aligned.
+cudaError_t jacobi2d_sweeps(const float* q, const float* b, float* out, float* scratch,
+                            int iters, int ty, int tx, int ring, int smem, int ny, int nx,
+                            cudaStream_t st) {
+  const int threads = ty > 0 && tx > 0 && ring > 0 ? jacobi2d_threads(ty, tx, ring) : 0;
+  const auto misaligned = [](const void* p) { return ((uintptr_t)p & 15) != 0; };
+  if ((int64_t)ny * nx > INT32_MAX || ny < 1 || nx < 1 || ny % kJ2Block ||
+      nx % kJ2Block || ty < 1 || tx < 1 || ring < 1 || ty % kJ2Block || tx % kJ2Block ||
+      ring % kJ2Block || threads > kJ2MaxThreads || smem < jacobi2d_smem(threads) ||
+      misaligned(q) || misaligned(b) || misaligned(out) || (iters > ring && misaligned(scratch))) {
+    return cudaErrorInvalidValue;
+  }
+  if (iters == 0) {
+    return cudaMemcpyAsync(out, q, (size_t)ny * nx * sizeof(float), cudaMemcpyDeviceToDevice, st);
+  }
+  static int smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err =
+        cudaFuncSetAttribute(jacobi2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  const int launches = (iters + ring - 1) / ring;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  const float* src = q;
+  for (int k = 0; k < launches; ++k) {
+    float* dst = sweep_dst(k, launches, out, scratch);
+    cfg.numAttrs = k > 0 ? 1 : 0;
+    const int levels = iters - k * ring < ring ? iters - k * ring : ring;
+    cudaError_t err =
+        cudaLaunchKernelEx(&cfg, jacobi2d_kernel, src, b, dst, ny, nx, ty, tx, ring, levels);
+    if (err != cudaSuccess) return err;
+    src = dst;
+  }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
 // Order 2 (B6): every sweep in the shared memory of one thread-block cluster
 // ---------------------------------------------------------------------------
 
@@ -1297,18 +1464,28 @@ cudaError_t copy_or_sweeps(const float* q, const float* b, float* out, float* sc
 extern "C" {
 
 // q, b, out, scratch (nz, ny, nx) f32; q is read only.  Order 1 (the
-// blocked march) or 3 (B14); orders 0 and 2 are fx_jacobi_window and
-// fx_jacobi_packed.
+// blocked march); orders 0, 2 and 3 are fx_jacobi_window, fx_jacobi_packed
+// and fx_jacobi2d.
 int fx_jacobi(const void* q, const void* b, void* out, void* scratch, int iters, int order,
               int nz, int ny, int nx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (order != 1 && order != 3) return (int)cudaErrorInvalidValue;
-  if (order == 1 && iters > 0) {
+  if (order != 1) return (int)cudaErrorInvalidValue;
+  if (iters > 0) {
     return (int)march<kNone, float>(march_args((const float*)b, nz, ny, nx), (const float*)q,
                              (float*)out, (float*)scratch, iters, st);
   }
   return (int)copy_or_sweeps((const float*)q, (const float*)b, (float*)out, (float*)scratch,
                              iters, order, nz, ny, nx, st);
+}
+
+// B14 (order 3): `iters` sweeps of the (ny, nx) plane q into out (with
+// scratch as fx_jacobi), ring sweeps a launch, with the plan
+// ops/cuda/jacobi.jacobi2d_plan gives (a (ty, tx) tile and a ring of `ring`
+// cells a CTA, smem bytes each).
+int fx_jacobi2d(const void* q, const void* b, void* out, void* scratch, int iters, int ty,
+                int tx, int ring, int smem, int ny, int nx, void* stream) {
+  return (int)jacobi2d_sweeps((const float*)q, (const float*)b, (float*)out, (float*)scratch,
+                              iters, ty, tx, ring, smem, ny, nx, (cudaStream_t)stream);
 }
 
 // B4's whole-window order (order 0): `iters` sweeps of q into out (with
@@ -1399,8 +1576,9 @@ int fx_jacobi_grad(const void* q, const void* b, void* out_q, void* scratch, voi
 // separate passes.  mode 0: fx_jacobi order 1 (q, b -> out_q); 1:
 // fx_jacobi_rr (q, b -> out_q, rc); 2: fx_jacobi_divrr (fields, q -> out_q,
 // b, rc); 3: fx_jacobi_grad (q, b -> out_q, fields in place); 4: order 0
-// (fx_jacobi_window); 5: order 2 (fx_jacobi_packed).  Arguments a mode does
-// not read may be null.
+// (fx_jacobi_window); 5: order 2 (fx_jacobi_packed); 6: order 3 on one
+// (ny, nx) plane, nz = 1 (fx_jacobi2d).  Arguments a mode does not read may
+// be null.
 int fx_jacobi_sweepwise(int mode, const void* fields, int is_bf16, const void* q, void* b,
                         void* out_q, void* scratch, void* rc, float w, float s, int iters,
                         int nz, int ny, int nx, void* stream) {
@@ -1429,6 +1607,7 @@ int fx_jacobi_sweepwise(int mode, const void* fields, int is_bf16, const void* q
                        : launch_grad_damp((void*)fields, of, s, is_bf16, nz, ny, nx, st));
     case 4: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 0, nz, ny, nx, st);
     case 5: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 2, nz, ny, nx, st);
+    case 6: return (int)copy_or_sweeps(qf, bf, of, sf, iters, 3, nz, ny, nx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -32,13 +32,17 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC"]
 
+# Shared memory a CTA may take on an H100 (227 KB): the launch plans fit it.
+SMEM_PER_CTA = 232448
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fx_advect_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fx_advect_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_z_forces": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
                            _I, _I, _I, _I, _P],
-    "fx_shear_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "fx_shear_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_shear_scan_twopass": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                               _I, _I, _P],
     "fx_composite": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
@@ -48,6 +52,7 @@ _SIGNATURES = {
     "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _P],
     "fx_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fx_jacobi_window": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_jacobi2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_jacobi_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_jacobi_rr": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],
     "fx_jacobi_divrr": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P],

@@ -27,12 +27,13 @@ and the kernel keep:
 Source and what bounds it: fluidx12_tpu_torch/csrc/jacobi.cu, where the
 plane-sweep order (B4's, B13's and B18's sweeps) is one temporally blocked
 z-march that makes up to four sweeps a launch and fuses the epilogues, B4's
-whole-window order one L2-fed z-sweep a launch (`window_plan`) and B6 all
-its sweeps in one thread-block cluster's shared memory (`packed_plan`).
-`sweepwise` keeps the design they replaced, one launch a sweep, as a
-yardstick for timing.  The gates are pure-Python copies of the TPU's
-planners, kept because they decide which numerics the JAX package runs on
-a grid (ROADMAP.md C5).
+whole-window order one L2-fed z-sweep a launch (`window_plan`), B6 all
+its sweeps in one thread-block cluster's shared memory (`packed_plan`) and
+B14 eight sweeps a launch over tiles with a ring of eight cells
+(`jacobi2d_plan`).  `sweepwise` keeps the design they replaced, one launch
+a sweep, as a yardstick for timing.  The gates are pure-Python copies of
+the TPU's planners, kept because they decide which numerics the JAX
+package runs on a grid (ROADMAP.md C5).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).
@@ -213,8 +214,7 @@ def jacobi2d_pallas_supported(shape) -> bool:
 # Launch plans of the L2-resident sweeps (what csrc/jacobi.cu receives)
 # ---------------------------------------------------------------------------
 
-# Shared memory a CTA may take on an H100 (227 KB), and its SM count.
-SMEM_PER_CTA = 232448
+# An H100's SM count.
 H100_SMS = 132
 
 # B4's whole-window order, zsweep_kernel: a (16, 32) (y, x) tile a CTA (the
@@ -283,6 +283,42 @@ def packed_plan(shape):
     cluster = -(-rows // rpc)
     threads = min(1024, rpc * PACKED_ROW // 4)
     return cluster, rpc, threads, 2 * rpc * PACKED_ROW * 4
+
+
+# B14, jacobi2d_kernel: a thread holds a 4 x 4 block of cells (kJ2Block),
+# a CTA the blocks of its tile and ring, at most 512 (kJ2MaxThreads).
+J2D_BLOCK = 4
+J2D_MAX_THREADS = 512
+J2D_TILE = (32, 64)
+J2D_RING = 8
+
+
+def jacobi2d_threads(tile, ring: int) -> int:
+    """Threads of a jacobi2d_kernel CTA: one a 4 x 4 block of its tile and
+    ring (csrc/jacobi.cu jacobi2d_threads)."""
+    ty, tx = tile
+    return ((ty + 2 * ring) // J2D_BLOCK) * ((tx + 2 * ring) // J2D_BLOCK)
+
+
+def jacobi2d_plan(shape, iters: int):
+    """(tile, ring, smem) of B14 on a (Y, X) plane: each CTA owns a (ty, tx)
+    tile, tile (j, i) rows [j * ty, (j + 1) * ty) and columns [i * tx,
+    (i + 1) * tx) clipped to the plane, and runs up to `ring` sweeps a
+    launch over it and a ring of `ring` cells around it, `smem` bytes of
+    shared memory for its blocks' edges; `fx_jacobi2d` launches ceil(iters
+    / ring) times with them.  The tile is 32 x 64 (32 rows where the plane
+    has fewer); the ring 8 cells, or `iters` rounded up to whole 4-cell
+    blocks where that is less.  Raises ValueError on a plane that is not
+    in whole 4 x 4 blocks (B14's gate, `jacobi2d_pallas_supported`, admits
+    only planes of 8-row, 128-column multiples)."""
+    ny, nx = shape
+    if ny < 1 or nx < 1 or ny % J2D_BLOCK or nx % J2D_BLOCK:
+        raise ValueError(f"jacobi2d: no plan for a {tuple(shape)} plane (Y and X must be "
+                         f"multiples of {J2D_BLOCK})")
+    ty, tx = J2D_TILE
+    tile = (min(ty, ny), tx)
+    ring = J2D_RING if iters < 1 else min(J2D_RING, -(-iters // J2D_BLOCK) * J2D_BLOCK)
+    return tile, ring, 2 * 4 * jacobi2d_threads(tile, ring) * 16
 
 
 def window_order(shape, inner: int) -> int:
@@ -412,11 +448,19 @@ def _check_velocity(fields: torch.Tensor, q: torch.Tensor, name: str) -> None:
 
 def _launch(q: torch.Tensor, b: torch.Tensor, iters: int, order: int) -> torch.Tensor:
     """`iters` sweeps of card tensors in `order`: order 0 by its
-    `window_plan`, order 2 by its `packed_plan`, orders 1 and 3 as
-    `fx_jacobi` does."""
+    `window_plan`, order 2 by its `packed_plan`, order 3 (one (1, Y, X)
+    plane) by its `jacobi2d_plan`, order 1 as `fx_jacobi` does."""
     z, y, x = q.shape
     out = torch.empty_like(q)
     stream = _build.stream_ptr(q)
+    if order == ORDER_2D:
+        (ty, tx), ring, smem = jacobi2d_plan((y, x), iters)
+        scratch = torch.empty_like(q) if iters > ring else out
+        err = _build.lib().fx_jacobi2d(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                       scratch.data_ptr(), iters, ty, tx, ring, smem, y, x,
+                                       stream)
+        _build.check(err, "fx_jacobi2d")
+        return out
     if order == ORDER_PACKED:
         plan = packed_plan(q.shape)
         err = _build.lib().fx_jacobi_packed(q.data_ptr(), b.data_ptr(), out.data_ptr(), iters,
@@ -561,7 +605,7 @@ jacobi_grad.launches = 0
 
 
 _SWEEPWISE_MODES = {"rr": 1, "divrr": 2, "grad": 3}
-_SWEEPWISE_ORDERS = {ORDER_PLANEWISE: 0, ORDER_WINDOW: 4, ORDER_PACKED: 5}
+_SWEEPWISE_ORDERS = {ORDER_PLANEWISE: 0, ORDER_WINDOW: 4, ORDER_PACKED: 5, ORDER_2D: 6}
 
 
 def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
@@ -569,10 +613,11 @@ def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
               order: int = ORDER_PLANEWISE):
     """The Jacobi kernels as one launch per sweep, with the epilogues as
     passes of their own (`fx_jacobi_sweepwise`): the design the blocked
-    march, B4's whole-window zsweep and B6's cluster kernel replaced, kept
-    only as a yardstick to time them against.  No path of the port calls
-    it, and it counts no launch.  `kind` "sweeps" returns q' (`jacobi` in
-    the plane-sweep order, or in `order` ORDER_WINDOW or ORDER_PACKED),
+    march, B4's whole-window zsweep, B6's cluster kernel and B14's tiles
+    replaced, kept only as a yardstick to time them against.  No path of
+    the port calls it, and it counts no launch.  `kind` "sweeps" returns q'
+    (`jacobi` in the plane-sweep order, or in `order` ORDER_WINDOW,
+    ORDER_PACKED or ORDER_2D, the last on a (1, Y, X) q),
     "rr" (q', r_c) (`jacobi_rr`), "divrr" (q', b, r_c) from `fields` and q
     (`jacobi_divrr`), "grad" (q', fields) with `fields` updated in place
     (`jacobi_grad`).  Card tensors only."""
@@ -613,7 +658,9 @@ def div6_mismatches(device) -> int:
 def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     """B14: `iters` 2D Jacobi sweeps of the (Y, X) f32 pressure q against b,
     q <- (q[y+1] + q[y-1] + q[x+1] + q[x-1] - b) / 4 with clamped edges (the
-    TPU runs it where `jacobi2d_pallas_supported` holds)."""
+    TPU runs it where `jacobi2d_pallas_supported` holds).  On the card they
+    run as ceil(iters / ring) launches of `jacobi2d_plan`'s tiles, which
+    needs Y and X in multiples of 4 and 16-byte aligned rows."""
     if not _check(q, b, iters, "jacobi2d", ndim=2):
         return jacobi2d_plain(q, b, iters)
     out = _launch(q[None], b[None], iters, ORDER_2D)[0]

@@ -5,8 +5,10 @@ Replaces fluidx12_tpu/ops/pallas/sweep.py `_sweep_kernel` (via
     D[k, p] = sum_{j<k} log_att[j, p + (k - j) * slope]
 of an (n_s, n_a, n_b) slice stack in light-to-far order, with a 2-tap lerp
 per lateral axis, shifts clip(pad + k*slope, 0, n) and an f32 carry.  The
-Hopper design (two launches through a (n_s, 2n_a, 2n_b) scratch) and what
-bounds it: fluidx12_tpu_torch/csrc/sweep.cu.
+Hopper design (one launch, each warp carrying a strip of the sheared
+frame's columns in registers, `shear_plan`) and what bounds it:
+fluidx12_tpu_torch/csrc/sweep.cu.  `twopass` keeps the design it replaced,
+two launches through an (n_s, 2n_a, 2n_b) scratch, as a yardstick.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).
@@ -17,6 +19,43 @@ from __future__ import annotations
 import torch
 
 from fluidx12_tpu_torch.ops.cuda import _build
+
+
+# shear_scan_kernel, compiled for these: a warp of 32 lanes along w_b owns
+# the columns of lanes 1 .. 30 (lanes 0 and 31 are halo), each thread
+# SHEAR_ROWS rows along w_a plus a halo row; a ring of 4 slices of taps a
+# warp; at most 8 warps a CTA.
+SHEAR_LANES = 32
+SHEAR_OWN_B = SHEAR_LANES - 2
+SHEAR_STAGES = 4
+SHEAR_MAX_WARPS = 8
+SHEAR_ROWS = 1
+SHEAR_WARPS = 4
+
+
+def shear_smem(warps: int, n_s: int) -> int:
+    """Bytes of a CTA's shared memory (csrc/sweep.cu shear_smem): every
+    slice's shifts, 16 bytes each, and per warp a ring of slots of its
+    rows + 2 tap rows."""
+    return (4 * n_s + warps * SHEAR_STAGES * (SHEAR_ROWS + 2) * SHEAR_LANES) * 4
+
+
+def shear_plan(shape):
+    """(tile, threads, smem) of B9 on an (n_s, n_a, n_b) stack: each warp
+    owns a (tile_a, tile_b) = (SHEAR_ROWS, 30) tile of the (2n_a, 2n_b)
+    sheared frame's columns and emits every output (k, p) whose column p +
+    shift_k it owns; warp w of CTA (i, j) takes columns [i * 30, (i + 1) *
+    30) and row strip s = j * W + w, rows [s * tile_a, (s + 1) * tile_a),
+    both clipped to the frame, for W = threads / 32 warps a CTA; `smem`
+    bytes of shared memory a CTA.  `fx_shear_scan` launches once with
+    them.  Raises ValueError on an empty stack, or one of more slices than
+    a CTA's shared memory holds the shifts of (about 14000; the light
+    sweep makes at most 128)."""
+    n_s, n_a, n_b = shape
+    smem = shear_smem(SHEAR_WARPS, n_s)
+    if min(shape) < 1 or smem > _build.SMEM_PER_CTA:
+        raise ValueError(f"shear_scan: no plan for an {tuple(shape)} stack")
+    return (SHEAR_ROWS, SHEAR_OWN_B), SHEAR_WARPS * SHEAR_LANES, smem
 
 
 def _shift(pad, slope, k: int, n: int):
@@ -65,16 +104,31 @@ def shear_scan(log_att: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         return shear_scan_plain(log_att, s)
     if log_att.device.type != "cuda":
         raise ValueError(f"shear_scan: unsupported device {log_att.device}")
-    n_s, n_a, n_b = log_att.shape
-    scratch = torch.empty((n_s, 2 * n_a, 2 * n_b), dtype=torch.float32,
-                          device=log_att.device)
+    (tile_a, tile_b), threads, smem = shear_plan(log_att.shape)
     out = torch.empty_like(log_att)
     err = _build.lib().fx_shear_scan(
-        log_att.data_ptr(), s.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        n_s, n_a, n_b, _build.stream_ptr(log_att))
-    shear_scan.launches += 1
+        log_att.data_ptr(), s.data_ptr(), out.data_ptr(), *log_att.shape, tile_a, tile_b,
+        threads, smem, _build.stream_ptr(log_att))
     _build.check(err, "fx_shear_scan")
+    shear_scan.launches += 1
     return out
 
 
 shear_scan.launches = 0
+
+
+def twopass(log_att: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """B9 as two launches through an (n_s, 2n_a, 2n_b) f32 scratch
+    (`fx_shear_scan_twopass`): the design `shear_scan` replaced, kept only
+    as a yardstick to time it against.  No path of the port calls it, and
+    it counts no launch.  Card tensors only, as `shear_scan` takes them."""
+    if log_att.device.type != "cuda":
+        raise ValueError("twopass: the two-launch design runs on card tensors only")
+    n_s, n_a, n_b = log_att.shape
+    scratch = torch.empty((n_s, 2 * n_a, 2 * n_b), dtype=torch.float32,
+                          device=log_att.device)
+    out = torch.empty_like(log_att)
+    _build.check(_build.lib().fx_shear_scan_twopass(
+        log_att.data_ptr(), s.data_ptr(), scratch.data_ptr(), out.data_ptr(), n_s, n_a, n_b,
+        _build.stream_ptr(log_att)), "fx_shear_scan_twopass")
+    return out

@@ -55,11 +55,39 @@ def test_advect_kernels_match_plain(dev):
 
 
 def test_shear_scan_matches_plain(dev):
+    """B9 bit for bit: the TPU's shifts and lerps, the carry summed slice
+    by slice in order."""
     rng = np.random.default_rng(1)
     log_att = torch.from_numpy(-rng.uniform(0, 2, (32, 16, 128)).astype(np.float32)).to(dev)
     s = torch.tensor([0.4, -0.7, 0.0, 128.0], device=dev)
-    torch.testing.assert_close(S.shear_scan(log_att, s), S.shear_scan_plain(log_att, s),
-                               atol=1e-4, rtol=0)
+    assert torch.equal(S.shear_scan(log_att, s), S.shear_scan_plain(log_att, s))
+
+
+def _shear_args(dev, shape, slope_a, slope_b, seed):
+    """A stack of log attenuations in (-2, 0] and [slope_a, slope_b, pad_a,
+    pad_b] with the light sweep's sign-dependent pads."""
+    n_s, n_a, n_b = shape
+    rng = np.random.default_rng(seed)
+    log_att = torch.from_numpy(-rng.uniform(0, 2, shape).astype(np.float32)).to(dev)
+    s = torch.tensor([slope_a, slope_b, float(n_a) if slope_a < 0 else 0.0,
+                      float(n_b) if slope_b < 0 else 0.0], device=dev)
+    return log_att, s
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 128), (128, 128, 128), (75, 150, 150),
+                                   (2, 16, 128), (2, 3, 5)])
+def test_shear_scan_one_launch_matches_plain(dev, shape):
+    """B9's one launch under torch.equal on the main path's stack, the 150^3
+    frame's, two slices and a stack smaller than one warp's tile: slopes of
+    both signs and zero, integral and fractional shifts, and the steepest
+    the light sweep makes (|slope| = n_lat / n_m, one lateral frame across
+    the stack)."""
+    n_s, n_a, n_b = shape
+    slopes = [(0.4, -0.7), (-1.0, 1.0), (0.0, 0.0), (0.0, -2.5), (-0.46875, 2.0),
+              (n_a / n_s, -n_b / n_s), (-n_a / n_s, n_b / n_s)]
+    for i, (sa, sb) in enumerate(slopes):
+        log_att, s = _shear_args(dev, shape, sa, sb, 40 + i)
+        assert torch.equal(S.shear_scan(log_att, s), S.shear_scan_plain(log_att, s)), (sa, sb)
 
 
 @pytest.mark.parametrize("flip", [False, True])
@@ -158,6 +186,83 @@ def test_jacobi2d_matches_plain(dev, shape):
     both sides, so bit for bit."""
     q, b = _randn(dev, shape, 10), _randn(dev, shape, 11)
     assert torch.equal(J.jacobi2d(q, b, 16), J.jacobi2d_plain(q, b, 16))
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (128, 128), (512, 512), (768, 512), (8, 49152)])
+def test_jacobi2d_tiles_match_plain(dev, shape):
+    """B14's tiled sweeps, ring sweeps a launch, bit for bit at 0, 1, K - 1,
+    K, K + 1, 16 and 64 sweeps (one launch, or a chain of programmatic
+    dependent launches) on the smallest plane B14's gate admits, the 2D
+    preset's 512^2, the gate's largest and its thinnest."""
+    q, b = _randn(dev, shape, 41, 0.05), _randn(dev, shape, 42)
+    ring = J.J2D_RING
+    for iters in (0, 1, ring - 1, ring, ring + 1, 16, 64):
+        assert J.jacobi2d_plan(shape, iters)[1] <= ring
+        assert torch.equal(J.jacobi2d(q, b, iters), J.jacobi2d_plain(q, b, iters)), iters
+
+
+def test_jacobi2d_chain_writes_every_cell(dev):
+    """A chained B14 call whose output and scratch buffers start as NaN:
+    every launch writes every cell of its destination, so the result is
+    the plain one bit for bit."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    shape = (512, 512)
+    q, b = _randn(dev, shape, 43, 0.05), _randn(dev, shape, 44)
+    out = torch.full_like(q, float("nan"))
+    scratch = torch.full_like(q, float("nan"))
+    (ty, tx), ring, smem = J.jacobi2d_plan(shape, 64)
+    err = _build.lib().fx_jacobi2d(q.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                   scratch.data_ptr(), 64, ty, tx, ring, smem, *shape,
+                                   _build.stream_ptr(q))
+    assert err == 0
+    assert torch.equal(out, J.jacobi2d_plain(q, b, 64))
+
+
+def test_b14_and_b9_refuse_a_plan_their_kernels_cannot_run(dev):
+    """fx_jacobi2d and fx_shear_scan launch with the plan they are given and
+    refuse one their kernels cannot run: a tile or ring not in 4 x 4
+    blocks, more blocks than 512 threads, less shared memory than the edge
+    buffers, rows not 16-byte aligned; a warp tile other than the compiled
+    1 x 30, threads not whole warps or more than 8 warps, less shared
+    memory than the shifts and rings."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    lib, st = _build.lib(), _build.stream_ptr
+    shape = (64, 128)
+    q, b = _randn(dev, shape, 45), _randn(dev, shape, 46)
+    out, scratch = torch.empty_like(q), torch.empty_like(q)
+    (ty, tx), ring, smem = J.jacobi2d_plan(shape, 16)
+    for plan in ((ty, tx - 2, ring, smem), (ty, tx, 6, smem), (ty, tx, ring, smem - 4),
+                 (64, 128, 16, 2 * 4 * J.jacobi2d_threads((64, 128), 16) * 16)):
+        assert lib.fx_jacobi2d(q.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                               16, *plan, *shape, st(q)) != 0, plan
+    assert lib.fx_jacobi2d(q.data_ptr() + 4, b.data_ptr(), out.data_ptr(),
+                           scratch.data_ptr(), 16, ty, tx, ring, smem, 64, 124, st(q)) != 0
+    with pytest.raises(ValueError):
+        J.jacobi2d(_randn(dev, (6, 128), 47), _randn(dev, (6, 128), 48), 4)
+    assert torch.equal(J.jacobi2d(q, b, 16), J.jacobi2d_plain(q, b, 16))
+
+    log_att, s = _shear_args(dev, (16, 16, 128), 0.4, -0.7, 49)
+    got = torch.empty_like(log_att)
+    (ta, tb), threads, smem = S.shear_plan(log_att.shape)
+    for plan in ((ta, tb + 1, threads, smem), (ta + 1, tb, threads, smem), (ta, tb, 40, smem),
+                 (ta, tb, 9 * 32, S.shear_smem(9, 16)), (ta, tb, threads, smem - 4)):
+        assert lib.fx_shear_scan(log_att.data_ptr(), s.data_ptr(), got.data_ptr(),
+                                 *log_att.shape, *plan, st(log_att)) != 0, plan
+    assert torch.equal(S.shear_scan(log_att, s), S.shear_scan_plain(log_att, s))
+
+
+def test_b14_and_b9_yardsticks_match_plain(dev):
+    """The designs chip_smoke.py times B14 and B9 against, the per-sweep
+    launches (`sweepwise` in order 3) and the two-launch scan
+    (`sweep.twopass`): bit for bit."""
+    q, b = _randn(dev, (1, 64, 128), 50, 0.05), _randn(dev, (1, 64, 128), 51)
+    for iters in (1, 9):
+        got = J.sweepwise("sweeps", q, b, iters, order=J.ORDER_2D)
+        assert torch.equal(got, J.sweeps_plain(q, b, iters, J.ORDER_2D)), iters
+    log_att, s = _shear_args(dev, (32, 16, 128), -0.46875, 2.0, 52)
+    assert torch.equal(S.twopass(log_att, s), S.shear_scan_plain(log_att, s))
 
 
 @pytest.mark.parametrize("shape", [(24, 144, 128), (16, 64, 128)])

@@ -34,6 +34,7 @@ from fluidx12_tpu.render.pipeline import render_frame
 from fluidx12_tpu_torch.core.config import FluidConfig as TorchConfig
 from fluidx12_tpu_torch.core.state import state_from_numpy
 from fluidx12_tpu_torch.engine import fluidx as torch_fluidx
+from fluidx12_tpu_torch.ops.cuda import _build
 from fluidx12_tpu_torch.ops.cuda import jacobi as tj
 from fluidx12_tpu_torch.ops.cuda import stencil as ts
 from fluidx12_tpu_torch.sim.step import simulate
@@ -187,7 +188,7 @@ def test_window_plan_owns_every_cell_once(zyx):
     volume fills 0.9 CTAs an SM."""
     (ty, tx), zchunk, smem = tj.window_plan(zyx)
     nz, ny, nx = zyx
-    assert smem == tj.window_smem(zchunk) <= tj.SMEM_PER_CTA
+    assert smem == tj.window_smem(zchunk) <= _build.SMEM_PER_CTA
     grid = (-(-nz // zchunk), -(-ny // ty), -(-nx // tx))
     owners = np.zeros(zyx, np.int32)
     for k in range(grid[0]):
@@ -233,7 +234,7 @@ def test_packed_plan_covers_every_gated_shape():
         rows = shape[0] * shape[1]
         assert 1 <= cluster <= tj.PACKED_MAX_CLUSTER and rpc & (rpc - 1) == 0
         assert (cluster - 1) * rpc < rows <= cluster * rpc, shape
-        assert smem == 2 * rpc * 64 * 4 <= tj.SMEM_PER_CTA
+        assert smem == 2 * rpc * 64 * 4 <= _build.SMEM_PER_CTA
         assert threads == min(1024, rpc * 16) and (rpc * 16) % threads == 0
     for bad in ((4, 16, 128), (2, 2064, 64)):
         with pytest.raises(ValueError):
@@ -287,6 +288,118 @@ def test_packed_row_exchange_matches_plain(shape):
     b = rng.standard_normal(shape).astype(np.float32)
     ref = tj.jacobi_packed_plain(torch.from_numpy(q), torch.from_numpy(b), 3).numpy()
     np.testing.assert_array_equal(_packed_model(q, b, 3), ref)
+
+
+# ---------------------------------------------------------------------------
+# B14's launch plan and tiled schedule (csrc/jacobi.cu jacobi2d_kernel)
+# ---------------------------------------------------------------------------
+
+# Every (Y, X) plane B14's gate admits: Y a multiple of 8, X of 128, at most
+# 393216 cells, from (8, 128) up to (768, 512), (3072, 128) and (8, 49152).
+J2D_PLANES = [(ny, nx) for nx in range(128, 49152 + 1, 128)
+              for ny in range(8, 393216 // nx + 1, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _j2_owners(n: int, t: int, ring: int) -> np.ndarray:
+    """How many CTAs write each of an axis's n cells, by jacobi2d_kernel's
+    rule along one axis: CTA j of ceil(n / t) holds region blocks b of 4
+    cells from j * t - ring + 4b, and writes a block that lies in the plane
+    and in [ring / 4, ring / 4 + t / 4) (`owned`; the tile grid is a
+    product, so each axis stands alone)."""
+    rb = ring // tj.J2D_BLOCK
+    blk = np.arange((t + 2 * ring) // tj.J2D_BLOCK)
+    g0 = np.arange(-(-n // t))[:, None] * t - ring + blk[None] * tj.J2D_BLOCK
+    owned = (g0 >= 0) & (g0 < n) & (blk >= rb) & (blk < rb + t // tj.J2D_BLOCK)
+    cells = (g0[owned][:, None] + np.arange(tj.J2D_BLOCK)).ravel()
+    assert cells.max() < n
+    return np.bincount(cells, minlength=n)
+
+
+def test_jacobi2d_plan_covers_every_gated_plane():
+    """B14's plan on every plane its gate admits, for the 2D preset's 64
+    sweeps and for 1: tiles of whole 4 x 4 blocks whose CTAs, by the
+    kernel's ownership rule, write every row and column of the plane
+    exactly once, a ring of whole blocks no narrower than the sweeps of one
+    launch, at most 512 threads (one a block of the tile and its ring) and
+    their edge buffers within 227 KB of shared memory."""
+    assert all(tj.jacobi2d_pallas_supported(p) for p in J2D_PLANES)
+    assert len(J2D_PLANES) > 2000 and not tj.jacobi2d_pallas_supported((776, 512))
+    for plane in J2D_PLANES:
+        for iters in (64, 1):
+            (ty, tx), ring, smem = tj.jacobi2d_plan(plane, iters)
+            assert ty % 4 == tx % 4 == ring % 4 == 0 and ring >= min(iters, tj.J2D_RING)
+            threads = tj.jacobi2d_threads((ty, tx), ring)
+            assert threads <= tj.J2D_MAX_THREADS and smem == 2 * 4 * threads * 16
+            assert smem <= _build.SMEM_PER_CTA
+            for n, t in zip(plane, (ty, tx)):
+                assert (_j2_owners(n, t, ring) == 1).all()
+    for bad in ((6, 128), (8, 126)):
+        with pytest.raises(ValueError):
+            tj.jacobi2d_plan(bad, 64)
+
+
+def test_jacobi2d_plan_matches_the_kernel_source():
+    """The constants `jacobi2d_plan` uses are those csrc/jacobi.cu compiles:
+    a thread's block of kJ2Block x kJ2Block cells, at most kJ2MaxThreads
+    region blocks a CTA, and the thread and shared-memory counts."""
+    src = (Path(tj.__file__).parents[2] / "csrc" / "jacobi.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (kJ2\w+) = (\d+);", src)}
+    assert (tj.J2D_BLOCK, tj.J2D_MAX_THREADS) == (c["kJ2Block"], c["kJ2MaxThreads"])
+    assert "return ((ty + 2 * ring) / kJ2Block) * ((tx + 2 * ring) / kJ2Block);" in src
+    assert "return 2 * 4 * threads * (int)sizeof(float4);" in src
+
+
+def _jacobi2d_model(q: np.ndarray, b: np.ndarray, iters: int) -> np.ndarray:
+    """jacobi2d_kernel's schedule in numpy: ceil(iters / ring) launches,
+    each writing a buffer that starts as NaN; per tile of the plan, a
+    region of the tile and its ring holding q and b where it lies in the
+    plane and NaN elsewhere, swept up to `ring` times in the y+, y-, x+, x-
+    order -- a neighbour past the plane's edge clamps to the cell, one past
+    the region's rim is NaN -- and only the tile written."""
+    ny, nx = q.shape
+    (ty, tx), ring, _ = tj.jacobi2d_plan(q.shape, iters)
+    cur, four = q, np.float32(4.0)
+    for k in range(-(-iters // ring)):
+        nxt = np.full_like(q, np.nan)
+        for y0 in range(0, ny, ty):
+            for x0 in range(0, nx, tx):
+                gy, gx = y0 - ring + np.arange(ty + 2 * ring), x0 - ring + np.arange(tx + 2 * ring)
+                iy, ix = (gy >= 0) & (gy < ny), (gx >= 0) & (gx < nx)
+                inside = iy[:, None] & ix[None]
+                reg = np.full(inside.shape, np.nan, np.float32)
+                breg = reg.copy()
+                reg[inside], breg[inside] = cur[np.ix_(gy[iy], gx[ix])].ravel(), \
+                    b[np.ix_(gy[iy], gx[ix])].ravel()
+                rim_r = np.full((1, gx.size), np.nan, np.float32)
+                rim_c = np.full((gy.size, 1), np.nan, np.float32)
+                for _ in range(min(ring, iters - k * ring)):
+                    yp = np.where((gy == ny - 1)[:, None], reg, np.concatenate([reg[1:], rim_r]))
+                    ym = np.where((gy == 0)[:, None], reg, np.concatenate([rim_r, reg[:-1]]))
+                    xp = np.where(gx == nx - 1, reg, np.concatenate([reg[:, 1:], rim_c], 1))
+                    xm = np.where(gx == 0, reg, np.concatenate([rim_c, reg[:, :-1]], 1))
+                    reg = np.where(inside, (((yp + ym) + xp) + xm - breg) / four, np.nan)
+                tile = (slice(ring, ring + ty), slice(ring, ring + tx))
+                ty_in, tx_in = iy[tile[0]], ix[tile[1]]
+                nxt[np.ix_(gy[tile[0]][ty_in], gx[tile[1]][tx_in])] = \
+                    reg[tile][np.ix_(ty_in, tx_in)]
+        cur = nxt
+    return cur
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (40, 128), (24, 256)])
+def test_jacobi2d_tiled_schedule_matches_plain(shape):
+    """The numpy model of B14's tiled schedule, NaN wherever a tile would
+    read what its region was not given or write nothing, reproduces
+    `jacobi2d_plain` bit for bit for one launch, a full one, a remainder
+    and chains: a plane thinner than a tile, one whose last tile is
+    partial, one two tiles wide."""
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal(shape).astype(np.float32)
+    b = rng.standard_normal(shape).astype(np.float32)
+    for iters in (0, 1, 3, 8, 9, 17):
+        ref = tj.jacobi2d_plain(torch.from_numpy(q), torch.from_numpy(b), iters).numpy()
+        np.testing.assert_array_equal(_jacobi2d_model(q, b, iters), ref)
 
 
 def test_prolong_correct_matches_pallas():
