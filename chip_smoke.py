@@ -20,9 +20,14 @@ and the largest shape its gate admits, (2, 16, 64) and (4, 1024, 64).  B14
 2D preset's 64 sweeps of 512^2 and timed in turns with the per-sweep
 design, B9 (one launch, the carry in registers) at error 0 on the stacks
 of the 128^3 (and 256^3), 256x256x60 and 150^3 frames, timed in turns
-with the two-launch design; each must beat its yardstick there.  It
-drives `FluidXEngine` for 60 frames of the main path (PRESETS["fluid3d"]
-as it is: 128^3 grid, 800x800 viewport, the projection on kernels B3-B8),
+with the two-launch design; B1 (one launch, the y taps from shared
+memory) at error 0 and B2 (a staged z-window) within one bf16 ulp at
+128^3, 256^3, 256x256x60 and 150^3, on states whose velocities pass the
+12-voxel clip in part of the volume, each timed in turns with its
+per-voxel design (`advect.perthread`); each must beat its yardstick
+there.  It drives `FluidXEngine` for 60 frames of the main path
+(PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
+projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
 (512x512x1 grid, 800x800 viewport, B11 and B14), 30 frames of the 256^3 GI
 frame (bench.py's "FluidGI SH irradiance 256^3": the in-repo light probe,
@@ -244,6 +249,8 @@ def print_times(results, names) -> None:
         r = results[name]
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         kid = (KERNELS[name][0] if name in KERNELS
+               else "B1" if name.startswith("advect_xy")
+               else "B2" if name.startswith("advect_z_forces")
                else "B6" if name.startswith("jacobi_packed")
                else "B9" if name.startswith("shear_scan") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
@@ -353,6 +360,94 @@ def light_map_counts(cfg) -> dict:
                 gradient3=normals + int(ao != zyx and ST.stencil_pallas_supported(ao)))
 
 
+# The other 3D paths' grids, where B1 and B2 are held and timed too:
+# 256^3 (the GI, plain and fused frames), the 256x256x60 GI frame and
+# PRESETS["fluidgi"].
+ADVECT_FRAMES = (("256^3", GRID_256), ("256x256x60", GRID_SLAB),
+                 ("fluidgi", (150, 150, 150)))
+
+
+def advect_args(cfg, dev, seed: int = 0):
+    """B1's and B2's operands on `cfg`'s grid: a bf16 state with velocities
+    up to +-1.5 (|d| <= 3 voxels at dt = 2 / Y) and a patch of an eighth of
+    the volume eight times faster, past the 12-voxel clip; B1's scales and
+    B2's (scal, table, consts)."""
+    from fluidx12_tpu_torch.ops.cuda import advect as A
+
+    z, y, x = cfg.zyx
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(0.0, 1.0, (7, z, y, x)).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 3.0
+    f[:3, z // 4: z // 4 + z // 2, y // 4: y // 4 + y // 2, x // 4: x // 4 + x // 2] *= 8.0
+    vol = torch.from_numpy(f).to(dev, torch.bfloat16)
+    dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=dev)
+    table = torch.from_numpy(A.forces_table(cfg)).to(dev)
+    return (vol, torch.stack([dt * x, dt * y]), torch.stack([dt * z, dt]), table,
+            A.force_consts(cfg))
+
+
+def check_advect(results, suffix, vol, scales, scal, table, consts):
+    """B1 at error 0 and B2 within one bf16 ulp of their plain versions,
+    each timed in turns with the design it replaced (`advect.perthread`:
+    two launches through a scratch, one thread a voxel) and failing unless
+    faster; rows "advect_xy" + suffix and "advect_z_forces" + suffix of
+    `results`.  Returns B1's output, B2's input."""
+    from fluidx12_tpu_torch.ops.cuda import advect as A
+
+    shape = tuple(vol.shape)
+    n = vol[0].numel()
+    plan = A.advect_plan(shape[1:], vol.dtype)
+    got = A.advect_xy(vol, scales)
+    ref = A.advect_xy_plain(vol, scales)
+    err = float((got - ref).abs().max())
+    yard = float((A.perthread("xy", vol, scales) - ref).abs().max())
+    print(f"B1 advect_xy at {shape} (plan {plan}): max abs diff {err:.3e}, two-launch "
+          f"design {yard:.3e} (limit 0: the same f32 operations)")
+    check(torch.equal(got, ref) and yard == 0.0, f"B1 advect_xy vs plain at {shape}")
+    del ref
+    # Per cell: two displacements and 7 channels x 2 two-tap lerps.
+    measure(results, "advect_xy" + suffix, err, lambda: A.advect_xy(vol, scales),
+            lambda: A.advect_xy_plain(vol, scales), nbytes(vol, scales, got), 66 * n,
+            yardstick=lambda: A.perthread("xy", vol, scales),
+            yardstick_name="two-launch design")
+    check_faster(results, "advect_xy" + suffix)
+    xy = got
+    got = A.advect_z_forces(xy, scal, table, consts)
+    ref = A.advect_z_forces_plain(xy, scal, table, consts)
+    err = float((got.float() - ref.float()).abs().max())
+    ulps = bf16_ulps(got, ref)
+    yard = bf16_ulps(A.perthread("z_forces", xy, scal, table, consts), ref)
+    print(f"B2 advect_z_forces at {shape}: max abs diff {err:.3e}, {ulps:.2f} bf16 ulp at "
+          f"each channel's scale, per-voxel design {yard:.2f} (limit 1 ulp: expf may differ "
+          f"in its last f32 bit)")
+    check(ulps <= 1.0 and yard <= 1.0, f"B2 advect_z_forces vs plain at {shape}")
+    del ref
+    measure(results, "advect_z_forces" + suffix, err,
+            lambda: A.advect_z_forces(xy, scal, table, consts),
+            lambda: A.advect_z_forces_plain(xy, scal, table, consts),
+            nbytes(xy, scal, table, got), 110 * n,
+            yardstick=lambda: A.perthread("z_forces", xy, scal, table, consts),
+            yardstick_name="per-voxel design")
+    check_faster(results, "advect_z_forces" + suffix)
+    return xy
+
+
+def check_advect_frames(dev, results):
+    """B1 and B2 on the other 3D paths' grids (`ADVECT_FRAMES`), as
+    `check_advect` holds them at 128^3; rows "advect_xy_<frame>" and
+    "advect_z_forces_<frame>" (not in the kernels line)."""
+    from fluidx12_tpu_torch.core.config import FluidConfig
+
+    phase("phase 2e: B1 and B2 on the 256^3, 256x256x60 and 150^3 grids")
+    for label, grid in ADVECT_FRAMES:
+        args = advect_args(FluidConfig(grid_size=grid), dev)
+        check_advect(results, "_" + label, *args)
+        del args
+        torch.cuda.empty_cache()
+    print_times(results, [f"{k}_{label}" for label, _ in ADVECT_FRAMES
+                          for k in ("advect_xy", "advect_z_forces")])
+
+
 def phase2_kernels(dev):
     """Each kernel of the 3D paths against its plain version on the card,
     at 128^3 shapes (B6 at the 64^3 coarse level), with times and bounds."""
@@ -370,53 +465,24 @@ def phase2_kernels(dev):
     results = {}
     record = functools.partial(measure, results)
 
-    # B1 / B2: a bf16 state with velocities up to +-1.5 (|d| <= 3 voxels)
-    # and a faster patch (|d| up to the 12-voxel clip).
-    f = rng.uniform(0.0, 1.0, (7, z, y, x)).astype(np.float32)
-    f[:3] = (f[:3] - 0.5) * 3.0
-    f[:3, 40:60, 40:60, 40:60] *= 8.0
-    vol = torch.from_numpy(f).to(dev, torch.bfloat16)
-    dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=dev)
-    scales = torch.stack([dt * x, dt * y])
-    got = A.advect_xy(vol, scales)
-    ref = A.advect_xy_plain(vol, scales)
-    err = float((got - ref).abs().max())
-    print(f"B1 advect_xy: max abs diff {err:.3e} (limit 1e-5: same f32 operations)")
-    check(err <= 1e-5, "B1 advect_xy vs plain")
-    # Per cell: two displacements and 7 channels x 2 two-tap lerps.
-    record("advect_xy", err, lambda: A.advect_xy(vol, scales),
-           lambda: A.advect_xy_plain(vol, scales), nbytes(vol, scales, got), 66 * n)
-
-    table = torch.from_numpy(A.forces_table(cfg)).to(dev)
-    consts = A.force_consts(cfg)
-    scal = torch.stack([dt * z, dt])
-    xy = got
-    got = A.advect_z_forces(xy, scal, table, consts)
-    ref = A.advect_z_forces_plain(xy, scal, table, consts)
-    err = float((got.float() - ref.float()).abs().max())
-    ulps = bf16_ulps(got, ref)
-    print(f"B2 advect_z_forces: max abs diff {err:.3e}, {ulps:.2f} bf16 ulp at each "
-          f"channel's scale (limit 1 ulp: expf may differ in its last f32 bit)")
-    check(ulps <= 1.0, "B2 advect_z_forces vs plain")
-    record("advect_z_forces", err, lambda: A.advect_z_forces(xy, scal, table, consts),
-           lambda: A.advect_z_forces_plain(xy, scal, table, consts),
-           nbytes(xy, scal, table, got), 110 * n)
-
-    # B12: the same z pass without its forces epilogue.
+    # B1 / B2 / B12 at 128^3, each timed in turns with the design it replaced.
+    vol, scales, scal, table, consts = advect_args(cfg, dev)
+    xy = check_advect(results, "", vol, scales, scal, table, consts)
     got = A.advect_z(xy, scal)
     ref = A.advect_z_forces_plain(xy, scal, None, None, forces=False)
     err = float((got.float() - ref.float()).abs().max())
-    ulps = bf16_ulps(got, ref)
-    print(f"B12 advect_z: max abs diff {err:.3e}, {ulps:.2f} bf16 ulp at each channel's "
-          f"scale (limit 1 ulp, as B2)")
-    check(ulps <= 1.0, "B12 advect_z vs plain")
+    print(f"B12 advect_z: max abs diff {err:.3e} (limit 0: the same f32 operations, one "
+          f"rounding)")
+    check(torch.equal(got, ref), "B12 advect_z vs plain")
     record("advect_z", err, lambda: A.advect_z(xy, scal),
            lambda: A.advect_z_forces_plain(xy, scal, None, None, forces=False),
-           nbytes(xy, scal, got), 33 * n)
+           nbytes(xy, scal, got), 33 * n, yardstick=lambda: A.perthread("z", xy, scal),
+           yardstick_name="per-voxel design")
 
     # B3-B8 on the projection's operands: the advected bf16 state, a smooth
     # f32 pressure and its right-hand side, the 64^3 coarse level.
     fields = A.advect_z_forces(xy, scal, table, consts)
+    del vol, scales
     q = torch.from_numpy(rng.uniform(-0.05, 0.05, (z, y, x)).astype(np.float32)).to(dev)
     for ax in range(3):
         q = (q.roll(1, ax) + q + q.roll(-1, ax)) / 3.0
@@ -1330,6 +1396,7 @@ def main() -> int:
     phase2b_kernels_2d(dev, results)
     phase2c_kernels_256(dev, results)
     phase2d_kernels_fused_slab(dev, results)
+    check_advect_frames(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
     counts_gi, engine_256 = phase3c_256(dev, smi_line)

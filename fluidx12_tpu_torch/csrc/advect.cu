@@ -2,7 +2,8 @@
 //
 // B1 (fx_advect_xy) replaces fluidx12_tpu/ops/pallas/advect.py
 // _pass_kernel_fused_xy (via _run_pass_fused_xy); B2 (fx_advect_z_forces)
-// replaces _zpass_forces_kernel (via _run_zpass); B11 (fx_advect_axis)
+// replaces _zpass_forces_kernel (via _run_zpass), and with its forces
+// epilogue off is B12, replacing _zpass_kernel; B11 (fx_advect_axis)
 // replaces the single-axis passes _pass_kernel_fused_d and
 // _pass_kernel_fused_d1 (via _run_pass_fused: one function under two
 // tilings) and _pass_kernel (via _run_pass, the same function fed a
@@ -25,23 +26,66 @@
 // (max(1 - |d - a|, 0) for a = floor(d), floor(d) + 1), and the file is
 // built with --fmad=false, so each f32 operation rounds as it does there.
 //
-// Bound: memory.  The x pass reads the 7-channel bf16 state and writes a
-// bf16 scratch (14 + 14 B per voxel), the y pass reads it and writes f32
-// (14 + 28 B), the z pass reads f32 and writes bf16 (28 + 14 B); B11 reads
-// and writes the storage type (14 + 14 B at bf16: 7.3 MB, 2.2 us, at the 2D
-// preset's 512^2).  The two taps per channel stay within one or two cache
-// lines of the output row (x), or in rows the neighbouring threads also
-// read (y, z).  One thread per voxel, consecutive threads on consecutive x,
-// so every read and write is coalesced.
+// Bound: memory.  B1 reads the 7-channel bf16 state and writes f32 (14 +
+// 28 B a voxel), B2 reads f32 and writes bf16 (28 + 14 B): 26.3 us each at
+// 128^3 over 3.35 TB/s.  B11 reads and writes the storage type (14 + 14 B
+// at bf16: 7.3 MB, 2.2 us, at the 2D preset's 512^2).
+//
+// The clip bounds every tap to kHaloLo cells below its output and kHaloHi
+// above (the second tap), so a strip of kLanes x-columns, one lane each,
+// needs only a window of rows or planes around the ones it owns, which a
+// CTA stages in shared memory with cp.async (16-byte copies where the
+// rows' alignment allows, else 8, 4 or, for a bf16 row of odd length, 2
+// bytes by plain loads): the loads are in flight together, where taps read
+// from device memory per lane keep each warp waiting on two dependent loads
+// a row or plane (PERF.md, the B1 and B2 findings).
+//   - B1 (advect_xy_kernel) is one launch.  CTA (i, j, z) owns x-columns
+//     [32 i, 32 i + 32) and rows [j tile_y, (j + 1) tile_y) of plane z.  It
+//     stages, for those rows and their halo, every channel's input window
+//     of kWinCols columns around the strip; runs the x pass from it, one
+//     warp a row, and writes the storage-rounded results over the row it
+//     read (two bf16 channels, or one f32, a 32-bit word a lane); then,
+//     after one barrier, runs the y pass from those results and writes f32,
+//     coalesced.  The x-pass result never goes to device memory, as it
+//     never leaves VMEM on the TPU.  With tile_y >= Y the window is the
+//     whole Y column and nothing is recomputed.
+//   - B2 (advect_z_kernel) owns tile_z planes of one row's strip.  It
+//     stages every channel's f32 planes [z0 - kHaloLo, z0 + tile_z +
+//     kHaloHi) of the strip, then forms each output from two
+//     shared-memory reads a channel, one warp a plane.  With tile_z >= Z
+//     the window is the whole column and no plane is staged twice.  The
+//     forces epilogue runs on 32-bit (z, y, x) from blockIdx and
+//     threadIdx, and forms exp only near the impulse.
+//   - A lane's reads fall in bank `lane` (a row of the x-pass results is a
+//     multiple of 32 words; a window plane is 32 floats), so the lanes of a
+//     warp, each at its own row or plane, never conflict.
+//   - Lanes past X (a ragged strip) compute nothing; no lane reads another
+//     lane's results.  Rows and planes are clamped to the volume, so an axis
+//     shorter than the window (Z = 20) stages all of it.
+// ops/cuda/advect.advect_plan chooses the tiles; the C launches check them.
+// The designs they replaced stay as yardsticks: fx_advect_xy_perthread
+// (two launches of advect_axis_kernel through a storage-type scratch) and
+// fx_advect_z_forces_perthread (one thread a voxel, the taps gathered
+// from device memory across planes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kMaxDisp = 12.0f;
 constexpr int kThreads = 256;
+// B1 and B2: a warp's lanes along x, the window's reach below and above an
+// owned row or plane, the channels a kernel unrolls, the warps a CTA.
+constexpr int kLanes = 32;
+constexpr int kHaloLo = 12;
+constexpr int kHaloHi = 13;
+constexpr int kMaxC = 8;
+constexpr int kMaxWarps = 16;
+constexpr int kSmemMax = 232448;
 
 __device__ __forceinline__ float ld(const float* p, int64_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t i) {
@@ -79,7 +123,7 @@ __device__ __forceinline__ Taps lerp_taps(float d, int i, int n) {
 // One-axis resample of every channel, the displacement from channel
 // `disp_ch` of the input itself, one rounding to Tout.  The axis is given by
 // its element stride and extent, so x, y and z share the code: B11 is one
-// launch (Tout = Tin), B1 two (x into Tin, then y into f32).
+// launch (Tout = Tin); B1's yardstick two (x into Tin, then y into f32).
 template <typename Tin, typename Tout>
 __global__ void advect_axis_kernel(const Tin* __restrict__ vol, Tout* __restrict__ out,
                                    const float* __restrict__ scale, int disp_ch, int C,
@@ -98,10 +142,253 @@ __global__ void advect_axis_kernel(const Tin* __restrict__ vol, Tout* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// B1: the x pass in shared memory, then the y pass out of it.
+// ---------------------------------------------------------------------------
+
+// A row's x-pass input window: kWinCols columns [x0 - kWinLead, x0 + 48) of
+// each channel, around a strip's columns [x0, x0 + 32): they hold both taps
+// of every lane (x0 + lane + a, a in [-12, 13]).
+constexpr int kWinCols = 64;
+constexpr int kWinLead = 16;
+
+// Bytes of B1's shared memory for `rows` rows: each row's input window of
+// every channel (csrc and ops/cuda/advect.xy_smem agree on this formula).
+int xy_smem(int C, bool bf16, int rows) { return rows * C * kWinCols * (bf16 ? 2 : 4); }
+
+// Bytes of B2's staged window: every channel's `planes` planes of a strip.
+int z_smem(int C, int planes) { return C * planes * kLanes * (int)sizeof(float); }
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float lo_half(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_half(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Copies kBytes from device to shared memory: cp.async for 4, 8 or 16
+// bytes, a plain load and store for 2 (a bf16 row of odd length).
+template <int kBytes>
+__device__ __forceinline__ void stage(void* dst, const void* src) {
+  if constexpr (kBytes == 2) {
+    *(unsigned short*)dst = __ldg((const unsigned short*)src);
+  } else {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (kBytes == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+    } else if constexpr (kBytes == 8) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// kCopy: bytes a staging copy, the widest the rows' alignment allows.
+template <typename Tin, int kCopy>
+__global__ void __launch_bounds__(kLanes* kMaxWarps)
+    advect_xy_kernel(const Tin* __restrict__ vol, float* __restrict__ out,
+                     const float* __restrict__ scales, int C, int Z, int Y, int X, int tile_y) {
+  extern __shared__ __align__(16) unsigned char smem[];  // [row - ylo][channel][column]
+  constexpr bool kPair = std::is_same<Tin, __nv_bfloat16>::value;
+  constexpr int kPer = kCopy / (int)sizeof(Tin) > 0 ? kCopy / (int)sizeof(Tin) : 1;
+  constexpr int kCopies = kWinCols / kPer;  // copies a channel's row
+  const int lane = threadIdx.x, warp = threadIdx.y, nw = blockDim.y;
+  const int tid = warp * kLanes + lane, nt = nw * kLanes;
+  const int xs = blockIdx.x * kLanes;
+  const int x = xs + lane;
+  const int w0 = xs - kWinLead;  // the windows' first column
+  const int y0 = blockIdx.y * tile_y;
+  const int yend = min(y0 + tile_y, Y);
+  const int ylo = max(y0 - kHaloLo, 0);
+  const int yhi = min(yend + kHaloHi, Y);
+  const int rows = yhi - ylo;
+  const int chan_bytes = kWinCols * (int)sizeof(Tin);
+  const int row_bytes = C * chan_bytes;
+  const bool live = x < X;  // lanes past X stage, but compute nothing
+  const int64_t vox = (int64_t)Z * Y * X;
+  const int64_t zoff = (int64_t)blockIdx.z * Y * X;
+  const float sx = scales[0], sy = scales[1];
+
+  // Stage rows [ylo, yhi) of every channel's window; copies past the
+  // volume's x edges are skipped, as no tap reaches them.
+  for (int c = 0; c < C; ++c) {
+    const Tin* src = vol + c * vox + zoff + ylo * X;
+    unsigned char* dst = smem + c * chan_bytes;
+    for (int j = tid; j < rows * kCopies; j += nt) {
+      const int r = j / kCopies, col = w0 + (j % kCopies) * kPer;
+      if (col >= 0 && col + kPer <= X) {
+        stage<kCopy>(dst + r * row_bytes + (col - w0) * (int)sizeof(Tin), src + r * X + col);
+      }
+    }
+  }
+  stage_wait();
+  __syncthreads();
+
+  // x pass, one warp a row, in place: every lane reads its taps before any
+  // lane of the warp overwrites the row with its storage-rounded result.
+  for (int r = warp; r < rows; r += nw) {
+    unsigned char* row = smem + r * row_bytes;
+    float v[kMaxC];
+    if (live) {
+      const Tin* in = (const Tin*)row;
+      const Taps t = lerp_taps(clamp_disp(ld(in, lane + kWinLead), sx, x, X), x, X);
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c) {
+        v[c] = 0.0f;
+        if (c < C) {
+          const Tin* p = in + c * kWinCols;
+          const float s = t.w0 * ld(p, t.i0 - w0) + t.w1 * ld(p, t.i1 - w0);
+          v[c] = kPair ? __bfloat162float(__float2bfloat16_rn(s)) : s;
+        }
+      }
+    }
+    __syncwarp();
+    if (live) {
+      uint32_t* cell = (uint32_t*)row + lane;
+#pragma unroll
+      for (int k = 0; k < kMaxC; ++k) {
+        if (kPair && 2 * k < C) {
+          cell[k * kLanes] = bf16_bits(v[2 * k]) | (bf16_bits(v[2 * k + 1]) << 16);
+        } else if (!kPair && k < C) {
+          cell[k * kLanes] = __float_as_uint(v[k]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // y pass of the owned rows [y0, yend), in f32.  A row is row_bytes / 4
+  // words, a multiple of 32: a lane's word k of any row lies in bank `lane`.
+  const int row_words = row_bytes / 4;
+  const uint32_t* xr = (const uint32_t*)smem + lane;
+  for (int y = y0 + warp; live && y < yend; y += nw) {
+    const uint32_t u1 = xr[(y - ylo) * row_words + (kPair ? 0 : kLanes)];
+    const Taps t = lerp_taps(clamp_disp(kPair ? hi_half(u1) : __uint_as_float(u1), sy, y, Y),
+                             y, Y);
+    const uint32_t* g0 = xr + (t.i0 - ylo) * row_words;
+    const uint32_t* g1 = xr + (t.i1 - ylo) * row_words;
+    float* o = out + zoff + y * X + x;
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k) {
+      if (kPair && 2 * k < C) {
+        const uint32_t a = g0[k * kLanes], b = g1[k * kLanes];
+        o[(2 * k) * vox] = t.w0 * lo_half(a) + t.w1 * lo_half(b);
+        if (2 * k + 1 < C) o[(2 * k + 1) * vox] = t.w0 * hi_half(a) + t.w1 * hi_half(b);
+      } else if (!kPair && k < C) {
+        o[k * vox] = t.w0 * __uint_as_float(g0[k * kLanes]) +
+                     t.w1 * __uint_as_float(g1[k * kLanes]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B2 / B12: a staged z-window.
+// ---------------------------------------------------------------------------
+
 struct ForceConsts {
   float ip_x, ip_y, ip_z, radius_sq, dissipation;
 };
 
+// Past this multiple of radius^2 from the impulse, expf(-4 d2 / radius^2)
+// is below exp(-4) by a margin no f32 rounding closes: the impulse term is
+// off, and its exp need not be formed.
+constexpr float kImpulseFar = 1.01f;
+
+template <typename T, int kCopy>
+__global__ void __launch_bounds__(kLanes* kMaxWarps)
+    advect_z_kernel(const float* __restrict__ vol, T* __restrict__ out,
+                    const float* __restrict__ scal, const float* __restrict__ table,
+                    ForceConsts fc, int forces, int C, int Z, int Y, int X, int tile_z) {
+  extern __shared__ __align__(16) float win[];  // [c][z - zlo][lane]
+  constexpr int kPer = kCopy / (int)sizeof(float);
+  constexpr int kCopies = kLanes / kPer;  // copies a plane's row of the strip
+  const int lane = threadIdx.x, warp = threadIdx.y, nw = blockDim.y;
+  const int tid = warp * kLanes + lane, nt = nw * kLanes;
+  const int xs = blockIdx.x * kLanes;
+  const int x = xs + lane;
+  const int y = blockIdx.y;
+  const int z0 = blockIdx.z * tile_z;
+  const int zend = min(z0 + tile_z, Z);
+  const int zlo = max(z0 - kHaloLo, 0);
+  const int zhi = min(zend + kHaloHi, Z);
+  const int planes = zhi - zlo;
+  const int plane = Y * X;
+  const int vox = Z * plane;  // a channel has < 2^31 cells (window_ok)
+
+  // Stage every channel's planes [zlo, zhi) of the strip's row; the rows'
+  // alignment puts a copy wholly inside X or wholly past it.
+  const float* src = vol + zlo * plane + y * X + xs;
+  for (int c = 0; c < C; ++c) {
+    float* dst = win + c * planes * kLanes;
+    const float* sc = src + (int64_t)c * vox;
+    for (int j = tid; j < planes * kCopies; j += nt) {
+      const int s = j / kCopies, k = (j % kCopies) * kPer;
+      if (xs + k + kPer <= X) stage<kCopy>(dst + s * kLanes + k, sc + s * plane + k);
+    }
+  }
+  stage_wait();
+  __syncthreads();
+  if (x >= X) return;  // no barrier follows
+
+  // The forces epilogue's per-thread constants: the clip bounds, and x's
+  // and y's offsets from the impulse.
+  float lo[kMaxC], hi[kMaxC];
+  float dt = 0.0f, atten = 1.0f, fdx = 0.0f, dxy2 = 0.0f;
+  if (forces) {
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      lo[c] = table[5 * (c < C ? c : 0) + 3];
+      hi[c] = table[5 * (c < C ? c : 0) + 4];
+    }
+    dt = scal[1];
+    atten = fmaxf(1.0f - fc.dissipation * dt, 0.0f);
+    fdx = ((float)x + 0.5f) / (float)X - fc.ip_x;
+    const float dy = ((float)y + 0.5f) / (float)Y - fc.ip_y;
+    dxy2 = fdx * fdx + dy * dy;
+  }
+  const float sz = scal[0];
+  const float* cell = win + lane;  // [c * planes + z - zlo] * kLanes
+  T* o = out + y * X + x;          // [c * vox + z * plane]
+  for (int z = z0 + warp; z < zend; z += nw) {
+    const Taps t =
+        lerp_taps(clamp_disp(cell[(2 * planes + z - zlo) * kLanes], sz, z, Z), z, Z);
+    const float* g0 = cell + (t.i0 - zlo) * kLanes;
+    const float* g1 = cell + (t.i1 - zlo) * kLanes;
+    float basis = 0.0f, ndz = 0.0f;
+    if (forces) {
+      const float dz = ((float)z + 0.5f) / (float)Z - fc.ip_z;
+      const float d2 = dxy2 + dz * dz;
+      if (!(d2 > kImpulseFar * fc.radius_sq)) basis = expf(-4.0f * d2 / fc.radius_sq);
+      ndz = -dz;
+    }
+    const bool imp = basis >= 0.01831563889245799f;  // exp(-4)
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c < C) {
+        float v = t.w0 * g0[c * planes * kLanes] + t.w1 * g1[c * planes * kLanes];
+        if (forces) {
+          // in_imp * ext * dt with in_imp in {0, 1}: the term, or nothing.
+          if (imp) {
+            const float* f = table + 5 * c;  // [A_basis, B_negdz, B_dx, lo, hi]
+            v = v + (f[0] * basis + f[1] * ndz + f[2] * fdx) * dt;
+          }
+          v = fminf(fmaxf(v, lo[c]), hi[c]) * atten;
+        }
+        st(o, (int64_t)c * vox + z * plane, v);
+      }
+    }
+  }
+}
+
+// The per-voxel design B2 replaced, kept as a yardstick
+// (fx_advect_z_forces_perthread): one thread a voxel, its two taps read
+// from device memory in planes of their own.
 template <typename T>
 __global__ void advect_z_forces_kernel(const float* __restrict__ vol, T* __restrict__ out,
                                        const float* __restrict__ scal,
@@ -157,15 +444,118 @@ cudaError_t launch_axis(const void* vol, void* out, const float* scale, int disp
   return cudaGetLastError();
 }
 
+// Raises a kernel's dynamic shared-memory limit to `smem` where needed.
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, int* allowed) {
+  if (smem <= *allowed) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) *allowed = smem;
+  return err;
+}
+
+// What every B1/B2 plan must satisfy: a volume whose offsets within a
+// channel fit 32 bits, a CTA of 1..kMaxWarps warps, shared memory a CTA
+// can have.
+bool window_ok(int C, int Z, int Y, int X, int warps, int smem) {
+  return C >= 1 && C <= kMaxC && Z >= 1 && Y >= 1 && X >= 1 &&
+         (int64_t)Z * Y * X < (1LL << 31) && warps >= 1 && warps <= kMaxWarps &&
+         smem <= kSmemMax;
+}
+
+// The widest copy (bytes) every row of an axis of rows `n` elements of
+// `esize` bytes from `base` is aligned to, at most 16.
+int copy_bytes(const void* base, int n, int esize) {
+  int b = 16;
+  while (b > esize && (((uintptr_t)base % b) != 0 || ((int64_t)n * esize) % b != 0)) b /= 2;
+  return b;
+}
+
+template <typename Tin, int kCopy>
+cudaError_t launch_xy(const void* vol, void* out, const float* sc, int C, int Z, int Y, int X,
+                      int tile_y, int warps, int smem, cudaStream_t s) {
+  static int allowed = 48 * 1024;
+  cudaError_t err = allow_smem(advect_xy_kernel<Tin, kCopy>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((X + kLanes - 1) / kLanes, (Y + tile_y - 1) / tile_y, Z);
+  advect_xy_kernel<Tin, kCopy><<<grid, dim3(kLanes, warps), smem, s>>>(
+      (const Tin*)vol, (float*)out, sc, C, Z, Y, X, tile_y);
+  return cudaGetLastError();
+}
+
+template <typename T, int kCopy>
+cudaError_t launch_z(const float* vol, void* out, const float* scal, const float* table,
+                     ForceConsts fc, int forces, int C, int Z, int Y, int X, int tile_z,
+                     int warps, int smem, cudaStream_t s) {
+  static int allowed = 48 * 1024;
+  cudaError_t err = allow_smem(advect_z_kernel<T, kCopy>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((X + kLanes - 1) / kLanes, Y, (Z + tile_z - 1) / tile_z);
+  advect_z_kernel<T, kCopy><<<grid, dim3(kLanes, warps), smem, s>>>(vol, (T*)out, scal, table,
+                                                                     fc, forces, C, Z, Y, X,
+                                                                     tile_z);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_z_any(const float* vol, void* out, const float* scal, const float* table,
+                         ForceConsts fc, int forces, int C, int Z, int Y, int X, int tile_z,
+                         int warps, int smem, cudaStream_t s) {
+  switch (copy_bytes(vol, X, 4)) {
+    case 16:
+      return launch_z<T, 16>(vol, out, scal, table, fc, forces, C, Z, Y, X, tile_z, warps,
+                             smem, s);
+    case 8:
+      return launch_z<T, 8>(vol, out, scal, table, fc, forces, C, Z, Y, X, tile_z, warps, smem,
+                            s);
+    default:
+      return launch_z<T, 4>(vol, out, scal, table, fc, forces, C, Z, Y, X, tile_z, warps, smem,
+                            s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// B1: x pass into `tmp` (storage type), then y pass into `out` (f32), its
-// displacement from the x-advected, storage-rounded u_y (channel 1).
-// scales = device [dt*X, dt*Y].
-int fx_advect_xy(const void* vol, void* tmp, void* out, const void* scales, int is_bf16,
-                 int C, int Z, int Y, int X, void* stream) {
+// B1, one launch: the x pass of `vol` (storage type) rounded to storage in
+// shared memory, then the y pass, its displacement from the x-advected,
+// storage-rounded u_y (channel 1), into `out` (f32).  scales = device
+// [dt*X, dt*Y].  The plan (ops/cuda/advect.advect_plan): CTAs own tile_y
+// rows of a 32-column strip of a plane, `warps` warps each, `smem` bytes of
+// tile, which must be the x-pass tile of tile_y rows and their halo.
+int fx_advect_xy(const void* vol, void* out, const void* scales, int is_bf16, int C, int Z,
+                 int Y, int X, int tile_y, int warps, int smem, void* stream) {
+  if (C < 2 || tile_y < 1 || !window_ok(C, Z, Y, X, warps, smem) || Z > 65535 ||
+      (Y + tile_y - 1) / tile_y > 65535 ||
+      smem != xy_smem(C, is_bf16 != 0, min(Y, tile_y + kHaloLo + kHaloHi))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* sc = (const float*)scales;
+  if (is_bf16) {
+    switch (copy_bytes(vol, X, 2)) {
+      case 16:
+        return (int)launch_xy<__nv_bfloat16, 16>(vol, out, sc, C, Z, Y, X, tile_y, warps, smem,
+                                                 s);
+      case 8:
+      case 4:
+        return (int)launch_xy<__nv_bfloat16, 4>(vol, out, sc, C, Z, Y, X, tile_y, warps, smem,
+                                                s);
+      default:
+        return (int)launch_xy<__nv_bfloat16, 2>(vol, out, sc, C, Z, Y, X, tile_y, warps, smem,
+                                                s);
+    }
+  }
+  return copy_bytes(vol, X, 4) == 16
+             ? (int)launch_xy<float, 16>(vol, out, sc, C, Z, Y, X, tile_y, warps, smem, s)
+             : (int)launch_xy<float, 4>(vol, out, sc, C, Z, Y, X, tile_y, warps, smem, s);
+}
+
+// B1 as it ran before: x pass into `tmp` (storage type), then y pass into
+// `out` (f32), two launches of advect_axis_kernel.  A yardstick only.
+int fx_advect_xy_perthread(const void* vol, void* tmp, void* out, const void* scales,
+                           int is_bf16, int C, int Z, int Y, int X, void* stream) {
   const int64_t vox = (int64_t)Z * Y * X;
   cudaStream_t s = (cudaStream_t)stream;
   const float* sc = (const float*)scales;
@@ -198,11 +588,35 @@ int fx_advect_axis(const void* vol, void* out, const void* scale, int disp_ch, i
 // B2: z pass of the f32 `vol` (+ fused forces epilogue when `forces`) into
 // `out` of the storage type.  scal = device [dt_sub*Z, dt]; table = device
 // (C, 5) f32 per-channel force coefficients, never read (and may be null)
-// without `forces`: that is B12, replacing _zpass_kernel.
+// without `forces`: that is B12, replacing _zpass_kernel.  The plan
+// (ops/cuda/advect.advect_plan): CTAs own tile_z planes of a 32-column
+// strip of one row, `warps` warps each, and `smem` bytes, which must be
+// every channel's window of those planes and their halo.
 int fx_advect_z_forces(const void* vol, void* out, const void* scal, const void* table,
                        float ip_x, float ip_y, float ip_z, float radius_sq,
                        float dissipation, int forces, int is_bf16, int C, int Z, int Y,
-                       int X, void* stream) {
+                       int X, int tile_z, int warps, int smem, void* stream) {
+  if (C < 3 || tile_z < 1 || !window_ok(C, Z, Y, X, warps, smem) ||
+      (forces && table == nullptr) || Y > 65535 || (Z + tile_z - 1) / tile_z > 65535 ||
+      smem != z_smem(C, min(Z, tile_z + kHaloLo + kHaloHi))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const ForceConsts fc{ip_x, ip_y, ip_z, radius_sq, dissipation};
+  const float* v = (const float*)vol;
+  const float* sc = (const float*)scal;
+  const float* tb = (const float*)table;
+  return (int)(is_bf16 ? launch_z_any<__nv_bfloat16>(v, out, sc, tb, fc, forces, C, Z, Y, X,
+                                                     tile_z, warps, smem, s)
+                       : launch_z_any<float>(v, out, sc, tb, fc, forces, C, Z, Y, X, tile_z,
+                                             warps, smem, s));
+}
+
+// B2 as it ran before, one thread a voxel.  A yardstick only.
+int fx_advect_z_forces_perthread(const void* vol, void* out, const void* scal,
+                                 const void* table, float ip_x, float ip_y, float ip_z,
+                                 float radius_sq, float dissipation, int forces, int is_bf16,
+                                 int C, int Z, int Y, int X, void* stream) {
   const int64_t vox = (int64_t)Z * Y * X;
   cudaStream_t s = (cudaStream_t)stream;
   ForceConsts fc{ip_x, ip_y, ip_z, radius_sq, dissipation};

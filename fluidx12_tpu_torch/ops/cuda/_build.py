@@ -37,10 +37,13 @@ SMEM_PER_CTA = 232448
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fx_advect_xy": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fx_advect_xy": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_advect_xy_perthread": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fx_advect_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_z_forces": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
-                           _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_advect_z_forces_perthread": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
+                                     _I, _I, _I, _I, _P],
     "fx_shear_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_shear_scan_twopass": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,

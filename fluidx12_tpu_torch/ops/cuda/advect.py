@@ -15,8 +15,10 @@ forces epilogue in the per-channel table form of `_forces_table`.  One
 difference: B1 returns its y-pass result in f32 and B2 reads it so, where
 the TPU rounds it to bf16 in HBM between the two kernels (csrc/advect.cu
 says why); rounding B1's output to the storage dtype gives the TPU kernel's
-output bit for bit.  Sources
-and what bounds them: fluidx12_tpu_torch/csrc/advect.cu.
+output bit for bit.  Sources, the Hopper designs (B1 one launch whose y
+taps come from a shared-memory tile, B2 a staged z-window, both laid out
+by `advect_plan`) and what bounds them: fluidx12_tpu_torch/csrc/advect.cu.
+`perthread` keeps the designs they replaced as yardsticks.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).  The plain versions also run on the card, where chip_smoke.py
@@ -25,12 +27,38 @@ compares each kernel with its plain version.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from fluidx12_tpu_torch.ops.cuda import _build
 
 MAX_DISP = 12.0  # voxels (fluidx12_tpu/ops/pallas/advect.py MAX_DISP)
+
+# advect_xy_kernel and advect_z_kernel, compiled for these: a strip of
+# STRIP x-columns, one lane each; a tap reaches HALO_LO cells below its
+# output and HALO_HI above (floor(d) >= -MAX_DISP, the second tap at
+# floor(d) + 1 <= MAX_DISP + 1); at most MAX_CHANNELS channels and
+# MAX_WARPS warps a CTA.
+STRIP = 32
+HALO_LO = 12
+HALO_HI = 13
+MAX_CHANNELS = 8
+MAX_WARPS = 16
+# B1's x-pass input window of a row: WIN_COLS columns from WIN_LEAD before
+# its strip, which hold every tap of the strip's lanes.
+WIN_COLS = 64
+WIN_LEAD = 16
+# The launch plan's choices, B1's and B2's alike: warps a CTA (FEW_WARPS
+# where four or more CTAs fit an SM), and the shared memory a CTA may take
+# while two still fit an SM (SMEM_PER_SM, less CTA_RESERVED a CTA).
+WARPS = 16
+FEW_WARPS = 8
+SMEM_BUDGET = 113 * 1024
+SMEM_PER_SM = 233472
+CTA_RESERVED = 1024
 
 _STORAGE = (torch.bfloat16, torch.float32)
 
@@ -80,6 +108,104 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
     return True
+
+
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+class AdvectPlan(NamedTuple):
+    """How B1 and B2 cut a (Z, Y, X) volume (`advect_plan`)."""
+    strip: int       # x-columns a CTA owns, one lane each
+    xy_tile: int     # B1: rows of one plane a CTA owns
+    xy_warps: int
+    xy_smem: int     # B1: bytes of its staged input windows
+    xy_grid: tuple   # B1: (strips, row tiles, planes)
+    z_tile: int      # B2: planes of one row a CTA owns
+    z_warps: int
+    z_smem: int      # B2: bytes of its staged window
+    z_grid: tuple    # B2: (strips, rows, plane chunks)
+
+
+def window(lo: int, n_own: int, n: int):
+    """[first, end) of the rows or planes a CTA stages to own [lo, lo +
+    n_own) of an axis of n cells: its taps' reach, clipped to the axis
+    (csrc/advect.cu ylo/yhi and zlo/zhi)."""
+    end = min(lo + n_own, n)
+    return max(lo - HALO_LO, 0), min(end + HALO_HI, n)
+
+
+def xy_smem(channels: int, bf16: bool, rows: int) -> int:
+    """Bytes of B1's shared memory for `rows` rows (csrc/advect.cu
+    xy_smem): each row's x-pass input window of every channel, WIN_COLS
+    columns around the strip, which the x pass overwrites with its
+    result."""
+    return rows * channels * WIN_COLS * (2 if bf16 else 4)
+
+
+def z_smem(channels: int, planes: int) -> int:
+    """Bytes of B2's staged window, every channel's `planes` planes of a
+    strip (csrc/advect.cu z_smem)."""
+    return channels * planes * STRIP * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile(n: int, smem_of) -> int:
+    """Cells of an axis of n a CTA owns: all n where the window of the
+    whole axis fits SMEM_BUDGET, else the fewest tiles whose window (the
+    tile and HALO_LO + HALO_HI cells) does, evened out and rounded up to a
+    multiple of WARPS where the window still fits: fewer tiles stage fewer
+    halo cells twice, and the warps, one row or plane each a step, then all
+    work in a tile's last step."""
+    if smem_of(n) <= SMEM_BUDGET:
+        return n
+    most = max(SMEM_BUDGET // smem_of(1) - HALO_LO - HALO_HI, 1)
+    even = _cdiv(n, _cdiv(n, most))
+    rounded = _cdiv(even, WARPS) * WARPS
+    return rounded if rounded <= most else even
+
+
+def _warps(smem: int) -> int:
+    """Warps a CTA of `smem` bytes: WARPS, or FEW_WARPS where four or more
+    such CTAs share an SM, which keeps 32 warps an SM resident either way
+    (fewer, longer warps then run the short axis faster)."""
+    return FEW_WARPS if SMEM_PER_SM // (smem + CTA_RESERVED) >= 4 else WARPS
+
+
+@functools.lru_cache(maxsize=None)
+def advect_plan(zyx: tuple, dtype, channels: int = 7) -> AdvectPlan:
+    """B1's and B2's launch plan on a (Z, Y, X) volume of `channels`
+    channels stored in `dtype` (B1's input; B2 reads f32 whatever it
+    stores).  B1's CTA (i, j, z) owns x-columns [32 i, 32 i + 32) and rows
+    [j * xy_tile, (j + 1) * xy_tile) of plane z and stages rows
+    `window(j * xy_tile, xy_tile, Y)` of each channel's input window.
+    B2's CTA (i, y, k) owns the same columns of row y in planes [k *
+    z_tile, (k + 1) * z_tile) and stages planes `window(k * z_tile, z_tile,
+    Z)` of every channel.  Everything is clipped to the volume.  Each tile
+    is the whole axis where its window leaves room for two CTAs an SM
+    (SMEM_BUDGET), else `_tile`'s; the warps follow the shared memory
+    (`_warps`).  Cached: the wrappers ask for it on every call.
+    `fx_advect_xy` and `fx_advect_z_forces` launch with the plan and refuse
+    one whose shared memory is not its tile's.  Raises ValueError where no
+    plan fits: a channel count the kernels do not take, a channel of 2^31
+    cells or more, or more than 65535 planes or rows."""
+    nz, ny, nx = (int(v) for v in zyx)
+    bf16 = dtype == torch.bfloat16
+    if (dtype not in _STORAGE or not 2 <= channels <= MAX_CHANNELS or min(nz, ny, nx) < 1
+            or nz * ny * nx >= 2 ** 31 or max(nz, ny) > 65535):
+        raise ValueError(f"advect_plan: no plan for {channels} channels of {tuple(zyx)} "
+                         f"{dtype}")
+    halo = HALO_LO + HALO_HI
+    xy_tile = _tile(ny, lambda rows: xy_smem(channels, bf16, rows))
+    z_tile = _tile(nz, lambda planes: z_smem(channels, planes))
+    xy_bytes = xy_smem(channels, bf16, min(ny, xy_tile + halo))
+    z_bytes = z_smem(channels, min(nz, z_tile + halo))
+    return AdvectPlan(
+        STRIP, xy_tile, _warps(xy_bytes), xy_bytes, (_cdiv(nx, STRIP), _cdiv(ny, xy_tile), nz),
+        z_tile, _warps(z_bytes), z_bytes, (_cdiv(nx, STRIP), ny, _cdiv(nz, z_tile)))
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +268,17 @@ def advect_z_forces_plain(vol: torch.Tensor, scal: torch.Tensor,
     out = _lerp_axis(q, dz, axis=0)
     if not forces:
         return out.to(store)
+    return forces_epilogue(out, scal, table, consts).to(store)
+
+
+def forces_epilogue(out: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
+                    consts) -> torch.Tensor:
+    """B2's forces epilogue on the f32 z-pass result `out` (C, Z, Y, X),
+    in f32: the impulse, buoyancy and vorticity terms, the clip and the
+    dissipation, per cell from its (z, y, x) alone."""
     ip_x, ip_y, ip_z, radius_sq, dissipation = consts
-    _, nz, ny, nx = vol.shape
-    dev = vol.device
+    _, nz, ny, nx = out.shape
+    dev = out.device
     dt = scal[1]
     atten = (1.0 - dissipation * dt).clamp_min(0.0)
     cz = (_axis_ids(nz, 0, 3, dev) + 0.5) / nz
@@ -158,12 +292,12 @@ def advect_z_forces_plain(vol: torch.Tensor, scal: torch.Tensor,
     in_imp = (basis >= 0.01831563889245799).float()
     ndz = -dzc
     chans = []
-    for c in range(vol.shape[0]):
+    for c in range(out.shape[0]):
         f = table[c]
         ext = f[0] * basis + f[1] * ndz + f[2] * dx
         v = torch.minimum(torch.maximum(out[c] + in_imp * ext * dt, f[3]), f[4])
         chans.append(v * atten)
-    return torch.stack(chans).to(store)
+    return torch.stack(chans)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +307,8 @@ def advect_z_forces_plain(vol: torch.Tensor, scal: torch.Tensor,
 def advect_xy(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """B1: x then y split backtrace of every channel of vol (C, Z, Y, X)
     in the storage dtype; the y displacement derives from the x-advected,
-    storage-rounded channel 1.  Returns f32."""
+    storage-rounded channel 1.  Returns f32.  One launch, laid out by
+    `advect_plan`."""
     _check_vol(vol, "advect_xy")
     _check_f32(scales, (2,), vol, "advect_xy scales")
     if vol.shape[0] < 2:
@@ -181,13 +316,13 @@ def advect_xy(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     if not _on_cuda(vol, "advect_xy"):
         return advect_xy_plain(vol, scales)
     c, z, y, x = vol.shape
-    tmp = torch.empty_like(vol)
+    plan = advect_plan((z, y, x), vol.dtype, c)
     out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
     err = _build.lib().fx_advect_xy(
-        vol.data_ptr(), tmp.data_ptr(), out.data_ptr(), scales.data_ptr(),
-        int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
-    advect_xy.launches += 1
+        vol.data_ptr(), out.data_ptr(), scales.data_ptr(), int(vol.dtype == torch.bfloat16),
+        c, z, y, x, plan.xy_tile, plan.xy_warps, plan.xy_smem, _build.stream_ptr(vol))
     _build.check(err, "fx_advect_xy")
+    advect_xy.launches += 1
     return out
 
 
@@ -224,7 +359,7 @@ def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
                     consts, store: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """B2: z backtrace of the f32 vol (C, Z, Y, X) from B1 (dz from
     channel 2), then the impulse/forces/clip/dissipation epilogue; one
-    rounding to `store`."""
+    rounding to `store`.  One launch, laid out by `advect_plan`."""
     _check_z(vol, scal, store, "advect_z_forces")
     _check_f32(table, (vol.shape[0], 5), vol, "advect_z_forces table")
     if not _on_cuda(vol, "advect_z_forces"):
@@ -265,10 +400,50 @@ def _check_z(vol: torch.Tensor, scal: torch.Tensor, store: torch.dtype, name: st
 
 def _launch_z(vol, scal, table_ptr, consts, forces: bool, store) -> torch.Tensor:
     c, z, y, x = vol.shape
+    plan = advect_plan((z, y, x), store, c)
     out = torch.empty(vol.shape, dtype=store, device=vol.device)
     err = _build.lib().fx_advect_z_forces(
         vol.data_ptr(), out.data_ptr(), scal.data_ptr(), table_ptr,
         *consts, int(forces), int(store == torch.bfloat16), c, z, y, x,
-        _build.stream_ptr(vol))
+        plan.z_tile, plan.z_warps, plan.z_smem, _build.stream_ptr(vol))
     _build.check(err, "fx_advect_z_forces")
+    return out
+
+
+def perthread(kind: str, vol: torch.Tensor, scales: torch.Tensor, table=None, consts=None,
+              store: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The designs B1 and B2 replaced, kept only as yardsticks to time them
+    against: `kind` "xy" is B1 as two launches of the per-voxel axis kernel
+    through a storage-dtype scratch (`fx_advect_xy_perthread`), "z_forces"
+    B2 and "z" B12 as one thread a voxel with its taps gathered from device
+    memory (`fx_advect_z_forces_perthread`).  Arguments as `advect_xy`,
+    `advect_z_forces` and `advect_z` take them.  No path of the port calls
+    it, and it counts no launch.  Card tensors only."""
+    if kind not in ("xy", "z_forces", "z"):
+        raise ValueError(f"perthread: unknown kind {kind!r}")
+    if kind == "xy":
+        _check_vol(vol, "perthread")
+        _check_f32(scales, (2,), vol, "perthread scales")
+    else:
+        _check_z(vol, scales, store, "perthread")
+    if not _on_cuda(vol, "perthread"):
+        raise ValueError("perthread: the per-voxel designs run on card tensors only")
+    c, z, y, x = vol.shape
+    lib = _build.lib()
+    if kind == "xy":
+        tmp = torch.empty_like(vol)
+        out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
+        err = lib.fx_advect_xy_perthread(
+            vol.data_ptr(), tmp.data_ptr(), out.data_ptr(), scales.data_ptr(),
+            int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    else:
+        forces = kind == "z_forces"
+        if forces:
+            _check_f32(table, (c, 5), vol, "perthread table")
+        out = torch.empty(vol.shape, dtype=store, device=vol.device)
+        err = lib.fx_advect_z_forces_perthread(
+            vol.data_ptr(), out.data_ptr(), scales.data_ptr(),
+            table.data_ptr() if forces else None, *(consts if forces else (0.0,) * 5),
+            int(forces), int(store == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    _build.check(err, f"perthread {kind}")
     return out

@@ -19,6 +19,8 @@ not ported; the difference is bounded by the golden gates
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
@@ -31,6 +33,14 @@ from fluidx12_tpu_torch.ops.cuda.advect import (
     forces_table,
 )
 from fluidx12_tpu_torch.sim.advect import apply_impulse_forces
+
+
+@functools.lru_cache(maxsize=16)
+def _forces_table_on(config: FluidConfig, device: torch.device) -> torch.Tensor:
+    """B2's (7, 5) forces table of `config` on `device`, built and copied
+    there once per (config, device) rather than once a step.  The kernels
+    only read it."""
+    return torch.from_numpy(forces_table(config)).to(device)
 
 
 def advect_fields_fast(fields: torch.Tensor, time_step: torch.Tensor,
@@ -52,7 +62,7 @@ def advect_fields_fast(fields: torch.Tensor, time_step: torch.Tensor,
     else:
         # The forces epilogue fuses into B2 for premultiplied colour, as
         # ops/pallas/advect.zpass_forces_supported allows it on the TPU.
-        table = torch.from_numpy(forces_table(config)).to(fields.device)
+        table = _forces_table_on(config, fields.device)
         consts = force_consts(config)
         xy_scales = torch.stack([dt * x, dt * y])
         z_scal = torch.stack([dt * z, dt_full])

@@ -54,6 +54,122 @@ def test_advect_kernels_match_plain(dev):
                        A.advect_z_forces_plain(xy, args[0], None, None, forces=False))
 
 
+def _advect_state(dev, zyx, seed):
+    """A bf16 (7, Z, Y, X) state whose velocities carry half the volume
+    (scale 8) past the 12-voxel clip, and its B1/B2 arguments."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(0, 1, (7,) + zyx).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 6.0
+    f[:3, :, : zyx[1] // 2] *= 0.25
+    cfg = FluidConfig(grid_size=zyx[::-1])
+    scal = torch.tensor([8.0, cfg.time_step], device=dev)
+    return (torch.from_numpy(f).to(dev, torch.bfloat16), torch.tensor([8.0, 8.0], device=dev),
+            scal, torch.from_numpy(A.forces_table(cfg)).to(dev), A.force_consts(cfg))
+
+
+def _ulps(a, b):
+    """Largest |a - b| per channel in bf16 ulps at that channel's largest
+    magnitude (chip_smoke.bf16_ulps)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs().amax(dim=(1, 2, 3), keepdim=True),
+                        b.abs().amax(dim=(1, 2, 3), keepdim=True)).clamp_min(2.0 ** -126)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7.0)).max())
+
+
+def _forced_plan(zyx, xy_tile, z_tile, warps):
+    """`advect_plan`'s bf16 plan on zyx with its tiles and warps forced and
+    the rest made to agree with them, as the C launches require."""
+    nz, ny, _ = zyx
+    halo = A.HALO_LO + A.HALO_HI
+    return A.advect_plan(zyx, torch.bfloat16)._replace(
+        xy_tile=xy_tile, xy_warps=warps, xy_smem=A.xy_smem(7, True, min(ny, xy_tile + halo)),
+        xy_grid=(-(-zyx[2] // A.STRIP), -(-ny // xy_tile), nz), z_tile=z_tile, z_warps=warps,
+        z_smem=A.z_smem(7, min(nz, z_tile + halo)),
+        z_grid=(-(-zyx[2] // A.STRIP), ny, -(-nz // z_tile)))
+
+
+def _launch_xy(vol, scales, plan):
+    """fx_advect_xy on the bf16 vol with `plan` as given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
+    err = _build.lib().fx_advect_xy(vol.data_ptr(), out.data_ptr(), scales.data_ptr(), 1,
+                                    *vol.shape, plan.xy_tile, plan.xy_warps, plan.xy_smem,
+                                    _build.stream_ptr(vol))
+    return err, out
+
+
+def _launch_z(xy, scal, plan, table=None, consts=None):
+    """fx_advect_z_forces into bf16 with `plan` as given, the forces on
+    where a table is given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    out = torch.empty(xy.shape, dtype=torch.bfloat16, device=xy.device)
+    forces = table is not None
+    err = _build.lib().fx_advect_z_forces(
+        xy.data_ptr(), out.data_ptr(), scal.data_ptr(), table.data_ptr() if forces else None,
+        *(consts if forces else (0.0,) * 5), int(forces), 1, *xy.shape, plan.z_tile,
+        plan.z_warps, plan.z_smem, _build.stream_ptr(xy))
+    return err, out
+
+
+@pytest.mark.parametrize("zyx", [(32, 64, 64), (20, 38, 150)])
+@pytest.mark.parametrize("forced", [False, True])
+def test_advect_windows_match_plain(dev, zyx, forced):
+    """B1 (one launch, the y taps from the x-pass tile) and B12 bit for
+    bit, B2 within one bf16 ulp (expf), with velocities past the clip: at
+    (32, 64, 64) and at a ragged (20, 38, 150), whose Z = 20 is shorter
+    than the 26-plane window; through the wrappers with the plan's tiles,
+    and through the C launches with small forced tiles of 3 warps whose
+    windows end inside the volume."""
+    vol, scales, scal, table, consts = _advect_state(dev, zyx, 21)
+    want_xy = A.advect_xy_plain(vol, scales)
+    if forced:
+        plan = _forced_plan(zyx, 8, 7, 3)
+        (e1, xy), (e2, got), (e12, z) = (_launch_xy(vol, scales, plan),
+                                         _launch_z(want_xy, scal, plan, table, consts),
+                                         _launch_z(want_xy, scal, plan))
+        assert (e1, e2, e12) == (0, 0, 0)
+    else:
+        xy = A.advect_xy(vol, scales)
+        got = A.advect_z_forces(want_xy, scal, table, consts)
+        z = A.advect_z(want_xy, scal)
+    assert torch.equal(xy, want_xy)
+    assert _ulps(got, A.advect_z_forces_plain(want_xy, scal, table, consts)) <= 1.0
+    assert torch.equal(z, A.advect_z_forces_plain(want_xy, scal, None, None, forces=False))
+
+
+def test_advect_perthread_yardsticks_match_plain(dev):
+    """The designs B1 and B2 replaced (`advect.perthread`), kept as
+    yardsticks, still compute their functions: B1's and B12's bit for bit,
+    B2's within one bf16 ulp."""
+    vol, scales, scal, table, consts = _advect_state(dev, (20, 38, 150), 22)
+    xy = A.perthread("xy", vol, scales)
+    assert torch.equal(xy, A.advect_xy_plain(vol, scales))
+    assert _ulps(A.perthread("z_forces", xy, scal, table, consts),
+                 A.advect_z_forces_plain(xy, scal, table, consts)) <= 1.0
+    assert torch.equal(A.perthread("z", xy, scal),
+                       A.advect_z_forces_plain(xy, scal, None, None, forces=False))
+
+
+def test_advect_refuses_a_plan_it_cannot_run(dev):
+    """`fx_advect_xy` and `fx_advect_z_forces` refuse a plan whose shared
+    memory is not its tile's, or one of more or fewer warps than they
+    compile for, and launch the plan that `advect_plan` gives."""
+    zyx = (20, 38, 150)
+    vol, scales, scal, table, consts = _advect_state(dev, zyx, 23)
+    plan = A.advect_plan(zyx, torch.bfloat16)
+    err, xy = _launch_xy(vol, scales, plan)
+    assert err == 0 and torch.equal(xy, A.advect_xy_plain(vol, scales))
+    for bad in (plan._replace(xy_smem=plan.xy_smem - 4), plan._replace(xy_warps=17),
+                plan._replace(xy_tile=4)):
+        assert _launch_xy(vol, scales, bad)[0] != 0, bad
+    assert _launch_z(xy, scal, plan, table, consts)[0] == 0
+    for bad in (plan._replace(z_smem=plan.z_smem + 4), plan._replace(z_warps=0),
+                plan._replace(z_warps=17)):
+        assert _launch_z(xy, scal, bad, table, consts)[0] != 0, bad
+
+
 def test_shear_scan_matches_plain(dev):
     """B9 bit for bit: the TPU's shifts and lerps, the carry summed slice
     by slice in order."""
