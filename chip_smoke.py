@@ -25,7 +25,12 @@ memory) at error 0 and B2 (a staged z-window) within one bf16 ulp at
 128^3, 256^3, 256x256x60 and 150^3, on states whose velocities pass the
 12-voxel clip in part of the volume, each timed in turns with its
 per-voxel design (`advect.perthread`); each must beat its yardstick
-there.  It drives `FluidXEngine` for 60 frames of the main path
+there.  B7 and B8, z-marches laid out by `stencil.stencil_plan`, are held
+and timed the same way against their per-cell designs
+(`stencil.perthread`): B7 at error 0 at 128^3, 256^3 and the 256x256x60
+frame's compact (60, 256, 256), B8 equal to its per-cell design and within
+one bf16 ulp of each plain value at those and at 150^3; both are timed
+again in turns with their operands out of L2 (`measure_cold`).  It drives `FluidXEngine` for 60 frames of the main path
 (PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
 projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
@@ -236,6 +241,32 @@ def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_re
     results[name] = row
 
 
+def measure_cold(results, name, kernel, yardstick, operands, reps=20):
+    """Times `kernel(*ops)` and its `yardstick(*ops)` in turns (yardstick,
+    kernel, kernel, yardstick), each call on the next of enough copies of
+    `operands` that a round through them moves four times the card's L2:
+    every call finds its operands out of L2, as in the frame, where other
+    kernels run between two calls of one.  Stored under `name` as
+    "cold_kernel_ms" and "cold_yardstick_ms"."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    sets = [tuple(t.clone() for t in operands)
+            for _ in range(max(2, math.ceil(4 * l2 / nbytes(*operands))))]
+
+    def rotating(fn):
+        turn = iter(range(1 << 30))
+        return lambda: fn(*sets[next(turn) % len(sets)])
+
+    y0 = time_ms(rotating(yardstick), reps)
+    k0 = time_ms(rotating(kernel), reps, what=name)
+    k1 = time_ms(rotating(kernel), reps, what=name)
+    r = results[name]
+    r["cold_kernel_ms"] = [k0, k1]
+    r["cold_yardstick_ms"] = [y0, time_ms(rotating(yardstick), reps)]
+    r["cold_copies"] = len(sets)
+    del sets
+    torch.cuda.empty_cache()
+
+
 def check_faster(results, name) -> None:
     """Fails unless both timed runs of `name`'s kernel beat both of its
     yardstick's, in turns in this call."""
@@ -252,6 +283,8 @@ def print_times(results, names) -> None:
                else "B1" if name.startswith("advect_xy")
                else "B2" if name.startswith("advect_z_forces")
                else "B6" if name.startswith("jacobi_packed")
+               else "B7" if name.startswith("prolong_correct")
+               else "B8" if name.startswith("grad_damp")
                else "B9" if name.startswith("shear_scan") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
@@ -262,6 +295,12 @@ def print_times(results, names) -> None:
             print(f"    {kid} {name}, in turns: {yn} {y[0]:.4f} ms, kernel {k[0]:.4f}, "
                   f"{k[1]:.4f} ms, {yn} {y[1]:.4f} ms; bound {r['bound_ms']:.4f} ms, kernel "
                   f"at {r['ms'] / r['bound_ms']:.2f}x it")
+        if "cold_kernel_ms" in r:
+            k, y = r["cold_kernel_ms"], r["cold_yardstick_ms"]
+            print(f"    {kid} {name}, L2-cold ({r['cold_copies']} copies of the operands "
+                  f"in rotation), in turns: {yn} {y[0]:.4f} ms, kernel {k[0]:.4f}, "
+                  f"{k[1]:.4f} ms, {yn} {y[1]:.4f} ms; kernel at "
+                  f"{sum(k) / 2 / r['bound_ms']:.2f}x the bound")
 
 
 def b10_work(volf, h_rows, h_cols, valid, n_steps):
@@ -448,6 +487,117 @@ def check_advect_frames(dev, results):
                           for k in ("advect_xy", "advect_z_forces")])
 
 
+def check_prolong(results, name, q, e_c):
+    """B7 (the z-march of `stencil_plan`) and its per-cell design
+    (`stencil.perthread`) at error 0 against the plain version, timed in
+    turns and failing unless the z-march is faster; the library yardstick q
+    + F.interpolate beside them; row `name` of `results`."""
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+
+    shape = tuple(q.shape)
+    got = ST.prolong_correct(q, e_c)
+    ref = ST.prolong_correct_plain(q, e_c)
+    err = float((got - ref).abs().max())
+    yard = float((ST.perthread("prolong_correct", q, e_c) - ref).abs().max())
+    print(f"B7 prolong_correct at {shape} (plan {ST.stencil_plan('prolong', shape)}): max abs "
+          f"diff {err:.3e}, per-cell design {yard:.3e} (limit 0: same f32 operations)")
+    check(torch.equal(got, ref) and yard == 0.0, f"B7 prolong_correct vs plain at {shape}")
+
+    def interpolate_add():
+        up = torch.nn.functional.interpolate(e_c[None, None], scale_factor=2,
+                                             mode="trilinear", align_corners=False)
+        return q + up[0, 0]
+
+    lib_err = float((interpolate_add() - ref).abs().max())
+    print(f"  library yardstick q + F.interpolate(trilinear): max abs diff {lib_err:.3e}")
+    del ref
+    # Per fine cell: the z lerp (3) and the add, and half an upsampled coarse
+    # plane (9 operations a fine (y, x)).
+    n = q.numel()
+    measure(results, name, err, lambda: ST.prolong_correct(q, e_c),
+            lambda: ST.prolong_correct_plain(q, e_c), nbytes(q, e_c, got), 4 * n + 9 * n // 2,
+            library=interpolate_add, yardstick=lambda: ST.perthread("prolong_correct", q, e_c),
+            yardstick_name="per-cell design")
+    check_faster(results, name)
+    measure_cold(results, name, ST.prolong_correct,
+                 lambda q, e_c: ST.perthread("prolong_correct", q, e_c), (q, e_c))
+
+
+def check_grad_damp(results, name, fields, p, rho):
+    """B8 (the staged z-march of `stencil_plan`) equal to its per-cell
+    design (`stencil.perthread`) and within one bf16 ulp of each plain
+    value, channels 3.. untouched; timed in turns with the per-cell design
+    and failing unless faster; row `name` of `results`."""
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+
+    shape = tuple(p.shape)
+    got = ST.grad_damp(fields.clone(), p, rho)
+    yard = ST.perthread("grad_damp", fields.clone(), p, rho)
+    ref = ST.grad_damp_plain(fields.clone(), p, rho)
+    check(torch.equal(got[3:], fields[3:]), f"B8 leaves channels 3.. untouched at {shape}")
+    check(torch.equal(got, yard), f"B8 equals its per-cell design at {shape}")
+    diff = (got[:3].float() - ref[:3].float()).abs()
+    err = float(diff.max())
+    ulp = (ref[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+    grad = torch.stack([ST._diff(p, ax) * ST.grad_scale(rho)
+                        for ax in (ST._AX_X, ST._AX_Y, ST._AX_Z)]).abs()
+    print(f"B8 grad_damp at {shape} (plan {ST.stencil_plan('grad_damp', shape)}): equal to "
+          f"the per-cell design; max abs diff {err:.3e}, {float((diff / ulp).max()):.2f} bf16 "
+          f"ulp of each value (limit 1 ulp per value); gradient term |(p+ - p-)*0.5/rho| max "
+          f"{float(grad.max()):.3f}, median {float(grad.median()):.3f} against a median limit "
+          f"of {float(ulp.median()):.2e}; channels 3.. untouched")
+    check(bool((diff <= ulp).all()), f"B8 grad_damp vs plain, per value, at {shape}")
+    del got, yard, ref, diff, ulp, grad
+    work = fields.clone()
+    measure(results, name, err, lambda: ST.grad_damp(work, p, rho),
+            lambda: ST.grad_damp_plain(work, p, rho),
+            2 * nbytes(fields[:3]) + nbytes(p), 39 * p.numel(),
+            yardstick=lambda: ST.perthread("grad_damp", work, p, rho),
+            yardstick_name="per-cell design")
+    check_faster(results, name)
+    del work
+    measure_cold(results, name, lambda f, p: ST.grad_damp(f, p, rho),
+                 lambda f, p: ST.perthread("grad_damp", f, p, rho), (fields[:3], p))
+
+
+def stencil_operands(zyx, dev, seed, channels=7):
+    """B7's and B8's operands on a (Z, Y, X) grid: a smooth f32 pressure q
+    (spread 0.05), a coarse correction of spread 0.1, a bf16 state of
+    `channels` channels in +-0.75 and a pressure uniform in +-1, whose
+    gradient term is many bf16 ulps of the velocity."""
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+    q = rand(zyx, -0.05, 0.05)
+    for ax in range(3):
+        q = (q.roll(1, ax) + q + q.roll(-1, ax)) / 3.0
+    e_c = rand(tuple(k // 2 for k in zyx), -0.1, 0.1)
+    fields = rand((channels,) + tuple(zyx), -0.75, 0.75).to(torch.bfloat16)
+    return q, e_c, fields, rand(zyx, -1.0, 1.0)
+
+
+def check_stencil_frames(dev, results, frames):
+    """B7 (where `b7`) and B8 on other paths' grids, as phase 2 holds them
+    at 128^3; rows "prolong_correct_<label>" and "grad_damp_<label>" (not
+    in the kernels line)."""
+    from fluidx12_tpu_torch.core.config import FluidConfig
+
+    rows = []
+    for label, grid, b7 in frames:
+        cfg = FluidConfig(grid_size=grid)
+        q, e_c, fields, p = stencil_operands(cfg.zyx, dev, seed=len(rows) + 11)
+        if b7:
+            check_prolong(results, f"prolong_correct_{label}", q, e_c)
+            rows.append(f"prolong_correct_{label}")
+        check_grad_damp(results, f"grad_damp_{label}", fields, p, cfg.fluid_density_3d)
+        rows.append(f"grad_damp_{label}")
+        del q, e_c, fields, p
+        torch.cuda.empty_cache()
+    print_times(results, rows)
+
+
 def phase2_kernels(dev):
     """Each kernel of the 3D paths against its plain version on the card,
     at 128^3 shapes (B6 at the 64^3 coarse level), with times and bounds."""
@@ -532,47 +682,13 @@ def phase2_kernels(dev):
            7 * 32 * r_c.numel(),
            yardstick=lambda: J.sweepwise("sweeps", zero_c, r_c, 32, order=J.ORDER_PACKED))
 
-    got = ST.prolong_correct(q, e_c)
-    ref = ST.prolong_correct_plain(q, e_c)
-    err = float((got - ref).abs().max())
-    print(f"B7 prolong_correct: max abs diff {err:.3e} (limit 0: same f32 operations)")
-    check(err == 0.0, "B7 prolong_correct vs plain")
-
-    def interpolate_add():
-        up = torch.nn.functional.interpolate(e_c[None, None], scale_factor=2,
-                                             mode="trilinear", align_corners=False)
-        return q + up[0, 0]
-
-    lib_err = float((interpolate_add() - ref).abs().max())
-    print(f"  library yardstick q + F.interpolate(trilinear): max abs diff {lib_err:.3e}")
-    # Per fine cell: up to two upsampled planes (9 operations each), the z
-    # lerp and the add.
-    record("prolong_correct", err, lambda: ST.prolong_correct(q, e_c),
-           lambda: ST.prolong_correct_plain(q, e_c), nbytes(q, e_c, got), 22 * n,
-           library=interpolate_add)
+    check_prolong(results, "prolong_correct", q, e_c)
 
     # B8 with a pressure of spread 1, so that its gradient term is many
     # bf16 ulps of the velocity, held per value: within one bf16 ulp of each
     # plain result.
-    rho = cfg.fluid_density_3d
     p = torch.from_numpy(rng.uniform(-1.0, 1.0, (z, y, x)).astype(np.float32)).to(dev)
-    work = fields.clone()
-    got = ST.grad_damp(fields.clone(), p, rho)
-    ref = ST.grad_damp_plain(fields.clone(), p, rho)
-    check(torch.equal(got[3:], fields[3:]), "B8 leaves channels 3.. untouched")
-    diff = (got[:3].float() - ref[:3].float()).abs()
-    err = float(diff.max())
-    ulp = (ref[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
-    grad = torch.stack([ST._diff(p, ax) * ST.grad_scale(rho)
-                        for ax in (ST._AX_X, ST._AX_Y, ST._AX_Z)]).abs()
-    print(f"B8 grad_damp: max abs diff {err:.3e}, {float((diff / ulp).max()):.2f} bf16 ulp "
-          f"of each value (limit 1 ulp per value); gradient term |(p+ - p-)*0.5/rho| "
-          f"max {float(grad.max()):.3f}, median {float(grad.median()):.3f} against a "
-          f"median limit of {float(ulp.median()):.2e}; channels 3.. untouched")
-    check(bool((diff <= ulp).all()), "B8 grad_damp vs plain, per value")
-    record("grad_damp", err, lambda: ST.grad_damp(work, p, rho),
-           lambda: ST.grad_damp_plain(work, p, rho),
-           2 * nbytes(fields[:3]) + nbytes(p), 39 * n)
+    check_grad_damp(results, "grad_damp", fields, p, cfg.fluid_density_3d)
 
     # B9: the light sweep's own arguments for a smooth 128^3 density.
     check_b9_stack("fluid3d", cfg.grid_size, dev, results)
@@ -892,6 +1008,8 @@ def phase2c_kernels_256(dev, results):
     record("gi_light", err, lambda: ST.gi_light(*args), lambda: ST.gi_light_plain(*args),
            nbytes(dens, shadow, ao, got), 110 * n, reps=10, plain_reps=3)
     print_times(results, ("jacobi_rr", "jacobi_planewise", "gi_light"))
+    del q, b, dens, shadow, ao, args, got, ref
+    check_stencil_frames(dev, results, (("256^3", GRID_256, True),))
 
 
 # The plane-sweep march off 256^3: the compact dims of the 256x256x60 and
@@ -1080,6 +1198,10 @@ def phase2d_kernels_fused_slab(dev, results):
            lambda: C.composite_plain(dens_m, prod, n_steps, 0.8, False),
            nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
     print_times(results, KERNELS_FUSED + KERNELS_SLAB)
+    # B7 and B8 on the padded frames' compact grids (the 150^3 frame
+    # prolongs with the twin: B8 only).
+    check_stencil_frames(dev, results, (("256x256x60", GRID_SLAB, True),
+                                        ("fluidgi", (150, 150, 150), False)))
 
 
 def projection_span_ms(engine, reps: int = 20) -> float:

@@ -29,12 +29,39 @@
 // Bound: memory (a few operations per byte).  At 128^3: B3 reads 3 bf16
 // channels and writes f32 (10 B per cell, 21.0 MB, 6.3 us at 3.35 TB/s); B5
 // reads q and b and writes r (12 B, 25.2 MB, 7.5 us); B7 reads q and the
-// coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us); B8 reads p and 3 bf16
-// channels and writes them back (16 B, 33.6 MB, 10.0 us).  Design: one
-// thread per cell, consecutive threads on consecutive x, so the centre
-// stream and the x/y/z neighbours are coalesced; the neighbour re-reads
-// (y +-1 rows, z +-1 planes) hit L1/L2, not HBM.  No shared-memory tiling
-// yet: a simple kernel that is right first.
+// coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us; 42.6 us at 256^3); B8
+// reads p and 3 bf16 channels and writes them back (16 B, 33.6 MB, 10.0 us;
+// 80.1 us at 256^3).  B3 and B5 are one thread per cell, consecutive
+// threads on consecutive x, so the centre stream and the x/y/z neighbours
+// are coalesced; the neighbour re-reads (y +-1 rows, z +-1 planes) hit
+// L1/L2, not HBM.
+// B7 and B8 are z-marches (ops/cuda/stencil.stencil_plan lays them out: a
+// thread a quad of 4 x of one row, CTAs of 256 threads, a chunk of planes
+// each, about four CTAs an SM).  They replaced one thread per cell, which
+// spent its issue slots on 64-bit divisions for (z, y, x), and in B7 on two
+// upsampled coarse planes per fine cell, in B8 on six IEEE divisions for
+// the bands and six scalar reads of p per cell:
+//   - B7 (prolong_march_kernel) keeps the laterally upsampled coarse planes
+//     U(m - 1), U(m), U(m + 1) of its quad in registers and forms one a
+//     coarse plane: 8 coarse loads (2 rows x 4 columns, through L1; the
+//     coarse field is an eighth of the bytes and L2-resident) for 8 fine
+//     cells.  q and out move as float4 (float2 where a row is not 16-byte
+//     aligned).
+//   - B8 (grad_damp_march_kernel) stages each pressure plane of its tile
+//     and a one-cell halo into a ring of 3 planes with cp.async, a plane
+//     ahead; gx and gy read the ring, gz the next ring plane and the last
+//     centre in registers.  The velocity moves as 8-byte vectors of 4 bf16
+//     (16-byte of f32; narrower on rows like X = 150's), in place on
+//     channels 0..2.  The bands are formed once a thread (x), once (y) and
+//     once a plane (z), with band_at's arithmetic.
+// What holds them back: B7 streams q and out and little else (its coarse
+// reads hit L1); B8 also stages its tile's halo (two rows of every CTA's
+// rows, two columns a row), waits at a barrier a plane, and on rows whose
+// alignment allows only narrower vectors (X = 150: 4-byte velocity
+// accesses, 8-byte copies) issues more accesses a byte.  PERF.md has their
+// times against the bound.  The one-thread-a-cell designs stay as
+// yardsticks (fx_prolong_correct_perthread, fx_grad_damp_perthread;
+// launch_grad_damp is also B18's per-sweep yardstick's epilogue).
 
 #include "stencil.cuh"
 
@@ -116,6 +143,296 @@ __global__ void prolong_correct_kernel(const float* __restrict__ q, const float*
     e = 0.75f * c + 0.25f * upsample(ec, min(m + 1, nzc - 1), ty, tx, nyc, nxc);
   }
   out[idx] = q[idx] + e;
+}
+
+// ---------------------------------------------------------------------------
+// B7 and B8 as z-marches (ops/cuda/stencil.stencil_plan lays them out).
+// ---------------------------------------------------------------------------
+
+// A thread owns kQuad consecutive x of one row; a CTA kCtaThreads threads,
+// `quads` of them along x and 256 / quads rows.  B8 stages its pressure in
+// a ring of kRing planes, each the CTA's rows and columns with a halo of
+// one cell, a row kPad floats either side of its kQuad * quads columns (so
+// the first owned column is 16-byte aligned).
+constexpr int kQuad = 4;
+constexpr int kCtaThreads = 256;
+constexpr int kRing = 3;
+constexpr int kPad = 4;
+
+// Bytes of B8's ring for a CTA of `quads` x `rows` threads (at most
+// 48 KiB for the plans march_ok admits, so no opt-in is needed).
+int ring_smem(int quads, int rows) {
+  return kRing * (rows + 2) * (kQuad * quads + 2 * kPad) * (int)sizeof(float);
+}
+
+// What every B7/B8 plan must satisfy: 8, 16 or 32 quads a row of the CTA,
+// kCtaThreads threads, a chunk of at least one plane, a grid CUDA takes.
+bool march_ok(int quads, int rows, int chunk, int planes, int Y, int X) {
+  return (quads == 8 || quads == 16 || quads == 32) && quads * rows == kCtaThreads &&
+         chunk >= 1 && (Y + rows - 1) / rows <= 65535 && (planes + chunk - 1) / chunk <= 65535 &&
+         X >= 1;
+}
+
+// The widest vector (elements of `esize` bytes, at most 4) that every row of
+// n elements from `base` is aligned to.
+int vec_elems(const void* base, int n, int esize) {
+  int v = 4;
+  while (v > 1 && (((uintptr_t)base % (v * esize)) != 0 || n % v != 0)) v /= 2;
+  return v;
+}
+
+// kVec consecutive elements (kVec in 1, 2, 4) of T as f32, and back with one
+// rounding each.
+template <int kVec>
+__device__ __forceinline__ void ld_vec(const float* p, float* v) {
+  if constexpr (kVec == 4) {
+    const float4 a = *(const float4*)p;
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else if constexpr (kVec == 2) {
+    const float2 a = *(const float2*)p;
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void st_vec(float* p, const float* v) {
+  if constexpr (kVec == 4) {
+    *(float4*)p = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kVec == 2) {
+    *(float2*)p = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+template <int kVec>
+__device__ __forceinline__ void ld_vec(const __nv_bfloat16* p, float* v) {
+  if constexpr (kVec == 4) {
+    const uint2 a = *(const uint2*)p;
+    v[0] = bf16_lo(a.x); v[1] = bf16_hi(a.x); v[2] = bf16_lo(a.y); v[3] = bf16_hi(a.y);
+  } else if constexpr (kVec == 2) {
+    const uint32_t a = *(const uint32_t*)p;
+    v[0] = bf16_lo(a); v[1] = bf16_hi(a);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <int kVec>
+__device__ __forceinline__ void st_vec(__nv_bfloat16* p, const float* v) {
+  if constexpr (kVec == 4) {
+    *(uint2*)p = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else if constexpr (kVec == 2) {
+    *(uint32_t*)p = bf16_pair(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// The quad's kQuad elements from p (its first x at p[0]), as vectors of
+// kVec; only those below `valid` (X - x) are touched.
+template <int kVec, typename T>
+__device__ __forceinline__ void ld_quad(const T* p, int valid, float* v) {
+#pragma unroll
+  for (int j = 0; j < kQuad; j += kVec) {
+    if (j < valid) ld_vec<kVec>(p + j, v + j);
+  }
+}
+template <int kVec, typename T>
+__device__ __forceinline__ void st_quad(T* p, int valid, const float* v) {
+#pragma unroll
+  for (int j = 0; j < kQuad; j += kVec) {
+    if (j < valid) st_vec<kVec>(p + j, v + j);
+  }
+}
+
+// B7: coarse plane j upsampled at the quad's four fine x of one fine row,
+// as `upsample` forms it: the y dot on coarse columns col[0..3] (2k - 1 ..
+// 2k + 2 for fine x 4k .. 4k + 3, clamped), then each fine x's x dot.  Fine
+// 4k takes columns (0, 1) of the four, 4k + 1 and 4k + 2 (1, 2), 4k + 3
+// (2, 3); where prolong_taps clamps a fine x to one coarse column (weight
+// 1, then 0), both of its columns are that column, clamped, so the dot is
+// upsample's to the bit.
+__device__ __forceinline__ void upsample_quad(const float* __restrict__ row_lo,
+                                              const float* __restrict__ row_hi,
+                                              const int* col, const Taps& ty, const Taps* tx,
+                                              float* u) {
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = ty.wlo * __ldg(row_lo + col[j]) + ty.whi * __ldg(row_hi + col[j]);
+  }
+  u[0] = tx[0].wlo * a[0] + tx[0].whi * a[1];
+  u[1] = tx[1].wlo * a[1] + tx[1].whi * a[2];
+  u[2] = tx[2].wlo * a[1] + tx[2].whi * a[2];
+  u[3] = tx[3].wlo * a[2] + tx[3].whi * a[3];
+}
+
+// B7 as a z-march: thread (quad, row) of CTA (i, j, k) owns fine x [4 q,
+// 4 q + 4) of fine row y and walks the coarse planes [k chunk, (k + 1)
+// chunk) clipped to Zc.  It keeps the upsampled planes U(m - 1), U(m),
+// U(m + 1) of its quad in registers (clamped to [0, Zc - 1]), one new plane
+// a step, and writes fine planes 2m (0.25 U(m-1) + 0.75 U(m)) and 2m + 1
+// (0.75 U(m) + 0.25 U(m+1)) as q + e, q read and out written as vectors
+// of kVec.  32-bit offsets: Z * Y * X < 2^31 (the launch checks).
+template <int kVec>
+__global__ void __launch_bounds__(kCtaThreads)
+    prolong_march_kernel(const float* __restrict__ q, const float* __restrict__ ec,
+                         float* __restrict__ out, int Z, int Y, int X, int chunk) {
+  const int x = (blockIdx.x * blockDim.x + threadIdx.x) * kQuad;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= X || y >= Y) return;
+  const int Zc = Z >> 1, Yc = Y >> 1, Xc = X >> 1;
+  const int m0 = blockIdx.z * chunk;
+  const int m1 = min(m0 + chunk, Zc);
+  const int valid = X - x;
+  const Taps ty = prolong_taps(y, Yc);
+  Taps tx[kQuad];
+  int col[4];
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    tx[j] = prolong_taps(x + j, Xc);
+    col[j] = min(max((x >> 1) - 1 + j, 0), Xc - 1);
+  }
+  const int cplane = Yc * Xc;
+  const float* lo = ec + ty.lo * Xc;
+  const float* hi = ec + ty.hi * Xc;
+  float um[kQuad], uc[kQuad], up[kQuad];
+  upsample_quad(lo + max(m0 - 1, 0) * cplane, hi + max(m0 - 1, 0) * cplane, col, ty, tx, um);
+  upsample_quad(lo + m0 * cplane, hi + m0 * cplane, col, ty, tx, uc);
+  const int plane = Y * X;
+  int off = 2 * m0 * plane + y * X + x;
+  for (int m = m0; m < m1; ++m, off += 2 * plane) {
+    float qe[kQuad], qo[kQuad];
+    ld_quad<kVec>(q + off, valid, qe);
+    ld_quad<kVec>(q + off + plane, valid, qo);
+    const int mp = min(m + 1, Zc - 1);
+    upsample_quad(lo + mp * cplane, hi + mp * cplane, col, ty, tx, up);
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      qe[j] = qe[j] + (0.25f * um[j] + 0.75f * uc[j]);
+      qo[j] = qo[j] + (0.75f * uc[j] + 0.25f * up[j]);
+      um[j] = uc[j];
+      uc[j] = up[j];
+    }
+    st_quad<kVec>(out + off, valid, qe);
+    st_quad<kVec>(out + off + plane, valid, qo);
+  }
+}
+
+// Copies kBytes (4, 8 or 16) from device to shared memory with cp.async.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else if constexpr (kBytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// B8 as a staged z-march: thread (quad, row) of CTA (i, j, k) owns x [4 q,
+// 4 q + 4) of row y and walks planes [k chunk, (k + 1) chunk) clipped to Z.
+// The CTA stages plane z of its rows y0 - 1 .. ye and columns x0 - 1 .. xe
+// (ye, xe one past its last row and column in the volume) into ring slot
+// z % kRing, each cell holding p at its coordinates clamped to the volume,
+// so the edge-clamped neighbours are plain reads; plane z + 2 is in flight
+// while plane z is computed.  gx and gy come from slot z, gz from slot
+// z + 1 and p(z - 1) in registers (the centre of the step before; the
+// first from device memory).  The x bands are formed once a thread, the y
+// band once, the z band once a plane.  The velocity of channels 0..2 moves
+// and p is staged as vectors of kVec elements; rows whose alignment allows
+// less take narrower ones.  32-bit offsets within a channel (Z * Y * X <
+// 2^31, the launch checks), the channels' bases in 64 bits (3 Z Y X may
+// reach 2^31).
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kCtaThreads)
+    grad_damp_march_kernel(T* __restrict__ f, const float* __restrict__ p, float s, int Z, int Y,
+                           int X, int chunk) {
+  extern __shared__ __align__(16) float ring[];  // [slot][row - y0 + 1][kPad + col - x0]
+  constexpr int kPer = kVec;  // floats a copy of p
+  const int quads = blockDim.x, rows = blockDim.y;
+  const int pitch = kQuad * quads + 2 * kPad;
+  const int slot = (rows + 2) * pitch;
+  const int x0 = blockIdx.x * quads * kQuad;
+  const int y0 = blockIdx.y * rows;
+  const int z0 = blockIdx.z * chunk;
+  const int ze = min(z0 + chunk, Z);
+  const int xe = min(x0 + kQuad * quads, X);
+  const int ye = min(y0 + rows, Y);
+  const int plane = Y * X;
+  const int n = Z * plane;
+  const int staged_rows = ye - y0 + 2;
+  const int copies = (xe - x0) / kPer;  // X % kPer == 0: no copy crosses X
+  T* const fc[3] = {f, f + (int64_t)n, f + 2 * (int64_t)n};
+
+  // Plane zz (zz <= Z: plane Z is plane Z - 1 again) into slot zz % kRing.
+  auto stage = [&](int zz) {
+    float* dst = ring + (zz % kRing) * slot + kPad;
+    const float* src = p + min(zz, Z - 1) * plane;
+    for (int r = threadIdx.y; r < staged_rows; r += rows) {
+      const float* srow = src + min(max(y0 - 1 + r, 0), Y - 1) * X;
+      float* drow = dst + r * pitch;
+      for (int k = threadIdx.x; k < copies; k += quads) {
+        cp_async<4 * kPer>(drow + k * kPer, srow + x0 + k * kPer);
+      }
+      if (threadIdx.x == 0) cp_async<4>(drow - 1, srow + max(x0 - 1, 0));
+      if (threadIdx.x == 1) cp_async<4>(drow + (xe - x0), srow + min(xe, X - 1));
+    }
+    cp_async_commit();
+  };
+
+  const int x = x0 + kQuad * threadIdx.x;
+  const int y = y0 + threadIdx.y;
+  const bool live = x < X && y < Y;
+  const int valid = X - x;
+  Band bx[kQuad];
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) bx[j] = band_at(x + j, X);
+  const Band by = band_at(y, Y);
+  const int c = (threadIdx.y + 1) * pitch + kPad + kQuad * threadIdx.x;  // (y, x) in a slot
+  int off = z0 * plane + y * X + x;
+
+  stage(z0);
+  stage(z0 + 1);
+  float pm[kQuad];
+  if (live) ld_quad<kPer>(p + max(z0 - 1, 0) * plane + y * X + x, valid, pm);
+  for (int z = z0; z < ze; ++z, off += plane) {
+    float u[3][kQuad];
+    if (live) {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) ld_quad<kVec>(fc[ch] + off, valid, u[ch]);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // planes z and z + 1 landed; slot (z + 2) % kRing is free
+    if (z + 2 <= ze) stage(z + 2);
+    if (!live) continue;
+    const Band bz = band_at(z, Z);
+    const float* pc = ring + (z % kRing) * slot + c;
+    const float* pp = ring + ((z + 1) % kRing) * slot + c;
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      u[0][j] = damp(u[0][j], (pc[j + 1] - pc[j - 1]) * s, bx[j]);
+      u[1][j] = damp(u[1][j], (pc[j + pitch] - pc[j - pitch]) * s, by);
+      u[2][j] = damp(u[2][j], (pp[j] - pm[j]) * s, bz);
+      pm[j] = pc[j];
+    }
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) st_quad<kVec>(fc[ch] + off, valid, u[ch]);
+  }
 }
 
 // B15: (gx, gy, gz) of an f32 (Z, Y, X) field as jnp.gradient computes it
@@ -214,6 +531,38 @@ __global__ void gi_light_kernel(const float* __restrict__ density,
   }
 }
 
+template <int kVec>
+cudaError_t launch_prolong(const float* q, const float* ec, float* out, int nz, int ny, int nx,
+                           int quads, int rows, int chunk, cudaStream_t cs) {
+  const dim3 grid((nx + kQuad * quads - 1) / (kQuad * quads), (ny + rows - 1) / rows,
+                  (nz / 2 + chunk - 1) / chunk);
+  prolong_march_kernel<kVec><<<grid, dim3(quads, rows), 0, cs>>>(q, ec, out, nz, ny, nx, chunk);
+  return cudaGetLastError();
+}
+
+// B8's launch with the widest vectors that both the velocity's rows and
+// the pressure's allow: kVec elements of each a velocity access, kVec
+// floats a copy of p.
+template <typename T, int kVec>
+cudaError_t launch_grad_march(void* fields, const float* p, float s, int nz, int ny, int nx,
+                              int quads, int rows, int chunk, cudaStream_t cs) {
+  const dim3 grid((nx + kQuad * quads - 1) / (kQuad * quads), (ny + rows - 1) / rows,
+                  (nz + chunk - 1) / chunk);
+  grad_damp_march_kernel<T, kVec><<<grid, dim3(quads, rows), ring_smem(quads, rows), cs>>>(
+      (T*)fields, p, s, nz, ny, nx, chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_grad(void* fields, const float* p, float s, int nz, int ny, int nx,
+                        int quads, int rows, int chunk, cudaStream_t cs) {
+  switch (min(vec_elems(fields, nx, (int)sizeof(T)), vec_elems(p, nx, 4))) {
+    case 4: return launch_grad_march<T, 4>(fields, p, s, nz, ny, nx, quads, rows, chunk, cs);
+    case 2: return launch_grad_march<T, 2>(fields, p, s, nz, ny, nx, quads, rows, chunk, cs);
+    default: return launch_grad_march<T, 1>(fields, p, s, nz, ny, nx, quads, rows, chunk, cs);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,19 +589,57 @@ int fx_residual(const void* q, const void* b, void* r, int nz, int ny, int nx, v
   return (int)cudaGetLastError();
 }
 
-// q, out (nz, ny, nx) f32 with even dims; e_c (nz/2, ny/2, nx/2) f32.
+// B7: out = q + prolong(e_c); q, out (nz, ny, nx) f32 with even dims, e_c
+// (nz/2, ny/2, nx/2) f32.  The plan (ops/cuda/stencil.stencil_plan): CTAs
+// of `quads` x `rows` threads, each walking `chunk` coarse planes.
 int fx_prolong_correct(const void* q, const void* e_c, void* out, int nz, int ny, int nx,
-                       void* stream) {
+                       int quads, int rows, int chunk, void* stream) {
+  if (nz < 2 || ny < 2 || nx < 2 || ((nz | ny | nx) & 1) ||
+      (int64_t)nz * ny * nx >= (1LL << 31) || !march_ok(quads, rows, chunk, nz / 2, ny, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t cs = (cudaStream_t)stream;
+  const float* qf = (const float*)q;
+  const float* ef = (const float*)e_c;
+  float* of = (float*)out;
+  switch (min(vec_elems(q, nx, 4), vec_elems(out, nx, 4))) {
+    case 4: return (int)launch_prolong<4>(qf, ef, of, nz, ny, nx, quads, rows, chunk, cs);
+    case 2: return (int)launch_prolong<2>(qf, ef, of, nz, ny, nx, quads, rows, chunk, cs);
+    default: return (int)launch_prolong<1>(qf, ef, of, nz, ny, nx, quads, rows, chunk, cs);
+  }
+}
+
+// B7 as it ran before, one thread a fine cell.  A yardstick only.
+int fx_prolong_correct_perthread(const void* q, const void* e_c, void* out, int nz, int ny,
+                                 int nx, void* stream) {
   prolong_correct_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0,
                            (cudaStream_t)stream>>>((const float*)q, (const float*)e_c,
                                                    (float*)out, nz, ny, nx);
   return (int)cudaGetLastError();
 }
 
-// fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32, updated in place on
-// channels 0..2; p (nz, ny, nx) f32; s = fl32(0.5 / rho).
+// B8: fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32, updated in place on
+// channels 0..2; p (nz, ny, nx) f32; s = fl32(0.5 / rho).  The plan
+// (ops/cuda/stencil.stencil_plan): CTAs of `quads` x `rows` threads, each
+// walking `chunk` planes, with ring_smem's bytes of ring.
 int fx_grad_damp(void* fields, const void* p, float s, int is_bf16, int nz, int ny, int nx,
-                 void* stream) {
+                 int quads, int rows, int chunk, void* stream) {
+  if (nz < 1 || ny < 1 || (int64_t)nz * ny * nx >= (1LL << 31) ||
+      !march_ok(quads, rows, chunk, nz, ny, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t cs = (cudaStream_t)stream;
+  const float* pf = (const float*)p;
+  return (int)(is_bf16 ? launch_grad<__nv_bfloat16>(fields, pf, s, nz, ny, nx, quads, rows,
+                                                    chunk, cs)
+                       : launch_grad<float>(fields, pf, s, nz, ny, nx, quads, rows, chunk,
+                                            cs));
+}
+
+// B8 as it ran before, one thread a cell (launch_grad_damp, which B18's
+// per-sweep yardstick also runs).  A yardstick only.
+int fx_grad_damp_perthread(void* fields, const void* p, float s, int is_bf16, int nz, int ny,
+                           int nx, void* stream) {
   return (int)launch_grad_damp(fields, (const float*)p, s, is_bf16, nz, ny, nx,
                                (cudaStream_t)stream);
 }

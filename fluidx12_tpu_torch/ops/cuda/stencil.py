@@ -13,7 +13,9 @@ sim/project.py and render/lightmap_sweep.py: the velocity is cast to f32
 before any arithmetic, the gradient, the wall positions and the 3% band
 are f32 with one rounding to the storage dtype, and each sum runs in the
 kernel's order.  Sources and what bounds them:
-fluidx12_tpu_torch/csrc/stencil.cu.
+fluidx12_tpu_torch/csrc/stencil.cu.  B7 and B8 are z-marches laid out by
+`stencil_plan`; `perthread` keeps the one-thread-a-cell designs they
+replaced as yardsticks.
 
 The gates are pure-Python copies of the TPU's VMEM planners.  They decide
 nothing about the CUDA kernels' feasibility; they are kept because they
@@ -26,6 +28,9 @@ kernels (PyTorch multiplies by the reciprocal of a host scalar there).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +72,87 @@ def prolong_pallas_supported(zyx) -> bool:
     if not stencil_pallas_supported(zyx, budget_bytes=16):
         return False
     return _bz_fits(2 * _odd_core(nz), ny * nx, 16)
+
+
+# ---------------------------------------------------------------------------
+# B7's and B8's launch plan
+# ---------------------------------------------------------------------------
+
+# prolong_march_kernel and grad_damp_march_kernel, compiled for these: QUAD
+# consecutive x a thread, CTA_THREADS threads a CTA; B8's ring of RING
+# planes, each the CTA's rows and columns with a halo of HALO cells, a row
+# PAD floats either side of its columns.
+QUAD = 4
+CTA_THREADS = 256
+RING = 3
+HALO = 1
+PAD = 4
+# The plan's choices: x-quads a CTA row, the one of QUAD_CHOICES that
+# leaves the fewest idle lanes at the ragged x edge (the widest of equals),
+# and the chunk of planes that comes nearest to CTAS_PER_SM CTAs on each of
+# an H100's SMS SMs (B8's kernel takes up to 64 registers a thread: four of
+# its CTAs fill an SM's registers).
+QUAD_CHOICES = (32, 16, 8)
+SMS = 132
+CTAS_PER_SM = 4
+
+
+class StencilPlan(NamedTuple):
+    """How B7 or B8 cuts a volume (`stencil_plan`)."""
+    quads: int   # x-quads a CTA row: QUAD * quads columns
+    rows: int    # rows a CTA owns, CTA_THREADS // quads
+    chunk: int   # planes a CTA walks: coarse planes (B7), planes (B8)
+    grid: tuple  # (x tiles, row tiles, chunks), as the C launches form it
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _planes(kind: str, nz: int) -> int:
+    return nz // 2 if kind == "prolong" else nz
+
+
+def stencil_layout(kind: str, zyx: tuple, quads: int, chunk: int) -> StencilPlan:
+    """The plan of `kind` on the fine (Z, Y, X) volume with `quads` x-quads
+    a CTA row and `chunk` planes a CTA, its rows and grid derived from
+    them: `stencil_plan`'s own, or one forced to other quads or chunks.
+    The quads and chunk are not checked here; the C launches refuse those
+    their kernels do not take."""
+    nz, ny, nx = (int(v) for v in zyx)
+    rows = CTA_THREADS // quads
+    grid = (_cdiv(_cdiv(nx, QUAD), quads), _cdiv(ny, rows), _cdiv(_planes(kind, nz), chunk))
+    return StencilPlan(quads, rows, chunk, grid)
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_plan(kind: str, zyx: tuple) -> StencilPlan:
+    """B7's ("prolong") or B8's ("grad_damp") launch plan on the fine (Z,
+    Y, X) volume.  CTA (i, j, k) is `quads` x `rows` threads; thread (t,
+    r) owns x [QUAD (i quads + t), + QUAD) of row j rows + r, clipped to
+    the volume, and walks planes [k chunk, (k + 1) chunk) clipped to their
+    count: B7's coarse planes (Z / 2; each gives fine planes 2m, 2m + 1),
+    B8's planes.  B8's CTA stages each plane of its rows and columns with a
+    halo of one cell into a ring of RING planes.  Cached: the wrappers ask
+    for it on every call.  `fx_prolong_correct` and `fx_grad_damp` launch
+    with the plan and refuse one that is not a shape the kernels take.
+    Raises ValueError where no plan fits: B7 on odd dims, a volume of 2^31
+    cells or more, more than 65535 row tiles or chunks."""
+    nz, ny, nx = (int(v) for v in zyx)
+    prolong = kind == "prolong"
+    if (kind not in ("prolong", "grad_damp") or min(nz, ny, nx) < 1
+            or nz * ny * nx >= 2 ** 31 or (prolong and (nz % 2 or ny % 2 or nx % 2))):
+        raise ValueError(f"stencil_plan: no {kind} plan for {tuple(zyx)}")
+    planes = _planes(kind, nz)
+    nq = _cdiv(nx, QUAD)
+    quads = min(QUAD_CHOICES, key=lambda w: _cdiv(nq, w) * w)
+    tiles = _cdiv(nq, quads) * _cdiv(ny, CTA_THREADS // quads)
+    target = SMS * CTAS_PER_SM
+    chunk = max(1, (2 * planes * tiles + target) // (2 * target))
+    plan = stencil_layout(kind, (nz, ny, nx), quads, chunk)
+    if max(plan.grid[1:]) > 65535:
+        raise ValueError(f"stencil_plan: no {kind} plan for {tuple(zyx)}")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -315,18 +401,25 @@ def residual(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 residual.launches = 0
 
 
-def prolong_correct(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
-    """B7: q + prolong(e_c); q (Z, Y, X) f32, e_c (Z/2, Y/2, X/2) f32."""
-    _check_f32(q, None, q, "prolong_correct q")
+def _check_prolong(q: torch.Tensor, e_c: torch.Tensor, name: str) -> None:
+    _check_f32(q, None, q, f"{name} q")
     if any(n % 2 for n in q.shape):
-        raise ValueError(f"prolong_correct: fine dims must be even, got {tuple(q.shape)}")
-    _check_f32(e_c, tuple(n // 2 for n in q.shape), q, "prolong_correct e_c")
+        raise ValueError(f"{name}: fine dims must be even, got {tuple(q.shape)}")
+    _check_f32(e_c, tuple(n // 2 for n in q.shape), q, f"{name} e_c")
+
+
+def prolong_correct(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
+    """B7: q + prolong(e_c); q (Z, Y, X) f32, e_c (Z/2, Y/2, X/2) f32.  One
+    launch, laid out by `stencil_plan`."""
+    _check_prolong(q, e_c, "prolong_correct")
     if not _on_cuda(q, "prolong_correct"):
         return prolong_correct_plain(q, e_c)
     z, y, x = q.shape
+    plan = stencil_plan("prolong", (z, y, x))
     out = torch.empty_like(q)
     err = _build.lib().fx_prolong_correct(q.data_ptr(), e_c.data_ptr(), out.data_ptr(),
-                                          z, y, x, _build.stream_ptr(q))
+                                          z, y, x, plan.quads, plan.rows, plan.chunk,
+                                          _build.stream_ptr(q))
     prolong_correct.launches += 1
     _build.check(err, "fx_prolong_correct")
     return out
@@ -335,25 +428,61 @@ def prolong_correct(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
 prolong_correct.launches = 0
 
 
+def _check_grad_damp(fields: torch.Tensor, pressure: torch.Tensor, name: str) -> None:
+    _check_fields(fields, name)
+    _check_f32(pressure, fields.shape[1:], fields, f"{name} pressure")
+
+
 def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch.Tensor:
     """B8: velocity -= 0.5 * grad(p) / rho, then the 3% wall-band damp,
     IN PLACE on channels 0..2 of the combined (C, Z, Y, X) state, as the
     TPU kernel aliases its input; channels 3.. are not touched.  Returns
-    `fields`."""
-    _check_fields(fields, "grad_damp")
-    _check_f32(pressure, fields.shape[1:], fields, "grad_damp pressure")
+    `fields`.  One launch, laid out by `stencil_plan`."""
+    _check_grad_damp(fields, pressure, "grad_damp")
     if not _on_cuda(fields, "grad_damp"):
         return grad_damp_plain(fields, pressure, rho)
     _, z, y, x = fields.shape
+    plan = stencil_plan("grad_damp", (z, y, x))
     err = _build.lib().fx_grad_damp(
         fields.data_ptr(), pressure.data_ptr(), grad_scale(rho),
-        int(fields.dtype == torch.bfloat16), z, y, x, _build.stream_ptr(fields))
+        int(fields.dtype == torch.bfloat16), z, y, x, plan.quads, plan.rows, plan.chunk,
+        _build.stream_ptr(fields))
     grad_damp.launches += 1
     _build.check(err, "fx_grad_damp")
     return fields
 
 
 grad_damp.launches = 0
+
+
+def perthread(kind: str, a: torch.Tensor, b: torch.Tensor, rho: float = 1.0) -> torch.Tensor:
+    """The designs B7 and B8 replaced, one thread a cell, kept only as
+    yardsticks to time them against: `kind` "prolong_correct" is B7 on (q,
+    e_c) (`fx_prolong_correct_perthread`), "grad_damp" B8 on (fields,
+    pressure) with `rho`, in place (`fx_grad_damp_perthread`).  Arguments
+    as `prolong_correct` and `grad_damp` take them.  No path of the port
+    calls it, and it counts no launch.  Card tensors only."""
+    if kind == "prolong_correct":
+        _check_prolong(a, b, "perthread")
+    elif kind == "grad_damp":
+        _check_grad_damp(a, b, "perthread")
+    else:
+        raise ValueError(f"perthread: unknown kind {kind!r}")
+    if not _on_cuda(a, "perthread"):
+        raise ValueError("perthread: the per-cell designs run on card tensors only")
+    z, y, x = a.shape[-3:]
+    lib = _build.lib()
+    if kind == "prolong_correct":
+        out = torch.empty_like(a)
+        err = lib.fx_prolong_correct_perthread(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                               z, y, x, _build.stream_ptr(a))
+    else:
+        out = a
+        err = lib.fx_grad_damp_perthread(a.data_ptr(), b.data_ptr(), grad_scale(rho),
+                                         int(a.dtype == torch.bfloat16), z, y, x,
+                                         _build.stream_ptr(a))
+    _build.check(err, f"perthread {kind}")
+    return out
 
 
 def gradient3(q: torch.Tensor) -> torch.Tensor:

@@ -262,6 +262,116 @@ def test_projection_stencils_match_plain(dev, dtype):
     assert bool(((got[:3].float() - ref[:3].float()).abs() <= ulp).all())
 
 
+def _launch_prolong(q, e_c, plan):
+    """fx_prolong_correct with `plan` as given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    err = _build.lib().fx_prolong_correct(q.data_ptr(), e_c.data_ptr(), out.data_ptr(), z, y, x,
+                                          plan.quads, plan.rows, plan.chunk,
+                                          _build.stream_ptr(q))
+    torch.cuda.synchronize()
+    return err, out
+
+
+def _launch_grad_damp(fields, p, plan, rho=0.48):
+    """fx_grad_damp in place on `fields` with `plan` as given: (error,
+    fields)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    _, z, y, x = fields.shape
+    err = _build.lib().fx_grad_damp(fields.data_ptr(), p.data_ptr(), ST.grad_scale(rho),
+                                    int(fields.dtype == torch.bfloat16), z, y, x, plan.quads,
+                                    plan.rows, plan.chunk, _build.stream_ptr(fields))
+    torch.cuda.synchronize()
+    return err, fields
+
+
+# The paths' shapes (B7 at 128^3, 256^3 and the 256x256x60 frame's compact
+# (60, 256, 256); B8 also at 150^3), then ragged ones: X = 38 and 150, not
+# multiples of 4, 7 coarse planes (an odd chunk count), odd dims (B8).
+STENCIL_SHAPES = [(128, 128, 128), (256, 256, 256), (60, 256, 256), (150, 150, 150),
+                  (14, 10, 38), (22, 30, 150), (5, 3, 7)]
+
+
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_prolong_and_grad_damp_marches_match(dev, shape):
+    """The z-marches: B7 bit for bit against its plain version and B8 bit
+    for bit against its per-cell design (and within one bf16 ulp of each
+    plain value, colour untouched), bf16 and f32 storage, with the plan and
+    with forced quads and chunks (ragged last chunks)."""
+    q, e_c = _randn(dev, shape, 40, 0.05), None
+    if all(n % 2 == 0 for n in shape):
+        e_c = _randn(dev, tuple(n // 2 for n in shape), 41, 0.1)
+        ref = ST.prolong_correct_plain(q, e_c)
+        assert torch.equal(ST.prolong_correct(q, e_c), ref)
+        assert torch.equal(ST.perthread("prolong_correct", q, e_c), ref)
+        for quads, chunk in ((8, 1), (16, 3), (32, 5)):
+            err, got = _launch_prolong(q, e_c, ST.stencil_layout("prolong", shape, quads, chunk))
+            assert err == 0 and torch.equal(got, ref), (quads, chunk)
+    p = _randn(dev, shape, 42)
+    for dtype in (torch.bfloat16, torch.float32):
+        fields = (_randn(dev, (7,) + shape, 43) * 0.5).to(dtype)
+        got = ST.grad_damp(fields.clone(), p, 0.48)
+        yard = ST.perthread("grad_damp", fields.clone(), p, 0.48)
+        ref = ST.grad_damp_plain(fields.clone(), p, 0.48)
+        assert torch.equal(got, yard) and torch.equal(got[3:], fields[3:])
+        ulp = (ref[:3].float().abs() * 2.0 ** -7).clamp_min(2.0 ** -126)
+        assert bool(((got[:3].float() - ref[:3].float()).abs() <= ulp).all())
+        for quads, chunk in ((8, 1), (16, 3), (32, 5)):
+            err, forced = _launch_grad_damp(fields.clone(), p,
+                                            ST.stencil_layout("grad_damp", shape, quads, chunk))
+            assert err == 0 and torch.equal(forced, yard), (dtype, quads, chunk)
+
+
+def test_prolong_and_grad_damp_refuse_a_plan_they_cannot_run(dev):
+    """`fx_prolong_correct` and `fx_grad_damp` launch the plan that
+    `stencil_plan` gives and refuse quads their kernels do not take, a CTA
+    of other than 256 threads, an empty chunk and odd fine dims (B7)."""
+    zyx = (14, 10, 38)
+    q, e_c = _randn(dev, zyx, 44, 0.05), _randn(dev, (7, 5, 19), 45, 0.1)
+    plan = ST.stencil_plan("prolong", zyx)
+    err, got = _launch_prolong(q, e_c, plan)
+    assert err == 0 and torch.equal(got, ST.prolong_correct_plain(q, e_c))
+    for bad in (plan._replace(quads=12, rows=21), plan._replace(quads=64, rows=4),
+                plan._replace(rows=plan.rows // 2), plan._replace(chunk=0)):
+        assert _launch_prolong(q, e_c, bad)[0] != 0, bad
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    odd = q[:, :, :37].contiguous()
+    z, y, x = odd.shape
+    assert _build.lib().fx_prolong_correct(odd.data_ptr(), e_c.data_ptr(), odd.data_ptr(),
+                                           z, y, x, plan.quads, plan.rows, plan.chunk,
+                                           _build.stream_ptr(odd)) != 0
+    fields = _randn(dev, (7,) + zyx, 46).to(torch.bfloat16)
+    p = _randn(dev, zyx, 47)
+    plan = ST.stencil_plan("grad_damp", zyx)
+    err, got = _launch_grad_damp(fields.clone(), p, plan)
+    assert err == 0 and torch.equal(got, ST.perthread("grad_damp", fields.clone(), p, 0.48))
+    for bad in (plan._replace(quads=64, rows=4), plan._replace(quads=12, rows=21),
+                plan._replace(rows=plan.rows * 2), plan._replace(chunk=0)):
+        assert _launch_grad_damp(fields.clone(), p, bad)[0] != 0, bad
+
+
+def test_prolong_and_grad_damp_marches_at_2_30_cells(dev):
+    """B7 and B8 on (4096, 512, 512), 2^30 cells, where B8's channel 2
+    starts at 2^31 elements: both equal their per-cell designs (64-bit
+    indices throughout), channel 3 untouched."""
+    shape = (4096, 512, 512)
+    g = torch.Generator(device=dev).manual_seed(48)
+    p = torch.empty(shape, device=dev).uniform_(-1.0, 1.0, generator=g)
+    fields = torch.empty((4,) + shape, dtype=torch.bfloat16, device=dev).uniform_(
+        -0.75, 0.75, generator=g)
+    colour = fields[3].clone()
+    got = ST.grad_damp(fields.clone(), p, 0.48)
+    assert torch.equal(got, ST.perthread("grad_damp", fields, p, 0.48))
+    assert torch.equal(got[3], colour)
+    del got, fields, colour
+    e_c = p[::2, ::2, ::2].contiguous()
+    assert torch.equal(ST.prolong_correct(p, e_c), ST.perthread("prolong_correct", p, e_c))
+
+
 @pytest.mark.parametrize("shape,iters,plan", [((64, 32, 128), 4, (32, 4)),
                                               ((32, 64, 128), 8, (16, 8)),
                                               ((24, 136, 128), 8, (8, 8)),
