@@ -25,12 +25,15 @@ memory) at error 0 and B2 (a staged z-window) within one bf16 ulp at
 128^3, 256^3, 256x256x60 and 150^3, on states whose velocities pass the
 12-voxel clip in part of the volume, each timed in turns with its
 per-voxel design (`advect.perthread`); each must beat its yardstick
-there.  B7 and B8, z-marches laid out by `stencil.stencil_plan`, are held
-and timed the same way against their per-cell designs
-(`stencil.perthread`): B7 at error 0 at 128^3, 256^3 and the 256x256x60
-frame's compact (60, 256, 256), B8 equal to its per-cell design and within
-one bf16 ulp of each plain value at those and at 150^3; both are timed
-again in turns with their operands out of L2 (`measure_cold`).  It drives `FluidXEngine` for 60 frames of the main path
+there.  B3, B5, B7 and B8, z-marches laid out by `stencil.stencil_plan`,
+are held and timed the same way against their per-cell designs
+(`stencil.perthread`): B3 at error 0 at 128^3, 256^3, the 256x256x60
+frame's compact (60, 256, 256) and 150^3, B5 at error 0 at 128^3, (60,
+256, 256) and 150^3, B7 at error 0 at 128^3, 256^3 and (60, 256, 256), B8
+equal to its per-cell design and within one bf16 ulp of each plain value at
+those and at 150^3; all are timed again in turns with their operands out
+of L2 (`measure_cold`), and B3 and B5 must beat their per-cell designs
+there too.  It drives `FluidXEngine` for 60 frames of the main path
 (PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
 projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
@@ -267,12 +270,15 @@ def measure_cold(results, name, kernel, yardstick, operands, reps=20):
     torch.cuda.empty_cache()
 
 
-def check_faster(results, name) -> None:
+def check_faster(results, name, cold: bool = False) -> None:
     """Fails unless both timed runs of `name`'s kernel beat both of its
-    yardstick's, in turns in this call."""
+    yardstick's, in turns in this call (with `cold`, those of
+    `measure_cold`)."""
     r = results[name]
-    check(max(r["kernel_ms"]) < min(r["yardstick_ms"]),
-          f"{name} is faster than the {r['yardstick_name']} in turns")
+    k, y = ("cold_kernel_ms", "cold_yardstick_ms") if cold else ("kernel_ms", "yardstick_ms")
+    check(max(r[k]) < min(r[y]),
+          f"{name} is faster than the {r['yardstick_name']} in turns"
+          + (" with its operands out of L2" if cold else ""))
 
 
 def print_times(results, names) -> None:
@@ -282,6 +288,8 @@ def print_times(results, names) -> None:
         kid = (KERNELS[name][0] if name in KERNELS
                else "B1" if name.startswith("advect_xy")
                else "B2" if name.startswith("advect_z_forces")
+               else "B3" if name.startswith("divergence")
+               else "B5" if name.startswith("residual")
                else "B6" if name.startswith("jacobi_packed")
                else "B7" if name.startswith("prolong_correct")
                else "B8" if name.startswith("grad_damp")
@@ -487,6 +495,61 @@ def check_advect_frames(dev, results):
                           for k in ("advect_xy", "advect_z_forces")])
 
 
+def check_divergence(results, name, fields):
+    """B3 (the z-march of `stencil_plan`) and its per-cell design
+    (`stencil.perthread`) at error 0 against the plain version, timed in
+    turns, L2-warm and L2-cold, and failing unless the z-march is faster in
+    both; row `name` of `results`.  Returns the divergence."""
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+
+    shape = tuple(fields.shape[1:])
+    got = ST.divergence(fields)
+    ref = ST.divergence_plain(fields)
+    err = float((got - ref).abs().max())
+    yard = float((ST.perthread("divergence", fields) - ref).abs().max())
+    print(f"B3 divergence at {shape}, {fields.dtype} (plan "
+          f"{ST.stencil_plan('divergence', shape)}): max abs diff {err:.3e}, per-cell design "
+          f"{yard:.3e} (limit 0: same f32 operations)")
+    check(torch.equal(got, ref) and yard == 0.0, f"B3 divergence vs plain at {shape}")
+    del ref
+    n = got.numel()
+    measure(results, name, err, lambda: ST.divergence(fields),
+            lambda: ST.divergence_plain(fields), nbytes(fields[:3], got), 6 * n,
+            yardstick=lambda: ST.perthread("divergence", fields),
+            yardstick_name="per-cell design")
+    check_faster(results, name)
+    measure_cold(results, name, ST.divergence, lambda f: ST.perthread("divergence", f),
+                 (fields[:3],))
+    check_faster(results, name, cold=True)
+    return got
+
+
+def check_residual(results, name, q, b):
+    """B5 (the staged z-march of `stencil_plan`) and its per-cell design
+    (`stencil.perthread`) at error 0 against the plain version, timed in
+    turns, L2-warm and L2-cold, and failing unless the z-march is faster in
+    both; row `name` of `results`."""
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+
+    shape = tuple(q.shape)
+    got = ST.residual(q, b)
+    ref = ST.residual_plain(q, b)
+    err = float((got - ref).abs().max())
+    yard = float((ST.perthread("residual", q, b) - ref).abs().max())
+    print(f"B5 residual at {shape} (plan {ST.stencil_plan('residual', shape)}): max abs diff "
+          f"{err:.3e}, per-cell design {yard:.3e} (limit 0: same f32 operations)")
+    check(torch.equal(got, ref) and yard == 0.0, f"B5 residual vs plain at {shape}")
+    del ref
+    measure(results, name, err, lambda: ST.residual(q, b), lambda: ST.residual_plain(q, b),
+            nbytes(q, b, got), 8 * q.numel(),
+            yardstick=lambda: ST.perthread("residual", q, b),
+            yardstick_name="per-cell design")
+    check_faster(results, name)
+    measure_cold(results, name, ST.residual, lambda q, b: ST.perthread("residual", q, b),
+                 (q, b))
+    check_faster(results, name, cold=True)
+
+
 def check_prolong(results, name, q, e_c):
     """B7 (the z-march of `stencil_plan`) and its per-cell design
     (`stencil.perthread`) at error 0 against the plain version, timed in
@@ -579,15 +642,23 @@ def stencil_operands(zyx, dev, seed, channels=7):
 
 
 def check_stencil_frames(dev, results, frames):
-    """B7 (where `b7`) and B8 on other paths' grids, as phase 2 holds them
-    at 128^3; rows "prolong_correct_<label>" and "grad_damp_<label>" (not
-    in the kernels line)."""
+    """B3 and B8, and B5 and B7 where the frame runs them (`b5`, `b7`), on
+    other paths' grids, as phase 2 holds them at 128^3; rows
+    "divergence_<label>", "residual_<label>", "prolong_correct_<label>" and
+    "grad_damp_<label>" (not in the kernels line).  B5's right-hand side is
+    B3's result."""
     from fluidx12_tpu_torch.core.config import FluidConfig
 
     rows = []
-    for label, grid, b7 in frames:
+    for i, (label, grid, b5, b7) in enumerate(frames):
         cfg = FluidConfig(grid_size=grid)
-        q, e_c, fields, p = stencil_operands(cfg.zyx, dev, seed=len(rows) + 11)
+        q, e_c, fields, p = stencil_operands(cfg.zyx, dev, seed=11 + 2 * i)
+        b = check_divergence(results, f"divergence_{label}", fields)
+        rows.append(f"divergence_{label}")
+        if b5:
+            check_residual(results, f"residual_{label}", q, b)
+            rows.append(f"residual_{label}")
+        del b
         if b7:
             check_prolong(results, f"prolong_correct_{label}", q, e_c)
             rows.append(f"prolong_correct_{label}")
@@ -636,13 +707,7 @@ def phase2_kernels(dev):
     q = torch.from_numpy(rng.uniform(-0.05, 0.05, (z, y, x)).astype(np.float32)).to(dev)
     for ax in range(3):
         q = (q.roll(1, ax) + q + q.roll(-1, ax)) / 3.0
-    b = ST.divergence(fields)
-    ref = ST.divergence_plain(fields)
-    err = float((b - ref).abs().max())
-    print(f"B3 divergence: max abs diff {err:.3e} (limit 0: same f32 operations)")
-    check(err == 0.0, "B3 divergence vs plain")
-    record("divergence", err, lambda: ST.divergence(fields),
-           lambda: ST.divergence_plain(fields), nbytes(fields[:3], b), 6 * n)
+    b = check_divergence(results, "divergence", fields)
 
     tuning = J.jacobi_tuning(cfg.zyx, 4)
     check(J.window_order(cfg.zyx, tuning[1]) == J.ORDER_WINDOW,
@@ -658,13 +723,7 @@ def phase2_kernels(dev):
            lambda: J.jacobi_plain(q, b, 4, *tuning), nbytes(q, b, got), 7 * 4 * n,
            yardstick=lambda: J.sweepwise("sweeps", q, b, 4, order=J.ORDER_WINDOW))
 
-    r = ST.residual(q, b)
-    ref = ST.residual_plain(q, b)
-    err = float((r - ref).abs().max())
-    print(f"B5 residual: max abs diff {err:.3e} (limit 0: same f32 operations)")
-    check(err == 0.0, "B5 residual vs plain")
-    record("residual", err, lambda: ST.residual(q, b), lambda: ST.residual_plain(q, b),
-           nbytes(q, b, r), 8 * n)
+    check_residual(results, "residual", q, b)
 
     r_c = torch.from_numpy(rng.uniform(-0.1, 0.1, (z // 2, y // 2, x // 2))
                            .astype(np.float32)).to(dev)
@@ -1009,7 +1068,7 @@ def phase2c_kernels_256(dev, results):
            nbytes(dens, shadow, ao, got), 110 * n, reps=10, plain_reps=3)
     print_times(results, ("jacobi_rr", "jacobi_planewise", "gi_light"))
     del q, b, dens, shadow, ao, args, got, ref
-    check_stencil_frames(dev, results, (("256^3", GRID_256, True),))
+    check_stencil_frames(dev, results, (("256^3", GRID_256, False, True),))
 
 
 # The plane-sweep march off 256^3: the compact dims of the 256x256x60 and
@@ -1198,10 +1257,10 @@ def phase2d_kernels_fused_slab(dev, results):
            lambda: C.composite_plain(dens_m, prod, n_steps, 0.8, False),
            nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
     print_times(results, KERNELS_FUSED + KERNELS_SLAB)
-    # B7 and B8 on the padded frames' compact grids (the 150^3 frame
-    # prolongs with the twin: B8 only).
-    check_stencil_frames(dev, results, (("256x256x60", GRID_SLAB, True),
-                                        ("fluidgi", (150, 150, 150), False)))
+    # B3, B5, B7 and B8 on the padded frames' compact grids (the 150^3
+    # frame prolongs with the twin: no B7).
+    check_stencil_frames(dev, results, (("256x256x60", GRID_SLAB, True, True),
+                                        ("fluidgi", (150, 150, 150), True, False)))
 
 
 def projection_span_ms(engine, reps: int = 20) -> float:

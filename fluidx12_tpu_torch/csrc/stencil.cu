@@ -21,26 +21,36 @@
 //     0.03, -1, 1) in f32 and rounds once to the storage type, in place on
 //     channels 0..2 (the TPU kernel aliases its input); channels 3.. are
 //     never read or written.
-// B3's and B8's device code lives in stencil.cuh, which B18 (jacobi.cu)
-// shares.  Every edge is clamped.  Built with --fmad=false, so every
-// product and sum rounds as in the Pallas code and the plain PyTorch
+// The per-cell B3's and B8's device code lives in stencil.cuh, which B18
+// (jacobi.cu) shares.  Every edge is clamped.  Built with --fmad=false, so
+// every product and sum rounds as in the Pallas code and the plain PyTorch
 // versions.
 //
 // Bound: memory (a few operations per byte).  At 128^3: B3 reads 3 bf16
-// channels and writes f32 (10 B per cell, 21.0 MB, 6.3 us at 3.35 TB/s); B5
-// reads q and b and writes r (12 B, 25.2 MB, 7.5 us); B7 reads q and the
-// coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us; 42.6 us at 256^3); B8
-// reads p and 3 bf16 channels and writes them back (16 B, 33.6 MB, 10.0 us;
-// 80.1 us at 256^3).  B3 and B5 are one thread per cell, consecutive
-// threads on consecutive x, so the centre stream and the x/y/z neighbours
-// are coalesced; the neighbour re-reads (y +-1 rows, z +-1 planes) hit
-// L1/L2, not HBM.
-// B7 and B8 are z-marches (ops/cuda/stencil.stencil_plan lays them out: a
+// channels and writes f32 (10 B per cell, 21.0 MB, 6.3 us at 3.35 TB/s;
+// 50.1 us at 256^3); B5 reads q and b and writes r (12 B, 25.2 MB, 7.5 us);
+// B7 reads q and the coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us;
+// 42.6 us at 256^3); B8 reads p and 3 bf16 channels and writes them back
+// (16 B, 33.6 MB, 10.0 us; 80.1 us at 256^3).
+// All four are z-marches (ops/cuda/stencil.stencil_plan lays them out: a
 // thread a quad of 4 x of one row, CTAs of 256 threads, a chunk of planes
 // each, about four CTAs an SM).  They replaced one thread per cell, which
-// spent its issue slots on 64-bit divisions for (z, y, x), and in B7 on two
-// upsampled coarse planes per fine cell, in B8 on six IEEE divisions for
-// the bands and six scalar reads of p per cell:
+// spent its issue slots on 64-bit divisions for (z, y, x), on scattered
+// neighbour loads that re-read every cell from L1/L2 six times, in B7 on
+// two upsampled coarse planes per fine cell and in B8 on six IEEE
+// divisions for the bands:
+//   - B3 (divergence_march_kernel) needs each channel's neighbours along one
+//     axis only.  uz(z - 1), uz(z), uz(z + 1) of the quad stay in
+//     registers, one new plane a step; ux moves as a vector, its x +- 1
+//     from the adjacent lanes of the CTA row (__shfl_*), loaded only at
+//     the row's two ends; uy, which needs rows y +- 1 and never y, is
+//     staged a plane of the CTA's rows and a halo row either side at a
+//     time into a ring of 3 planes by cp.async, two planes ahead; the
+//     march is unrolled by two so that ux and uz are loaded a plane ahead
+//     into registers.  out moves as float4.
+//   - B5 (residual_march_kernel) reads q at all six neighbours, as B8 reads
+//     p: it stages q into B8's ring (below) and streams b in and r out as
+//     vectors.
 //   - B7 (prolong_march_kernel) keeps the laterally upsampled coarse planes
 //     U(m - 1), U(m), U(m + 1) of its quad in registers and forms one a
 //     coarse plane: 8 coarse loads (2 rows x 4 columns, through L1; the
@@ -55,13 +65,15 @@
 //     channels 0..2.  The bands are formed once a thread (x), once (y) and
 //     once a plane (z), with band_at's arithmetic.
 // What holds them back: B7 streams q and out and little else (its coarse
-// reads hit L1); B8 also stages its tile's halo (two rows of every CTA's
-// rows, two columns a row), waits at a barrier a plane, and on rows whose
-// alignment allows only narrower vectors (X = 150: 4-byte velocity
-// accesses, 8-byte copies) issues more accesses a byte.  PERF.md has their
-// times against the bound.  The one-thread-a-cell designs stay as
-// yardsticks (fx_prolong_correct_perthread, fx_grad_damp_perthread;
-// launch_grad_damp is also B18's per-sweep yardstick's epilogue).
+// reads hit L1); B3, B5 and B8 also stage their tile's halo (two rows of
+// every CTA's rows, and for B5 and B8 two columns a row), wait at a
+// barrier a plane, and on rows whose alignment allows only narrower
+// vectors (X = 150: 4-byte bf16 pairs, 8-byte f32 pairs) issue more
+// accesses a byte.  PERF.md has their times against the bound.  The
+// one-thread-a-cell designs stay as yardsticks
+// (fx_divergence_perthread, fx_residual_perthread,
+// fx_prolong_correct_perthread, fx_grad_damp_perthread; launch_grad_damp is
+// also B18's per-sweep yardstick's epilogue).
 
 #include "stencil.cuh"
 
@@ -146,12 +158,13 @@ __global__ void prolong_correct_kernel(const float* __restrict__ q, const float*
 }
 
 // ---------------------------------------------------------------------------
-// B7 and B8 as z-marches (ops/cuda/stencil.stencil_plan lays them out).
+// B3, B5, B7 and B8 as z-marches (ops/cuda/stencil.stencil_plan lays them
+// out).
 // ---------------------------------------------------------------------------
 
 // A thread owns kQuad consecutive x of one row; a CTA kCtaThreads threads,
-// `quads` of them along x and 256 / quads rows.  B8 stages its pressure in
-// a ring of kRing planes, each the CTA's rows and columns with a halo of
+// `quads` of them along x and 256 / quads rows.  B8 stages its pressure
+// (B5 its q) in a ring of kRing planes, each the CTA's rows and columns with a halo of
 // one cell, a row kPad floats either side of its kQuad * quads columns (so
 // the first owned column is 16-byte aligned).
 constexpr int kQuad = 4;
@@ -159,13 +172,13 @@ constexpr int kCtaThreads = 256;
 constexpr int kRing = 3;
 constexpr int kPad = 4;
 
-// Bytes of B8's ring for a CTA of `quads` x `rows` threads (at most
+// Bytes of B8's (and B5's) ring for a CTA of `quads` x `rows` threads (at most
 // 48 KiB for the plans march_ok admits, so no opt-in is needed).
 int ring_smem(int quads, int rows) {
   return kRing * (rows + 2) * (kQuad * quads + 2 * kPad) * (int)sizeof(float);
 }
 
-// What every B7/B8 plan must satisfy: 8, 16 or 32 quads a row of the CTA,
+// What every B3/B5/B7/B8 plan must satisfy: 8, 16 or 32 quads a row of the CTA,
 // kCtaThreads threads, a chunk of at least one plane, a grid CUDA takes.
 bool march_ok(int quads, int rows, int chunk, int planes, int Y, int X) {
   return (quads == 8 || quads == 16 || quads == 32) && quads * rows == kCtaThreads &&
@@ -327,7 +340,7 @@ __global__ void __launch_bounds__(kCtaThreads)
 
 // Copies kBytes (4, 8 or 16) from device to shared memory with cp.async.
 template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
@@ -432,6 +445,280 @@ __global__ void __launch_bounds__(kCtaThreads)
     }
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) st_quad<kVec>(fc[ch] + off, valid, u[ch]);
+  }
+}
+
+// B5 as a staged z-march, on B8's plan and ring: thread (quad, row) of CTA
+// (i, j, k) owns x [4 q, 4 q + 4) of row y and walks planes [k chunk, (k +
+// 1) chunk) clipped to Z.  The CTA stages plane z of q, its rows and
+// columns with a one-cell halo clamped to the volume, into ring slot z %
+// kRing, plane z + 2 in flight while plane z is computed.  x+-
+// and y+- come from slot z, z+ from slot z + 1, z- from q(z - 1) in
+// registers (the centre of the step before; the first from device memory),
+// the centre from the slot; b and r move as vectors of kVec.  The sum is
+// the per-cell kernel's: ((((x+ + x-) + y+) + y-) + z-) + z+, then b - (s -
+// 6 q).  32-bit offsets: Z * Y * X < 2^31 (the launch checks).
+template <int kVec>
+__global__ void __launch_bounds__(kCtaThreads)
+    residual_march_kernel(const float* __restrict__ q, const float* __restrict__ b,
+                          float* __restrict__ r, int Z, int Y, int X, int chunk) {
+  extern __shared__ __align__(16) float ring[];  // [slot][row - y0 + 1][kPad + col - x0]
+  const int quads = blockDim.x, rows = blockDim.y;
+  const int pitch = kQuad * quads + 2 * kPad;
+  const int slot = (rows + 2) * pitch;
+  const int x0 = blockIdx.x * quads * kQuad;
+  const int y0 = blockIdx.y * rows;
+  const int z0 = blockIdx.z * chunk;
+  const int ze = min(z0 + chunk, Z);
+  const int xe = min(x0 + kQuad * quads, X);
+  const int ye = min(y0 + rows, Y);
+  const int plane = Y * X;
+  const int staged_rows = ye - y0 + 2;
+  const int copies = (xe - x0) / kVec;  // X % kVec == 0: no copy crosses X
+
+  // Plane zz of q (zz <= Z: plane Z is plane Z - 1 again), rows y0 - 1 ..
+  // ye and columns x0 - 1 .. xe clamped, into slot zz % kRing, as B8 stages
+  // p.  Its own copy: one function shared with B8 slowed B8 by a tenth at
+  // 150^3 (H100 80GB HBM3, 700 W).
+  auto stage = [&](int zz) {
+    float* dst = ring + (zz % kRing) * slot + kPad;
+    const float* src = q + min(zz, Z - 1) * plane;
+    for (int r = threadIdx.y; r < staged_rows; r += rows) {
+      const float* srow = src + min(max(y0 - 1 + r, 0), Y - 1) * X;
+      float* drow = dst + r * pitch;
+      for (int k = threadIdx.x; k < copies; k += quads) {
+        cp_async<4 * kVec>(drow + k * kVec, srow + x0 + k * kVec);
+      }
+      if (threadIdx.x == 0) cp_async<4>(drow - 1, srow + max(x0 - 1, 0));
+      if (threadIdx.x == 1) cp_async<4>(drow + (xe - x0), srow + min(xe, X - 1));
+    }
+    cp_async_commit();
+  };
+
+  const int x = x0 + kQuad * threadIdx.x;
+  const int y = y0 + threadIdx.y;
+  const bool live = x < X && y < Y;
+  const int valid = X - x;
+  const int c = (threadIdx.y + 1) * pitch + kPad + kQuad * threadIdx.x;  // (y, x) in a slot
+  int off = z0 * plane + y * X + x;
+
+  stage(z0);
+  stage(z0 + 1);
+  float qm[kQuad];
+  if (live) ld_quad<kVec>(q + max(z0 - 1, 0) * plane + y * X + x, valid, qm);
+  for (int z = z0; z < ze; ++z, off += plane) {
+    float bv[kQuad];
+    if (live) ld_quad<kVec>(b + off, valid, bv);
+    cp_async_wait_all();
+    __syncthreads();  // planes z and z + 1 landed; slot (z + 2) % kRing is free
+    if (z + 2 <= ze) stage(z + 2);
+    if (!live) continue;
+    const float* qc = ring + (z % kRing) * slot + c;
+    const float* qp = ring + ((z + 1) % kRing) * slot + c;
+    float rv[kQuad];
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      float sum = qc[j + 1] + qc[j - 1];
+      sum = sum + qc[j + pitch];
+      sum = sum + qc[j - pitch];
+      sum = sum + qm[j];
+      sum = sum + qp[j];
+      rv[j] = bv[j] - (sum - 6.0f * qc[j]);
+      qm[j] = qc[j];
+    }
+    st_quad<kVec>(r + off, valid, rv);
+  }
+}
+
+// Bytes of B3's uy ring for a CTA of `quads` x `rows` threads: kRing
+// planes of its rows and a halo row either side, kQuad * quads columns of
+// `esize` bytes (at most 15 KiB).
+int uy_smem(int quads, int rows, int esize) {
+  return kRing * (rows + 2) * kQuad * quads * esize;
+}
+
+__device__ __forceinline__ void cp_async_wait_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// kVec elements of T from device to shared memory: cp.async where they are
+// 4 bytes or more, else a plain copy (one bf16), seen after the barrier.
+template <int kVec, typename T>
+__device__ __forceinline__ void stage_vec(T* dst, const T* src) {
+  if constexpr (kVec * sizeof(T) >= 4) {
+    cp_async<(int)(kVec * sizeof(T))>(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A quad's kQuad elements of T as loaded, cast to f32 only where read, so
+// that a load issued a plane ahead is waited for only then.  Elements at or
+// past `valid` (X - x) are not loaded and read as 0.
+template <typename T, int kVec>
+struct RawQuad {
+  float v[kQuad];
+  __device__ __forceinline__ void load(const float* p, int valid) {
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) v[j] = 0.0f;
+    ld_quad<kVec>(p, valid, v);
+  }
+  __device__ __forceinline__ float operator[](int j) const { return v[j]; }
+};
+template <int kVec>
+struct RawQuad<__nv_bfloat16, kVec> {
+  uint32_t w[kQuad / 2];  // elements 2 i (low half) and 2 i + 1 (high half)
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, int valid) {
+    w[0] = w[1] = 0u;
+    if constexpr (kVec == 4) {
+      const uint2 a = *(const uint2*)p;
+      w[0] = a.x;
+      w[1] = a.y;
+    } else if constexpr (kVec == 2) {
+      w[0] = *(const uint32_t*)p;
+      if (valid > 2) w[1] = *(const uint32_t*)(p + 2);
+    } else {
+      const unsigned short* h = (const unsigned short*)p;
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        if (j < valid) w[j >> 1] |= (uint32_t)h[j] << (16 * (j & 1));
+      }
+    }
+  }
+  __device__ __forceinline__ float operator[](int j) const {
+    return (j & 1) ? bf16_hi(w[j >> 1]) : bf16_lo(w[j >> 1]);
+  }
+};
+
+// B3 as a z-march, laid out by stencil_plan as B8: thread (quad, row) of
+// CTA (i, j, k) owns x [4 q, 4 q + 4) of row y and walks planes [k chunk,
+// (k + 1) chunk) clipped to Z.  Each channel needs its neighbours along one
+// axis only:
+//   - uz(z - 1), uz(z) of the quad stay in registers and uz(z + 1) is read,
+//     one plane a step (clamped);
+//   - ux is read as the quad's vector; x - 1 of its first element and x + 1
+//     of its last come from the adjacent lanes of the CTA row
+//     (__shfl_up/down_sync within segments of `quads` lanes), and from
+//     device memory only at the row's two ends (x0 - 1, x0 + 4 quads);
+//     clamped at the volume's edges;
+//   - uy, needed at rows y +- 1 only, is staged a plane at a time: rows y0 -
+//     1 .. ye of the CTA's columns (clamped rows) into ring slot z % kRing.
+// Two planes are in flight while plane z is computed: plane z + 1's ux, uz
+// and row ends in registers (RawQuad, cast when read), planes z + 1 and z +
+// 2 of uy in the ring.  Channels 0..2 of the (C, Z, Y, X) state are read,
+// cast to f32, as vectors of kVec; channels 3.. never.  out is written as
+// vectors of kVec.  32-bit offsets within a channel (Z * Y * X < 2^31, the
+// launch checks), the channels' bases in 64 bits (2 Z Y X may reach 2^31).
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kCtaThreads, 4)
+    divergence_march_kernel(const T* __restrict__ f, float* __restrict__ out, int Z, int Y,
+                            int X, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const ring = (T*)smem;  // [slot][row - y0 + 1][col - x0]
+  const int quads = blockDim.x, rows = blockDim.y;
+  const int pitch = kQuad * quads;
+  const int slot = (rows + 2) * pitch;
+  const int x0 = blockIdx.x * quads * kQuad;
+  const int y0 = blockIdx.y * rows;
+  const int z0 = blockIdx.z * chunk;
+  const int ze = min(z0 + chunk, Z);
+  const int xe = min(x0 + kQuad * quads, X);
+  const int ye = min(y0 + rows, Y);
+  const int plane = Y * X;
+  const int n = Z * plane;
+  const T* const ux = f;
+  const T* const uy = f + (int64_t)n;
+  const T* const uz = f + 2 * (int64_t)n;
+  const int staged_rows = ye - y0 + 2;
+  const int copies = (xe - x0) / kVec;  // X % kVec == 0: no copy crosses X
+
+  // uy's plane zz, rows y0 - 1 .. ye clamped, into ring slot `into`; then
+  // one commit, staged or not, so that each plane is one cp.async group.
+  auto stage = [&](int zz, int into) {
+    if (zz < ze) {
+      T* dst = ring + into * slot;
+      const T* src = uy + zz * plane + x0;
+      for (int r = threadIdx.y; r < staged_rows; r += rows) {
+        const T* srow = src + min(max(y0 - 1 + r, 0), Y - 1) * X;
+        T* drow = dst + r * pitch;
+        for (int k = threadIdx.x; k < copies; k += quads) {
+          stage_vec<kVec>(drow + k * kVec, srow + k * kVec);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int x = x0 + kQuad * threadIdx.x;
+  const int y = y0 + threadIdx.y;
+  const bool live = x < X && y < Y;
+  const int valid = X - x;
+  const bool first = threadIdx.x == 0, last = threadIdx.x == quads - 1;
+  const bool load_l = live && first && x > 0;           // ux(x - 1) from device memory
+  const bool load_r = live && last && x + kQuad < X;    // ux(x + 4) from device memory
+  const T* const ym = ring + threadIdx.y * pitch + kQuad * threadIdx.x;  // row y - 1, slot 0
+
+  // A plane's ux, uz(z + 1) and ux row ends, loaded a plane ahead into one
+  // of two register sets (a for planes z0, z0 + 2, ..., b for the others:
+  // the march is unrolled by two, so no copy waits for a load).
+  struct Ahead {
+    RawQuad<T, kVec> ux, uz;
+    T l, r;
+  };
+  auto load = [&](Ahead& h, int o, int zz) {
+    h.ux.load(ux + o, valid);
+    h.uz.load(uz + (zz < Z - 1 ? o + plane : o), valid);
+    if (load_l) h.l = ux[o - 1];
+    if (load_r) h.r = ux[o + kQuad];
+  };
+  float um[kQuad] = {}, uc[kQuad] = {};  // uz(z - 1), uz(z)
+  int s = 0;                             // ring slot of plane z
+  // Plane z at offset o from `cur`, loading plane z + 1 into `next`.
+  auto step = [&](int z, int o, const Ahead& cur, Ahead& next) {
+    if (live && z + 1 < ze) load(next, o + plane, z + 1);
+    cp_async_wait_but_one();
+    __syncthreads();  // uy's plane z landed; slot (z + 2) % kRing is free
+    stage(z + 2, s == 0 ? kRing - 1 : s - 1);
+    const float from_left = __shfl_up_sync(0xffffffffu, cur.ux[kQuad - 1], 1, quads);
+    const float from_right = __shfl_down_sync(0xffffffffu, cur.ux[0], 1, quads);
+    if (live) {
+      const float xl = first ? to_f32(cur.l) : from_left;   // ux(x - 1), where x > 0
+      const float xr = last ? to_f32(cur.r) : from_right;   // ux(x + 4), where x + 4 < X
+      float ym_v[kQuad], yp_v[kQuad], d[kQuad];
+      ld_quad<kVec>(ym + s * slot, valid, ym_v);
+      ld_quad<kVec>(ym + s * slot + 2 * pitch, valid, yp_v);
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        const float xp = x + j + 1 < X ? (j + 1 < kQuad ? cur.ux[j + 1] : xr) : cur.ux[j];
+        const float xm = x + j > 0 ? (j > 0 ? cur.ux[j - 1] : xl) : cur.ux[j];
+        const float dx = xp - xm;
+        const float dy = yp_v[j] - ym_v[j];
+        const float up = cur.uz[j];
+        const float dz = up - um[j];
+        d[j] = 0.5f * ((dx + dy) + dz);
+        um[j] = uc[j];
+        uc[j] = up;
+      }
+      st_quad<kVec>(out + o, valid, d);
+    }
+    s = s == kRing - 1 ? 0 : s + 1;
+  };
+
+  int off = z0 * plane + y * X + x;
+  Ahead a{}, b{};
+  stage(z0, 0);
+  stage(z0 + 1, 1);
+  if (live) {
+    ld_quad<kVec>(uz + (off - (z0 > 0 ? plane : 0)), valid, um);
+    ld_quad<kVec>(uz + off, valid, uc);
+    load(a, off, z0);
+  }
+  for (int z = z0; z < ze; z += 2, off += 2 * plane) {
+    step(z, off, a, b);
+    if (z + 1 < ze) step(z + 1, off + plane, b, a);
   }
 }
 
@@ -563,13 +850,64 @@ cudaError_t launch_grad(void* fields, const float* p, float s, int nz, int ny, i
   }
 }
 
+// B5's launch with the widest vectors that q's, b's and r's rows allow.
+template <int kVec>
+cudaError_t launch_residual_march(const float* q, const float* b, float* r, int nz, int ny,
+                                  int nx, int quads, int rows, int chunk, cudaStream_t cs) {
+  const dim3 grid((nx + kQuad * quads - 1) / (kQuad * quads), (ny + rows - 1) / rows,
+                  (nz + chunk - 1) / chunk);
+  residual_march_kernel<kVec><<<grid, dim3(quads, rows), ring_smem(quads, rows), cs>>>(
+      q, b, r, nz, ny, nx, chunk);
+  return cudaGetLastError();
+}
+
+// B3's launch with the widest vectors that both the state's rows and out's
+// allow.
+template <typename T, int kVec>
+cudaError_t launch_div_march(const void* fields, float* out, int nz, int ny, int nx, int quads,
+                             int rows, int chunk, cudaStream_t cs) {
+  const dim3 grid((nx + kQuad * quads - 1) / (kQuad * quads), (ny + rows - 1) / rows,
+                  (nz + chunk - 1) / chunk);
+  divergence_march_kernel<T, kVec>
+      <<<grid, dim3(quads, rows), uy_smem(quads, rows, (int)sizeof(T)), cs>>>(
+          (const T*)fields, out, nz, ny, nx, chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_div(const void* fields, float* out, int nz, int ny, int nx, int quads,
+                       int rows, int chunk, cudaStream_t cs) {
+  switch (min(vec_elems(fields, nx, (int)sizeof(T)), vec_elems(out, nx, 4))) {
+    case 4: return launch_div_march<T, 4>(fields, out, nz, ny, nx, quads, rows, chunk, cs);
+    case 2: return launch_div_march<T, 2>(fields, out, nz, ny, nx, quads, rows, chunk, cs);
+    default: return launch_div_march<T, 1>(fields, out, nz, ny, nx, quads, rows, chunk, cs);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32; out (nz, ny, nx) f32.
-int fx_divergence(const void* fields, void* out, int is_bf16, int nz, int ny, int nx,
-                  void* stream) {
+// B3: fields (C >= 3, nz, ny, nx) bf16 (is_bf16) or f32, channels 0..2
+// read; out (nz, ny, nx) f32.  The plan (ops/cuda/stencil.stencil_plan):
+// CTAs of `quads` x `rows` threads, each walking `chunk` planes, with
+// uy_smem's bytes of uy buffer.
+int fx_divergence(const void* fields, void* out, int is_bf16, int nz, int ny, int nx, int quads,
+                  int rows, int chunk, void* stream) {
+  if (nz < 1 || ny < 1 || (int64_t)nz * ny * nx >= (1LL << 31) ||
+      !march_ok(quads, rows, chunk, nz, ny, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t cs = (cudaStream_t)stream;
+  float* of = (float*)out;
+  return (int)(is_bf16
+                   ? launch_div<__nv_bfloat16>(fields, of, nz, ny, nx, quads, rows, chunk, cs)
+                   : launch_div<float>(fields, of, nz, ny, nx, quads, rows, chunk, cs));
+}
+
+// B3 as it ran before, one thread a cell.  A yardstick only.
+int fx_divergence_perthread(const void* fields, void* out, int is_bf16, int nz, int ny, int nx,
+                            void* stream) {
   cudaStream_t cs = (cudaStream_t)stream;
   const unsigned blocks = blocks_for((int64_t)nz * ny * nx);
   if (is_bf16) {
@@ -582,8 +920,29 @@ int fx_divergence(const void* fields, void* out, int is_bf16, int nz, int ny, in
   return (int)cudaGetLastError();
 }
 
-// q, b, r (nz, ny, nx) f32.
-int fx_residual(const void* q, const void* b, void* r, int nz, int ny, int nx, void* stream) {
+// B5: r = b - A q; q, b, r (nz, ny, nx) f32.  The plan
+// (ops/cuda/stencil.stencil_plan): CTAs of `quads` x `rows` threads, each
+// walking `chunk` planes, with ring_smem's bytes of ring.
+int fx_residual(const void* q, const void* b, void* r, int nz, int ny, int nx, int quads,
+                int rows, int chunk, void* stream) {
+  if (nz < 1 || ny < 1 || (int64_t)nz * ny * nx >= (1LL << 31) ||
+      !march_ok(quads, rows, chunk, nz, ny, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t cs = (cudaStream_t)stream;
+  const float* qf = (const float*)q;
+  const float* bf = (const float*)b;
+  float* rf = (float*)r;
+  switch (min(min(vec_elems(q, nx, 4), vec_elems(b, nx, 4)), vec_elems(r, nx, 4))) {
+    case 4: return (int)launch_residual_march<4>(qf, bf, rf, nz, ny, nx, quads, rows, chunk, cs);
+    case 2: return (int)launch_residual_march<2>(qf, bf, rf, nz, ny, nx, quads, rows, chunk, cs);
+    default: return (int)launch_residual_march<1>(qf, bf, rf, nz, ny, nx, quads, rows, chunk, cs);
+  }
+}
+
+// B5 as it ran before, one thread a cell.  A yardstick only.
+int fx_residual_perthread(const void* q, const void* b, void* r, int nz, int ny, int nx,
+                          void* stream) {
   residual_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)b, (float*)r, nz, ny, nx);
   return (int)cudaGetLastError();

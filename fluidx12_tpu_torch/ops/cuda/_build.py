@@ -49,8 +49,10 @@ _SIGNATURES = {
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                               _I, _I, _P],
     "fx_composite": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
-    "fx_divergence": [_P, _P, _I, _I, _I, _I, _P],
-    "fx_residual": [_P, _P, _P, _I, _I, _I, _P],
+    "fx_divergence": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_divergence_perthread": [_P, _P, _I, _I, _I, _I, _P],
+    "fx_residual": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fx_residual_perthread": [_P, _P, _P, _I, _I, _I, _P],
     "fx_prolong_correct": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fx_prolong_correct_perthread": [_P, _P, _P, _I, _I, _I, _P],
     "fx_grad_damp": [_P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -13,9 +13,9 @@ sim/project.py and render/lightmap_sweep.py: the velocity is cast to f32
 before any arithmetic, the gradient, the wall positions and the 3% band
 are f32 with one rounding to the storage dtype, and each sum runs in the
 kernel's order.  Sources and what bounds them:
-fluidx12_tpu_torch/csrc/stencil.cu.  B7 and B8 are z-marches laid out by
-`stencil_plan`; `perthread` keeps the one-thread-a-cell designs they
-replaced as yardsticks.
+fluidx12_tpu_torch/csrc/stencil.cu.  B3, B5, B7 and B8 are z-marches laid
+out by `stencil_plan`; `perthread` keeps the one-thread-a-cell designs
+they replaced as yardsticks.
 
 The gates are pure-Python copies of the TPU's VMEM planners.  They decide
 nothing about the CUDA kernels' feasibility; they are kept because they
@@ -75,13 +75,15 @@ def prolong_pallas_supported(zyx) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# B7's and B8's launch plan
+# The z-marches' launch plan (B3, B5, B7, B8)
 # ---------------------------------------------------------------------------
 
-# prolong_march_kernel and grad_damp_march_kernel, compiled for these: QUAD
-# consecutive x a thread, CTA_THREADS threads a CTA; B8's ring of RING
-# planes, each the CTA's rows and columns with a halo of HALO cells, a row
-# PAD floats either side of its columns.
+# divergence_march_kernel, residual_march_kernel, prolong_march_kernel and
+# grad_damp_march_kernel, compiled for these: QUAD consecutive x a thread,
+# CTA_THREADS threads a CTA; B8's and B5's ring of RING planes, each the
+# CTA's rows and columns with a halo of HALO cells, a row PAD floats either
+# side of its columns; B3's uy ring of RING planes, each the CTA's rows with
+# a halo of HALO rows.
 QUAD = 4
 CTA_THREADS = 256
 RING = 3
@@ -90,18 +92,18 @@ PAD = 4
 # The plan's choices: x-quads a CTA row, the one of QUAD_CHOICES that
 # leaves the fewest idle lanes at the ragged x edge (the widest of equals),
 # and the chunk of planes that comes nearest to CTAS_PER_SM CTAs on each of
-# an H100's SMS SMs (B8's kernel takes up to 64 registers a thread: four of
-# its CTAs fill an SM's registers).
+# an H100's SMS SMs (the kernels take up to 64 registers a thread: four of
+# their CTAs fill an SM's registers).
 QUAD_CHOICES = (32, 16, 8)
 SMS = 132
 CTAS_PER_SM = 4
 
 
 class StencilPlan(NamedTuple):
-    """How B7 or B8 cuts a volume (`stencil_plan`)."""
+    """How B3, B5, B7 or B8 cuts a volume (`stencil_plan`)."""
     quads: int   # x-quads a CTA row: QUAD * quads columns
     rows: int    # rows a CTA owns, CTA_THREADS // quads
-    chunk: int   # planes a CTA walks: coarse planes (B7), planes (B8)
+    chunk: int   # planes a CTA walks: coarse planes (B7), planes (B3, B5, B8)
     grid: tuple  # (x tiles, row tiles, chunks), as the C launches form it
 
 
@@ -127,20 +129,24 @@ def stencil_layout(kind: str, zyx: tuple, quads: int, chunk: int) -> StencilPlan
 
 @functools.lru_cache(maxsize=None)
 def stencil_plan(kind: str, zyx: tuple) -> StencilPlan:
-    """B7's ("prolong") or B8's ("grad_damp") launch plan on the fine (Z,
-    Y, X) volume.  CTA (i, j, k) is `quads` x `rows` threads; thread (t,
-    r) owns x [QUAD (i quads + t), + QUAD) of row j rows + r, clipped to
-    the volume, and walks planes [k chunk, (k + 1) chunk) clipped to their
-    count: B7's coarse planes (Z / 2; each gives fine planes 2m, 2m + 1),
-    B8's planes.  B8's CTA stages each plane of its rows and columns with a
-    halo of one cell into a ring of RING planes.  Cached: the wrappers ask
-    for it on every call.  `fx_prolong_correct` and `fx_grad_damp` launch
-    with the plan and refuse one that is not a shape the kernels take.
-    Raises ValueError where no plan fits: B7 on odd dims, a volume of 2^31
-    cells or more, more than 65535 row tiles or chunks."""
+    """The launch plan of B3 ("divergence"), B5 ("residual"), B7
+    ("prolong") or B8 ("grad_damp") on the fine (Z, Y, X) volume.  CTA (i,
+    j, k) is `quads` x `rows` threads; thread (t, r) owns x [QUAD (i quads
+    + t), + QUAD) of row j rows + r, clipped to the volume, and walks
+    planes [k chunk, (k + 1) chunk) clipped to their count: B7's coarse
+    planes (Z / 2; each gives fine planes 2m, 2m + 1), the others' planes.
+    B8's and B5's CTA stages each plane of its rows and columns with a halo
+    of one cell into a ring of RING planes; B3's each uy plane of its rows
+    with a halo row either side into a ring of RING planes.  Cached: the
+    wrappers ask for it on every call.  `fx_divergence`, `fx_residual`,
+    `fx_prolong_correct` and `fx_grad_damp` launch with the plan and refuse
+    one that is not a shape their kernels take.  Raises ValueError where no
+    plan fits: B7 on odd dims, a volume of 2^31 cells or more, more than
+    65535 row tiles or chunks."""
     nz, ny, nx = (int(v) for v in zyx)
     prolong = kind == "prolong"
-    if (kind not in ("prolong", "grad_damp") or min(nz, ny, nx) < 1
+    if (kind not in ("divergence", "residual", "prolong", "grad_damp")
+            or min(nz, ny, nx) < 1
             or nz * ny * nx >= 2 ** 31 or (prolong and (nz % 2 or ny % 2 or nx % 2))):
         raise ValueError(f"stencil_plan: no {kind} plan for {tuple(zyx)}")
     planes = _planes(kind, nz)
@@ -366,15 +372,17 @@ def gi_light_plain(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor
 
 def divergence(fields: torch.Tensor) -> torch.Tensor:
     """B3: the edge-clamped divergence of channels 0..2 of the combined
-    (C, Z, Y, X) state, read in place.  Returns (Z, Y, X) f32."""
+    (C, Z, Y, X) state, read in place.  Returns (Z, Y, X) f32.  One
+    launch, laid out by `stencil_plan`."""
     _check_fields(fields, "divergence")
     if not _on_cuda(fields, "divergence"):
         return divergence_plain(fields)
     _, z, y, x = fields.shape
+    plan = stencil_plan("divergence", (z, y, x))
     out = torch.empty((z, y, x), dtype=torch.float32, device=fields.device)
     err = _build.lib().fx_divergence(
         fields.data_ptr(), out.data_ptr(), int(fields.dtype == torch.bfloat16),
-        z, y, x, _build.stream_ptr(fields))
+        z, y, x, plan.quads, plan.rows, plan.chunk, _build.stream_ptr(fields))
     divergence.launches += 1
     _build.check(err, "fx_divergence")
     return out
@@ -383,16 +391,23 @@ def divergence(fields: torch.Tensor) -> torch.Tensor:
 divergence.launches = 0
 
 
+def _check_residual(q: torch.Tensor, b: torch.Tensor, name: str) -> None:
+    _check_f32(q, None, q, f"{name} q")
+    _check_f32(b, q.shape, q, f"{name} b")
+
+
 def residual(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """B5: the Poisson residual b - A q of a (Z, Y, X) f32 pair."""
-    _check_f32(q, None, q, "residual q")
-    _check_f32(b, q.shape, q, "residual b")
+    """B5: the Poisson residual b - A q of a (Z, Y, X) f32 pair.  One
+    launch, laid out by `stencil_plan`."""
+    _check_residual(q, b, "residual")
     if not _on_cuda(q, "residual"):
         return residual_plain(q, b)
     z, y, x = q.shape
+    plan = stencil_plan("residual", (z, y, x))
     out = torch.empty_like(q)
     err = _build.lib().fx_residual(q.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                   z, y, x, _build.stream_ptr(q))
+                                   z, y, x, plan.quads, plan.rows, plan.chunk,
+                                   _build.stream_ptr(q))
     residual.launches += 1
     _build.check(err, "fx_residual")
     return out
@@ -455,14 +470,22 @@ def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch
 grad_damp.launches = 0
 
 
-def perthread(kind: str, a: torch.Tensor, b: torch.Tensor, rho: float = 1.0) -> torch.Tensor:
-    """The designs B7 and B8 replaced, one thread a cell, kept only as
-    yardsticks to time them against: `kind` "prolong_correct" is B7 on (q,
-    e_c) (`fx_prolong_correct_perthread`), "grad_damp" B8 on (fields,
-    pressure) with `rho`, in place (`fx_grad_damp_perthread`).  Arguments
-    as `prolong_correct` and `grad_damp` take them.  No path of the port
-    calls it, and it counts no launch.  Card tensors only."""
-    if kind == "prolong_correct":
+def perthread(kind: str, a: torch.Tensor, b: torch.Tensor | None = None,
+              rho: float = 1.0) -> torch.Tensor:
+    """The designs B3, B5, B7 and B8 replaced, one thread a cell, kept only
+    as yardsticks to time them against: `kind` "divergence" is B3 on
+    (fields,) (`fx_divergence_perthread`), "residual" B5 on (q, b)
+    (`fx_residual_perthread`), "prolong_correct" B7 on (q, e_c)
+    (`fx_prolong_correct_perthread`), "grad_damp" B8 on (fields, pressure)
+    with `rho`, in place (`fx_grad_damp_perthread`).  Arguments as
+    `divergence`, `residual`, `prolong_correct` and `grad_damp` take them.
+    No path of the port calls it, and it counts no launch.  Card tensors
+    only."""
+    if kind == "divergence":
+        _check_fields(a, "perthread")
+    elif kind == "residual":
+        _check_residual(a, b, "perthread")
+    elif kind == "prolong_correct":
         _check_prolong(a, b, "perthread")
     elif kind == "grad_damp":
         _check_grad_damp(a, b, "perthread")
@@ -472,7 +495,16 @@ def perthread(kind: str, a: torch.Tensor, b: torch.Tensor, rho: float = 1.0) -> 
         raise ValueError("perthread: the per-cell designs run on card tensors only")
     z, y, x = a.shape[-3:]
     lib = _build.lib()
-    if kind == "prolong_correct":
+    if kind == "divergence":
+        out = torch.empty((z, y, x), dtype=torch.float32, device=a.device)
+        err = lib.fx_divergence_perthread(a.data_ptr(), out.data_ptr(),
+                                          int(a.dtype == torch.bfloat16), z, y, x,
+                                          _build.stream_ptr(a))
+    elif kind == "residual":
+        out = torch.empty_like(a)
+        err = lib.fx_residual_perthread(a.data_ptr(), b.data_ptr(), out.data_ptr(), z, y, x,
+                                        _build.stream_ptr(a))
+    elif kind == "prolong_correct":
         out = torch.empty_like(a)
         err = lib.fx_prolong_correct_perthread(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                                z, y, x, _build.stream_ptr(a))

@@ -372,6 +372,101 @@ def test_prolong_and_grad_damp_marches_at_2_30_cells(dev):
     assert torch.equal(ST.prolong_correct(p, e_c), ST.perthread("prolong_correct", p, e_c))
 
 
+def _launch_divergence(fields, plan):
+    """fx_divergence with `plan` as given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    _, z, y, x = fields.shape
+    out = torch.empty((z, y, x), dtype=torch.float32, device=fields.device)
+    err = _build.lib().fx_divergence(fields.data_ptr(), out.data_ptr(),
+                                     int(fields.dtype == torch.bfloat16), z, y, x, plan.quads,
+                                     plan.rows, plan.chunk, _build.stream_ptr(fields))
+    torch.cuda.synchronize()
+    return err, out
+
+
+def _launch_residual(q, b, plan):
+    """fx_residual with `plan` as given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    z, y, x = q.shape
+    out = torch.empty_like(q)
+    err = _build.lib().fx_residual(q.data_ptr(), b.data_ptr(), out.data_ptr(), z, y, x,
+                                   plan.quads, plan.rows, plan.chunk, _build.stream_ptr(q))
+    torch.cuda.synchronize()
+    return err, out
+
+
+@pytest.mark.parametrize("shape", STENCIL_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_divergence_and_residual_marches_match(dev, shape):
+    """The z-marches B3 (bf16 and f32 state, channels 3.. NaN and never
+    read) and B5 bit for bit against their plain versions and their
+    per-cell designs, with the plan and with forced quads and chunks
+    (ragged last chunks, chunks of one plane)."""
+    q, b = _randn(dev, shape, 50, 0.05), _randn(dev, shape, 51)
+    ref = ST.residual_plain(q, b)
+    assert torch.equal(ST.residual(q, b), ref)
+    assert torch.equal(ST.perthread("residual", q, b), ref)
+    for quads, chunk in ((8, 1), (16, 3), (32, 5)):
+        err, got = _launch_residual(q, b, ST.stencil_layout("residual", shape, quads, chunk))
+        assert err == 0 and torch.equal(got, ref), (quads, chunk)
+    for dtype in (torch.bfloat16, torch.float32):
+        fields = (_randn(dev, (4,) + shape, 52) * 0.5).to(dtype)
+        fields[3] = float("nan")
+        ref = ST.divergence_plain(fields)
+        assert bool(ref.isfinite().all())
+        assert torch.equal(ST.divergence(fields), ref)
+        assert torch.equal(ST.perthread("divergence", fields), ref)
+        for quads, chunk in ((8, 1), (16, 3), (32, 5)):
+            err, got = _launch_divergence(fields,
+                                          ST.stencil_layout("divergence", shape, quads, chunk))
+            assert err == 0 and torch.equal(got, ref), (dtype, quads, chunk)
+
+
+def test_divergence_and_residual_refuse_a_plan_they_cannot_run(dev, monkeypatch):
+    """`fx_divergence` and `fx_residual` launch the plan that `stencil_plan`
+    gives and refuse quads their kernels do not take, a CTA of other than
+    256 threads and an empty chunk; the wrappers raise on the refusal and
+    never fall back."""
+    zyx = (14, 10, 38)
+    fields = _randn(dev, (4,) + zyx, 53).to(torch.bfloat16)
+    q, b = _randn(dev, zyx, 54, 0.05), _randn(dev, zyx, 55)
+    for kind in ("divergence", "residual"):
+        plan = ST.stencil_plan(kind, zyx)
+        launch = ((lambda pl: _launch_divergence(fields, pl)) if kind == "divergence"
+                  else (lambda pl: _launch_residual(q, b, pl)))
+        err, got = launch(plan)
+        ref = ST.divergence_plain(fields) if kind == "divergence" else ST.residual_plain(q, b)
+        assert err == 0 and torch.equal(got, ref)
+        bad_plans = (plan._replace(quads=12, rows=21), plan._replace(quads=64, rows=4),
+                     plan._replace(rows=plan.rows // 2), plan._replace(chunk=0))
+        for bad in bad_plans:
+            assert launch(bad)[0] != 0, (kind, bad)
+        with monkeypatch.context() as m:
+            m.setattr(ST, "stencil_plan", lambda k, z, bad=bad_plans[0]: bad)
+            before = ST.divergence.launches + ST.residual.launches
+            with pytest.raises(RuntimeError):
+                if kind == "divergence":
+                    ST.divergence(fields)
+                else:
+                    ST.residual(q, b)
+            assert ST.divergence.launches + ST.residual.launches == before + 1
+
+
+def test_divergence_march_at_2_30_cells(dev):
+    """B3 on (4096, 512, 512), 2^30 cells, where channel 2 starts at 2^31
+    elements: equal to its per-cell design (64-bit channel bases), channel
+    3 (NaN) never read."""
+    shape = (4096, 512, 512)
+    g = torch.Generator(device=dev).manual_seed(56)
+    fields = torch.empty((4,) + shape, dtype=torch.bfloat16, device=dev).uniform_(
+        -0.75, 0.75, generator=g)
+    fields[3] = float("nan")
+    got = ST.divergence(fields)
+    yard = ST.perthread("divergence", fields)
+    assert torch.equal(got, yard) and bool(got.isfinite().all())
+
+
 @pytest.mark.parametrize("shape,iters,plan", [((64, 32, 128), 4, (32, 4)),
                                               ((32, 64, 128), 8, (16, 8)),
                                               ((24, 136, 128), 8, (8, 8)),

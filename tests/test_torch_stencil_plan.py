@@ -1,9 +1,11 @@
-"""B7's and B8's launch plan and schedules (fluidx12_tpu_torch/csrc/stencil.cu
-prolong_march_kernel, grad_damp_march_kernel) on the CPU: `stencil_plan`
-owns every fine cell exactly once, its chunks tile z (ragged last chunk
+"""The z-marches' launch plan and schedules (fluidx12_tpu_torch/csrc/stencil.cu
+divergence_march_kernel, residual_march_kernel, prolong_march_kernel,
+grad_damp_march_kernel: B3, B5, B7, B8) on the CPU: `stencil_plan` owns
+every fine cell exactly once, its chunks tile z (ragged last chunk
 included), its constants are those the kernel source compiles, and a torch
-model of each schedule -- what each CTA reads of the coarse correction or
-stages of the pressure, NaN wherever it reads or holds nothing -- gives
+model of each schedule -- what each CTA reads of the velocity, q or the
+coarse correction, or stages of uy, q or the pressure, NaN wherever it
+reads or holds nothing -- gives `divergence_plain`, `residual_plain`,
 `prolong_correct_plain` and `grad_damp_plain` bit for bit on small ragged
 shapes.  A window one cell short is caught.  The plain versions themselves
 are held to the Pallas kernels in interpret mode by
@@ -47,7 +49,7 @@ def _ctas(plan, zyx, kind):
     """Each CTA's owned (fine) ranges [x0, xe), [y0, ye), and its planes
     [p0, p1): coarse planes for B7, planes for B8."""
     nz, ny, nx = zyx
-    planes = nz // 2 if kind == "prolong" else nz
+    planes = ST._planes(kind, nz)
     for i in range(plan.grid[0]):
         x0 = i * plan.quads * ST.QUAD
         for j in range(plan.grid[1]):
@@ -65,16 +67,27 @@ PLANS = [(128, 128, 128), (256, 256, 256), (60, 256, 256), (150, 150, 150), (22,
          (14, 10, 38), (5, 3, 7)]
 
 
-@pytest.mark.parametrize("zyx", PLANS, ids=lambda v: "x".join(map(str, v)))
-def test_stencil_plan_owns_every_cell_once(zyx):
+def _zyx_id(zyx):
+    return "x".join(map(str, zyx))
+
+
+# B7 and B8 on every grid (one case a grid), then B3 and B5 (one case a
+# kind and grid).
+PLAN_CASES = ([pytest.param(("prolong", "grad_damp"), zyx, id=_zyx_id(zyx)) for zyx in PLANS]
+              + [pytest.param((kind,), zyx, id=f"{kind}-{_zyx_id(zyx)}")
+                 for kind in ("divergence", "residual") for zyx in PLANS])
+
+
+@pytest.mark.parametrize("kinds,zyx", PLAN_CASES)
+def test_stencil_plan_owns_every_cell_once(kinds, zyx):
     """The CTAs' owned x, y and plane ranges partition the volume (B7's
     coarse plane m owning fine planes 2m and 2m + 1) and each CTA's chunk
     is the plan's, the last one ragged where the chunk does not divide;
     the CTA is CTA_THREADS threads, its ring the formula's; the quads are
     the choice that leaves the fewest lanes idle at the x edge; at 128^3
-    both kernels launch at least two CTAs an SM."""
+    every kernel launches at least two CTAs an SM."""
     nz, ny, nx = zyx
-    for kind in ("prolong", "grad_damp"):
+    for kind in kinds:
         if kind == "prolong" and any(n % 2 for n in zyx):
             continue
         plan = ST.stencil_plan(kind, zyx)
@@ -84,7 +97,7 @@ def test_stencil_plan_owns_every_cell_once(zyx):
                    for w in ST.QUAD_CHOICES)
         assert plan == ST.stencil_layout(kind, zyx, plan.quads, plan.chunk)
         writes = np.zeros(zyx, dtype=np.int32)
-        planes = nz // 2 if kind == "prolong" else nz
+        planes = ST._planes(kind, nz)
         for x0, xe, y0, ye, p0, p1 in _ctas(plan, zyx, kind):
             assert x0 < xe and y0 < ye and p0 < p1
             assert p1 - p0 == plan.chunk or p1 == planes
@@ -122,6 +135,49 @@ def test_stencil_plan_matches_the_kernel_source():
                       ("other", (4, 8, 8)), ("grad_damp", (4, 8, -3))):
         with pytest.raises(ValueError):
             ST.stencil_plan(kind, zyx)
+
+
+def _uy_bytes(quads, rows, esize, c):
+    """B3's uy ring for a CTA of `quads` x `rows` threads, by
+    csrc/stencil.cu uy_smem with its constants `c`: kRing planes of its
+    rows and HALO rows either side."""
+    return c["kRing"] * (rows + 2 * ST.HALO) * c["kQuad"] * quads * esize
+
+
+@pytest.mark.parametrize("kind", ["divergence", "residual"])
+def test_march_kind_matches_the_kernel_source(kind):
+    """B3's and B5's launches take the plan whole (quads, rows, chunk), the
+    C launch refuses what `march_ok` refuses as B7's and B8's do, their
+    shared memory fits without raising the limit (B5: B8's ring, staged as
+    B8 stages it; B3: a ring of uy planes), B3 forms its channels' bases in 64
+    bits and exchanges ux within a CTA row (`quads` lanes, a power of two
+    at most a warp), and the plan refuses what the kernels cannot run."""
+    src = (Path(ST.__file__).parents[2] / "csrc" / "stencil.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert _build._SIGNATURES[f"fx_{kind}"][-4:-1] == [_build._I] * 3
+    assert f"fx_{kind}_perthread" in _build._SIGNATURES
+    entry = src[src.index(f"int fx_{kind}("):]
+    assert "!march_ok(quads, rows, chunk, nz, ny, nx)" in entry[:entry.index("}")]
+    assert "(int64_t)nz * ny * nx >= (1LL << 31)" in entry[:entry.index("}")]
+    if kind == "residual":
+        assert ("residual_march_kernel<kVec><<<grid, dim3(quads, rows), "
+                "ring_smem(quads, rows), cs>>>") in src
+        assert "cp_async<4 * kVec>(drow + k * kVec, srow + x0 + k * kVec);" in src
+        assert max(_ring_bytes(q, ST.CTA_THREADS // q, c) for q in ST.QUAD_CHOICES) <= 48 * 1024
+    else:
+        assert "return kRing * (rows + 2) * kQuad * quads * esize;" in src
+        assert "<<<grid, dim3(quads, rows), uy_smem(quads, rows, (int)sizeof(T)), cs>>>" in src
+        assert max(_uy_bytes(q, ST.CTA_THREADS // q, 4, c) for q in ST.QUAD_CHOICES) <= 15 * 1024
+        assert "const T* const uz = f + 2 * (int64_t)n;" in src
+        assert "__shfl_up_sync(0xffffffffu, cur.ux[kQuad - 1], 1, quads)" in src
+        assert "__shfl_down_sync(0xffffffffu, cur.ux[0], 1, quads)" in src
+        assert all(q <= 32 and q & (q - 1) == 0 for q in ST.QUAD_CHOICES)
+        # The gate admits 2^30 cells, where channel 2 starts at 2^31 elements.
+        assert ST.stencil_plan(kind, (4096, 512, 512)).grid[2] >= 1
+    for zyx in ((0, 8, 8), (1300, 1300, 1300), (4, 70000 * 32, 1), (4, 8, -3)):
+        with pytest.raises(ValueError):
+            ST.stencil_plan(kind, zyx)
+    assert ST.stencil_plan(kind, (3, 5, 7)).grid == ST.stencil_plan("grad_damp", (3, 5, 7)).grid
 
 
 def _prolong_model(q, e_c, plan, halo=None):
@@ -168,6 +224,31 @@ def _prolong_model(q, e_c, plan, halo=None):
     return out, writes
 
 
+def _ring_view(vol, cta, halo):
+    """What a CTA of B8 (or B5) holds of the f32 volume `vol`, in
+    coordinates offset by 1 (cell (z, y, x) at [z + 1, y + 1, x + 1]): its
+    ring's planes [z0, ze - 1 + halo] (plane Z is plane Z - 1 again) of
+    rows [y0 - halo, ye - 1 + halo] and columns [x0 - halo, xe - 1 + halo],
+    each cell holding `vol` at its coordinates clamped to the volume, and
+    plane z0 - halo of its own cells (clamped), read from device memory;
+    NaN elsewhere."""
+    x0, xe, y0, ye, z0, ze = cta
+    nz, ny, nx = vol.shape
+
+    def clamped(zr, yr, xr):
+        return vol[zr.clamp(0, nz - 1)][:, yr.clamp(0, ny - 1)][:, :, xr.clamp(0, nx - 1)]
+
+    view = torch.full((nz + 2, ny + 2, nx + 2), NAN)
+    zr = torch.arange(z0, ze + halo)
+    yr = torch.arange(y0 - halo, ye + halo)
+    xr = torch.arange(x0 - halo, xe + halo)
+    view[zr[:, None, None] + 1, yr[:, None] + 1, xr + 1] = clamped(zr, yr, xr)
+    own_y, own_x = torch.arange(y0, ye), torch.arange(x0, xe)
+    zm = torch.tensor([z0 - halo])
+    view[z0 - halo + 1, y0 + 1:ye + 1, x0 + 1:xe + 1] = clamped(zm, own_y, own_x)[0]
+    return view
+
+
 def _grad_model(pressure, plan, halo=None):
     """grad_damp_march_kernel's schedule, as the pressure differences each
     cell sees: CTA (i, j, k) stages planes [z0, ze - 1 + HALO] (plane Z is
@@ -178,24 +259,12 @@ def _grad_model(pressure, plan, halo=None):
     plane z, gz from planes z + 1 and z - 1, as plain reads at the
     unclamped neighbours.  Returns ([dx, dy, dz], writes)."""
     halo = ST.HALO if halo is None else halo
-    nz, ny, nx = pressure.shape
     diffs = [torch.full(pressure.shape, NAN) for _ in range(3)]
     writes = torch.zeros(pressure.shape, dtype=torch.int32)
 
-    def clamped(zr, yr, xr):
-        return pressure[zr.clamp(0, nz - 1)][:, yr.clamp(0, ny - 1)][:, :, xr.clamp(0, nx - 1)]
-
-    for x0, xe, y0, ye, z0, ze in _ctas(plan, pressure.shape, "grad_damp"):
-        # The CTA's view in coordinates offset by 1: cell (z, y, x) at
-        # [z + 1, y + 1, x + 1].
-        view = torch.full((nz + 2, ny + 2, nx + 2), NAN)
-        zr = torch.arange(z0, ze + halo)
-        yr = torch.arange(y0 - halo, ye + halo)
-        xr = torch.arange(x0 - halo, xe + halo)
-        view[zr[:, None, None] + 1, yr[:, None] + 1, xr + 1] = clamped(zr, yr, xr)
-        own_y, own_x = torch.arange(y0, ye), torch.arange(x0, xe)
-        zm = torch.tensor([z0 - halo])
-        view[z0 - halo + 1, y0 + 1:ye + 1, x0 + 1:xe + 1] = clamped(zm, own_y, own_x)[0]
+    for cta in _ctas(plan, pressure.shape, "grad_damp"):
+        x0, xe, y0, ye, z0, ze = cta
+        view = _ring_view(pressure, cta, halo)
         region = (slice(z0, ze), slice(y0, ye), slice(x0, xe))
         diffs[0][region] = view[z0 + 1:ze + 1, y0 + 1:ye + 1, x0 + 2:xe + 2] - view[
             z0 + 1:ze + 1, y0 + 1:ye + 1, x0:xe]
@@ -269,3 +338,118 @@ def test_a_window_one_cell_short_is_caught(monkeypatch):
     got, _ = _grad_damp_scheduled(monkeypatch, fields.clone(), p,
                                   _forced("grad_damp", zyx, 8, 4), halo=0)
     assert not torch.equal(got, ST.grad_damp_plain(fields.clone(), p, RHO))
+
+
+def _residual_model(q, b, plan, halo=None):
+    """residual_march_kernel's schedule: each CTA holds q as B8's ring holds
+    the pressure (`_ring_view`) and b at its own cells; x+-, y+- and the
+    centre from plane z, z+ from plane z + 1, z- from plane z - 1, as plain
+    reads at the unclamped neighbours, summed in the kernel's order.
+    Returns (r, writes)."""
+    halo = ST.HALO if halo is None else halo
+    out = torch.full(q.shape, NAN)
+    writes = torch.zeros(q.shape, dtype=torch.int32)
+    for cta in _ctas(plan, q.shape, "residual"):
+        x0, xe, y0, ye, z0, ze = cta
+        v = _ring_view(q, cta, halo)
+        zs, ys, xs = slice(z0 + 1, ze + 1), slice(y0 + 1, ye + 1), slice(x0 + 1, xe + 1)
+        s = v[zs, ys, x0 + 2:xe + 2] + v[zs, ys, x0:xe]
+        s = s + v[zs, y0 + 2:ye + 2, xs]
+        s = s + v[zs, y0:ye, xs]
+        s = s + v[z0:ze, ys, xs]
+        s = s + v[z0 + 2:ze + 2, ys, xs]
+        region = (slice(z0, ze), slice(y0, ye), slice(x0, xe))
+        out[region] = b[region] - (s - 6.0 * v[zs, ys, xs])
+        writes[region] += 1
+    return out, writes
+
+
+def _div_model(fields, plan, halo=None):
+    """divergence_march_kernel's schedule: CTA (i, j, k) holds, of planes
+    [z0, ze), ux at its own rows and columns and the lane exchange's two
+    ends (columns x0 - halo .. xe - 1 + halo), uy at rows y0 - halo .. ye -
+    1 + halo of its columns (the staged buffer), and uz at planes z0 - halo
+    .. ze - 1 + halo of its own cells (the registers), all clipped to the
+    volume; NaN elsewhere.  Each channel's neighbours along its axis are
+    read at the clamped coordinates, cast to f32, and summed as
+    0.5 * ((dx + dy) + dz).  Returns (div, writes)."""
+    halo = ST.HALO if halo is None else halo
+    nz, ny, nx = fields.shape[1:]
+    u = fields[:3].float()
+    out = torch.full((nz, ny, nx), NAN)
+    writes = torch.zeros((nz, ny, nx), dtype=torch.int32)
+    for x0, xe, y0, ye, z0, ze in _ctas(plan, (nz, ny, nx), "divergence"):
+        held = torch.full((3, nz, ny, nx), NAN)
+        xs = slice(max(x0 - halo, 0), min(xe + halo, nx))
+        ys = slice(max(y0 - halo, 0), min(ye + halo, ny))
+        zs = slice(max(z0 - halo, 0), min(ze + halo, nz))
+        held[0, z0:ze, y0:ye, xs] = u[0, z0:ze, y0:ye, xs]
+        held[1, z0:ze, ys, x0:xe] = u[1, z0:ze, ys, x0:xe]
+        held[2, zs, y0:ye, x0:xe] = u[2, zs, y0:ye, x0:xe]
+        zr, yr, xr = torch.arange(z0, ze), torch.arange(y0, ye), torch.arange(x0, xe)
+        own = held[:, z0:ze, y0:ye]
+        dx = (own[0][:, :, (xr + 1).clamp(max=nx - 1)] - own[0][:, :, (xr - 1).clamp(min=0)])
+        hy = held[1, z0:ze, :, x0:xe]
+        dy = hy[:, (yr + 1).clamp(max=ny - 1)] - hy[:, (yr - 1).clamp(min=0)]
+        hz = held[2, :, y0:ye, x0:xe]
+        dz = hz[(zr + 1).clamp(max=nz - 1)] - hz[(zr - 1).clamp(min=0)]
+        out[z0:ze, y0:ye, x0:xe] = 0.5 * ((dx + dy) + dz)
+        writes[z0:ze, y0:ye, x0:xe] += 1
+    return out, writes
+
+
+# Shapes with a ragged X of 38 and X = 150 (a last quad of two columns, rows
+# only 4- or 8-byte aligned), several x and row tiles, ragged last chunks,
+# chunks of one plane, and odd dims.
+DIV_CASES = [((7, 10, 38), torch.bfloat16, None, 2), ((9, 34, 38), torch.float32, 8, 4),
+             ((5, 3, 7), torch.bfloat16, None, 3), ((6, 18, 70), torch.bfloat16, 16, 1),
+             ((3, 5, 150), torch.float32, None, 2)]
+
+
+@pytest.mark.parametrize("zyx,dtype,quads,chunk", DIV_CASES,
+                         ids=[str(i) for i in range(len(DIV_CASES))])
+def test_divergence_schedule_matches_plain(zyx, dtype, quads, chunk):
+    """B3's schedule writes every cell once and equals `divergence_plain`
+    bit for bit, bf16 and f32 storage, reading channels 0..2 only."""
+    fields = _rand((4,) + zyx, sum(zyx), -0.75, 0.75).to(dtype)
+    fields[3] = NAN
+    out, writes = _div_model(fields, _forced("divergence", zyx, quads, chunk))
+    assert (writes == 1).all()
+    assert torch.equal(out, ST.divergence_plain(fields))
+
+
+RESIDUAL_CASES = [((7, 10, 38), None, 2), ((9, 34, 38), 8, 4), ((5, 3, 7), None, 3),
+                  ((6, 18, 70), 16, 1), ((3, 5, 150), None, 2)]
+
+
+@pytest.mark.parametrize("zyx,quads,chunk", RESIDUAL_CASES,
+                         ids=[str(i) for i in range(len(RESIDUAL_CASES))])
+def test_residual_schedule_matches_plain(zyx, quads, chunk):
+    """B5's schedule writes every cell once and equals `residual_plain` bit
+    for bit on ragged and odd shapes and chunks."""
+    q, b = _rand(zyx, sum(zyx), -0.05, 0.05), _rand(zyx, sum(zyx) + 1)
+    out, writes = _residual_model(q, b, _forced("residual", zyx, quads, chunk))
+    assert (writes == 1).all()
+    assert torch.equal(out, ST.residual_plain(q, b))
+
+
+@pytest.mark.parametrize("kind", ["divergence", "residual"])
+def test_a_march_window_one_cell_short_is_caught(kind):
+    """With the reach one cell short (HALO 0: no uy halo rows, no ux
+    exchange ends, no uz planes beyond the chunk for B3; no ring halo for
+    B5), the models read cells no CTA holds (NaN) and disagree with the
+    plain versions."""
+    zyx = (12, 34, 38)
+    plan = _forced(kind, zyx, 8, 2)
+    assert plan.grid[0] > 1 and plan.grid[1] > 1 and plan.grid[2] > 1
+    if kind == "divergence":
+        fields = _rand((3,) + zyx, 9, -0.75, 0.75).to(torch.bfloat16)
+        ref = ST.divergence_plain(fields)
+        out, _ = _div_model(fields, plan, halo=0)
+        assert torch.equal(_div_model(fields, plan)[0], ref)
+    else:
+        q, b = _rand(zyx, 10, -0.05, 0.05), _rand(zyx, 11)
+        ref = ST.residual_plain(q, b)
+        out, _ = _residual_model(q, b, plan, halo=0)
+        assert torch.equal(_residual_model(q, b, plan)[0], ref)
+    assert not torch.equal(out, ref)
