@@ -33,7 +33,14 @@ frame's compact (60, 256, 256) and 150^3, B5 at error 0 at 128^3, (60,
 equal to its per-cell design and within one bf16 ulp of each plain value at
 those and at 150^3; all are timed again in turns with their operands out
 of L2 (`measure_cold`), and B3 and B5 must beat their per-cell designs
-there too.  It drives `FluidXEngine` for 60 frames of the main path
+there too.  B11 (`advect.axis_plan`: whole rows staged along x, B2's
+window in the storage type along y and z) is held equal to its plain
+version and its per-voxel design on both passes of the 2D preset's
+512^2, on every axis of 128^3 and 150^3 and on 512^2 in f32, and B15 (a
+z-march on `stencil.stencil_plan`) at (30, 128, 128); both are timed in
+turns with their per-cell designs, warm and L2-cold (B11 on the 2D
+preset's two passes and along x and y at 128^3), and must beat them in
+each.  It drives `FluidXEngine` for 60 frames of the main path
 (PRESETS["fluid3d"] as it is: 128^3 grid, 800x800 viewport, the
 projection on kernels B3-B8),
 20 frames of the pallas_jacobi=False path, 60 frames of PRESETS["fluid2d"]
@@ -233,10 +240,10 @@ def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_re
     if yardstick is None:
         row["ms"] = time_ms(kernel, reps, what=name) / calls
     else:
-        y0 = time_ms(yardstick, reps)
-        k0 = time_ms(kernel, reps, what=name)
-        k1 = time_ms(kernel, reps, what=name)
-        row["yardstick_ms"] = [y0, time_ms(yardstick, reps)]
+        y0 = time_ms(yardstick, reps) / calls
+        k0 = time_ms(kernel, reps, what=name) / calls
+        k1 = time_ms(kernel, reps, what=name) / calls
+        row["yardstick_ms"] = [y0, time_ms(yardstick, reps) / calls]
         row["kernel_ms"] = [k0, k1]
         row["ms"] = (k0 + k1) / 2
     row["plain_ms"] = time_ms(plain, plain_reps) / calls
@@ -244,12 +251,13 @@ def measure(results, name, err, kernel, plain, n_bytes, flops, reps=20, plain_re
     results[name] = row
 
 
-def measure_cold(results, name, kernel, yardstick, operands, reps=20):
+def measure_cold(results, name, kernel, yardstick, operands, reps=20, calls=1):
     """Times `kernel(*ops)` and its `yardstick(*ops)` in turns (yardstick,
     kernel, kernel, yardstick), each call on the next of enough copies of
     `operands` that a round through them moves four times the card's L2:
     every call finds its operands out of L2, as in the frame, where other
-    kernels run between two calls of one.  Stored under `name` as
+    kernels run between two calls of one.  Where each makes `calls`
+    launches, the times are per launch.  Stored under `name` as
     "cold_kernel_ms" and "cold_yardstick_ms"."""
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
     sets = [tuple(t.clone() for t in operands)
@@ -259,12 +267,12 @@ def measure_cold(results, name, kernel, yardstick, operands, reps=20):
         turn = iter(range(1 << 30))
         return lambda: fn(*sets[next(turn) % len(sets)])
 
-    y0 = time_ms(rotating(yardstick), reps)
-    k0 = time_ms(rotating(kernel), reps, what=name)
-    k1 = time_ms(rotating(kernel), reps, what=name)
+    y0 = time_ms(rotating(yardstick), reps) / calls
+    k0 = time_ms(rotating(kernel), reps, what=name) / calls
+    k1 = time_ms(rotating(kernel), reps, what=name) / calls
     r = results[name]
     r["cold_kernel_ms"] = [k0, k1]
-    r["cold_yardstick_ms"] = [y0, time_ms(rotating(yardstick), reps)]
+    r["cold_yardstick_ms"] = [y0, time_ms(rotating(yardstick), reps) / calls]
     r["cold_copies"] = len(sets)
     del sets
     torch.cuda.empty_cache()
@@ -293,7 +301,9 @@ def print_times(results, names) -> None:
                else "B6" if name.startswith("jacobi_packed")
                else "B7" if name.startswith("prolong_correct")
                else "B8" if name.startswith("grad_damp")
-               else "B9" if name.startswith("shear_scan") else "B4")
+               else "B9" if name.startswith("shear_scan")
+               else "B11" if name.startswith("advect_axis")
+               else "B15" if name.startswith("gradient3") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
@@ -908,10 +918,35 @@ def check_packed_shapes(dev, results):
                 yardstick=lambda: J.sweepwise("sweeps", zero, r_c, 32, order=J.ORDER_PACKED))
 
 
+def check_axis(vol, scale, axis, ch):
+    """B11 along `axis` equal (`torch.equal`) to its plain version and to
+    its per-voxel design (`advect.perthread`); returns its output and its
+    max abs difference from the plain version."""
+    from fluidx12_tpu_torch.ops.cuda import advect as A
+
+    shape = tuple(vol.shape)
+    got = A.advect_axis(vol, scale, axis, ch)
+    ref = A.advect_axis_plain(vol, scale, axis, ch)
+    yard = A.perthread("axis", vol, scale, axis=axis, disp_ch=ch)
+    err = float((got.float() - ref.float()).abs().max())
+    print(f"B11 advect_axis along {'zyx'[axis]} at {shape} {vol.dtype} (plan "
+          f"{A.axis_plan(shape[1:], vol.dtype, axis, shape[0])}): max abs diff {err:.3e} "
+          f"(limit 0: the same f32 operations, one rounding), per-voxel design "
+          f"{'equal' if torch.equal(yard, ref) else 'differs'}")
+    check(torch.equal(got, ref) and torch.equal(yard, ref),
+          f"B11 advect_axis along {'zyx'[axis]} vs plain at {shape} {vol.dtype}")
+    return got, err
+
+
 def phase2b_kernels_2d(dev, results):
     """B11 and B14 against their plain versions on the card at the 2D
     preset's shapes, (7, 1, 512, 512) bf16 and a 512^2 plane, with times
-    and bounds; B11 also on every axis of a 128^3 volume (the z stride)."""
+    and bounds.  B11 (`advect.axis_plan`) is held equal to its plain
+    version and its per-voxel design on both passes of the 512^2 plane, on
+    every axis of 128^3 and 150^3 (the z stride, rows of 300 bytes) and on
+    the plane in f32, and timed in turns with the per-voxel design, warm
+    and L2-cold, on the 2D preset's two passes and along x and y at 128^3;
+    it must beat it in each."""
     phase("phase 2b: the 2D preset's kernels vs plain versions at 512^2")
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.ops.cuda import advect as A
@@ -930,31 +965,53 @@ def phase2b_kernels_2d(dev, results):
     vol = torch.from_numpy(f).to(dev, torch.bfloat16)
     dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=dev)
     sx, sy = dt * x, dt * y
-    tx = A.advect_axis(vol, sx, 2, 0)
-    ty = A.advect_axis(tx, sy, 1, 1)
-    err_x = float((tx.float() - A.advect_axis_plain(vol, sx, 2, 0).float()).abs().max())
-    err_y = float((ty.float() - A.advect_axis_plain(tx, sy, 1, 1).float()).abs().max())
-    print(f"B11 advect_axis at {tuple(vol.shape)} bf16: x pass max abs diff {err_x:.3e}, "
-          f"y pass {err_y:.3e} (limit 0: same f32 operations, one rounding)")
-    check(err_x == 0.0 and err_y == 0.0, "B11 advect_axis vs plain at 512^2")
-    v3 = torch.from_numpy(rng.uniform(-1.5, 1.5, (7, 128, 128, 128)).astype(np.float32)
-                          ).to(dev, torch.bfloat16)
-    s3 = torch.tensor(4.0, device=dev)   # displacements up to 6 voxels
-    err_3d = 0.0
-    for axis, ch in ((2, 0), (1, 1), (0, 2)):
-        diff = A.advect_axis(v3, s3, axis, ch).float() - A.advect_axis_plain(v3, s3, axis, ch)
-        err_3d = max(err_3d, float(diff.abs().max()))
-    print(f"B11 advect_axis on each axis of (7, 128, 128, 128) bf16: max abs diff "
-          f"{err_3d:.3e} (limit 0)")
-    check(err_3d == 0.0, "B11 advect_axis vs plain at 128^3")
+    tx, err_x = check_axis(vol, sx, 2, 0)
+    ty, err_y = check_axis(tx, sy, 1, 1)
 
     def both_passes(fn):
-        return lambda: fn(fn(vol, sx, 2, 0), sy, 1, 1)
+        return lambda v: fn(fn(v, sx, 2, 0), sy, 1, 1)
+
+    def perthread(v, s, axis, ch):
+        return A.perthread("axis", v, s, axis=axis, disp_ch=ch)
 
     # Per cell and pass: the displacement and its clamps, the two weights,
     # 7 channels x a two-tap lerp.
-    record("advect_axis", max(err_x, err_y, err_3d), both_passes(A.advect_axis),
-           both_passes(A.advect_axis_plain), nbytes(vol, sx, tx), 33 * n, calls=2)
+    record("advect_axis", max(err_x, err_y), lambda: both_passes(A.advect_axis)(vol),
+           lambda: both_passes(A.advect_axis_plain)(vol), nbytes(vol, sx, tx), 33 * n, calls=2,
+           yardstick=lambda: both_passes(perthread)(vol), yardstick_name="per-voxel design")
+    check_faster(results, "advect_axis")
+    measure_cold(results, "advect_axis", both_passes(A.advect_axis), both_passes(perthread),
+                 (vol,), calls=2)
+    check_faster(results, "advect_axis", cold=True)
+    del tx, ty
+    # Every axis of 128^3 (x and y: the 3D path with advect_fuse_xy=False,
+    # timed L2-cold as there) and of 150^3 (rows of 300 bytes: 4-byte
+    # copies, a ragged strip), and the 2D plane in f32, with displacements
+    # up to 6 voxels at 128^3 and past the clip in a patch.
+    rows = []
+    for label, shape, dtype in (("128", (7, 128, 128, 128), torch.bfloat16),
+                                ("150", (7, 150, 150, 150), torch.bfloat16),
+                                ("512_f32", (7, 1, 512, 512), torch.float32)):
+        v = rng.uniform(-1.5, 1.5, shape).astype(np.float32)
+        v[:3, :, : shape[2] // 4, : shape[3] // 4] *= 8.0
+        v = torch.from_numpy(v).to(dev, dtype)
+        s = torch.tensor(4.0, device=dev)
+        errs = [check_axis(v, s, axis, ch)[1] for axis, ch in ((2, 0), (1, 1), (0, 2))
+                if shape[1] > 1 or axis > 0]
+        if label == "128":
+            for axis, ch, name in ((2, 0, "advect_axis_x_128"), (1, 1, "advect_axis_y_128")):
+                record(name, errs[2 - axis], lambda: A.advect_axis(v, s, axis, ch),
+                       lambda: A.advect_axis_plain(v, s, axis, ch), 2 * nbytes(v) + 4,
+                       33 * v[0].numel(), yardstick=lambda: perthread(v, s, axis, ch),
+                       yardstick_name="per-voxel design")
+                check_faster(results, name)
+                measure_cold(results, name, lambda u: A.advect_axis(u, s, axis, ch),
+                             lambda u: perthread(u, s, axis, ch), (v,))
+                check_faster(results, name, cold=True)
+                rows.append(name)
+        del v
+        torch.cuda.empty_cache()
+    print_times(results, rows)
 
     # B14: 64 sweeps on a smooth pressure against a smooth right-hand side.
     q = torch.from_numpy(rng.uniform(-0.05, 0.05, (y, x)).astype(np.float32)).to(dev)
@@ -1156,7 +1213,10 @@ def phase2d_kernels_fused_slab(dev, results):
     """B18's two halves at 256^3, and B15 and B17 at the 256x256x60 GI
     frame's shapes ((30, 128, 128), the AO's half field; a 128x256x256
     face stack), against their plain versions on the card, with times and
-    bounds."""
+    bounds.  B15 (a z-march on `stencil.stencil_plan`) is held equal to
+    its plain version and its per-cell design, timed beside
+    `torch.gradient`, and in turns with the per-cell design, warm and
+    L2-cold; it must beat it in both."""
     phase("phase 2d: B18 at 256^3, B15 and B17 at the 256x256x60 frame's shapes")
     from fluidx12_tpu_torch.ops.cuda import composite as C
     from fluidx12_tpu_torch.ops.cuda import jacobi as J
@@ -1227,17 +1287,26 @@ def phase2d_kernels_fused_slab(dev, results):
     got = ST.gradient3(dens)
     ref = ST.gradient3_plain(dens)
     err = float((got - ref).abs().max())
+    yard = ST.perthread("gradient3", dens)
 
     def library():
         return torch.gradient(dens, dim=(0, 1, 2))
 
     lib_err = float((torch.stack(library()[::-1]) - ref).abs().max())
-    print(f"B15 gradient3 at {half}: max abs diff {err:.3e} (limit 0: one difference and "
-          f"one exact scale); library torch.gradient max abs diff {lib_err:.3e}")
-    check(err == 0.0, "B15 gradient3 vs plain")
+    print(f"B15 gradient3 at {half} (plan {ST.stencil_plan('gradient3', half)}): max abs diff "
+          f"{err:.3e} (limit 0: one difference and one exact scale), per-cell design "
+          f"{'equal' if torch.equal(yard, ref) else 'differs'}; library torch.gradient max "
+          f"abs diff {lib_err:.3e}")
+    check(torch.equal(got, ref) and torch.equal(yard, ref), "B15 gradient3 vs plain")
+    del yard
     # Per cell and axis: a difference and a scale.
     record("gradient3", err, lambda: ST.gradient3(dens), lambda: ST.gradient3_plain(dens),
-           nbytes(dens, got), 6 * dens.numel(), library=library)
+           nbytes(dens, got), 6 * dens.numel(), library=library,
+           yardstick=lambda: ST.perthread("gradient3", dens), yardstick_name="per-cell design")
+    check_faster(results, "gradient3")
+    measure_cold(results, "gradient3", ST.gradient3, lambda q: ST.perthread("gradient3", q),
+                 (dens,))
+    check_faster(results, "gradient3", cold=True)
 
     # B17 on the X+ face's stack of the 256x256x60 frame, both directions.
     _, dens_m, prod, n_steps = slab_face_stack(dev)

@@ -29,7 +29,8 @@
 // Bound: memory.  B1 reads the 7-channel bf16 state and writes f32 (14 +
 // 28 B a voxel), B2 reads f32 and writes bf16 (28 + 14 B): 26.3 us each at
 // 128^3 over 3.35 TB/s.  B11 reads and writes the storage type (14 + 14 B
-// at bf16: 7.3 MB, 2.2 us, at the 2D preset's 512^2).
+// at bf16: 7.3 MB, 2.2 us, at the 2D preset's 512^2, where the state stays
+// in the 50 MB L2 from one pass to the next).
 //
 // The clip bounds every tap to kHaloLo cells below its output and kHaloHi
 // above (the second tap), so a strip of kLanes x-columns, one lane each,
@@ -63,10 +64,34 @@
 //     lane's results.  Rows and planes are clamped to the volume, so an axis
 //     shorter than the window (Z = 20) stages all of it.
 // ops/cuda/advect.advect_plan chooses the tiles; the C launches check them.
+// B11 (fx_advect_axis) stages in the storage type, on the plan of
+// ops/cuda/advect.axis_plan, which its launch takes whole and checks:
+//   - the x pass (advect_row_kernel) owns whole rows: a CTA stages every
+//     channel of its rows with cp.async in one batch (7 KB a row at 512
+//     bf16 columns; a row too long for the budget is cut into spans of
+//     columns, each staged with kRowLead columns either side), then each
+//     thread forms a pair of adjacent columns (one where X is odd) from
+//     shared memory and writes it as one 4-byte (bf16) or 8-byte (f32)
+//     word.  No column is staged twice.
+//   - the y and z passes (advect_strip_kernel) are B2's staged window
+//     taken along the pass's axis (stride X or Y * X), staged in the
+//     storage type, the displacement from channel disp_ch of the window,
+//     no epilogue.  A lane owns one column (32-column strips), or a bf16
+//     pair (64-column strips) where the rows are not 16-byte aligned (X =
+//     150: a 64-byte strip row there straddles three 32-byte sectors).
+//     The plan cuts the axis into even tiles, enough for about four CTAs
+//     an SM (at 512^2 along y: 32 tiles of 16 rows, 512 CTAs, each
+//     re-reading the 25-row halo from L2), where the fewest tiles that fit
+//     shared memory would give 48 CTAs.
+//   - both are programmatic dependent launches (griddep_wait): the y pass
+//     is scheduled as the x pass drains, which hides most of the launch
+//     gap between the 2D frame's two passes (PERF.md, the PR 13 finding).
 // The designs they replaced stay as yardsticks: fx_advect_xy_perthread
-// (two launches of advect_axis_kernel through a storage-type scratch) and
+// (two launches of advect_axis_kernel through a storage-type scratch),
 // fx_advect_z_forces_perthread (one thread a voxel, the taps gathered
-// from device memory across planes).
+// from device memory across planes) and fx_advect_axis_perthread (B11 as
+// one thread a voxel: a 64-bit division for its index, then 2 x C
+// dependent 2-byte gathers, one 32-byte sector each along y or z).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,8 +147,9 @@ __device__ __forceinline__ Taps lerp_taps(float d, int i, int n) {
 
 // One-axis resample of every channel, the displacement from channel
 // `disp_ch` of the input itself, one rounding to Tout.  The axis is given by
-// its element stride and extent, so x, y and z share the code: B11 is one
-// launch (Tout = Tin); B1's yardstick two (x into Tin, then y into f32).
+// its element stride and extent, so x, y and z share the code.  The design
+// B11 replaced, kept as its yardstick (one launch, Tout = Tin), and the
+// body of B1's yardstick (two: x into Tin, then y into f32).
 template <typename Tin, typename Tout>
 __global__ void advect_axis_kernel(const Tin* __restrict__ vol, Tout* __restrict__ out,
                                    const float* __restrict__ scale, int disp_ch, int C,
@@ -434,6 +460,198 @@ __global__ void advect_z_forces_kernel(const float* __restrict__ vol, T* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// B11: one axis, staged in the storage type.
+// ---------------------------------------------------------------------------
+
+// The x pass stages kRowLead columns either side of the ones a CTA owns (a
+// multiple of every copy's elements, and at least the taps' reach), each
+// channel's row at a pitch that is a multiple of kRowAlign bytes; a CTA is
+// at most kRowThreads threads.  A span of columns short of the row is a
+// multiple of kRowSpanAlign.
+constexpr int kRowLead = 16;
+constexpr int kRowAlign = 16;
+constexpr int kRowThreads = 256;
+constexpr int kRowSpanAlign = 64;
+
+// Bytes between two staged rows of the x pass: the span and its lead
+// either side, clipped to the row, rounded up to kRowAlign (csrc and
+// ops/cuda/advect.row_pitch agree on this formula).
+int row_pitch(int esize, int span, int X) {
+  return (min(span + 2 * kRowLead, X) * esize + kRowAlign - 1) / kRowAlign * kRowAlign;
+}
+
+// Bytes of the x pass's shared memory: every channel of `tile` rows.
+int row_smem(int C, int esize, int tile, int span, int X) {
+  return tile * C * row_pitch(esize, span, X);
+}
+
+// Bytes of the y or z pass's window: every channel's `cells` cells of a
+// strip of kLanes * cols columns.
+int strip_smem(int C, int esize, int cols, int cells) { return C * cells * kLanes * cols * esize; }
+
+// B11's launches are programmatic dependent launches: one may be scheduled
+// as the CTAs of the kernel before it on the stream exit, before that
+// kernel's memory is flushed, and waits here, before its first access to
+// device memory, until it is.  The 2D frame's y pass so follows its x pass
+// (and the next frame's x pass the kernel before it) without a launch
+// gap.  No kernel triggers its dependents early: y-pass CTAs scheduled
+// while the x pass still ran landed unevenly on the SMs and were slower.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// kCols adjacent results at p, rounded to T, as one store.
+template <int kCols>
+__device__ __forceinline__ void st_cols(__nv_bfloat16* p, const float* v) {
+  if constexpr (kCols == 2) {
+    *(uint32_t*)p = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+  } else {
+    st(p, 0, v[0]);
+  }
+}
+template <int kCols>
+__device__ __forceinline__ void st_cols(float* p, const float* v) {
+  if constexpr (kCols == 2) {
+    *(float2*)p = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// The x pass.  CTA (i, j) owns rows [i tile, (i + 1) tile) of the Z * Y
+// rows and columns [j span, (j + 1) span) of each, clipped.  It stages
+// every channel's columns [x0 - kRowLead, xend + kRowLead) of its rows,
+// clipped to the row (the whole row where span = X), with copies of kCopy
+// bytes in one batch (thread (t, r) issues copies t, t + blockDim.x, ...
+// of channels r, r + blockDim.y, ... of each row: no division); then
+// thread (t, r) forms columns x .. x + kCols - 1 of rows r, r +
+// blockDim.y, ... from shared memory alone, x = x0 + kCols t, x0 + kCols
+// (t + blockDim.x), ....  The scale is loaded before the staging, so its
+// latency hides behind it.  32-bit offsets within a channel (Z * Y * X <
+// 2^31, the launch checks), the channels' bases in 64 bits.
+template <typename T, int kCopy, int kCols>
+__global__ void __launch_bounds__(kRowThreads)
+    advect_row_kernel(const T* __restrict__ vol, T* __restrict__ out,
+                      const float* __restrict__ scale, int disp_ch, int C, int rows_all, int X,
+                      int tile, int span, int pitch) {
+  extern __shared__ __align__(16) unsigned char smem[];  // [row - r0][channel][column - wlo]
+  constexpr int kPer = kCopy / (int)sizeof(T) > 0 ? kCopy / (int)sizeof(T) : 1;
+  const int r0 = blockIdx.x * tile;
+  const int rows = min(tile, rows_all - r0);
+  const int x0 = blockIdx.y * span;
+  const int xend = min(x0 + span, X);
+  const int wlo = max(x0 - kRowLead, 0);
+  const int copies = (min(xend + kRowLead, X) - wlo) / kPer;  // both ends multiples of kPer
+  const int vox = rows_all * X;
+  griddep_wait();
+  const float s = __ldg(scale);  // in flight with the staging, not after it
+  for (int r = 0; r < rows; ++r) {
+    const T* src = vol + (r0 + r) * X + wlo;
+    for (int c = threadIdx.y; c < C; c += blockDim.y) {
+      for (int k = threadIdx.x; k < copies; k += blockDim.x) {
+        stage<kCopy>(smem + (r * C + c) * pitch + k * kCopy, src + c * (int64_t)vox + k * kPer);
+      }
+    }
+  }
+  stage_wait();
+  __syncthreads();
+
+  for (int r = threadIdx.y; r < rows; r += blockDim.y) {
+    const unsigned char* row = smem + r * C * pitch;
+    const T* u = (const T*)(row + disp_ch * pitch);
+    T* o = out + (r0 + r) * X;
+    for (int x = x0 + kCols * threadIdx.x; x < xend; x += kCols * blockDim.x) {
+      Taps t[kCols];
+#pragma unroll
+      for (int e = 0; e < kCols; ++e) {
+        t[e] = lerp_taps(clamp_disp(ld(u, x + e - wlo), s, x + e, X), x + e, X);
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c) {
+        if (c < C) {
+          const T* p = (const T*)(row + c * pitch);
+          float v[kCols];
+#pragma unroll
+          for (int e = 0; e < kCols; ++e) {
+            v[e] = t[e].w0 * ld(p, t[e].i0 - wlo) + t[e].w1 * ld(p, t[e].i1 - wlo);
+          }
+          st_cols<kCols>(o + c * (int64_t)vox + x, v);
+        }
+      }
+    }
+  }
+}
+
+// The y and z passes: B2's window along the pass's axis, in the storage
+// type.  CTA (i, o, k) owns columns [i kStrip, (i + 1) kStrip) of line o
+// of the other axis (plane z for the y pass, row y for the z pass; lines
+// `outer_stride` elements apart) and cells [k tile, (k + 1) tile) of the
+// pass's axis of n cells, `stride` elements apart.  It stages every
+// channel's cells [i0 - kHaloLo, iend + kHaloHi) of the strip, clipped to
+// the axis, then forms each output from two shared-memory reads a channel,
+// one warp a cell of the axis, a lane kCols adjacent columns written as
+// one store.  A lane reads only its own columns, which lie in bank `lane`
+// of every staged row where a row is 32 words (kCols = 2 at bf16, 1 at
+// f32).  Lanes past X compute nothing; copies past X are skipped (the
+// rows' alignment puts a copy wholly inside X or wholly past it).
+template <typename T, int kCopy, int kCols>
+__global__ void __launch_bounds__(kLanes* kMaxWarps)
+    advect_strip_kernel(const T* __restrict__ vol, T* __restrict__ out,
+                        const float* __restrict__ scale, int disp_ch, int C, int vox, int X,
+                        int n, int stride, int outer_stride, int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];  // [channel][cell - lo][column - xs]
+  constexpr int kStrip = kLanes * kCols;
+  constexpr int kRowBytes = kStrip * (int)sizeof(T);
+  constexpr int kPer = kCopy / (int)sizeof(T) > 0 ? kCopy / (int)sizeof(T) : 1;
+  constexpr int kCopies = kStrip / kPer;  // copies a staged row of a channel
+  const int lane = threadIdx.x, warp = threadIdx.y, nw = blockDim.y;
+  const int tid = warp * kLanes + lane, nt = nw * kLanes;
+  const int xs = blockIdx.x * kStrip;
+  const int line = blockIdx.y * outer_stride + xs;  // cell 0 of the strip's first column
+  const int i0 = blockIdx.z * tile;
+  const int iend = min(i0 + tile, n);
+  const int lo = max(i0 - kHaloLo, 0);
+  const int cells = min(iend + kHaloHi, n) - lo;
+  griddep_wait();
+  const float sc = __ldg(scale);  // in flight with the staging, not after it
+  for (int c = 0; c < C; ++c) {
+    const T* src = vol + c * (int64_t)vox + line + lo * stride;
+    unsigned char* dst = smem + c * cells * kRowBytes;
+    for (int j = tid; j < cells * kCopies; j += nt) {
+      const int s = j / kCopies, k = (j % kCopies) * kPer;
+      if (xs + k + kPer <= X) {
+        stage<kCopy>(dst + s * kRowBytes + k * (int)sizeof(T), src + s * stride + k);
+      }
+    }
+  }
+  stage_wait();
+  __syncthreads();
+  if (xs + kCols * lane >= X) return;  // no barrier follows
+
+  const unsigned char* col = smem + kCols * lane * (int)sizeof(T);  // [c cells + cell - lo] rows
+  T* o = out + line + kCols * lane;
+  for (int i = i0 + warp; i < iend; i += nw) {
+    const T* u = (const T*)(col + (disp_ch * cells + i - lo) * kRowBytes);
+    Taps t[kCols];
+#pragma unroll
+    for (int e = 0; e < kCols; ++e) t[e] = lerp_taps(clamp_disp(ld(u, e), sc, i, n), i, n);
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c) {
+      if (c < C) {
+        const unsigned char* cc = col + c * cells * kRowBytes;
+        float v[kCols];
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) {
+          v[e] = t[e].w0 * ld((const T*)(cc + (t[e].i0 - lo) * kRowBytes), e) +
+                 t[e].w1 * ld((const T*)(cc + (t[e].i1 - lo) * kRowBytes), e);
+        }
+        st_cols<kCols>(o + c * (int64_t)vox + i * stride, v);
+      }
+    }
+  }
+}
+
 inline unsigned blocks_for(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <typename Tin, typename Tout>
@@ -514,6 +732,79 @@ cudaError_t launch_z_any(const float* vol, void* out, const float* scal, const f
   }
 }
 
+// B11's plan as fx_advect_axis takes it (ops/cuda/advect.AxisPlan).
+struct AxisPlan {
+  int cols, tile, span, bx, by, smem;
+};
+
+// `kernel` on `grid` x `block` with `smem` bytes, as a programmatic
+// dependent launch (see griddep_wait).
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, int smem,
+                             cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename T, int kCopy, int kCols>
+cudaError_t launch_axis_pass(const void* vol, void* out, const float* sc, int disp_ch, int axis,
+                             int C, int Z, int Y, int X, const AxisPlan& p, cudaStream_t s) {
+  const int vox = Z * Y * X;
+  if (axis == 2) {
+    static int allowed = 48 * 1024;
+    cudaError_t err = allow_smem(advect_row_kernel<T, kCopy, kCols>, p.smem, &allowed);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Z * Y + p.tile - 1) / p.tile, (X + p.span - 1) / p.span);
+    return launch_dependent(advect_row_kernel<T, kCopy, kCols>, grid, dim3(p.bx, p.by), p.smem,
+                            s, (const T*)vol, (T*)out, sc, disp_ch, C, Z * Y, X, p.tile, p.span,
+                            row_pitch((int)sizeof(T), p.span, X));
+  }
+  static int allowed = 48 * 1024;
+  cudaError_t err = allow_smem(advect_strip_kernel<T, kCopy, kCols>, p.smem, &allowed);
+  if (err != cudaSuccess) return err;
+  const int n = axis == 1 ? Y : Z;
+  const dim3 grid((X + p.span - 1) / p.span, axis == 1 ? Z : Y, (n + p.tile - 1) / p.tile);
+  return launch_dependent(advect_strip_kernel<T, kCopy, kCols>, grid, dim3(kLanes, p.by), p.smem,
+                          s, (const T*)vol, (T*)out, sc, disp_ch, C, vox, X, n,
+                          axis == 1 ? X : Y * X, axis == 1 ? Y * X : X, p.tile);
+}
+
+template <typename T, int kCopy>
+cudaError_t launch_axis_cols(const void* vol, void* out, const float* sc, int disp_ch, int axis,
+                             int C, int Z, int Y, int X, const AxisPlan& p, cudaStream_t s) {
+  return p.cols == 2
+             ? launch_axis_pass<T, kCopy, 2>(vol, out, sc, disp_ch, axis, C, Z, Y, X, p, s)
+             : launch_axis_pass<T, kCopy, 1>(vol, out, sc, disp_ch, axis, C, Z, Y, X, p, s);
+}
+
+// What every B11 plan must satisfy: the volume and channels window_ok
+// admits, a lane's columns 1 or 2 (2 only on rows of even length), and the
+// layout its pass's kernel takes with the shared memory of its tile.
+bool axis_ok(int axis, int disp_ch, int C, int Z, int Y, int X, int esize, const AxisPlan& p) {
+  if (axis < 0 || axis > 2 || disp_ch < 0 || disp_ch >= C || p.tile < 1 ||
+      !(p.cols == 1 || (p.cols == 2 && X % 2 == 0)) || !window_ok(C, Z, Y, X, 1, p.smem)) {
+    return false;
+  }
+  if (axis == 2) {
+    return (p.span == X || (p.span > 0 && p.span < X && p.span % kRowSpanAlign == 0)) &&
+           (X + p.span - 1) / p.span <= 65535 && p.bx >= 1 && p.by >= 1 &&
+           p.bx * p.by <= kRowThreads && p.smem == row_smem(C, esize, p.tile, p.span, X);
+  }
+  const int n = axis == 1 ? Y : Z;
+  return p.span == kLanes * p.cols && p.bx == kLanes && p.by >= 1 && p.by <= kMaxWarps &&
+         (axis == 1 ? Z : Y) <= 65535 && (n + p.tile - 1) / p.tile <= 65535 &&
+         p.smem == strip_smem(C, esize, p.cols, min(n, p.tile + kHaloLo + kHaloHi));
+}
+
 }  // namespace
 
 extern "C" {
@@ -570,9 +861,43 @@ int fx_advect_xy_perthread(const void* vol, void* tmp, void* out, const void* sc
 
 // B11: resample along `axis` (0 z, 1 y, 2 x of the (Z, Y, X) volume) with
 // the displacement from channel `disp_ch`, into `out` of vol's storage
-// type.  scale = device [dt * N].
+// type.  scale = device [dt * N].  The plan (ops/cuda/advect.axis_plan):
+// `cols` columns a thread; the x pass CTAs of bx x by threads owning
+// `tile` rows and `span` columns of each; the y and z passes CTAs of by
+// warps owning a strip of `span` = 32 cols columns and `tile` cells of the
+// axis; `smem` bytes, which must be the tile's.
 int fx_advect_axis(const void* vol, void* out, const void* scale, int disp_ch, int axis,
-                   int is_bf16, int C, int Z, int Y, int X, void* stream) {
+                   int is_bf16, int C, int Z, int Y, int X, int cols, int tile, int span,
+                   int bx, int by, int smem, void* stream) {
+  const AxisPlan p{cols, tile, span, bx, by, smem};
+  if (!axis_ok(axis, disp_ch, C, Z, Y, X, is_bf16 ? 2 : 4, p)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* sc = (const float*)scale;
+  if (is_bf16) {
+    switch (copy_bytes(vol, X, 2)) {
+      case 16:
+        return (int)launch_axis_cols<__nv_bfloat16, 16>(vol, out, sc, disp_ch, axis, C, Z, Y, X,
+                                                        p, s);
+      case 8:
+      case 4:
+        return (int)launch_axis_cols<__nv_bfloat16, 4>(vol, out, sc, disp_ch, axis, C, Z, Y, X,
+                                                       p, s);
+      default:
+        return (int)launch_axis_cols<__nv_bfloat16, 2>(vol, out, sc, disp_ch, axis, C, Z, Y, X,
+                                                       p, s);
+    }
+  }
+  return copy_bytes(vol, X, 4) == 16
+             ? (int)launch_axis_cols<float, 16>(vol, out, sc, disp_ch, axis, C, Z, Y, X, p, s)
+             : (int)launch_axis_cols<float, 4>(vol, out, sc, disp_ch, axis, C, Z, Y, X, p, s);
+}
+
+// B11 as it ran before, one thread a voxel (advect_axis_kernel).  A
+// yardstick only.
+int fx_advect_axis_perthread(const void* vol, void* out, const void* scale, int disp_ch,
+                             int axis, int is_bf16, int C, int Z, int Y, int X, void* stream) {
   if (axis < 0 || axis > 2 || disp_ch < 0 || disp_ch >= C) return (int)cudaErrorInvalidValue;
   const int64_t vox = (int64_t)Z * Y * X;
   const int64_t stride = axis == 2 ? 1 : axis == 1 ? (int64_t)X : (int64_t)Y * X;

@@ -32,9 +32,10 @@
 // B7 reads q and the coarse e_c and writes f32 (8.5 B, 17.8 MB, 5.3 us;
 // 42.6 us at 256^3); B8 reads p and 3 bf16 channels and writes them back
 // (16 B, 33.6 MB, 10.0 us; 80.1 us at 256^3).
-// All four are z-marches (ops/cuda/stencil.stencil_plan lays them out: a
-// thread a quad of 4 x of one row, CTAs of 256 threads, a chunk of planes
-// each, about four CTAs an SM).  They replaced one thread per cell, which
+// All four, and B15, are z-marches (ops/cuda/stencil.stencil_plan lays
+// them out: a thread a quad of 4 x of one row, CTAs of 256 threads, a
+// chunk of planes each, about four CTAs an SM; B15 is described at
+// gradient_march_kernel).  They replaced one thread per cell, which
 // spent its issue slots on 64-bit divisions for (z, y, x), on scattered
 // neighbour loads that re-read every cell from L1/L2 six times, in B7 on
 // two upsampled coarse planes per fine cell and in B8 on six IEEE
@@ -72,8 +73,9 @@
 // accesses a byte.  PERF.md has their times against the bound.  The
 // one-thread-a-cell designs stay as yardsticks
 // (fx_divergence_perthread, fx_residual_perthread,
-// fx_prolong_correct_perthread, fx_grad_damp_perthread; launch_grad_damp is
-// also B18's per-sweep yardstick's epilogue).
+// fx_prolong_correct_perthread, fx_grad_damp_perthread,
+// fx_gradient3_perthread; launch_grad_damp is also B18's per-sweep
+// yardstick's epilogue).
 
 #include "stencil.cuh"
 
@@ -727,8 +729,91 @@ __global__ void __launch_bounds__(kCtaThreads, 4)
 // the full one-sided difference at each boundary cell; out (3, Z, Y, X)
 // f32, channel-leading.  Bound: memory, 4 B in and 12 B out per cell (the
 // AO's (30, 128, 128) half field of the 256x256x60 GI frame: 7.9 MB, 2.3 us
-// at 3.35 TB/s).  Design: one thread per cell, consecutive threads on
-// consecutive x; the neighbour re-reads hit L1/L2.
+// at 3.35 TB/s; q is 2 MB and stays in L2, the 5.9 MB of output is what
+// costs).  gradient_march_kernel is a z-march on stencil_plan's layout, as
+// B3: a thread owns a quad of 4 x of one row and walks its chunk of planes
+// with q(z - 1), q(z) of the quad in registers and q(z + 1) read as one
+// vector a step; x +- 1 come from the adjacent lanes of the CTA row
+// (__shfl_up/down_sync in segments of `quads` lanes) and from device
+// memory only at the row's two ends; rows y +- 1 of plane z are two more
+// vector loads (clamped).  No shared memory and no barrier: at (30, 128,
+// 128) the plan gives one plane a CTA (480 CTAs), where a ring would have
+// nothing to reuse.  The three outputs move as float4 (float2 or float
+// where a row is not 16-byte aligned).  32-bit offsets within a channel
+// (Z * Y * X < 2^31, the launch checks), the channels' bases in 64 bits
+// (channel 2 starts at 2 Z Y X, past 2^31 at 2^30 cells).  The design it
+// replaced, one thread a cell (cell_at's 64-bit divisions, six scalar
+// neighbour loads that re-read every cell from L1/L2, three scalar
+// stores), stays as the yardstick fx_gradient3_perthread.
+template <int kVec>
+__global__ void __launch_bounds__(kCtaThreads)
+    gradient_march_kernel(const float* __restrict__ q, float* __restrict__ out, int Z, int Y,
+                          int X, int chunk) {
+  const int quads = blockDim.x;
+  const int x = (blockIdx.x * quads + threadIdx.x) * kQuad;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int z0 = blockIdx.z * chunk;
+  const int ze = min(z0 + chunk, Z);
+  const int plane = Y * X;
+  const int n = Z * plane;
+  float* const g[3] = {out, out + (int64_t)n, out + 2 * (int64_t)n};
+  const bool live = x < X && y < Y;
+  const int valid = X - x;
+  const bool first = threadIdx.x == 0, last = threadIdx.x == quads - 1;
+  const bool load_l = live && first && x > 0;         // q(x - 1) from device memory
+  const bool load_r = live && last && x + kQuad < X;  // q(x + 4) from device memory
+  float sx[kQuad];
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) sx[j] = (x + j == 0 || x + j == X - 1) ? 1.0f : 0.5f;
+  const float sy = (y == 0 || y == Y - 1) ? 1.0f : 0.5f;
+  const int row = y * X + x;
+  const int dm = y > 0 ? -X : 0, dp = y < Y - 1 ? X : 0;  // rows y -+ 1, clamped
+  float qm[kQuad] = {}, qc[kQuad] = {};                   // q(z - 1), q(z)
+  if (live) {
+    ld_quad<kVec>(q + max(z0 - 1, 0) * plane + row, valid, qm);
+    ld_quad<kVec>(q + z0 * plane + row, valid, qc);
+  }
+  for (int z = z0; z < ze; ++z) {
+    const int o = z * plane + row;
+    float qp[kQuad] = {}, ym[kQuad] = {}, yp[kQuad] = {};
+    float l = 0.0f, r = 0.0f;
+    if (live) {
+      ld_quad<kVec>(q + (z < Z - 1 ? o + plane : o), valid, qp);
+      ld_quad<kVec>(q + o + dm, valid, ym);
+      ld_quad<kVec>(q + o + dp, valid, yp);
+      if (load_l) l = q[o - 1];
+      if (load_r) r = q[o + kQuad];
+    }
+    const float from_left = __shfl_up_sync(0xffffffffu, qc[kQuad - 1], 1, quads);
+    const float from_right = __shfl_down_sync(0xffffffffu, qc[0], 1, quads);
+    if (live) {
+      const float xl = first ? l : from_left;   // q(x - 1), where x > 0
+      const float xr = last ? r : from_right;   // q(x + 4), where x + 4 < X
+      const float sz = (z == 0 || z == Z - 1) ? 1.0f : 0.5f;
+      float gx[kQuad], gy[kQuad], gz[kQuad];
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        const float xp = x + j + 1 < X ? (j + 1 < kQuad ? qc[j + 1] : xr) : qc[j];
+        const float xm = x + j > 0 ? (j > 0 ? qc[j - 1] : xl) : qc[j];
+        gx[j] = (xp - xm) * sx[j];
+        gy[j] = (yp[j] - ym[j]) * sy;
+        gz[j] = (qp[j] - qm[j]) * sz;
+      }
+      // Rolled only now: gx of element j + 1 reads q(z) of element j.
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        qm[j] = qc[j];
+        qc[j] = qp[j];
+      }
+      st_quad<kVec>(g[0] + o, valid, gx);
+      st_quad<kVec>(g[1] + o, valid, gy);
+      st_quad<kVec>(g[2] + o, valid, gz);
+    }
+  }
+}
+
+// B15 as it ran before, one thread a cell.  A yardstick only
+// (fx_gradient3_perthread).
 __global__ void gradient3_kernel(const float* __restrict__ q, float* __restrict__ out, int nz,
                                  int ny, int nx) {
   const int64_t n = (int64_t)nz * ny * nx;
@@ -858,6 +943,16 @@ cudaError_t launch_residual_march(const float* q, const float* b, float* r, int 
                   (nz + chunk - 1) / chunk);
   residual_march_kernel<kVec><<<grid, dim3(quads, rows), ring_smem(quads, rows), cs>>>(
       q, b, r, nz, ny, nx, chunk);
+  return cudaGetLastError();
+}
+
+// B15's launch, kVec floats a vector of q and of each output channel.
+template <int kVec>
+cudaError_t launch_gradient(const float* q, float* out, int nz, int ny, int nx, int quads,
+                            int rows, int chunk, cudaStream_t cs) {
+  const dim3 grid((nx + kQuad * quads - 1) / (kQuad * quads), (ny + rows - 1) / rows,
+                  (nz + chunk - 1) / chunk);
+  gradient_march_kernel<kVec><<<grid, dim3(quads, rows), 0, cs>>>(q, out, nz, ny, nx, chunk);
   return cudaGetLastError();
 }
 
@@ -1003,8 +1098,27 @@ int fx_grad_damp_perthread(void* fields, const void* p, float s, int is_bf16, in
                                (cudaStream_t)stream);
 }
 
-// q (nz, ny, nx) f32; out (3, nz, ny, nx) f32 = (gx, gy, gz).
-int fx_gradient3(const void* q, void* out, int nz, int ny, int nx, void* stream) {
+// B15: q (nz, ny, nx) f32, every dim at least 2; out (3, nz, ny, nx) f32 =
+// (gx, gy, gz).  The plan (ops/cuda/stencil.stencil_plan): CTAs of
+// `quads` x `rows` threads, each walking `chunk` planes.
+int fx_gradient3(const void* q, void* out, int nz, int ny, int nx, int quads, int rows,
+                 int chunk, void* stream) {
+  if (nz < 2 || ny < 2 || nx < 2 || (int64_t)nz * ny * nx >= (1LL << 31) ||
+      !march_ok(quads, rows, chunk, nz, ny, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t cs = (cudaStream_t)stream;
+  const float* qf = (const float*)q;
+  float* of = (float*)out;
+  switch (min(vec_elems(q, nx, 4), vec_elems(out, nx, 4))) {
+    case 4: return (int)launch_gradient<4>(qf, of, nz, ny, nx, quads, rows, chunk, cs);
+    case 2: return (int)launch_gradient<2>(qf, of, nz, ny, nx, quads, rows, chunk, cs);
+    default: return (int)launch_gradient<1>(qf, of, nz, ny, nx, quads, rows, chunk, cs);
+  }
+}
+
+// B15 as it ran before, one thread a cell.  A yardstick only.
+int fx_gradient3_perthread(const void* q, void* out, int nz, int ny, int nx, void* stream) {
   gradient3_kernel<<<blocks_for((int64_t)nz * ny * nx), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (float*)out, nz, ny, nx);
   return (int)cudaGetLastError();

@@ -39,7 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fx_advect_xy": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_xy_perthread": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fx_advect_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "fx_advect_axis": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
+    "fx_advect_axis_perthread": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_z_forces": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_z_forces_perthread": [_P, _P, _P, _P, _F, _F, _F, _F, _F, _I, _I,
@@ -67,7 +69,8 @@ _SIGNATURES = {
     "fx_jacobi_sweepwise": [_I, _P, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
                             _P],
     "fx_div6_mismatches": [_P, _P],
-    "fx_gradient3": [_P, _P, _I, _I, _I, _P],
+    "fx_gradient3": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fx_gradient3_perthread": [_P, _P, _I, _I, _I, _P],
     "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
 }
 

@@ -17,8 +17,10 @@ the TPU rounds it to bf16 in HBM between the two kernels (csrc/advect.cu
 says why); rounding B1's output to the storage dtype gives the TPU kernel's
 output bit for bit.  Sources, the Hopper designs (B1 one launch whose y
 taps come from a shared-memory tile, B2 a staged z-window, both laid out
-by `advect_plan`) and what bounds them: fluidx12_tpu_torch/csrc/advect.cu.
-`perthread` keeps the designs they replaced as yardsticks.
+by `advect_plan`; B11 whole rows staged for x and B2's window along y or
+z, in the storage dtype, laid out by `axis_plan`) and what bounds them:
+fluidx12_tpu_torch/csrc/advect.cu.  `perthread` keeps the designs they
+replaced as yardsticks.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (or raises).  The plain versions also run on the card, where chip_smoke.py
@@ -59,6 +61,22 @@ FEW_WARPS = 8
 SMEM_BUDGET = 113 * 1024
 SMEM_PER_SM = 233472
 CTA_RESERVED = 1024
+# B11 (advect_row_kernel, advect_strip_kernel), compiled for these: the x
+# pass stages ROW_LEAD columns either side of the ones a CTA owns, each
+# channel's row ROW_ALIGN-byte aligned, in CTAs of at most ROW_THREADS
+# threads; a CTA's columns short of a whole row are a multiple of
+# ROW_SPAN_ALIGN.  The y and z passes take a strip of STRIP lanes, each
+# owning 1 or 2 adjacent columns.  The plan's choice: about
+# AXIS_CTAS_PER_SM CTAs on each of an H100's SMS SMs, with tiles of at
+# least MIN_TILE cells (a window then stages at most about four times the
+# cells its CTA owns).
+ROW_LEAD = 16
+ROW_ALIGN = 16
+ROW_THREADS = 256
+ROW_SPAN_ALIGN = 64
+AXIS_CTAS_PER_SM = 4
+SMS = 132
+MIN_TILE = 8
 
 _STORAGE = (torch.bfloat16, torch.float32)
 
@@ -208,6 +226,119 @@ def advect_plan(zyx: tuple, dtype, channels: int = 7) -> AdvectPlan:
         z_tile, _warps(z_bytes), z_bytes, (_cdiv(nx, STRIP), ny, _cdiv(nz, z_tile)))
 
 
+class AxisPlan(NamedTuple):
+    """How B11 cuts a (Z, Y, X) volume along one axis (`axis_plan`)."""
+    axis: int    # 0 z, 1 y, 2 x
+    cols: int    # adjacent columns a thread forms and stores as one word
+    tile: int    # x: rows a CTA owns (of the Z * Y rows); y, z: cells of the axis
+    span: int    # x: columns a CTA owns of each row (X: the whole row); y, z:
+                 # columns of its strip, STRIP * cols
+    block: tuple  # x: (threads along a row, rows at a time); y, z: (STRIP, warps)
+    smem: int    # bytes of staged input
+    grid: tuple  # x: (row tiles, spans); y: (strips, planes, tiles); z: (strips, rows, tiles)
+
+
+def row_pitch(esize: int, span: int, nx: int) -> int:
+    """Bytes between two staged rows of B11's x pass: a span of columns
+    and ROW_LEAD either side, clipped to the row, rounded up to ROW_ALIGN
+    (csrc/advect.cu row_pitch)."""
+    return _cdiv(min(span + 2 * ROW_LEAD, nx) * esize, ROW_ALIGN) * ROW_ALIGN
+
+
+def row_smem(channels: int, esize: int, tile: int, span: int, nx: int) -> int:
+    """Bytes of B11's x pass: every channel of `tile` staged rows
+    (csrc/advect.cu row_smem)."""
+    return tile * channels * row_pitch(esize, span, nx)
+
+
+def strip_smem(channels: int, esize: int, cols: int, cells: int) -> int:
+    """Bytes of B11's y or z window: every channel's `cells` cells of a
+    strip of STRIP * cols columns (csrc/advect.cu strip_smem)."""
+    return channels * cells * STRIP * cols * esize
+
+
+def axis_layout(zyx: tuple, dtype, axis: int, channels: int, cols: int, tile: int,
+                span: int | None = None, warps: int | None = None) -> AxisPlan:
+    """B11's plan along `axis` with the given choices, the rest derived from
+    them: `axis_plan`'s own, or one forced to other columns, tiles, spans or
+    warps.  Nothing is checked here; `fx_advect_axis` refuses a plan its
+    kernels do not take."""
+    nz, ny, nx = (int(v) for v in zyx)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if axis == 2:
+        span = nx if span is None else span
+        bx = min(_cdiv(span, cols), ROW_THREADS)
+        by = max(1, min(ROW_THREADS // bx, tile))
+        return AxisPlan(axis, cols, tile, span, (bx, by), row_smem(channels, esize, tile, span, nx),
+                        (_cdiv(nz * ny, tile), _cdiv(nx, span)))
+    n, outer = (ny, nz) if axis == 1 else (nz, ny)
+    smem = strip_smem(channels, esize, cols, min(n, tile + HALO_LO + HALO_HI))
+    warps = min(MAX_WARPS, max(tile // 2, 1)) if warps is None else warps
+    return AxisPlan(axis, cols, tile, STRIP * cols, (STRIP, warps), smem,
+                    (_cdiv(nx, STRIP * cols), outer, _cdiv(n, tile)))
+
+
+@functools.lru_cache(maxsize=None)
+def axis_plan(zyx: tuple, dtype, axis: int, channels: int = 7) -> AxisPlan:
+    """B11's launch plan along `axis` (0 z, 1 y, 2 x) of a (Z, Y, X) volume
+    of `channels` channels stored in `dtype`.
+      - x: CTA (i, j) owns rows [i tile, (i + 1) tile) of the Z * Y rows and
+        columns [j span, (j + 1) span) and stages their columns ROW_LEAD
+        either side, clipped to the row.  The span is the whole row where
+        every channel of one row fits SMEM_BUDGET (no column staged
+        twice), else the widest multiple of ROW_SPAN_ALIGN that fits.  A
+        thread forms `cols` = 2 adjacent columns where X is even (one
+        4-byte bf16 or 8-byte f32 store), else 1; a row's threads
+        `ceil(span / cols)` up to ROW_THREADS, and the tile as many rows
+        as the rest of ROW_THREADS threads take, one each.
+      - y, z: CTA (i, o, k) owns a strip of STRIP * cols columns of plane o
+        (y) or row o (z) and cells [k tile, (k + 1) tile) of the axis, and
+        stages their `window`.  A lane owns one column, or a bf16 pair
+        where the rows are not 16-byte aligned (X = 150: there a 32-column
+        strip's 64-byte row straddles three 32-byte sectors, and pairs ran
+        faster; PERF.md, the PR 13 finding).  The axis
+        is cut into the fewest even tiles that give AXIS_CTAS_PER_SM CTAs
+        an SM (the whole axis where the strips and lines alone do), of at
+        least MIN_TILE cells, and never more than the fewest tiles whose
+        window fits SMEM_BUDGET allow (`_tile`); a warp per two cells of
+        the tile, at most MAX_WARPS.
+    Cached: the wrapper asks for it on every call.  `fx_advect_axis`
+    launches with the plan and refuses one that is not a layout its kernels
+    take with the shared memory of its tile.  Raises ValueError where no
+    plan fits: an axis other than 0..2, a channel count the kernels do not
+    take, a channel of 2^31 cells or more, more than 65535 planes or rows
+    outside the pass, or a row whose every channel does not fit one span
+    of ROW_SPAN_ALIGN columns."""
+    nz, ny, nx = (int(v) for v in zyx)
+    if (dtype not in _STORAGE or axis not in (0, 1, 2) or not 1 <= channels <= MAX_CHANNELS
+            or min(nz, ny, nx) < 1 or nz * ny * nx >= 2 ** 31):
+        raise ValueError(f"axis_plan: no plan for {channels} channels of {tuple(zyx)} "
+                         f"{dtype} along axis {axis}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    if axis == 2:
+        cols = 2 if nx % 2 == 0 else 1
+        span = nx
+        if channels * row_pitch(esize, nx, nx) > SMEM_BUDGET:
+            span = (SMEM_BUDGET // (channels * esize) - 2 * ROW_LEAD) // ROW_SPAN_ALIGN
+            span *= ROW_SPAN_ALIGN
+            if span < ROW_SPAN_ALIGN or _cdiv(nx, span) > 65535:
+                raise ValueError(f"axis_plan: no x plan for {tuple(zyx)} {dtype}")
+        rows = max(ROW_THREADS // min(_cdiv(span, cols), ROW_THREADS), 1)
+        tile = min(rows, nz * ny, SMEM_BUDGET // row_smem(channels, esize, 1, span, nx))
+        return axis_layout((nz, ny, nx), dtype, 2, channels, cols, tile, span)
+    n, outer = (ny, nz) if axis == 1 else (nz, ny)
+    if outer > 65535:
+        raise ValueError(f"axis_plan: no plan for {tuple(zyx)} along axis {axis}")
+    cols = 2 if esize == 2 and nx % 2 == 0 and nx * esize % 16 else 1
+    tiles = _cdiv(AXIS_CTAS_PER_SM * SMS, _cdiv(nx, STRIP * cols) * outer)
+    tile = n if tiles <= 1 else max(_cdiv(n, tiles), min(MIN_TILE, n))
+    tile = min(tile, _tile(n, lambda cells: strip_smem(channels, esize, cols, cells)))
+    plan = axis_layout((nz, ny, nx), dtype, axis, channels, cols, tile)
+    if plan.grid[2] > 65535:
+        raise ValueError(f"axis_plan: no plan for {tuple(zyx)} along axis {axis}")
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
@@ -334,7 +465,8 @@ def advect_axis(vol: torch.Tensor, scale: torch.Tensor, axis: int,
     """B11: backtrace of every channel of vol (C, Z, Y, X) along `axis`
     (0 z, 1 y, 2 x), the displacement clip(-vol[disp_ch] * scale) from the
     input itself; one rounding to vol's storage dtype.  scale = dt * N, a
-    0-d f32 tensor on vol's device."""
+    0-d f32 tensor on vol's device.  One launch, laid out by
+    `axis_plan`."""
     _check_vol(vol, "advect_axis")
     _check_f32(scale, (), vol, "advect_axis scale")
     if axis not in (0, 1, 2) or not 0 <= disp_ch < vol.shape[0]:
@@ -344,15 +476,22 @@ def advect_axis(vol: torch.Tensor, scale: torch.Tensor, axis: int,
         return advect_axis_plain(vol, scale, axis, disp_ch)
     c, z, y, x = vol.shape
     out = torch.empty_like(vol)
-    err = _build.lib().fx_advect_axis(
-        vol.data_ptr(), out.data_ptr(), scale.data_ptr(), disp_ch, axis,
-        int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    err = _launch_axis(vol, out, scale, disp_ch, axis_plan((z, y, x), vol.dtype, axis, c))
     advect_axis.launches += 1
     _build.check(err, "fx_advect_axis")
     return out
 
 
 advect_axis.launches = 0
+
+
+def _launch_axis(vol, out, scale, disp_ch: int, plan: AxisPlan) -> int:
+    """fx_advect_axis with `plan` as given; returns its error code."""
+    c, z, y, x = vol.shape
+    return _build.lib().fx_advect_axis(
+        vol.data_ptr(), out.data_ptr(), scale.data_ptr(), disp_ch, plan.axis,
+        int(vol.dtype == torch.bfloat16), c, z, y, x, plan.cols, plan.tile, plan.span,
+        *plan.block, plan.smem, _build.stream_ptr(vol))
 
 
 def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
@@ -411,26 +550,38 @@ def _launch_z(vol, scal, table_ptr, consts, forces: bool, store) -> torch.Tensor
 
 
 def perthread(kind: str, vol: torch.Tensor, scales: torch.Tensor, table=None, consts=None,
-              store: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The designs B1 and B2 replaced, kept only as yardsticks to time them
-    against: `kind` "xy" is B1 as two launches of the per-voxel axis kernel
-    through a storage-dtype scratch (`fx_advect_xy_perthread`), "z_forces"
-    B2 and "z" B12 as one thread a voxel with its taps gathered from device
-    memory (`fx_advect_z_forces_perthread`).  Arguments as `advect_xy`,
-    `advect_z_forces` and `advect_z` take them.  No path of the port calls
-    it, and it counts no launch.  Card tensors only."""
-    if kind not in ("xy", "z_forces", "z"):
+              store: torch.dtype = torch.bfloat16, axis: int = 2,
+              disp_ch: int = 0) -> torch.Tensor:
+    """The designs B1, B2 and B11 replaced, kept only as yardsticks to time
+    them against: `kind` "xy" is B1 as two launches of the per-voxel axis
+    kernel through a storage-dtype scratch (`fx_advect_xy_perthread`),
+    "z_forces" B2 and "z" B12 as one thread a voxel with its taps gathered
+    from device memory (`fx_advect_z_forces_perthread`), "axis" B11 as one
+    launch of the per-voxel axis kernel (`fx_advect_axis_perthread`, with
+    `axis` and `disp_ch`, `scales` the 0-d scale).  Arguments as
+    `advect_xy`, `advect_z_forces`, `advect_z` and `advect_axis` take them.
+    No path of the port calls it, and it counts no launch.  Card tensors
+    only."""
+    if kind not in ("xy", "z_forces", "z", "axis"):
         raise ValueError(f"perthread: unknown kind {kind!r}")
-    if kind == "xy":
+    if kind in ("xy", "axis"):
         _check_vol(vol, "perthread")
-        _check_f32(scales, (2,), vol, "perthread scales")
+        _check_f32(scales, (2,) if kind == "xy" else (), vol, "perthread scales")
     else:
         _check_z(vol, scales, store, "perthread")
+    if kind == "axis" and (axis not in (0, 1, 2) or not 0 <= disp_ch < vol.shape[0]):
+        raise ValueError(f"perthread: axis {axis} / displacement channel {disp_ch} "
+                         f"out of range for {tuple(vol.shape)}")
     if not _on_cuda(vol, "perthread"):
         raise ValueError("perthread: the per-voxel designs run on card tensors only")
     c, z, y, x = vol.shape
     lib = _build.lib()
-    if kind == "xy":
+    if kind == "axis":
+        out = torch.empty_like(vol)
+        err = lib.fx_advect_axis_perthread(
+            vol.data_ptr(), out.data_ptr(), scales.data_ptr(), disp_ch, axis,
+            int(vol.dtype == torch.bfloat16), c, z, y, x, _build.stream_ptr(vol))
+    elif kind == "xy":
         tmp = torch.empty_like(vol)
         out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
         err = lib.fx_advect_xy_perthread(

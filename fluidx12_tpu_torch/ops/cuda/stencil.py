@@ -13,8 +13,8 @@ sim/project.py and render/lightmap_sweep.py: the velocity is cast to f32
 before any arithmetic, the gradient, the wall positions and the 3% band
 are f32 with one rounding to the storage dtype, and each sum runs in the
 kernel's order.  Sources and what bounds them:
-fluidx12_tpu_torch/csrc/stencil.cu.  B3, B5, B7 and B8 are z-marches laid
-out by `stencil_plan`; `perthread` keeps the one-thread-a-cell designs
+fluidx12_tpu_torch/csrc/stencil.cu.  B3, B5, B7, B8 and B15 are z-marches
+laid out by `stencil_plan`; `perthread` keeps the one-thread-a-cell designs
 they replaced as yardsticks.
 
 The gates are pure-Python copies of the TPU's VMEM planners.  They decide
@@ -75,11 +75,11 @@ def prolong_pallas_supported(zyx) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# The z-marches' launch plan (B3, B5, B7, B8)
+# The z-marches' launch plan (B3, B5, B7, B8, B15)
 # ---------------------------------------------------------------------------
 
-# divergence_march_kernel, residual_march_kernel, prolong_march_kernel and
-# grad_damp_march_kernel, compiled for these: QUAD consecutive x a thread,
+# divergence_march_kernel, residual_march_kernel, prolong_march_kernel,
+# grad_damp_march_kernel and gradient_march_kernel, compiled for these: QUAD consecutive x a thread,
 # CTA_THREADS threads a CTA; B8's and B5's ring of RING planes, each the
 # CTA's rows and columns with a halo of HALO cells, a row PAD floats either
 # side of its columns; B3's uy ring of RING planes, each the CTA's rows with
@@ -100,10 +100,10 @@ CTAS_PER_SM = 4
 
 
 class StencilPlan(NamedTuple):
-    """How B3, B5, B7 or B8 cuts a volume (`stencil_plan`)."""
+    """How B3, B5, B7, B8 or B15 cuts a volume (`stencil_plan`)."""
     quads: int   # x-quads a CTA row: QUAD * quads columns
     rows: int    # rows a CTA owns, CTA_THREADS // quads
-    chunk: int   # planes a CTA walks: coarse planes (B7), planes (B3, B5, B8)
+    chunk: int   # planes a CTA walks: coarse planes (B7), planes (the others)
     grid: tuple  # (x tiles, row tiles, chunks), as the C launches form it
 
 
@@ -130,22 +130,24 @@ def stencil_layout(kind: str, zyx: tuple, quads: int, chunk: int) -> StencilPlan
 @functools.lru_cache(maxsize=None)
 def stencil_plan(kind: str, zyx: tuple) -> StencilPlan:
     """The launch plan of B3 ("divergence"), B5 ("residual"), B7
-    ("prolong") or B8 ("grad_damp") on the fine (Z, Y, X) volume.  CTA (i,
+    ("prolong"), B8 ("grad_damp") or B15 ("gradient3") on the fine (Z, Y,
+    X) volume.  CTA (i,
     j, k) is `quads` x `rows` threads; thread (t, r) owns x [QUAD (i quads
     + t), + QUAD) of row j rows + r, clipped to the volume, and walks
     planes [k chunk, (k + 1) chunk) clipped to their count: B7's coarse
     planes (Z / 2; each gives fine planes 2m, 2m + 1), the others' planes.
     B8's and B5's CTA stages each plane of its rows and columns with a halo
     of one cell into a ring of RING planes; B3's each uy plane of its rows
-    with a halo row either side into a ring of RING planes.  Cached: the
-    wrappers ask for it on every call.  `fx_divergence`, `fx_residual`,
-    `fx_prolong_correct` and `fx_grad_damp` launch with the plan and refuse
-    one that is not a shape their kernels take.  Raises ValueError where no
+    with a halo row either side into a ring of RING planes; B15 stages
+    nothing.  Cached: the wrappers ask for it on every call.
+    `fx_divergence`, `fx_residual`, `fx_prolong_correct`, `fx_grad_damp` and
+    `fx_gradient3` launch with the plan and refuse one that is not a shape
+    their kernels take.  Raises ValueError where no
     plan fits: B7 on odd dims, a volume of 2^31 cells or more, more than
     65535 row tiles or chunks."""
     nz, ny, nx = (int(v) for v in zyx)
     prolong = kind == "prolong"
-    if (kind not in ("divergence", "residual", "prolong", "grad_damp")
+    if (kind not in ("divergence", "residual", "prolong", "grad_damp", "gradient3")
             or min(nz, ny, nx) < 1
             or nz * ny * nx >= 2 ** 31 or (prolong and (nz % 2 or ny % 2 or nx % 2))):
         raise ValueError(f"stencil_plan: no {kind} plan for {tuple(zyx)}")
@@ -472,16 +474,18 @@ grad_damp.launches = 0
 
 def perthread(kind: str, a: torch.Tensor, b: torch.Tensor | None = None,
               rho: float = 1.0) -> torch.Tensor:
-    """The designs B3, B5, B7 and B8 replaced, one thread a cell, kept only
-    as yardsticks to time them against: `kind` "divergence" is B3 on
+    """The designs B3, B5, B7, B8 and B15 replaced, one thread a cell, kept
+    only as yardsticks to time them against: `kind` "divergence" is B3 on
     (fields,) (`fx_divergence_perthread`), "residual" B5 on (q, b)
     (`fx_residual_perthread`), "prolong_correct" B7 on (q, e_c)
     (`fx_prolong_correct_perthread`), "grad_damp" B8 on (fields, pressure)
-    with `rho`, in place (`fx_grad_damp_perthread`).  Arguments as
-    `divergence`, `residual`, `prolong_correct` and `grad_damp` take them.
-    No path of the port calls it, and it counts no launch.  Card tensors
-    only."""
-    if kind == "divergence":
+    with `rho`, in place (`fx_grad_damp_perthread`), "gradient3" B15 on (q,)
+    (`fx_gradient3_perthread`).  Arguments as `divergence`, `residual`,
+    `prolong_correct`, `grad_damp` and `gradient3` take them.  No path of
+    the port calls it, and it counts no launch.  Card tensors only."""
+    if kind == "gradient3":
+        _check_gradient3(a, "perthread")
+    elif kind == "divergence":
         _check_fields(a, "perthread")
     elif kind == "residual":
         _check_residual(a, b, "perthread")
@@ -495,7 +499,11 @@ def perthread(kind: str, a: torch.Tensor, b: torch.Tensor | None = None,
         raise ValueError("perthread: the per-cell designs run on card tensors only")
     z, y, x = a.shape[-3:]
     lib = _build.lib()
-    if kind == "divergence":
+    if kind == "gradient3":
+        out = torch.empty((3, z, y, x), dtype=torch.float32, device=a.device)
+        err = lib.fx_gradient3_perthread(a.data_ptr(), out.data_ptr(), z, y, x,
+                                         _build.stream_ptr(a))
+    elif kind == "divergence":
         out = torch.empty((z, y, x), dtype=torch.float32, device=a.device)
         err = lib.fx_divergence_perthread(a.data_ptr(), out.data_ptr(),
                                           int(a.dtype == torch.bfloat16), z, y, x,
@@ -517,18 +525,25 @@ def perthread(kind: str, a: torch.Tensor, b: torch.Tensor | None = None,
     return out
 
 
+def _check_gradient3(q: torch.Tensor, name: str) -> None:
+    _check_f32(q, None, q, name)
+    if min(q.shape) < 2:
+        raise ValueError(f"{name}: every dim must be >= 2, got {tuple(q.shape)}")
+
+
 def gradient3(q: torch.Tensor) -> torch.Tensor:
     """B15: the (gx, gy, gz) gradient of a (Z, Y, X) f32 volume, central
     differences inside and one-sided ones at the boundary cells, as
-    jnp.gradient; every dim must be at least 2.  Returns (3, Z, Y, X) f32."""
-    _check_f32(q, None, q, "gradient3")
-    if min(q.shape) < 2:
-        raise ValueError(f"gradient3: every dim must be >= 2, got {tuple(q.shape)}")
+    jnp.gradient; every dim must be at least 2.  Returns (3, Z, Y, X) f32.
+    One launch, laid out by `stencil_plan`."""
+    _check_gradient3(q, "gradient3")
     if not _on_cuda(q, "gradient3"):
         return gradient3_plain(q)
     z, y, x = q.shape
+    plan = stencil_plan("gradient3", (z, y, x))
     out = torch.empty((3, z, y, x), dtype=torch.float32, device=q.device)
-    err = _build.lib().fx_gradient3(q.data_ptr(), out.data_ptr(), z, y, x, _build.stream_ptr(q))
+    err = _build.lib().fx_gradient3(q.data_ptr(), out.data_ptr(), z, y, x, plan.quads,
+                                    plan.rows, plan.chunk, _build.stream_ptr(q))
     gradient3.launches += 1
     _build.check(err, "fx_gradient3")
     return out

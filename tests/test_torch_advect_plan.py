@@ -283,3 +283,230 @@ def test_forces_table_is_built_once_per_config_and_device():
     assert (info.misses, info.hits) == (1, 1)
     assert torch.equal(AF._forces_table_on(cfg, fields.device),
                        torch.from_numpy(A.forces_table(cfg)))
+
+
+# ---------------------------------------------------------------------------
+# B11 (advect_row_kernel, advect_strip_kernel): `axis_plan`
+# ---------------------------------------------------------------------------
+
+def _row_model(vol, scale, disp_ch, plan, lead=None):
+    """advect_row_kernel's schedule: CTA (i, j) stages, of each of its rows,
+    every channel's columns [x0 - lead, xend + lead) clipped to the row
+    (lead = ROW_LEAD; NaN wherever it holds nothing) and forms its columns
+    [x0, xend) of those rows from that alone, rounded to storage.  Returns
+    (out, writes)."""
+    lead = A.ROW_LEAD if lead is None else lead
+    c, nz, ny, nx = vol.shape
+    q = vol.float().reshape(c, nz * ny, nx)
+    out = torch.full(q.shape, NAN)
+    writes = torch.zeros((nz * ny, nx), dtype=torch.int32)
+    esize = vol.element_size()
+    for j in range(plan.grid[1]):
+        x0, xend = j * plan.span, min((j + 1) * plan.span, nx)
+        wlo, whi = max(x0 - lead, 0), min(xend + lead, nx)
+        assert (whi - wlo) * esize <= A.row_pitch(esize, plan.span, nx)
+        win = q[:, :, wlo:whi]  # every row alike: a row reads only itself
+        xs = torch.arange(x0, xend, dtype=torch.float32)
+        w0, w1, i0, i1 = _taps(win[disp_ch][:, x0 - wlo:xend - wlo], scale, xs, nx)
+        out[:, :, x0:xend] = (w0 * _held(win, i0, wlo, 2)
+                              + w1 * _held(win, i1, wlo, 2)).to(vol.dtype).float()
+        for i in range(plan.grid[0]):
+            writes[i * plan.tile:(i + 1) * plan.tile, x0:xend] += 1
+    return out.reshape(vol.shape), writes.reshape(nz, ny, nx)
+
+
+def _strip_model(vol, scale, disp_ch, plan):
+    """advect_strip_kernel's schedule: CTA (i, o, k) stages, of its strip's
+    columns of line o (every line alike), every channel's cells `window(k
+    tile, tile, n)` of the pass's axis (NaN wherever it holds nothing) and
+    forms its cells [k tile, (k + 1) tile) from that alone, rounded to
+    storage.  Returns (out, writes)."""
+    c, nz, ny, nx = vol.shape
+    dim = plan.axis + 1
+    n = vol.shape[dim]
+    q = vol.float()
+    out = torch.full(q.shape, NAN)
+    writes = torch.zeros((1,) + tuple(q.shape[1:]), dtype=torch.int32)
+    shape = [1, 1, 1]
+    for i in range(plan.grid[0]):
+        xs, xe = i * plan.span, min((i + 1) * plan.span, nx)
+        for k in range(plan.grid[2]):
+            i0, iend = k * plan.tile, min((k + 1) * plan.tile, n)
+            lo, hi = A.window(i0, plan.tile, n)
+            win = q.narrow(dim, lo, hi - lo)[..., xs:xe]
+            shape[plan.axis] = iend - i0
+            ids = torch.arange(i0, iend, dtype=torch.float32).reshape(shape)
+            u = win[disp_ch].narrow(plan.axis, i0 - lo, iend - i0)
+            w0, w1, t0, t1 = _taps(u, scale, ids, n)
+            res = w0 * _held(win, t0, lo, dim) + w1 * _held(win, t1, lo, dim)
+            out[..., xs:xe].narrow(dim, i0, iend - i0).copy_(res.to(vol.dtype).float())
+            writes[..., xs:xe].narrow(dim, i0, iend - i0).add_(1)
+    return out, writes[0]
+
+
+def _axis_model(vol, scale, disp_ch, plan):
+    model = _row_model if plan.axis == 2 else _strip_model
+    return model(vol, scale, disp_ch, plan)
+
+
+# The 2D preset's plane, the 3D paths' grids, then ragged and small ones:
+# X = 150 (4-byte aligned bf16 rows), odd X, Y and Z shorter than the
+# window, Z = 1 and 2, an odd channel count.
+AXIS_PLANS = [(1, 512, 512), (128, 128, 128), (60, 256, 256), (150, 150, 150),
+              (20, 38, 150), (1, 20, 33), (2, 5, 7), (16, 1, 4096)]
+
+
+@pytest.mark.parametrize("zyx", AXIS_PLANS, ids=lambda v: "x".join(map(str, v)))
+def test_axis_plan_owns_every_voxel_once(zyx):
+    """Along each axis and in either storage type, B11's CTAs' owned ranges
+    partition the volume (x: row tiles x spans; y and z: strips x lines x
+    tiles), every window holds each cell within [-12, +13] of one its CTA
+    owns, clipped, and the shared memory is the tile's and fits two CTAs an
+    SM.  The x pass stages whole rows where a row of every channel fits,
+    with a row's threads on its column pairs and the rest of the CTA's 256
+    on further rows.  The y and z passes take a column a lane, or a bf16
+    pair where the rows are not 16-byte aligned; their tiles are the whole
+    axis or at least MIN_TILE cells, give at least two CTAs an SM wherever
+    tiles of MIN_TILE would, and a warp works two cells of its tile."""
+    nz, ny, nx = zyx
+    for dtype in (torch.bfloat16, torch.float32):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        for axis in (2, 1, 0):
+            plan = A.axis_plan(zyx, dtype, axis, 7)
+            assert plan.axis == axis and plan.smem <= A.SMEM_BUDGET
+            assert plan == A.axis_layout(zyx, dtype, axis, 7, plan.cols, plan.tile, plan.span)
+            if axis == 2:
+                assert plan.cols == (2 if nx % 2 == 0 else 1)
+                assert plan.span == nx  # every grid here fits whole rows
+                assert plan.smem == A.row_smem(7, esize, plan.tile, nx, nx)
+                bx, by = plan.block
+                assert bx == min(-(-nx // plan.cols), A.ROW_THREADS) and bx * by <= A.ROW_THREADS
+                assert plan.tile == by == min(A.ROW_THREADS // bx, nz * ny)
+                owned = [(i * plan.tile, min((i + 1) * plan.tile, nz * ny))
+                         for i in range(plan.grid[0])]
+                n = nz * ny
+            else:
+                n, outer = (ny, nz) if axis == 1 else (nz, ny)
+                pair = esize == 2 and nx % 2 == 0 and (nx * esize) % 16 != 0
+                assert plan.cols == (2 if pair else 1)
+                assert plan.span == A.STRIP * plan.cols and plan.block[0] == A.STRIP
+                assert plan.grid[:2] == (-(-nx // plan.span), outer)
+                assert plan.smem == A.strip_smem(7, esize, plan.cols,
+                                                 min(n, plan.tile + A.HALO_LO + A.HALO_HI))
+                assert plan.block[1] == min(A.MAX_WARPS, max(plan.tile // 2, 1))
+                assert plan.tile >= min(A.MIN_TILE, n)
+                if plan.grid[0] * outer * -(-n // A.MIN_TILE) >= 2 * A.SMS:
+                    assert int(np.prod(plan.grid)) >= 2 * A.SMS
+                owned = [(k * plan.tile, min((k + 1) * plan.tile, n))
+                         for k in range(plan.grid[2])]
+                for lo, end in owned:
+                    first, last = A.window(lo, plan.tile, n)
+                    assert first <= max(lo - 12, 0) and last >= min(end - 1 + 14, n)
+            owner = np.full(n, -1)
+            for j, (lo, end) in enumerate(owned):
+                assert lo < end and (owner[lo:end] == -1).all()
+                owner[lo:end] = j
+            assert (owner >= 0).all()
+
+
+def test_axis_plan_fills_the_card_at_512():
+    """Along y at the 2D preset's (1, 512, 512), the plan puts at least two
+    CTAs on each SM (B2's fewest-tiles rule would give 48): 32 tiles of
+    16 rows on 16 strips, 512 CTAs of 8 warps; the x pass one CTA a row
+    with a thread on each column pair."""
+    y = A.axis_plan((1, 512, 512), torch.bfloat16, 1)
+    assert np.prod(y.grid) >= 264 == 2 * A.SMS
+    assert (y.cols, y.tile, y.grid, y.block) == (1, 16, (16, 1, 32), (32, 8))
+    b2_tile = A._tile(512, lambda rows: A.strip_smem(7, 2, 1, rows))  # B2's rule, in bf16
+    assert 16 * -(-512 // b2_tile) == 48
+    x = A.axis_plan((1, 512, 512), torch.bfloat16, 2)
+    assert x.grid == (512, 1) and x.block == (256, 1) and x.smem == 7 * 1024
+
+
+def test_axis_plan_matches_the_kernel_source():
+    """The constants and formulas `axis_plan` uses are those csrc/advect.cu
+    compiles and checks (a lead of 16 columns, 16-byte row pitches, CTAs of
+    at most 256 threads in the x pass, spans of 64 columns, the shared-
+    memory formulas, one or two columns a thread); the lead covers the
+    taps' reach, and the C entry takes the plan whole.  The plan cuts rows
+    too long for the budget into spans and refuses what the kernels cannot
+    run."""
+    src = (Path(A.__file__).parents[2] / "csrc" / "advect.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (A.ROW_LEAD, A.ROW_ALIGN, A.ROW_THREADS, A.ROW_SPAN_ALIGN) == (
+        c["kRowLead"], c["kRowAlign"], c["kRowThreads"], c["kRowSpanAlign"])
+    assert A.ROW_LEAD >= max(A.HALO_LO, A.HALO_HI) and A.ROW_LEAD % 8 == 0
+    assert A.ROW_SPAN_ALIGN % A.ROW_LEAD == 0 and A.ROW_ALIGN == 16
+    for formula in ("return (min(span + 2 * kRowLead, X) * esize + kRowAlign - 1) / kRowAlign "
+                    "* kRowAlign;",
+                    "return tile * C * row_pitch(esize, span, X);",
+                    "return C * cells * kLanes * cols * esize;",
+                    "p.smem == row_smem(C, esize, p.tile, p.span, X)",
+                    "p.smem == strip_smem(C, esize, p.cols, min(n, p.tile + kHaloLo + kHaloHi))",
+                    "!(p.cols == 1 || (p.cols == 2 && X % 2 == 0))",
+                    "p.span == kLanes * p.cols && p.bx == kLanes"):
+        assert formula in src, formula
+    assert _build._SIGNATURES["fx_advect_axis"][-7:-1] == [_build._I] * 6
+    assert "fx_advect_axis_perthread" in _build._SIGNATURES
+    long = A.axis_plan((2, 3, 20000), torch.bfloat16, 2)
+    assert long.span < 20000 and long.span % A.ROW_SPAN_ALIGN == 0 and long.tile == 1
+    assert long.smem == A.row_smem(7, 2, 1, long.span, 20000) <= A.SMEM_BUDGET
+    assert A.row_smem(7, 2, 1, long.span + A.ROW_SPAN_ALIGN, 20000) > A.SMEM_BUDGET
+    for zyx, kw in (((0, 8, 8), {}), ((4, 8, 8), dict(channels=9)), ((4, 8, 8), dict(axis=3)),
+                    ((1300, 1300, 1300), {}), ((8, 70000, 8), dict(axis=0)),
+                    ((4, 8, 8), dict(dtype=torch.float16)), ((4, 8, -3), {})):
+        kw = dict(dict(dtype=torch.bfloat16, axis=1), **kw)
+        with pytest.raises(ValueError):
+            A.axis_plan(zyx, kw["dtype"], kw["axis"], kw.get("channels", 7))
+
+
+# (zyx, dtype, axis, forced (tile, span) or None): whole rows of X = 150,
+# 33 (odd: one column a thread) and 38, spans of 64 columns cutting a row
+# of 150 and 200 into windows that end inside it; y over Y = 20 (shorter
+# than the window) and Y = 40 in tiles of 8 and 13, z over Z = 2 and Z =
+# 40 in tiles of 8, bf16 and f32, ragged strips.
+AXIS_CASES = [((2, 6, 150), torch.bfloat16, 2, None), ((1, 5, 33), torch.bfloat16, 2, None),
+              ((2, 3, 38), torch.float32, 2, None), ((1, 4, 150), torch.bfloat16, 2, (3, 64)),
+              ((1, 3, 200), torch.float32, 2, (2, 64)), ((2, 20, 70), torch.bfloat16, 1, None),
+              ((1, 40, 150), torch.bfloat16, 1, (8, None)), ((2, 40, 33), torch.float32, 1, (13, None)),
+              ((2, 6, 38), torch.bfloat16, 0, None), ((40, 3, 70), torch.bfloat16, 0, (8, None)),
+              ((20, 2, 38), torch.float32, 0, None)]
+
+
+@pytest.mark.parametrize("zyx,dtype,axis,forced", AXIS_CASES,
+                         ids=[str(i) for i in range(len(AXIS_CASES))])
+def test_axis_schedule_matches_plain(zyx, dtype, axis, forced):
+    """B11's schedule writes every voxel once and equals
+    `advect_axis_plain` bit for bit, its displacement from the pass's own
+    velocity channel, most displacements past the 12-voxel clip."""
+    vol = _state(zyx, dtype, seed=sum(zyx) + axis)
+    plan = A.axis_plan(zyx, dtype, axis)
+    if forced is not None:
+        tile, span = forced
+        plan = A.axis_layout(zyx, dtype, axis, 7, plan.cols, tile, span)
+    scale = torch.tensor(8.0)
+    disp_ch = 2 - axis
+    out, writes = _axis_model(vol, scale, disp_ch, plan)
+    assert (writes == 1).all()
+    assert torch.equal(out.to(dtype), A.advect_axis_plain(vol, scale, axis, disp_ch))
+
+
+def test_an_axis_window_one_cell_short_is_caught(monkeypatch):
+    """With the x pass's lead cut to one column short of the taps' reach,
+    or the y window one row short on either side, the models read a cell
+    no CTA holds (NaN) and disagree with the plain version."""
+    scale = torch.tensor(8.0)
+    vol = _state((1, 4, 150), seed=5)
+    plan = A.axis_layout((1, 4, 150), torch.bfloat16, 2, 7, 2, 4, 64)
+    ref = A.advect_axis_plain(vol, scale, 2, 0)
+    assert torch.equal(_row_model(vol, scale, 0, plan)[0].to(torch.bfloat16), ref)
+    short, _ = _row_model(vol, scale, 0, plan, lead=A.HALO_HI - 1)
+    assert not torch.equal(short.to(torch.bfloat16), ref)
+    vol = _state((1, 40, 70), seed=6)
+    plan = A.axis_layout((1, 40, 70), torch.bfloat16, 1, 7, 2, 8)
+    ref = A.advect_axis_plain(vol, scale, 1, 1)
+    for halo in ("HALO_LO", "HALO_HI"):
+        with monkeypatch.context() as m:
+            m.setattr(A, halo, getattr(A, halo) - 1)
+            short, _ = _strip_model(vol, scale, 1, plan)
+        assert not torch.equal(short.to(torch.bfloat16), ref), halo

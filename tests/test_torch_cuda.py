@@ -813,3 +813,155 @@ def test_new_paths_launch_their_kernels(dev, path):
     counts = launch_counts()
     assert {k: counts[k] for k in want} == want
     assert bool(torch.isfinite(image).all())
+
+
+def _axis_state(dev, zyx, dtype, seed):
+    """A (7, Z, Y, X) state whose velocities, at scale 8, carry most
+    displacements past the 12-voxel clip, a quarter of the rows inside."""
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(0, 1, (7,) + zyx).astype(np.float32)
+    f[:3] = (f[:3] - 0.5) * 6.0
+    f[:3, :, : zyx[1] // 4] *= 0.25
+    return torch.from_numpy(f).to(dev, dtype)
+
+
+def _launch_axis(vol, scale, disp_ch, plan):
+    """fx_advect_axis with `plan` as given: (error, output)."""
+    out = torch.empty_like(vol)
+    err = A._launch_axis(vol, out, scale, disp_ch, plan)
+    torch.cuda.synchronize()
+    return err, out
+
+
+# The 2D preset's plane, 128^3, then ragged ones: X = 150 (4-byte aligned
+# bf16 rows, a ragged strip), Y = 20 and Z = 2 shorter than the window, Z =
+# 1, odd X (one column a thread).
+AXIS_SHAPES = [(1, 512, 512), (128, 128, 128), (20, 38, 150), (2, 20, 150), (1, 40, 33)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("zyx", AXIS_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_advect_axis_passes_match(dev, zyx, dtype):
+    """B11 on every axis bit for bit against its plain version and its
+    per-voxel design (`advect.perthread`), through the wrapper with the
+    plan and through the C launch with forced plans: one column a thread,
+    short tiles of 8 cells and 3 warps, and rows cut into spans of 64
+    columns."""
+    vol = _axis_state(dev, zyx, dtype, sum(zyx))
+    scale = torch.tensor(8.0, device=dev)
+    for axis, ch in ((2, 0), (1, 1), (0, 2)):
+        ref = A.advect_axis_plain(vol, scale, axis, ch)
+        assert torch.equal(A.advect_axis(vol, scale, axis, ch), ref), axis
+        assert torch.equal(A.perthread("axis", vol, scale, axis=axis, disp_ch=ch), ref), axis
+        plan = A.axis_plan(zyx, dtype, axis)
+        if axis == 2:
+            forced = [A.axis_layout(zyx, dtype, 2, 7, 1, plan.tile)]
+            if zyx[2] > 64:
+                forced.append(A.axis_layout(zyx, dtype, 2, 7, plan.cols, 2, 64))
+        else:
+            forced = [A.axis_layout(zyx, dtype, axis, 7, 1, 8, warps=3),
+                      A.axis_layout(zyx, dtype, axis, 7, plan.cols, 8, warps=3)]
+        for p in forced:
+            err, got = _launch_axis(vol, scale, ch, p)
+            assert err == 0 and torch.equal(got, ref), p
+
+
+def test_advect_axis_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """`fx_advect_axis` launches the plan `axis_plan` gives and refuses
+    shared memory other than its tile's, two columns a thread on rows of
+    odd length, a strip other than 32 lanes of its columns, more warps
+    than it compiles for, an empty tile, a span short of the row that is
+    not a multiple of 64 and an x-pass CTA of more than 256 threads; the
+    wrapper raises on a refusal, counts the launch and never falls back."""
+    scale = torch.tensor(8.0, device=dev)
+    for zyx in ((2, 20, 150), (1, 40, 33)):
+        vol = _axis_state(dev, zyx, torch.bfloat16, 60)
+        for axis in (2, 1, 0):
+            plan = A.axis_plan(zyx, torch.bfloat16, axis)
+            err, got = _launch_axis(vol, scale, 0, plan)
+            assert err == 0 and torch.equal(got, A.advect_axis_plain(vol, scale, axis, 0))
+            bad = [plan._replace(smem=plan.smem + 2), plan._replace(tile=0),
+                   plan._replace(cols=3)]
+            if zyx[2] % 2:
+                bad.append(plan._replace(cols=2))
+            if axis == 2:
+                bad += [plan._replace(span=zyx[2] - 2), plan._replace(block=(200, 2))]
+            else:
+                bad += [plan._replace(span=plan.span * 2), plan._replace(block=(16, 2)),
+                        plan._replace(block=(32, 17))]
+            for b in bad:
+                assert _launch_axis(vol, scale, 0, b)[0] != 0, (zyx, axis, b)
+    vol = _axis_state(dev, (2, 20, 150), torch.bfloat16, 61)
+    with monkeypatch.context() as m:
+        m.setattr(A, "axis_plan", lambda *a: A.axis_layout((2, 20, 150), torch.bfloat16, 1, 7,
+                                                           2, 8)._replace(smem=4))
+        before = A.advect_axis.launches
+        with pytest.raises(RuntimeError):
+            A.advect_axis(vol, scale, 1, 1)
+        assert A.advect_axis.launches == before + 1
+
+
+def _launch_gradient(q, plan):
+    """fx_gradient3 with `plan` as given: (error, output)."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+
+    z, y, x = q.shape
+    out = torch.empty((3, z, y, x), dtype=torch.float32, device=q.device)
+    err = _build.lib().fx_gradient3(q.data_ptr(), out.data_ptr(), z, y, x, plan.quads,
+                                    plan.rows, plan.chunk, _build.stream_ptr(q))
+    torch.cuda.synchronize()
+    return err, out
+
+
+# The 256x256x60 GI frame's (30, 128, 128), then ragged ones: X = 150 (a
+# last quad of two, 8-byte aligned rows), Y = 20, Z = 2 and two-cell dims,
+# odd dims.
+GRADIENT_SHAPES = [(30, 128, 128), (22, 30, 150), (2, 20, 38), (2, 2, 2), (5, 3, 7)]
+
+
+@pytest.mark.parametrize("shape", GRADIENT_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_gradient3_march_matches(dev, shape):
+    """B15's z-march bit for bit against its plain version and its per-cell
+    design (`stencil.perthread`), with the plan and with forced quads and
+    chunks (ragged last chunks, chunks of one plane)."""
+    q = _randn(dev, shape, 70)
+    ref = ST.gradient3_plain(q)
+    assert torch.equal(ST.gradient3(q), ref)
+    assert torch.equal(ST.perthread("gradient3", q), ref)
+    for quads, chunk in ((8, 1), (16, 3), (32, 5)):
+        err, got = _launch_gradient(q, ST.stencil_layout("gradient3", shape, quads, chunk))
+        assert err == 0 and torch.equal(got, ref), (quads, chunk)
+
+
+def test_gradient3_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """`fx_gradient3` launches the plan `stencil_plan` gives and refuses
+    quads its kernel does not take, a CTA of other than 256 threads, an
+    empty chunk and a dim under 2; the wrapper raises on a refusal, counts
+    the launch and never falls back."""
+    zyx = (14, 10, 38)
+    q = _randn(dev, zyx, 71)
+    plan = ST.stencil_plan("gradient3", zyx)
+    err, got = _launch_gradient(q, plan)
+    assert err == 0 and torch.equal(got, ST.gradient3_plain(q))
+    for bad in (plan._replace(quads=12, rows=21), plan._replace(quads=64, rows=4),
+                plan._replace(rows=plan.rows // 2), plan._replace(chunk=0)):
+        assert _launch_gradient(q, bad)[0] != 0, bad
+    flat = _randn(dev, (1, 10, 38), 72)
+    assert _launch_gradient(flat, ST.stencil_layout("gradient3", (1, 10, 38), 16, 1))[0] != 0
+    with monkeypatch.context() as m:
+        m.setattr(ST, "stencil_plan", lambda k, z: plan._replace(chunk=0))
+        before = ST.gradient3.launches
+        with pytest.raises(RuntimeError):
+            ST.gradient3(q)
+        assert ST.gradient3.launches == before + 1
+
+
+def test_gradient3_march_at_2_30_cells(dev):
+    """B15 on (4096, 512, 512), 2^30 cells, where the output's channel 2
+    starts at 2^31 elements: equal to its per-cell design (64-bit channel
+    bases)."""
+    shape = (4096, 512, 512)
+    g = torch.Generator(device=dev).manual_seed(73)
+    q = torch.empty(shape, device=dev).uniform_(-1.0, 1.0, generator=g)
+    got = ST.gradient3(q)
+    assert torch.equal(got, ST.perthread("gradient3", q)) and bool(got.isfinite().all())

@@ -1,15 +1,16 @@
 """The z-marches' launch plan and schedules (fluidx12_tpu_torch/csrc/stencil.cu
 divergence_march_kernel, residual_march_kernel, prolong_march_kernel,
-grad_damp_march_kernel: B3, B5, B7, B8) on the CPU: `stencil_plan` owns
-every fine cell exactly once, its chunks tile z (ragged last chunk
-included), its constants are those the kernel source compiles, and a torch
-model of each schedule -- what each CTA reads of the velocity, q or the
-coarse correction, or stages of uy, q or the pressure, NaN wherever it
-reads or holds nothing -- gives `divergence_plain`, `residual_plain`,
-`prolong_correct_plain` and `grad_damp_plain` bit for bit on small ragged
-shapes.  A window one cell short is caught.  The plain versions themselves
-are held to the Pallas kernels in interpret mode by
-tests/test_torch_projection.py."""
+grad_damp_march_kernel, gradient_march_kernel: B3, B5, B7, B8, B15) on the
+CPU: `stencil_plan` owns every fine cell exactly once, its chunks tile z
+(ragged last chunk included), its constants are those the kernel source
+compiles, and a torch model of each schedule -- what each CTA reads of the
+velocity, q, the density or the coarse correction, or stages of uy, q or
+the pressure, NaN wherever it reads or holds nothing -- gives
+`divergence_plain`, `residual_plain`, `prolong_correct_plain`,
+`grad_damp_plain` and `gradient3_plain` bit for bit on small ragged shapes.
+A window one cell short is caught.  The plain versions themselves are held
+to the Pallas kernels in interpret mode by tests/test_torch_projection.py
+(B15's by tests/test_torch_slab.py and tests/test_torch_gi.py)."""
 
 import re
 from pathlib import Path
@@ -71,11 +72,11 @@ def _zyx_id(zyx):
     return "x".join(map(str, zyx))
 
 
-# B7 and B8 on every grid (one case a grid), then B3 and B5 (one case a
-# kind and grid).
+# B7 and B8 on every grid (one case a grid), then B3, B5 and B15 (one case
+# a kind and grid).
 PLAN_CASES = ([pytest.param(("prolong", "grad_damp"), zyx, id=_zyx_id(zyx)) for zyx in PLANS]
               + [pytest.param((kind,), zyx, id=f"{kind}-{_zyx_id(zyx)}")
-                 for kind in ("divergence", "residual") for zyx in PLANS])
+                 for kind in ("divergence", "residual", "gradient3") for zyx in PLANS])
 
 
 @pytest.mark.parametrize("kinds,zyx", PLAN_CASES)
@@ -453,3 +454,109 @@ def test_a_march_window_one_cell_short_is_caught(kind):
         out, _ = _residual_model(q, b, plan, halo=0)
         assert torch.equal(_residual_model(q, b, plan)[0], ref)
     assert not torch.equal(out, ref)
+
+
+def _gradient_model(q, plan, halo=None):
+    """gradient_march_kernel's schedule: CTA (i, j, k) reads, of planes [z0,
+    ze), q at its own rows and columns and the lane exchange's two ends
+    (columns x0 - halo .. xe - 1 + halo) for gx, at rows y0 - halo .. ye - 1
+    + halo of its columns for gy (the two row loads), and at planes z0 -
+    halo .. ze - 1 + halo of its own cells for gz (the registers), all
+    clipped to the volume; NaN elsewhere.  Each difference is taken at the
+    clamped neighbours and scaled by 1 at the axis's two ends, 0.5 inside.
+    Returns ((gx, gy, gz), writes)."""
+    halo = ST.HALO if halo is None else halo
+    nz, ny, nx = q.shape
+    out = torch.full((3, nz, ny, nx), NAN)
+    writes = torch.zeros((nz, ny, nx), dtype=torch.int32)
+
+    def scale(n):
+        s = torch.full((n,), 0.5)
+        s[0] = s[n - 1] = 1.0
+        return s
+
+    sz, sy, sx = scale(nz)[:, None, None], scale(ny)[:, None], scale(nx)
+    for x0, xe, y0, ye, z0, ze in _ctas(plan, (nz, ny, nx), "gradient3"):
+        held = torch.full((3, nz, ny, nx), NAN)
+        xs = slice(max(x0 - halo, 0), min(xe + halo, nx))
+        ys = slice(max(y0 - halo, 0), min(ye + halo, ny))
+        zs = slice(max(z0 - halo, 0), min(ze + halo, nz))
+        held[0, z0:ze, y0:ye, xs] = q[z0:ze, y0:ye, xs]
+        held[1, z0:ze, ys, x0:xe] = q[z0:ze, ys, x0:xe]
+        held[2, zs, y0:ye, x0:xe] = q[zs, y0:ye, x0:xe]
+        zr, yr, xr = torch.arange(z0, ze), torch.arange(y0, ye), torch.arange(x0, xe)
+        hx = held[0, z0:ze, y0:ye]
+        gx = hx[:, :, (xr + 1).clamp(max=nx - 1)] - hx[:, :, (xr - 1).clamp(min=0)]
+        hy = held[1, z0:ze, :, x0:xe]
+        gy = hy[:, (yr + 1).clamp(max=ny - 1)] - hy[:, (yr - 1).clamp(min=0)]
+        hz = held[2, :, y0:ye, x0:xe]
+        gz = hz[(zr + 1).clamp(max=nz - 1)] - hz[(zr - 1).clamp(min=0)]
+        region = (slice(z0, ze), slice(y0, ye), slice(x0, xe))
+        out[(0,) + region] = gx * sx[x0:xe]
+        out[(1,) + region] = gy * sy[y0:ye]
+        out[(2,) + region] = gz * sz[z0:ze]
+        writes[region] += 1
+    return out, writes
+
+
+# X = 150 (a last quad of two columns, rows only 8-byte aligned) and a
+# ragged 38, several x and row tiles, ragged last chunks, chunks of one
+# plane, two-cell dims (every cell a boundary cell) and odd ones.
+GRADIENT_CASES = [((7, 10, 38), None, 2), ((9, 34, 38), 8, 4), ((5, 3, 7), None, 3),
+                  ((6, 18, 70), 16, 1), ((3, 5, 150), None, 2), ((2, 2, 2), None, 1),
+                  ((30, 32, 128), None, None)]
+
+
+@pytest.mark.parametrize("zyx,quads,chunk", GRADIENT_CASES,
+                         ids=[str(i) for i in range(len(GRADIENT_CASES))])
+def test_gradient_schedule_matches_plain(zyx, quads, chunk):
+    """B15's schedule writes every cell once and equals `gradient3_plain`
+    bit for bit on ragged, odd and two-cell shapes, forced quads and
+    chunks, and the plan's own at a (30, 32, 128) cut of the path's
+    (30, 128, 128)."""
+    q = _rand(zyx, sum(zyx), 0.0, 0.6)
+    out, writes = _gradient_model(q, _forced("gradient3", zyx, quads, chunk))
+    assert (writes == 1).all()
+    assert torch.equal(out, ST.gradient3_plain(q))
+
+
+def test_gradient_plan_matches_the_kernel_source():
+    """B15's launch takes the plan whole (quads, rows, chunk), refuses what
+    `march_ok` refuses and dims under 2 as the wrapper does, stages
+    nothing, forms its three output channels' bases in 64 bits and
+    exchanges q within a CTA row; at the 256x256x60 GI frame's (30, 128,
+    128) the plan is one plane a CTA, 480 CTAs; the plan admits 2^30
+    cells, where channel 2 starts at 2^31 elements."""
+    src = (Path(ST.__file__).parents[2] / "csrc" / "stencil.cu").read_text()
+    assert _build._SIGNATURES["fx_gradient3"][-4:-1] == [_build._I] * 3
+    assert "fx_gradient3_perthread" in _build._SIGNATURES
+    entry = src[src.index("int fx_gradient3("):]
+    entry = entry[:entry.index("switch")]
+    assert "!march_ok(quads, rows, chunk, nz, ny, nx)" in entry
+    assert "nz < 2 || ny < 2 || nx < 2 || (int64_t)nz * ny * nx >= (1LL << 31)" in entry
+    kernel = src[src.index("gradient_march_kernel(const float*"):src.index("int fx_gradient3(")]
+    assert "float* const g[3] = {out, out + (int64_t)n, out + 2 * (int64_t)n};" in kernel
+    assert "__shfl_up_sync(0xffffffffu, qc[kQuad - 1], 1, quads)" in kernel
+    assert "__shfl_down_sync(0xffffffffu, qc[0], 1, quads)" in kernel
+    assert "<<<grid, dim3(quads, rows), 0, cs>>>(q, out, nz, ny, nx, chunk)" in src
+    assert "__syncthreads" not in kernel[:kernel.index("// B15 as it ran before")]
+    plan = ST.stencil_plan("gradient3", (30, 128, 128))
+    assert plan == ST.StencilPlan(32, 8, 1, (1, 16, 30))
+    assert ST.stencil_plan("gradient3", (4096, 512, 512)).grid[2] >= 1
+    for zyx in ((0, 8, 8), (1300, 1300, 1300), (4, 8, -3)):
+        with pytest.raises(ValueError):
+            ST.stencil_plan("gradient3", zyx)
+
+
+def test_a_gradient_window_one_cell_short_is_caught():
+    """With the reach one cell short (HALO 0: no exchange ends, no
+    neighbouring rows, no planes beyond the chunk), the model reads cells
+    no CTA holds (NaN) and disagrees with the plain version."""
+    zyx = (12, 34, 38)
+    plan = _forced("gradient3", zyx, 8, 2)
+    assert plan.grid[0] > 1 and plan.grid[1] > 1 and plan.grid[2] > 1
+    q = _rand(zyx, 12, 0.0, 0.6)
+    ref = ST.gradient3_plain(q)
+    assert torch.equal(_gradient_model(q, plan)[0], ref)
+    for axis in range(3):
+        assert not torch.equal(_gradient_model(q, plan, halo=0)[0][axis], ref[axis]), axis

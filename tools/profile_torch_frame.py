@@ -26,7 +26,8 @@ at 256^3) and prints, each beside the card's name and power limit:
     per frame (kernels, and copies/sets by kind; the sum of their durations
     and the union of their intervals, which counts once the overlap of a
     programmatic dependent launch with the kernel before it), the 12
-    kernels with the most device time, and the device busy share, the union
+    kernels with the most device time and then the port's own kernels
+    outside them, and the device busy share, the union
     per frame over the unprofiled frame time (the profiler's own host cost
     stretches the frame it watches, so its wall time is not the
     denominator).
@@ -203,9 +204,15 @@ def main() -> int:
     for e in device:
         by_name[e.name] += e.time_range.elapsed_us()
         count[e.name] += 1
-    for name, us in by_name.most_common(12):
-        print(f"  {us / 1e3 / args.frames:8.4f} ms/frame  {count[name] / args.frames:6.1f}x  "
-              f"{name[:110]}")
+    top = [name for name, _ in by_name.most_common(12)]
+    # Then the port's own kernels (csrc/*.cu, each in a top-level anonymous
+    # namespace) that the 12 longest leave out.
+    own = [name for name, _ in by_name.most_common()
+           if name not in top and name.startswith(("(anonymous namespace)::",
+                                                   "void (anonymous namespace)::"))]
+    for name in top + own:
+        print(f"  {by_name[name] / 1e3 / args.frames:8.4f} ms/frame  "
+              f"{count[name] / args.frames:6.1f}x  {name[:110]}")
     return 0
 
 
