@@ -55,8 +55,18 @@ times the projection of the 128^3 paths and of the fused and unfused 256^3
 ones, and compares the port on CUDA with the port on the CPU at seven small
 grids, one of them 2D, four with the probe and two stored padded on the
 TPU.  B10 is also held on a 256^3 face and on 150-lateral faces, and B17,
-which no path takes since the padded route, on the stack the 256x256x60
-frame's X+ face would give it on the compact layout.  Every phase prints its
+on the stack the 256x256x60 frame's X+ face would give it on the compact
+layout.  B10's zero-outside mode (the DIRECT methods' enlarged base plane)
+is held against its plain version on the default camera's (1024, 896) base
+plane of 128^3 and of 150^3 (compact), both march directions, and timed in
+turns with the plain version, warm and L2-cold, beside a bound that counts
+only the texels inside the volume on the live slices (phase 2f).  Phase 3f
+drives 20 frames of PRESETS["fluid3d"] under RAY_MARCH_DIRECT_SEPARATE and
+5 under RAY_MARCH_DIRECT_MERGED (B10 once a frame on the base plane) and 20
+with the point light (the projective sweep, no B9), with exact launch
+counts; phase 4 adds a DIRECT frame where B17 composites the plane (the
+24^3 golden case, 64x64 viewport), one where B10 does (32^3) and a
+point-light frame.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -85,6 +95,9 @@ FRAMES_256 = 20
 FRAMES_FUSED = 20
 FRAMES_SLAB = 20
 FRAMES_FLUIDGI = 20
+FRAMES_DIRECT = 20
+FRAMES_DIRECT_MERGED = 5
+FRAMES_POINT = 20
 WARMUP_FRAMES = 10
 GRID_256 = (256, 256, 256)
 # The 256x256x60 GI frame: a wide, shallow smoke layer.
@@ -136,7 +149,8 @@ KERNELS_2D = ("advect_axis", "jacobi2d")
 KERNELS_256 = ("jacobi_rr", "gi_light")
 # The fused projection's B18, on the mg_project_fused path only.
 KERNELS_FUSED = ("jacobi_divrr", "jacobi_grad")
-# B15 and B17, on the 256x256x60 GI frame only.
+# B15, on the 256x256x60 GI frame only, and B17, on no frame of phase 3
+# (the DIRECT plane of phase 4's 24^3 golden case is its path).
 KERNELS_SLAB = ("gradient3", "composite")
 # Each path's own kernels: launched on no other path of phase 3.
 OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB
@@ -297,6 +311,8 @@ def print_times(results, names) -> None:
                else "B1" if name.startswith("advect_xy")
                else "B2" if name.startswith("advect_z_forces")
                else "B3" if name.startswith("divergence")
+               else "B10" if name.startswith("composite_resample")
+               else "B17" if name.startswith("composite")
                else "B5" if name.startswith("residual")
                else "B6" if name.startswith("jacobi_packed")
                else "B7" if name.startswith("prolong_correct")
@@ -321,29 +337,39 @@ def print_times(results, names) -> None:
                   f"{sum(k) / 2 / r['bound_ms']:.2f}x the bound")
 
 
-def b10_work(volf, h_rows, h_cols, valid, n_steps):
+def b10_work(volf, h_rows, h_cols, valid, n_steps, zero_outside: bool = False):
     """Bytes and operations B10 needs on these inputs.  The output depends
     only on the live slices (valid != 0), and of each on the source rows
     and columns its taps touch (every pair of them: all four channels,
     bf16); valid is read whole, n_steps once, and the live slices' row
     and column coordinates.  Per live slice and face texel: 4 channels x
-    2 two-tap lerps, then the front-to-back step, 40 operations."""
-    from fluidx12_tpu_torch.ops.cuda import composite as C
-
+    2 two-tap lerps, then the front-to-back step, 40 operations.  With
+    `zero_outside`, only the texels whose row and column both lie inside
+    the volume in a live slice count, and only their taps."""
     _, _, a_dim, b_dim = volf.shape
     r1, r2 = n_steps.shape
     live = valid != 0
     n_live = int(live.sum())
 
-    def touched(h, n):
-        i0, i1, _, _ = C._taps(h[live], n)
-        hit = torch.zeros((n_live, n), dtype=torch.bool, device=h.device)
-        return hit.scatter_(1, i0, True).scatter_(1, i1, True).sum(1)
+    def taps_inside(h, n):
+        """(taps a live slice needs (n_live, n) as a count, rows or columns
+        inside per live slice (n_live,))."""
+        h = h[live]
+        inside = ((h >= -0.5) & (h <= n - 0.5)) if zero_outside else torch.ones_like(h, dtype=torch.bool)
+        c = h.clamp(0.0, n - 1.0)
+        i0 = c.floor().long()
+        i1 = (i0 + 1).clamp_max(n - 1)
+        hit = torch.zeros((n_live, n + 1), dtype=torch.bool, device=h.device)
+        for i in (i0, i1):
+            hit.scatter_(1, torch.where(inside, i, torch.full_like(i, n)), True)
+        return hit[:, :n].sum(1), inside.sum(1)
 
-    src = int((touched(h_rows, a_dim) * touched(h_cols, b_dim)).sum())
+    rows, rows_in = taps_inside(h_rows, a_dim)
+    cols, cols_in = taps_inside(h_cols, b_dim)
+    src = int((rows * cols).sum())
     n_bytes = (4 * volf.element_size() * src + 4 * n_live * (r1 + r2)
                + nbytes(valid, n_steps) + 4 * 4 * r1 * r2)
-    return n_bytes, 40 * n_live * r1 * r2
+    return n_bytes, 40 * int((rows_in * cols_in).sum())
 
 
 def check_b10_face(label, args, absorption, results=None):
@@ -1322,14 +1348,103 @@ def phase2d_kernels_fused_slab(dev, results):
         err = max(err, e)
     # Per stack element: the clips, the alpha (two transcendentals), the
     # weight, its rate and four accumulations.
-    record("composite", err, lambda: C.composite(dens_m, prod, n_steps, 0.8, False),
+    record("composite_slab", err, lambda: C.composite(dens_m, prod, n_steps, 0.8, False),
            lambda: C.composite_plain(dens_m, prod, n_steps, 0.8, False),
            nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
-    print_times(results, KERNELS_FUSED + KERNELS_SLAB)
+    print_times(results, KERNELS_FUSED + ("gradient3", "composite_slab"))
     # B3, B5, B7 and B8 on the padded frames' compact grids (the 150^3
     # frame prolongs with the twin: no B7).
     check_stencil_frames(dev, results, (("256x256x60", GRID_SLAB, True, True),
                                         ("fluidgi", (150, 150, 150), True, False)))
+
+
+def phase2f_direct_plane(dev, results):
+    """B10's zero-outside mode on the DIRECT methods' base plane as the
+    default camera sees it (face Z+, extents (2.0, 2.75), (1024, 896)
+    texels): 128^3 and 150^3 on the compact layout (the TPU re-pads 150^3
+    and clamps at the logical extent, which is the compact clamp).  Against
+    its plain version, both march directions, within 1e-4, as B10 is held
+    on the cube faces (its segments' OVER merge re-associates the serial
+    composite); timed in turns with the plain version, warm and L2-cold,
+    beside a bound that counts only the texels inside the volume on the
+    live slices (`b10_work`)."""
+    phase("phase 2f: B10's zero-outside mode on the DIRECT base plane, 128^3 and 150^3")
+    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.ops.cuda import composite as C
+    from fluidx12_tpu_torch.render.screencomp import sample_plane_inputs
+    from fluidx12_tpu_torch.render.slicecomp import plane_kernel, resampled_stack
+
+    absorption = 0.8
+    names = []
+    for label, grid in (("128^3", (128, 128, 128)), ("150^3", (150, 150, 150))):
+        spec, args = sample_plane_inputs(grid, dev)
+        volf, h_rows, h_cols, valid, n_steps = args
+        n = grid[0]
+        check(spec == (4, (2.0, 2.75), (896, 1024)) and tuple(volf.shape) == (4, n, n, n)
+              and tuple(n_steps.shape) == (1024, 896)
+              and plane_kernel(FluidConfig(grid_size=grid), spec.face_id, spec.res) == "B10",
+              f"the default camera's base plane at {label} takes B10: {spec}")
+        err = 0.0
+        for flip in (False, True):
+            got = C.composite_resample(*args, absorption, flip, zero_outside=True)
+            ref = C.composite_resample_plain(*args, absorption, flip, zero_outside=True)
+            err = max(err, float((got - ref).abs().max()))
+        check(err <= 1e-4, f"B10 zero-outside vs plain, {label} base plane")
+        moved = float((C.composite_resample(*args, absorption, False)
+                       - C.composite_resample(*args, absorption, False, zero_outside=True)
+                       ).abs().max())
+        check(moved > 1e-2, f"the zero-outside mode changes the {label} plane")
+        n_bytes, flops = b10_work(*args, zero_outside=True)
+        inside = flops / 40 / (int((valid != 0).sum()) * 1024 * 896)
+        print(f"B10 composite_resample zero_outside, {label} base plane {spec}: volf "
+              f"{tuple(volf.shape)}, plane {tuple(n_steps.shape)}, "
+              f"{int((valid != 0).sum())} live slices, {100 * inside:.1f}% of the live "
+              f"texel-slices inside the volume: max abs diff {err:.3e} over both flips "
+              f"(limit 1e-4: the segments' OVER merge re-associates the serial composite); "
+              f"clamped mode differs by up to {moved:.3e}")
+        name = f"composite_resample_plane_{label}"
+
+        def kernel(v, hr, hc, va, ns):
+            return C.composite_resample(v, hr, hc, va, ns, absorption, False, zero_outside=True)
+
+        def plain(v, hr, hc, va, ns):
+            return C.composite_resample_plain(v, hr, hc, va, ns, absorption, False,
+                                              zero_outside=True)
+
+        measure(results, name, err, lambda: kernel(*args), lambda: plain(*args), n_bytes,
+                flops, reps=10, plain_reps=2, yardstick=lambda: plain(*args),
+                yardstick_name="plain version")
+        check_faster(results, name)
+        measure_cold(results, name, kernel, plain, args, reps=10)
+        check_faster(results, name, cold=True)
+        names.append(name)
+
+    # B17 on its path: the 24^3 golden case's (256, 256) base plane (64x64
+    # viewport), resampled with zero-outside weights, both directions.
+    spec, args = sample_plane_inputs((24, 24, 24), dev, viewport=(64, 64))
+    check(spec == (4, (2.0, 2.75), (256, 256))
+          and plane_kernel(FluidConfig(grid_size=(24, 24, 24)), spec.face_id, spec.res)
+          == "B17", f"the 24^3 golden case's base plane takes B17: {spec}")
+    volf, h_rows, h_cols, valid, n_steps = args
+    dens_m, prod = resampled_stack(volf, h_rows, h_cols, valid, True)
+    err = 0.0
+    for flip in (False, True):
+        got = C.composite(dens_m, prod, n_steps, absorption, flip)
+        ref = C.composite_plain(dens_m, prod, n_steps, absorption, flip)
+        scale = float(ref.abs().max())
+        e = float((got - ref).abs().max())
+        print(f"B17 composite on the 24^3 base plane's {tuple(dens_m.shape)} stack, "
+              f"flip={flip}: max abs diff {e:.3e} (limit {2e-6 * scale:.2e}: 2e-6 of the "
+              f"scale, expf and log1pf)")
+        check(e <= 2e-6 * scale and scale > 0.1, f"B17 composite vs plain, flip={flip}")
+        err = max(err, e)
+    # Per stack element: the clips, the alpha (two transcendentals), the
+    # weight, its rate and four accumulations.
+    measure(results, "composite", err,
+            lambda: C.composite(dens_m, prod, n_steps, absorption, False),
+            lambda: C.composite_plain(dens_m, prod, n_steps, absorption, False),
+            nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
+    print_times(results, names + ["composite"])
 
 
 def projection_span_ms(engine, reps: int = 20) -> float:
@@ -1353,14 +1468,17 @@ def projection_span_ms(engine, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None):
-    """`frames` frames of FluidXEngine(cfg, radiance) with the launch counts
+def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None, method=None):
+    """`frames` frames of FluidXEngine(cfg, radiance) under `method` (the
+    engine's default, RAY_MARCH_SEPARATE, when None) with the launch counts
     set to 0 just before; returns (counts, visible faces, engine)."""
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     engine = FluidXEngine(cfg, radiance=radiance, device=dev)
+    if method is not None:
+        engine.render_method = method
     _, _, vis_mask = engine.update_frame()
     faces = bin(vis_mask).count("1") if cfg.is_3d else 0
     reset_launch_counts()
@@ -1387,9 +1505,10 @@ def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None):
     smoke = int(((image - bg).abs().amax(-1) > 0.02).sum())
     print(f"{label}: image {tuple(image.shape)}: finite, {smoke} pixels differ from {what}")
     check(smoke > 1000, "smoke visible in the frame")
-    steady = times[WARMUP_FRAMES:]
+    first = WARMUP_FRAMES if frames > WARMUP_FRAMES else 1
+    steady = times[first:]
     med = statistics.median(steady)
-    print(f"{label}: median ms/frame (frames {WARMUP_FRAMES + 1}-{frames}, host clock "
+    print(f"{label}: median ms/frame (frames {first + 1}-{frames}, host clock "
           f"around a synchronized step): {med:.3f} ms = {1e3 / med:.2f} steps/s; "
           f"min {min(steady):.3f}, max {max(steady):.3f}; first frame {times[0]:.1f} ms "
           f"[{smi_line}]")
@@ -1574,6 +1693,64 @@ def phase3e_fluidgi(dev, smi_line):
     return counts
 
 
+def phase3f_direct_and_point(dev, smi_line):
+    """PRESETS["fluid3d"] (128^3, 800x800) under the DIRECT methods,
+    FRAMES_DIRECT frames of RAY_MARCH_DIRECT_SEPARATE and
+    FRAMES_DIRECT_MERGED of RAY_MARCH_DIRECT_MERGED: per frame B1-B9 as on
+    the cube path and B10 once, in its zero-outside mode, on the (1024,
+    896) base plane of face Z+ (no B17); then FRAMES_POINT frames with
+    point_light=True (the cube path; the projective sweep, no B9; B10 once
+    per visible face).  Exact launch counts."""
+    phase(f"phase 3f: PRESETS['fluid3d'] under the DIRECT methods ({FRAMES_DIRECT} + "
+          f"{FRAMES_DIRECT_MERGED} frames) and with the point light ({FRAMES_POINT})")
+    from fluidx12_tpu_torch.core.config import PRESETS, RenderMethod
+    from fluidx12_tpu_torch.render import slicecomp as SC
+    from fluidx12_tpu_torch.render.slicecomp import plane_kernel
+
+    cfg = PRESETS["fluid3d"]
+    out = {}
+    # The march's B10 calls, with the mode each asked for.
+    zero_outside = []
+    wrapped = SC.composite_resample
+
+    def spy(*args, **kwargs):
+        zero_outside.append(kwargs.get("zero_outside", False))
+        return wrapped(*args, **kwargs)
+
+    for method, frames in ((RenderMethod.RAY_MARCH_DIRECT_SEPARATE, FRAMES_DIRECT),
+                           (RenderMethod.RAY_MARCH_DIRECT_MERGED, FRAMES_DIRECT_MERGED)):
+        SC.composite_resample = spy
+        zero_outside.clear()
+        try:
+            counts, _, engine = run_frames(cfg, frames, dev, smi_line, method.name,
+                                           method=method)
+        finally:
+            SC.composite_resample = wrapped
+        _, lod, _ = engine.update_frame()
+        spec = engine._direct_plane_spec(lod)
+        print(f"{method.name}: lod {lod}, base plane {spec}, route "
+              f"{plane_kernel(cfg, spec.face_id, spec.res)}")
+        check(lod == 0 and spec == (4, (2.0, 2.75), (896, 1024))
+              and plane_kernel(cfg, spec.face_id, spec.res) == "B10",
+              f"the default camera's base plane takes B10: lod {lod}, {spec}")
+        check(zero_outside == [True] * frames, "B10 ran in its zero-outside mode")
+        expect = {name: frames for name in KERNELS}
+        expect.update(jacobi=2 * frames, composite_resample=frames, advect_z=0,
+                      jacobi_planewise=0, **{name: 0 for name in OWN})
+        check(counts == expect, f"launch counts {counts} != {expect}")
+        out[method.name] = counts
+
+    point = dataclasses.replace(cfg, point_light=True)
+    counts, faces, _ = run_frames(point, FRAMES_POINT, dev, smi_line, "point_light=True")
+    frames = FRAMES_POINT
+    expect = {name: frames for name in KERNELS}
+    expect.update(jacobi=2 * frames, composite_resample=frames * faces, shear_scan=0,
+                  advect_z=0, jacobi_planewise=0, **{name: 0 for name in OWN})
+    check(counts == expect, f"launch counts {counts} != {expect}")
+    out["point_light"] = counts
+    return out
+
+
 def phase4_cpu_vs_cuda(dev):
     """The port on CUDA against the port on the CPU, 3 frames at six small
     grids: the pallas_jacobi=False path at (128, 128, 16), the default
@@ -1586,24 +1763,44 @@ def phase4_cpu_vs_cuda(dev):
     the full-resolution GI normals, the padded projection and B10 on every
     face, with a 256x256 viewport (lod 0); and at (150, 150, 72), stored
     (80, 160, 256) as 150^3 is, where the padded projection prolongs with
-    the twin."""
+    the twin.  Then three frames of the fast DIRECT methods and the point
+    light: RAY_MARCH_DIRECT_MERGED on tests/test_golden.py's 24^3
+    `fluid3d_direct` case (64x64 viewport, 32 ray and 8 light samples, 16
+    Jacobi sweeps), whose (256, 256) base plane B10's gate refuses (24 %
+    16), so B17 composites it after the zero-outside resample;
+    RAY_MARCH_DIRECT_SEPARATE at 32^3, where B10 marches the plane in its
+    zero-outside mode; and the point light at 32^3 (the cube path, no B9).
+    Returns the launch counts of the 24^3 DIRECT frames, B17's path."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
-    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.core.config import FluidConfig, RenderMethod
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.utils.image import to_srgb_u8
 
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
     radiance = np.load(PROBE)["radiance"]
-    for kw in (dict(grid_size=(128, 128, 16), pallas_jacobi=False),
-               dict(grid_size=(128, 128, 64), pallas_jacobi=True),
-               dict(grid_size=(128, 128, 1), pallas_jacobi=True),
-               dict(grid_size=(384, 384, 32), has_light_probe=True),
-               dict(grid_size=(256, 256, 32), has_light_probe=True, mg_project_fused=True),
-               dict(grid_size=(128, 128, 20), has_light_probe=True, viewport=(256, 256)),
-               dict(grid_size=(150, 150, 72), has_light_probe=True)):
+    golden = dict(grid_size=(24, 24, 24), viewport=(64, 64), max_ray_samples=32,
+                  max_light_samples=8, num_pressure_iters=16)
+    direct = RenderMethod.RAY_MARCH_DIRECT_MERGED
+    b17_counts = None
+    for kw, method in ((dict(grid_size=(128, 128, 16), pallas_jacobi=False), None),
+                       (dict(grid_size=(128, 128, 64), pallas_jacobi=True), None),
+                       (dict(grid_size=(128, 128, 1), pallas_jacobi=True), None),
+                       (dict(grid_size=(384, 384, 32), has_light_probe=True), None),
+                       (dict(grid_size=(256, 256, 32), has_light_probe=True,
+                             mg_project_fused=True), None),
+                       (dict(grid_size=(128, 128, 20), has_light_probe=True,
+                             viewport=(256, 256)), None),
+                       (dict(grid_size=(150, 150, 72), has_light_probe=True), None),
+                       (golden, direct),
+                       (dict(grid_size=(32, 32, 32)), RenderMethod.RAY_MARCH_DIRECT_SEPARATE),
+                       (dict(grid_size=(32, 32, 32), point_light=True), None)):
         cfg = FluidConfig(**dict(dict(viewport=(96, 96)), **kw))
         engines = [FluidXEngine(cfg, radiance=radiance, device=d) for d in ("cpu", dev)]
+        for e in engines:
+            e.render_method = method if method is not None else e.render_method
+        if method is not None:
+            kw = dict(kw, method=method.name)
         reset_launch_counts()
         images = []
         for e in engines:
@@ -1634,6 +1831,17 @@ def phase4_cpu_vs_cuda(dev):
             want.update(composite=0, composite_resample=3 * b10)
             check(b17 == 0 and {k: counts[k] for k in want} == want,
                   f"the padded route ran on {kw}: {counts}, expected {want}")
+        if method is not None:
+            b17 = cfg.grid_size == golden["grid_size"]
+            check(counts["composite"] == (3 if b17 else 0)
+                  and counts["composite_resample"] == (0 if b17 else 3),
+                  f"the DIRECT plane took {'B17' if b17 else 'B10'} on {kw}: {counts}")
+            if b17:
+                b17_counts = counts
+        if cfg.point_light:
+            check(counts["shear_scan"] == 0 and counts["composite_resample"] > 0,
+                  f"the point light ran the projective sweep, no B9, on {kw}: {counts}")
+    return b17_counts
 
 
 def main() -> int:
@@ -1647,27 +1855,30 @@ def main() -> int:
     phase2c_kernels_256(dev, results)
     phase2d_kernels_fused_slab(dev, results)
     check_advect_frames(dev, results)
+    phase2f_direct_plane(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
     counts_gi, engine_256 = phase3c_256(dev, smi_line)
     counts_fused, counts_slab = phase3d_fused_and_slab(dev, smi_line, engine_256)
     del engine_256
     phase3e_fluidgi(dev, smi_line)
-    phase4_cpu_vs_cuda(dev)
+    phase3f_direct_and_point(dev, smi_line)
+    counts_direct24 = phase4_cpu_vs_cuda(dev)
     kernels = []
     # B4's plane-sweep order is B4's wrapper and source; its launches are
     # those of the 256^3 GI frame.
     rows = dict(KERNELS, jacobi_planewise=("B4", _JAC, "fluidx12_tpu/ops/pallas/jacobi.py:461"))
     for kname, (_, src, replaces) in rows.items():
         r = results[kname]
+        # B17's path is the DIRECT plane of the 24^3 golden case (phase 4).
         path = (counts_2d if kname in KERNELS_2D
                 else counts_gi if kname in KERNELS_256 + ("jacobi_planewise",)
                 else counts_fused if kname in KERNELS_FUSED
+                else counts_direct24 if kname == "composite"
                 else counts_slab if kname in KERNELS_SLAB else counts)
         launches = path[kname]
-        # B12 and B17 are on no path of the port (ROADMAP.md, queue B).
-        check(launches > 0 or kname in ("advect_z", "composite"),
-              f"{kname} launched on its path")
+        # B12 is on no path of the port (ROADMAP.md, queue B).
+        check(launches > 0 or kname == "advect_z", f"{kname} launched on its path")
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -4,15 +4,18 @@ of fluidx12_tpu/engine/fluidx.py).
 `FluidXEngine(config, radiance=None, device="cuda")` owns the camera,
 the state on `device` (the card unless the caller names another), the
 light probe and the per-frame parameters; `step_frame()` advances the
-simulation one step and returns the (H, W, 3) f32 image on the same device.
+simulation one step and returns the (H, W, 3) f32 image on the same device,
+rendered by `render_method` (`next_method` / `prev_method` cycle the four,
+as the reference's hotkeys do).
 `radiance` is the probe's (6, S, S, 3) cube map as a numpy array (the JAX
 package's `assets/rnl_cross.npz` holds one); with a config that has a
 light probe it lights the smoke with SH GI and draws the sky.  PyTorch runs
 eagerly, so there is no program cache: what the JAX engine keys its jit
-cache on (render method, LOD, face mask, scissor rect) are plain arguments
-here.  Configurations the port does not cover yet raise NotImplementedError
-at construction, naming their ROADMAP.md item; nothing falls back to
-another path.  The config's kernel switches are read as the JAX package
+cache on (render method, LOD, face mask, DIRECT base plane, scissor rect)
+are plain arguments here.  Configurations the port does not cover yet
+raise NotImplementedError at construction (a DIRECT frame with the eye
+inside the volume, in `step_frame`), naming their ROADMAP.md item; nothing
+falls back to another path.  The config's kernel switches are read as the JAX package
 reads them on its TPU: `pallas_jacobi` and `mg_project_fused` choose the
 projection's kernels (sim/project.py; a grid the TPU stores padded reads
 `use_pallas` alone there), `advect_fuse_xy` B1 or B11 twice
@@ -39,13 +42,14 @@ from fluidx12_tpu_torch.core.state import (
 from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
 from fluidx12_tpu_torch.render.environment import render_environment
 from fluidx12_tpu_torch.render.pipeline import render_frame, unported_render
+from fluidx12_tpu_torch.render.screencomp import direct_plane_spec
 from fluidx12_tpu_torch.sim.step import simulate, unported_sim
 
 
 def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
-    return unported_sim(config) or unported_render(config, RenderMethod.RAY_MARCH_SEPARATE)
+    return unported_sim(config) or unported_render(config, None)
 
 
 class FluidXEngine:
@@ -77,6 +81,8 @@ class FluidXEngine:
         self._frame_cache: Optional[Tuple[torch.Tensor, int, Optional[int]]] = None
         self._rect_key = None
         self._rect_cache = None
+        self._plane_key = None
+        self._plane_cache = None
         # The light probe: SH coefficients once, at start-up (ref: TransformSH
         # on the first frame, FluidX12.cpp:455-461); the sky per camera pose.
         self.radiance = None
@@ -136,6 +142,25 @@ class FluidXEngine:
                                        self.config.viewport)
         return self._rect_cache
 
+    def _direct_plane_spec(self, lod: int = 0):
+        """The DIRECT methods' base plane (render/screencomp.DirectPlaneSpec)
+        for the camera pose, or None with the eye inside the volume; host
+        math, cached on the pose and `lod`.  Each LOD level halves the
+        plane's texel density (ref: the LOD-clamped sample count binding,
+        Fluid.cpp:968; engine/fluidx.py:222-249)."""
+        if not self.config.is_3d:
+            return None
+        pose = (self.camera.view.tobytes(), self.camera.proj.tobytes(), lod)
+        if pose == self._plane_key:
+            return self._plane_cache
+        local_eye = (np.append(np.asarray(self.camera.eye, np.float64), 1.0)
+                     @ self.world_i)[:3]
+        self._plane_key = pose
+        self._plane_cache = direct_plane_spec(
+            local_eye, self.world @ self.camera.view_proj, self.config.viewport,
+            self.config, density_scale=1.0 / (1 << lod))
+        return self._plane_cache
+
     def _env_bg(self, params) -> Optional[torch.Tensor]:
         """The sky behind the volume, rendered once per camera pose (it
         depends on the pose and the probe, not on the state); None without
@@ -152,9 +177,19 @@ class FluidXEngine:
         """One full frame; returns the (H, W, 3) f32 image on the device."""
         packed, lod, vis_mask = self.update_frame()
         params = unpack_scene_params(packed)
+        plane_spec = (None if self.render_method.uses_cube_map
+                      else self._direct_plane_spec(lod))
         self.state = simulate(self.state, self._time_step(), self.config)
         image = render_frame(self.state.color, params, self.config, self.render_method,
                              self.sh_coeffs, lod=lod, vis_mask=vis_mask,
-                             rect=self._screen_rect(), env_bg=self._env_bg(params))
+                             plane_spec=plane_spec, rect=self._screen_rect(),
+                             env_bg=self._env_bg(params))
         self.frame_index += 1
         return image
+
+    # The render-method hotkeys (ref: FluidX12.cpp:311-334).
+    def next_method(self):
+        self.render_method = self.render_method.next()
+
+    def prev_method(self):
+        self.render_method = self.render_method.prev()

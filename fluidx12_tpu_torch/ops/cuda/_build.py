@@ -49,7 +49,7 @@ _SIGNATURES = {
     "fx_shear_scan": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_shear_scan_twopass": [_P, _P, _P, _P, _I, _I, _I, _P],
     "fx_composite_resample": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                              _I, _I, _P],
+                              _I, _I, _I, _P],
     "fx_composite": [_P, _P, _P, _P, _F, _I, _I, _I, _I, _P],
     "fx_divergence": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_divergence_perthread": [_P, _P, _I, _I, _I, _I, _P],

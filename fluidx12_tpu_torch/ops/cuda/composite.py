@@ -7,9 +7,11 @@ B10 `composite_resample` replaces fluidx12_tpu/ops/pallas/composite.py
 `_composite_resample_kernel` (via `composite_resample_pallas`), with its
 arguments: volf (4, n_s, A, B) bf16 slice-major volume, h_rows (n_s, R1) /
 h_cols (n_s, R2) f32 source coordinates, valid (n_s,) f32 mask, n_steps
-(R1, R2) f32.  Only the compact layout is served (no a_log/b_log), and
-zero_outside -- which only the DIRECT base-plane march uses -- is not
-ported.  B17 `composite` replaces `_composite_kernel` (via
+(R1, R2) f32, and `zero_outside` (the DIRECT base-plane march's: both tap
+weights of an axis are 0 where its unclamped coordinate lies outside
+[-0.5, n - 0.5]).  Only the compact layout is served (no a_log/b_log: on
+the logical grid the padded kernel's clamp and inside test at the
+logical extent are the compact ones).  B17 `composite` replaces `_composite_kernel` (via
 `composite_pallas`): dens (n_s, R1, R2) premasked density and prod
 (3, n_s, R1, R2) premultiplied rgb * light, in the march's matmul dtype
 (bf16 on the card, which is what the kernel takes; f32 on the CPU), and
@@ -102,20 +104,26 @@ def composite_resample_supported(n_s: int, a: int, b: int, r1: int, r2: int) -> 
 # ---------------------------------------------------------------------------
 
 
-def _taps(h: torch.Tensor, n: int):
+def _taps(h: torch.Tensor, n: int, zero_outside: bool = False):
     """Row/column taps as the TPU kernel builds its one-hot weights:
-    (i0, i1, bf16(1 - frac), bf16(frac))."""
+    (i0, i1, bf16(1 - frac), bf16(frac)), both weights 0 where
+    `zero_outside` and h lies outside [-0.5, n - 0.5] (composite.py:
+    109-122)."""
     lim = float(n - 1)
     c = torch.clamp(h, 0.0, lim)
     i0 = torch.floor(c)
     frac = c - i0
     i1 = torch.clamp_max(i0 + 1.0, lim)
     bf = torch.bfloat16
-    return (i0.long(), i1.long(), (1.0 - frac).to(bf).float(), frac.to(bf).float())
+    w0, w1 = (1.0 - frac).to(bf).float(), frac.to(bf).float()
+    if zero_outside:
+        inside = ((h >= -0.5) & (h <= lim + 0.5)).float()
+        w0, w1 = w0 * inside, w1 * inside
+    return i0.long(), i1.long(), w0, w1
 
 
-def composite_resample_plain(volf, h_rows, h_cols, valid, n_steps,
-                             absorption: float, flip: bool) -> torch.Tensor:
+def composite_resample_plain(volf, h_rows, h_cols, valid, n_steps, absorption: float,
+                             flip: bool, zero_outside: bool = False) -> torch.Tensor:
     """Plain version of B10, slice by slice in march order."""
     _, n_s, a_dim, b_dim = volf.shape
     r1, r2 = h_rows.shape[1], h_cols.shape[1]
@@ -125,8 +133,8 @@ def composite_resample_plain(volf, h_rows, h_cols, valid, n_steps,
     t = torch.ones((r1, r2), dtype=torch.float32, device=volf.device)
     acc_a = torch.zeros_like(t)
     rgb = torch.zeros((3, r1, r2), dtype=torch.float32, device=volf.device)
-    ri0, ri1, rw0, rw1 = _taps(h_rows, a_dim)   # (n_s, R1)
-    ci0, ci1, cw0, cw1 = _taps(h_cols, b_dim)   # (n_s, R2)
+    ri0, ri1, rw0, rw1 = _taps(h_rows, a_dim, zero_outside)   # (n_s, R1)
+    ci0, ci1, cw0, cw1 = _taps(h_cols, b_dim, zero_outside)   # (n_s, R2)
     for k in range(n_s):
         sl = n_s - 1 - k if flip else k
         v = vol[:, sl]                                           # (4, A, B)
@@ -167,13 +175,13 @@ def _check(volf, h_rows, h_cols, valid, n_steps) -> None:
                              f"{t.dtype} on {t.device}")
 
 
-def composite_resample(volf, h_rows, h_cols, valid, n_steps,
-                       absorption: float, flip: bool) -> torch.Tensor:
+def composite_resample(volf, h_rows, h_cols, valid, n_steps, absorption: float,
+                       flip: bool, zero_outside: bool = False) -> torch.Tensor:
     """B10: march one face; see the module docstring for the arguments."""
     _check(volf, h_rows, h_cols, valid, n_steps)
     if volf.device.type == "cpu":
         return composite_resample_plain(volf, h_rows, h_cols, valid, n_steps,
-                                        absorption, flip)
+                                        absorption, flip, zero_outside)
     if volf.device.type != "cuda":
         raise ValueError(f"composite_resample: unsupported device {volf.device}")
     _, n_s, a_dim, b_dim = volf.shape
@@ -182,7 +190,7 @@ def composite_resample(volf, h_rows, h_cols, valid, n_steps,
     err = _build.lib().fx_composite_resample(
         volf.data_ptr(), h_rows.data_ptr(), h_cols.data_ptr(), valid.data_ptr(),
         n_steps.data_ptr(), out.data_ptr(), float(absorption), int(flip),
-        n_s, a_dim, b_dim, r1, r2, _build.stream_ptr(volf))
+        int(zero_outside), n_s, a_dim, b_dim, r1, r2, _build.stream_ptr(volf))
     composite_resample.launches += 1
     _build.check(err, "fx_composite_resample")
     return out

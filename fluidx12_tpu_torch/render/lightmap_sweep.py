@@ -1,6 +1,7 @@
-"""Light map for a directional light: the sheared slice sweep, and the GI
-ambient from the light probe (mirror of fluidx12_tpu/render/lightmap_sweep.py,
-directional branch).
+"""Light map: the sheared slice sweep for a directional light, the
+projective sweep for a point light outside the volume, and the GI ambient
+from the light probe (mirror of fluidx12_tpu/render/lightmap_sweep.py,
+without the Z-sharding hooks).
 
 For parallel rays the accumulated optical depth is, in a frame sheared by
 the light's lateral slope, an exclusive cumulative sum over slices:
@@ -14,6 +15,16 @@ The port takes the scan on every grid; the JAX package falls back to an
 einsum shear form where its kernel does not tile (n_b % 128), which agrees
 with the scan to f32 summation order (tests/test_pallas.py).  Lateral dims
 of 256 and more sweep at half lateral resolution (`_pool2_lat`).
+
+A point light (`point_light`, the reference's dormant _POINT_LIGHT_ mode)
+outside the volume rides the projective form of the same sweep
+(`point_transmittance`): rays from the light have constant lateral slope
+per slice step, so the optical depth is again an exclusive cumsum over
+slices in that slope frame.  The JAX package runs it as einsums, with no
+Pallas kernel, and so does the port (plain torch, f32 matmuls); a
+point-light frame runs no B9.  A light inside the volume needs the
+faithful per-ray path, which the port does not have
+(`point_sweep_supported`).
 
 With a light probe (`sh_coeffs`), the ambient term is the SH irradiance
 along the density's negated gradient, times a six-sweep ambient occlusion,
@@ -40,7 +51,7 @@ from fluidx12_tpu_torch.ops.cuda.stencil import (
     stencil_pallas_supported,
 )
 from fluidx12_tpu_torch.ops.cuda.sweep import shear_scan
-from fluidx12_tpu_torch.ops.transform import transform_vector
+from fluidx12_tpu_torch.ops.transform import transform_point_h, transform_vector
 from fluidx12_tpu_torch.render.raymarch_core import MAX_DIST
 from fluidx12_tpu_torch.render.slicecomp import mxu_einsum
 from fluidx12_tpu_torch.sim.mg import _mat, _prolong, _prolong_matrix, _restrict, _restrict_matrix
@@ -134,6 +145,124 @@ def directional_transmittance(density: torch.Tensor, light_dir: torch.Tensor,
     else:
         transm = _sweep_pooled(dens_o, light_dir, major_axis, sizes, stride,
                                ref_step, absorption)
+    eq_up = {0: "mzy,mx->zyx", 1: "mzx,my->zyx", 2: "myx,mz->zyx"}[major_axis]
+    return mxu_einsum(eq_up, transm, up).to(dtype)
+
+
+def _resample_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
+    """(..., n_out) source coordinates -> (..., n_out, n_src) lerp weights,
+    zero for taps outside the source: with log attenuation as the payload,
+    a ray that leaves the volume laterally gathers no optical depth there
+    (lightmap_sweep.py:40-56)."""
+    i0 = torch.floor(coords)
+    frac = coords - i0
+    i0i = i0.long()
+    src = torch.arange(n_src, device=coords.device)
+    in0 = ((i0i >= 0) & (i0i < n_src)).to(coords.dtype)
+    in1 = ((i0i + 1 >= 0) & (i0i + 1 < n_src)).to(coords.dtype)
+    m0 = (src == torch.clamp(i0i, 0, n_src - 1)[..., None]).to(coords.dtype)
+    m1 = (src == torch.clamp(i0i + 1, 0, n_src - 1)[..., None]).to(coords.dtype)
+    return m0 * ((1.0 - frac) * in0)[..., None] + m1 * (frac * in1)[..., None]
+
+
+def _sweep_pooled_point(dens_o: torch.Tensor, light_local: torch.Tensor, major_axis: int,
+                        sizes, stride: int, ref_step: torch.Tensor, absorption: float,
+                        flip: bool) -> torch.Tensor:
+    """Projective shear sweep of a pooled, light-to-far ordered (n_s, n_a,
+    n_b) slice stack toward the light at `light_local`, which lies outside
+    the volume on the near side of the sweep (lightmap_sweep.py:163-281).
+    Rays from the light have constant lateral slope w = (p - pL) / (k - kL)
+    in index units; slice j contributes at pL + w (j - kL), so the optical
+    depth is an exclusive cumsum over slices on a (2 n_a, 2 n_b) grid of
+    slopes that spans every voxel's ray, scaled per ray by its path length
+    per slice step; then each voxel reads its ray's sum back."""
+    dtype = dens_o.dtype
+    arr_axis = _ARR_TO_LOCAL[major_axis]
+    rem_local = [_ARR_TO_LOCAL[a] for a in (0, 1, 2) if a != arr_axis]
+    n_m = sizes[major_axis]
+    n_s, n_a, n_b = dens_o.shape
+    step_m = 2.0 * stride / n_m
+    dev = dens_o.device
+
+    l_m = light_local[major_axis].to(dtype)
+    l_a = light_local[rem_local[0]].to(dtype)
+    l_b = light_local[rem_local[1]].to(dtype)
+    # The light in slice / lateral index coordinates (slice 0 nearest it).
+    s_l = (l_m + 1.0) * 0.5 * n_s - 0.5
+    k_l = (n_s - 1.0 - s_l) if flip else s_l
+    k_l = torch.clamp_max(k_l, -0.5)
+    pl_a = (l_a + 1.0) * 0.5 * n_a - 0.5
+    pl_b = (l_b + 1.0) * 0.5 * n_b - 0.5
+    k = torch.arange(n_s, dtype=dtype, device=dev)
+    denom = k - k_l
+
+    # Slope grids spanning every voxel's ray: both extremes of p and of the
+    # (positive) denominator.
+    w_a, w_b = 2 * n_a, 2 * n_b
+    den0 = -k_l
+    den1 = (n_s - 1.0) - k_l
+
+    def w_bounds(pl, n_lat):
+        cands = torch.stack([(0.0 - pl) / den0, (0.0 - pl) / den1,
+                             (n_lat - 1.0 - pl) / den0, (n_lat - 1.0 - pl) / den1])
+        return cands.min(), cands.max()
+
+    wa_min, wa_max = w_bounds(pl_a, n_a)
+    wb_min, wb_max = w_bounds(pl_b, n_b)
+    dwa = (wa_max - wa_min) / (w_a - 1)
+    dwb = (wb_max - wb_min) / (w_b - 1)
+    wa = wa_min + torch.arange(w_a, dtype=dtype, device=dev) * dwa
+    wb = wb_min + torch.arange(w_b, dtype=dtype, device=dev) * dwb
+
+    log_att = torch.log(torch.clamp(1.0 - dens_o * absorption, 1e-6, 1.0))
+    # Shear: G[j, w] = logA[j, pL + w (j - kL)].
+    sw_a = _resample_weights(pl_a + wa[None, :] * denom[:, None], n_a)   # (n_s, W_a, n_a)
+    sw_b = _resample_weights(pl_b + wb[None, :] * denom[:, None], n_b)   # (n_s, W_b, n_b)
+    sheared = torch.einsum("kwa,kab->kwb", sw_a, log_att)
+    sheared = torch.einsum("kvb,kwb->kwv", sw_b, sheared)                 # (n_s, W_a, W_b)
+    # Samples per slice step along each ray: its local tangent per slice
+    # is (step_m, w_a 2 / n_a, w_b 2 / n_b).
+    ds = torch.sqrt(step_m * step_m + (wa * (2.0 / n_a))[:, None] ** 2
+                    + (wb * (2.0 / n_b))[None, :] ** 2)
+    sheared = sheared * (ds / ref_step)[None]
+    excl = torch.cumsum(sheared, dim=0) - sheared
+
+    # Unshear: D[k, p] = E[k, (p - pL) / (k - kL) on the slope grid].
+    pa = torch.arange(n_a, dtype=dtype, device=dev)
+    pb = torch.arange(n_b, dtype=dtype, device=dev)
+    uw_a = _resample_weights(((pa[None, :] - pl_a) / denom[:, None] - wa_min) / dwa, w_a)
+    uw_b = _resample_weights(((pb[None, :] - pl_b) / denom[:, None] - wb_min) / dwb, w_b)
+    out = torch.einsum("kaw,kwv->kav", uw_a, excl)
+    log_t = torch.einsum("kbv,kav->kab", uw_b, out)
+    return torch.exp(torch.clamp_max(log_t, 0.0))
+
+
+def point_sweep_supported(config: FluidConfig) -> bool:
+    """True where the projective sweep serves the config's point light: the
+    light lies outside the volume along its dominant axis, by more than a
+    tenth of the half-size (lightmap_sweep.py:283-289)."""
+    lp = np.asarray(config.light_pos, np.float32)
+    major = int(np.argmax(np.abs(lp)))
+    return abs(float(lp[major])) / config.volume_scale > 1.1
+
+
+def point_transmittance(density: torch.Tensor, light_local: torch.Tensor, major_axis: int,
+                        ref_step: torch.Tensor, absorption: float, flip: bool,
+                        max_slices: int = _MAX_SLICES) -> torch.Tensor:
+    """Per-voxel transmittance toward a point light at `light_local` (local
+    space, outside the volume); (Z, Y, X).  The pooling around the sweep is
+    `directional_transmittance`'s (lightmap_sweep.py:292-322)."""
+    dtype = density.dtype
+    z, y, x = density.shape
+    sizes = (x, y, z)
+    n_m = sizes[major_axis]
+    stride = max(-(-n_m // max_slices), 1)
+    n_s = n_m // stride
+    pool, up = _pool_mats(n_m, n_s, stride, flip, density.device)
+    eq = {0: "zyx,xm->mzy", 1: "zyx,ym->mzx", 2: "zyx,zm->myx"}[major_axis]
+    dens_o = mxu_einsum(eq, density, pool).to(dtype)
+    transm = _sweep_pooled_point(dens_o, light_local, major_axis, sizes, stride, ref_step,
+                                 absorption, flip)
     eq_up = {0: "mzy,mx->zyx", 1: "mzx,my->zyx", 2: "myx,mz->zyx"}[major_axis]
     return mxu_einsum(eq_up, transm, up).to(dtype)
 
@@ -264,9 +393,10 @@ def _ambient_occlusion(density, nx_, ny_, nz_, ref_step, config: FluidConfig):
 def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
                           config: FluidConfig,
                           sh_coeffs: torch.Tensor | None = None) -> torch.Tensor:
-    """(3, Z, Y, X) incident light per voxel for the configured directional
-    light: light colour * shadow, plus the flat ambient or, with a light
-    probe and its (9, 3) `sh_coeffs`, the GI ambient (point lights are
+    """(3, Z, Y, X) incident light per voxel for the configured light,
+    directional or (`point_light`) a point outside the volume: light
+    colour * shadow, plus the flat ambient or, with a light probe and its
+    (9, 3) `sh_coeffs`, the GI ambient (a point light inside the volume is
     rejected by render/pipeline.unported_render)."""
     dtype = config.render_dtype
     density = grid[3].to(dtype)
@@ -279,7 +409,13 @@ def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
     flip = bool(lp[major_axis] > 0)
     ref_step = MAX_DIST / params.num_light_samples.to(dtype)
     arr_axis = _ARR_TO_LOCAL[major_axis]
-    if _lat_pooled_ok(density.shape, arr_axis):
+    if config.point_light:
+        # The projective sweep about the light's position, at full lateral
+        # resolution (lightmap_sweep.py:511-523).
+        light_local = transform_point_h(params.light_pt, params.world_i)[:3]
+        shadow = point_transmittance(density, light_local.to(dtype), major_axis, ref_step,
+                                     config.absorption, flip)
+    elif _lat_pooled_ok(density.shape, arr_axis):
         # Big grids sweep at half lateral resolution: the slope math reads
         # the lateral sizes from the pooled shape.
         shadow = _unpool2_lat(directional_transmittance(

@@ -56,28 +56,37 @@ def _cube_texcoord(pos: torch.Tensor, plane: torch.Tensor):
     return face, u * 0.5 + 0.5, 1.0 - (v * 0.5 + 0.5)
 
 
-def cube_cast(cube: torch.Tensor, face: torch.Tensor, u: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
-    """Bilinear fetch with exact LINEAR_CLAMP at face borders.  Faces of 64+
-    texels are read through bf16, as the JAX package stores its 2x2 record
-    table; the filter arithmetic is f32."""
-    size, c = cube.shape[1], cube.shape[-1]
-    texels = cube.to(torch.bfloat16) if size >= 64 else cube
-    texels = texels.to(u.dtype).reshape(-1, c)
-    ut = u * size - 0.5
-    vt = v * size - 0.5
-    u0 = torch.clamp(torch.floor(ut).to(torch.int64), 0, size - 2)
-    v0 = torch.clamp(torch.floor(vt).to(torch.int64), 0, size - 2)
-    lin = (face.to(torch.int64) * size + v0) * size + u0
+def bilinear_fetch(faces: torch.Tensor, face, ut: torch.Tensor,
+                   vt: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch from (F, H, W, c) images at texel coordinates ut, vt
+    (texel centres at integers) of image `face`, with exact LINEAR_CLAMP at
+    the borders: the fractions are clipped against the clamped 2x2 origin.
+    Images of 64+ texels each way are read through bf16, as the JAX package
+    stores its 2x2 record table (resolve.py `_records_2x2`); the filter
+    arithmetic is in ut's dtype."""
+    _, h, w, c = faces.shape
+    texels = faces.to(torch.bfloat16) if min(h, w) >= 64 else faces
+    texels = texels.to(ut.dtype).reshape(-1, c)
+    u0 = torch.clamp(torch.floor(ut).to(torch.int64), 0, w - 2)
+    v0 = torch.clamp(torch.floor(vt).to(torch.int64), 0, h - 2)
+    lin = (face * h + v0) * w + u0
     s00 = texels[lin]
     s10 = texels[lin + 1]
-    s01 = texels[lin + size]
-    s11 = texels[lin + size + 1]
+    s01 = texels[lin + w]
+    s11 = texels[lin + w + 1]
     fu = torch.clamp(ut - u0, 0.0, 1.0)[..., None]
     fv = torch.clamp(vt - v0, 0.0, 1.0)[..., None]
     top = s00 + (s10 - s00) * fu
     bot = s01 + (s11 - s01) * fu
     return top + (bot - top) * fv
+
+
+def cube_cast(cube: torch.Tensor, face: torch.Tensor, u: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """Bilinear fetch from cube face `face` at uv in [0, 1], with exact
+    LINEAR_CLAMP at face borders (`bilinear_fetch`)."""
+    size = cube.shape[1]
+    return bilinear_fetch(cube, face.to(torch.int64), u * size - 0.5, v * size - 0.5)
 
 
 def resolve_cube(cube: torch.Tensor, params: SceneParams, config: FluidConfig,

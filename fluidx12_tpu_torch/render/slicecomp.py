@@ -14,9 +14,12 @@ Elsewhere, where the TPU cannot run B10 on a big stack (`_takes_b17`: a
 lateral dim that does not tile, which with x = y means a lateral plane of
 768^2 or more), it resamples the stack with two matmuls and composites it
 with kernel B17; the port does the same there, and takes B10 on every
-other face.  (The JAX package keeps an einsum + cumprod twin for small
-stacks, below its `_FUSE_MIN_STACK`; that twin agrees with the kernel
-within 2e-3, tests/test_pallas.py, and is not ported.)
+other face.  The DIRECT methods (render/screencomp.py) march one enlarged
+base plane of a face the same way, by the same gate (`plane_kernel`), with
+zero weight outside the volume.  (The JAX package keeps an einsum +
+cumprod twin for small stacks, below its `_FUSE_MIN_STACK`; that twin
+agrees with the kernel within 2e-3, tests/test_pallas.py, and is not
+ported.)
 """
 
 from __future__ import annotations
@@ -109,24 +112,45 @@ def _local_from_uv(face_id, u, v, dtype, device):
     return comps
 
 
+def _rem_local(face_id: int):
+    """The local axes of the face's two lateral array dims, in array order
+    (rows, then columns)."""
+    axis = _FACES[face_id][0]
+    return [_ARR_TO_LOCAL[a] for a in (1, 2, 3) if a != _ARR_AXIS[axis]]
+
+
+def plane_dims(face_id: int, res) -> tuple:
+    """(rows, cols, swapped) of the march's output for a plane of `res`
+    texels, an int or (Ru, Rv): the rows resample the face's first lateral
+    array dim, and the X faces (`swapped`) resample u along rows, so their
+    image is transposed (fluidx12_tpu/render/slicecomp.py:279-281)."""
+    _, _, (ua, _), (va, _) = _FACES[face_id]
+    r_u, r_v = (res, res) if isinstance(res, int) else res
+    rem_local = _rem_local(face_id)
+    return (r_u if rem_local[0] == ua else r_v, r_u if rem_local[1] == ua else r_v,
+            rem_local == [ua, va])
+
+
 def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
                   num_samples: torch.Tensor, config: FluidConfig, dtype,
-                  lod: int = 0):
+                  lod: int = 0, extent=1.0, res=None):
     """Kernel B10's per-face arguments: (h_rows (n_s, R1), h_cols
     (n_s, R2), valid (n_s,), n_steps (R1, R2)), all f32 and contiguous,
-    plus `swapped` (the X faces resample u along rows, so their image is
-    transposed)."""
+    plus `swapped` (`plane_dims`).  A cube face by default; the DIRECT
+    methods' base plane with `extent` (Lu, Lv) > 1, its lateral half-extents,
+    and `res` (Ru, Rv), its texels."""
     axis, sign, (ua, us), (va, vs) = _FACES[face_id]
     dev = local_eye.device
     z, y, x = config.zyx
     sizes = (x, y, z)
     n_m = sizes[axis]
     stride = -(-n_m // max(config.max_ray_samples >> lod, 1))
-    r = max(config.cube_map_size >> lod, 1)
+    plane_res = res if res is not None else max(config.cube_map_size >> lod, 1)
+    r_u, r_v = (plane_res, plane_res) if isinstance(plane_res, int) else plane_res
+    l_u, l_v = (extent, extent) if isinstance(extent, float) else extent
 
-    line = (torch.arange(r, dtype=dtype, device=dev) + 0.5) / r * 2.0 - 1.0
-    u_line = line * 1.0
-    v_line = -line * 1.0
+    u_line = ((torch.arange(r_u, dtype=dtype, device=dev) + 0.5) / r_u * 2.0 - 1.0) * l_u
+    v_line = -((torch.arange(r_v, dtype=dtype, device=dev) + 0.5) / r_v * 2.0 - 1.0) * l_v
     e_m = local_eye[axis]
     cell = ((torch.arange(n_s, dtype=dtype, device=dev) * stride + 0.5 * stride)
             / n_m) * 2.0 - 1.0
@@ -134,7 +158,7 @@ def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
     denom = torch.where(denom.abs() < 1e-8, torch.full_like(denom, 1e-8), denom)
     s = (cell - e_m) / denom
 
-    rem_local = [_ARR_TO_LOCAL[a] for a in (1, 2, 3) if a != _ARR_AXIS[axis]]
+    rem_local = _rem_local(face_id)
     swapped = rem_local == [ua, va]
 
     def coords_for(local_axis):
@@ -163,14 +187,16 @@ def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
             valid.to(f32), n_steps.to(f32).contiguous(), swapped)
 
 
-def _takes_b17(n_s: int, a: int, b: int, r: int, config: FluidConfig) -> bool:
-    """True where the TPU composites an (n_s, r, r) face stack of an
-    (A, B)-sliced volume with B17: a big stack (`_FUSE_MIN_STACK`) that
-    B10's gate rejects and B17's takes (fluidx12_tpu/render/slicecomp.py:
-    288-378, the unsharded compact layout)."""
-    return (config.use_pallas and n_s * r * r >= _FUSE_MIN_STACK
-            and not composite_resample_supported(n_s, a, b, r, r)
-            and composite_supported(n_s, r, r))
+def _takes_b17(n_s: int, a: int, b: int, r, config: FluidConfig) -> bool:
+    """True where the TPU composites an (n_s, R1, R2) stack of an
+    (A, B)-sliced volume with B17, `r` being R or (R1, R2): a big stack
+    (`_FUSE_MIN_STACK`) that B10's gate rejects and B17's takes
+    (fluidx12_tpu/render/slicecomp.py:288-378, the unsharded compact
+    layout)."""
+    r1, r2 = (r, r) if isinstance(r, int) else r
+    return (config.use_pallas and n_s * r1 * r2 >= _FUSE_MIN_STACK
+            and not composite_resample_supported(n_s, a, b, r1, r2)
+            and composite_supported(n_s, r1, r2))
 
 
 def _lateral(zyx, axis: int):
@@ -187,36 +213,66 @@ def _n_slices(config: FluidConfig, axis: int, lod: int) -> int:
     return n_m // max(-(-n_m // max(config.max_ray_samples >> lod, 1)), 1)
 
 
-def padded_march(config: FluidConfig, lod: int, live) -> bool:
-    """True where the TPU re-pads the march volume to its storage dims and
-    takes B10 on every live face (fluidx12_tpu/render/slicecomp.py:466-498):
-    the grid pads, and every live face's axis passes
+def _pads(config: FluidConfig, lod: int, planes) -> bool:
+    """True where the TPU re-pads the march volume to its storage dims for
+    the (axis, R1, R2) stacks `planes`: the grid pads, and each passes
     `composite_resample_supported` at the padded lateral dims with the
-    logical grid's slice count."""
+    logical grid's slice count (fluidx12_tpu/render/slicecomp.py:466-498,
+    screencomp.py:226-252)."""
     storage = storage_zyx(config)
     if not (config.use_pallas and config.is_3d) or storage == config.zyx:
         return False
-    r = max(config.cube_map_size >> lod, 1)
     return all(composite_resample_supported(_n_slices(config, axis, lod),
-                                            *_lateral(storage, axis), r, r)
-               for axis in {_FACES[f][0] for f in live})
+                                            *_lateral(storage, axis), r1, r2)
+               for axis, r1, r2 in planes)
+
+
+def _route(config: FluidConfig, lod: int, planes) -> list:
+    """"B10" or "B17" for each (axis, R1, R2) of `planes`: B10 on every
+    one where the TPU re-pads (`_pads`; the port marches the compact
+    volume, whose clamps give the padded kernel's zero-weight ghosts), else
+    B17 where `_takes_b17` holds on the compact dims and B10 elsewhere."""
+    if _pads(config, lod, planes):
+        return ["B10"] * len(planes)
+    return ["B17" if _takes_b17(_n_slices(config, axis, lod), *_lateral(config.zyx, axis),
+                                (r1, r2), config) else "B10"
+            for axis, r1, r2 in planes]
+
+
+def _cube_planes(config: FluidConfig, lod: int, live) -> list:
+    r = max(config.cube_map_size >> lod, 1)
+    return [(_FACES[f][0], r, r) for f in live]
+
+
+def padded_march(config: FluidConfig, lod: int, live) -> bool:
+    """True where the TPU re-pads the cube march's volume and takes B10 on
+    every live face (`_pads`)."""
+    return _pads(config, lod, _cube_planes(config, lod, live))
 
 
 def march_kernels(config: FluidConfig, lod: int, live) -> dict:
-    """{face: "B10" or "B17"} for the faces in `live`: the TPU's route for
-    each face at this LOD."""
-    if padded_march(config, lod, live):
-        return {f: "B10" for f in live}
-    r = max(config.cube_map_size >> lod, 1)
-    return {f: ("B17" if _takes_b17(_n_slices(config, _FACES[f][0], lod),
-                                     *_lateral(config.zyx, _FACES[f][0]), r, config)
-                else "B10")
-            for f in live}
+    """{face: "B10" or "B17"} for the cube faces in `live`: the TPU's route
+    for each face at this LOD."""
+    live = list(live)
+    return dict(zip(live, _route(config, lod, _cube_planes(config, lod, live))))
 
 
-def _interp_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
+def plane_kernel(config: FluidConfig, face_id: int, res) -> str:
+    """"B10" or "B17": the TPU's route for the DIRECT methods' base plane
+    of cube face `face_id` with `res` (Ru, Rv) texels, at lod 0.  Its
+    re-pad asks B10's gate in both orientations of the plane
+    (screencomp.py:241-247); the compact route reads the plane's own."""
+    axis = _FACES[face_id][0]
+    r1, r2, _ = plane_dims(face_id, res)
+    return _route(config, 0, [(axis, r1, r2), (axis, r2, r1)])[0]
+
+
+def _interp_weights(coords: torch.Tensor, n_src: int,
+                    zero_outside: bool = False) -> torch.Tensor:
     """(..., n_out) source coordinates -> (..., n_out, n_src) dense lerp
-    weights, edges clamped (fluidx12_tpu/render/slicecomp.py:80-102)."""
+    weights, edges clamped; with `zero_outside`, coordinates more than half
+    a texel beyond the edges get zero weight instead
+    (fluidx12_tpu/render/slicecomp.py:80-102)."""
     c = torch.clamp(coords, 0.0, n_src - 1.0)
     i0 = torch.floor(c)
     frac = c - i0
@@ -225,19 +281,23 @@ def _interp_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
     src = torch.arange(n_src, device=coords.device)
     m0 = (src == i0[..., None]).to(coords.dtype) * (1.0 - frac)[..., None]
     m1 = (src == i1[..., None]).to(coords.dtype) * frac[..., None]
-    return m0 + m1
+    w = m0 + m1
+    if zero_outside:
+        inside = (coords >= -0.5) & (coords <= n_src - 0.5)
+        w = w * inside[..., None].to(w.dtype)
+    return w
 
 
 def resampled_stack(volf: torch.Tensor, h_rows: torch.Tensor, h_cols: torch.Tensor,
-                    valid: torch.Tensor):
+                    valid: torch.Tensor, zero_outside: bool = False):
     """B17's stack: the (4, n_s, A, B) slice-major volume resampled to the
     face by the two matmuls of fluidx12_tpu/render/slicecomp.py:338-363
     (operands and results rounded to the matmul dtype, f32 accumulation),
     then the density masked by `valid`.  Returns (dens (n_s, R1, R2), prod
     (3, n_s, R1, R2)), contiguous, in the matmul dtype."""
     mx = mxu16(volf.device)
-    w_rows = _interp_weights(h_rows, volf.shape[2])    # (n_s, R1, A)
-    w_cols = _interp_weights(h_cols, volf.shape[3])    # (n_s, R2, B)
+    w_rows = _interp_weights(h_rows, volf.shape[2], zero_outside)    # (n_s, R1, A)
+    w_cols = _interp_weights(h_cols, volf.shape[3], zero_outside)    # (n_s, R2, B)
     t1 = mxu_einsum("mrv,cmvu->cmru", w_rows, volf).to(mx)
     res = mxu_einsum("msu,cmru->cmrs", w_cols, t1).to(mx)
     dens = torch.where(valid[:, None, None] > 0.0, res[0], torch.zeros_like(res[0]))
@@ -246,18 +306,24 @@ def resampled_stack(volf: torch.Tensor, h_rows: torch.Tensor, h_cols: torch.Tens
 
 def _march_face(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
                 num_samples: torch.Tensor, config: FluidConfig, dtype,
-                lod: int = 0, b17: bool = False) -> torch.Tensor:
+                lod: int = 0, b17: bool = False, extent=1.0, res=None) -> torch.Tensor:
     """March one cube face with B10, or with the resample and B17 where
-    `b17`; returns (R, R, 4) = (rgb / 2pi, alpha), R = cube_map_size >> lod."""
+    `b17`; returns (R, R, 4) = (rgb / 2pi, alpha), R = cube_map_size >> lod.
+    With `extent` (Lu, Lv) and `res` (Ru, Rv) it marches the DIRECT
+    methods' enlarged base plane instead, (Rv, Ru, 4): where the plane
+    reaches beyond the volume, texels outside it get zero weight, not the
+    edge clamp (fluidx12_tpu/render/slicecomp.py:226-234)."""
     h_rows, h_cols, valid, n_steps, swapped = face_geometry(
-        face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod)
+        face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod, extent, res)
     flip = _FACES[face_id][1] < 0
+    outside = max((extent, extent) if isinstance(extent, float) else extent) > 1.0
     if b17:
-        acc = composite(*resampled_stack(volf, h_rows, h_cols, valid), n_steps,
+        acc = composite(*resampled_stack(volf, h_rows, h_cols, valid, outside), n_steps,
                         float(config.absorption), flip=flip)
     else:
         acc = composite_resample(volf.to(torch.bfloat16).contiguous(), h_rows, h_cols, valid,
-                                 n_steps, float(config.absorption), flip=flip)
+                                 n_steps, float(config.absorption), flip=flip,
+                                 zero_outside=outside)
     out_rgb = acc[1:].movedim(0, -1)
     scatter = torch.cat([out_rgb / (2.0 * math.pi), acc[0][..., None]], dim=-1).to(dtype)
     if swapped:
@@ -302,11 +368,13 @@ def ray_march_cube_fast(grid: torch.Tensor, params: SceneParams, config: FluidCo
     return cube
 
 
-def sample_face_inputs(grid, face: int, device, seed: int = 0):
+def sample_face_inputs(grid, face: int, device, seed: int = 0, extent=1.0, res=None):
     """B10's arguments (volf, h_rows, h_cols, valid, n_steps) for cube face
     `face` of a smooth lit smoke volume on grid `grid` (x, y, z), made from
     `seed`, as the default camera sees it at lod 0: the march's own shapes
-    and coordinates, for holding B10 against its plain version."""
+    and coordinates, for holding B10 against its plain version.  With
+    `extent` and `res`, those of a DIRECT base plane on that face
+    (`face_geometry`)."""
     cfg = FluidConfig(grid_size=grid)
     rng = np.random.default_rng(seed)
     dens = torch.from_numpy(rng.uniform(0.0, 0.6, cfg.zyx).astype(np.float32)).to(device)
@@ -319,5 +387,5 @@ def sample_face_inputs(grid, face: int, device, seed: int = 0):
     world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(device)
     h_rows, h_cols, valid, n_steps, _ = face_geometry(
         face, volf.shape[1], (eye @ world_i)[:3],
-        torch.tensor(cfg.max_ray_samples, device=device), cfg, torch.float32)
+        torch.tensor(cfg.max_ray_samples, device=device), cfg, torch.float32, 0, extent, res)
     return volf, h_rows, h_cols, valid, n_steps

@@ -238,6 +238,43 @@ def test_composite_resample_faces_match_plain(dev, grid, face, flip):
     assert err <= 1e-4
 
 
+@pytest.mark.parametrize("flip", [False, True])
+def test_composite_resample_zero_outside_matches_plain(dev, flip):
+    """B10's zero-outside mode (the DIRECT base plane's) against its plain
+    version, within 1e-4 (the segments' OVER merge; expf and log1pf):
+    random coordinates from -3 to n + 2, with rows and columns on -0.5 and
+    n - 0.5 and one f32 step past each (the per-texel path: these columns
+    span more than the staging window); whole warps of columns outside (the
+    skip); and the default camera's (1024, 896) base plane of a 48^3
+    volume (the staged path)."""
+    from fluidx12_tpu_torch.render.screencomp import sample_plane_inputs
+
+    rng = np.random.default_rng(12)
+    ns, a, b, r1, r2 = 16, 64, 48, 40, 72
+    volf = torch.from_numpy(rng.uniform(0, 1, (4, ns, a, b)).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+    h_rows = rng.uniform(-3, a + 2, (ns, r1)).astype(np.float32)
+    h_cols = rng.uniform(-3, b + 2, (ns, r2)).astype(np.float32)
+    edges = np.float32([-0.5, np.nextafter(np.float32(-0.5), np.float32(-1)),
+                        np.float32(a - 0.5), np.nextafter(np.float32(a - 0.5), np.float32(a))])
+    h_rows[:, :4] = edges
+    h_cols[:, :4] = edges - a + b
+    h_cols[::2, 32:64] = b + 5.0            # a warp whose 32 columns are all outside
+    valid = torch.from_numpy((rng.uniform(0, 1, ns) > 0.2).astype(np.float32)).to(dev)
+    nst = torch.from_numpy(rng.uniform(0.5, 2, (r1, r2)).astype(np.float32)).to(dev)
+    args = (volf, torch.from_numpy(h_rows).to(dev), torch.from_numpy(h_cols).to(dev), valid,
+            nst, 0.8, flip)
+    got = C.composite_resample(*args, zero_outside=True)
+    torch.testing.assert_close(got, C.composite_resample_plain(*args, zero_outside=True),
+                               atol=1e-4, rtol=0)
+    assert float((got - C.composite_resample(*args)).abs().max()) > 1e-2
+    _, plane = sample_plane_inputs((48, 48, 48), dev)
+    got = C.composite_resample(*plane, 0.8, flip, zero_outside=True)
+    ref = C.composite_resample_plain(*plane, 0.8, flip, zero_outside=True)
+    assert got.shape == (4, 1024, 896) and float(ref[0].max()) > 0.1
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
 def _randn(dev, shape, seed, scale=1.0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)

@@ -158,6 +158,30 @@ def test_golden_fluid3d_merged(golden_3d):
     assert (diff > 25).mean() < 0.01, (diff > 25).mean()
 
 
+def test_golden_fluid3d_direct(golden_3d):
+    """tests/test_golden.py's `fluid3d_direct` case (RAY_MARCH_DIRECT_MERGED,
+    the same grid and frames): the port renders the 35th frame's state
+    with that method through the engine's base plane (the (256, 256) plane
+    of face Z+, resampled with zero-outside weights and composited by B17,
+    as the TPU's gates route it) and passes test_golden.py's gates (mean <
+    2.0, fewer than 1% of channels off by more than 25)."""
+    from fluidx12_tpu_torch.core.config import RenderMethod as TorchMethod
+    from fluidx12_tpu_torch.core.state import unpack_scene_params as torch_unpack
+    from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
+    from fluidx12_tpu_torch.render.slicecomp import plane_kernel
+
+    engine = golden_3d[0]
+    packed, lod, vis_mask = engine.update_frame()
+    spec = engine._direct_plane_spec(lod)
+    assert plane_kernel(engine.config, spec.face_id, spec.res) == "B17"
+    img = torch_render(engine.state.color, torch_unpack(packed), engine.config,
+                       TorchMethod.RAY_MARCH_DIRECT_MERGED, engine.sh_coeffs, lod=lod,
+                       vis_mask=vis_mask, plane_spec=spec, rect=engine._screen_rect())
+    diff = _golden_diff(img, "fluid3d_direct")
+    assert diff.mean() < 2.0, diff.mean()
+    assert (diff > 25).mean() < 0.01, (diff > 25).mean()
+
+
 def test_golden_fluid2d():
     """(c) The port renders tests/test_golden.py's `fluid2d` case (64^2
     grid and viewport, 16 Jacobi sweeps, 40 frames) and passes that test's
@@ -176,14 +200,15 @@ def test_golden_fluid2d():
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
     its ROADMAP item, instead of running another path: the faithful
-    simulation and render stacks, the point light and the DIRECT methods;
-    the switches that select the JAX package's XLA twins (`use_pallas=False`,
+    simulation and render stacks (`fast_render=False`, a point light inside
+    the volume, a DIRECT frame with the eye inside the volume); the switches that select the JAX package's XLA twins (`use_pallas=False`,
     `pallas_advect=False`: the mirror-addressed advect twin, the einsum
     sweep and march) and `cube_cast_blocked` (`block_resolve=True`), at
     construction and again in `simulate` and `render_frame`.  The default
     preset (pallas_jacobi=True), the 2D preset, GI and every kernel the JAX
-    gates choose (B15 and B18 among them) are covered, and so is
-    `advect_fuse_xy=False` (B11 twice, tests/test_torch_padded.py)."""
+    gates choose (B15 and B18 among them) are covered, and so are
+    `advect_fuse_xy=False` (B11 twice, tests/test_torch_padded.py), a point
+    light outside the volume and the DIRECT methods (tests/test_torch_direct.py)."""
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core.state import make_initial_state, unpack_scene_params
     from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
@@ -192,11 +217,15 @@ def test_unported_configs_raise():
     torch_fluidx.FluidXEngine(PRESETS["fluid3d"], device="cpu")
     torch_fluidx.FluidXEngine(dataclasses.replace(PRESETS["fluid3d"], advect_fuse_xy=False),
                               device="cpu")
+    torch_fluidx.FluidXEngine(dataclasses.replace(PRESETS["fluid3d"], point_light=True),
+                              device="cpu")
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
     twins = "ROADMAP.md queue A, 'The XLA twins'"
+    others = "ROADMAP.md queue A, 'The other render methods'"
     for change, match in ((dict(grid_size=(64, 64, 1), fast_sim=False), "ROADMAP"),
-                          (dict(fast_render=False), "ROADMAP"),
-                          (dict(point_light=True), "ROADMAP"), (dict(fast_sim=False), "ROADMAP"),
+                          (dict(fast_render=False), others),
+                          (dict(point_light=True, light_pos=(5.0, 2.0, -3.0)), others),
+                          (dict(fast_sim=False), "ROADMAP"),
                           (dict(use_pallas=False), twins), (dict(pallas_advect=False), twins),
                           (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
         cfg = dataclasses.replace(base, **change)
@@ -213,6 +242,17 @@ def test_unported_configs_raise():
         with pytest.raises(NotImplementedError, match=match):
             torch_render(state.color, params, dataclasses.replace(base, **change),
                          torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
-    engine.render_method = torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_SEPARATE
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.step_frame()
+    # The DIRECT methods render; with the eye inside the volume (no base
+    # plane) they raise, in the engine and in render_frame.
+    for method in (torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_SEPARATE,
+                   torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_MERGED):
+        engine.render_method = method
+        assert engine.step_frame().shape == (32, 32, 3)
+        pose = engine.camera.view.copy(), engine.camera.eye.copy()
+        engine.camera.dolly(15.5)
+        assert engine._direct_plane_spec(0) is None
+        with pytest.raises(NotImplementedError, match=others):
+            engine.step_frame()
+        with pytest.raises(NotImplementedError, match=others):
+            torch_render(state.color, params, base, method, plane_spec=None)
+        engine.camera.view, engine.camera.eye = pose

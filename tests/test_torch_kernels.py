@@ -143,13 +143,16 @@ def test_shear_scan_matches_pallas(slopes):
     np.testing.assert_allclose(got, ref, atol=5e-5, rtol=0)
 
 
-@pytest.mark.parametrize("flip", [False, True])
-def test_composite_resample_matches_pallas(flip):
+@pytest.mark.parametrize("flip,zero_outside", [(False, False), (True, False),
+                                               (False, True), (True, True)],
+                         ids=["False", "True", "False-zero_outside", "True-zero_outside"])
+def test_composite_resample_matches_pallas(flip, zero_outside):
     """B10 vs `composite_resample_pallas` (interpret) with ns=8, a=b=128,
-    r1=16, r2=128, coordinates partly past the edges (clamp), some slices
-    masked.  atol 1e-5 (test_pallas.py allows 2e-3 against the einsum
-    twin): the bf16 rounding points are the kernel's; only exp/log1p and
-    FMA contraction can differ."""
+    r1=16, r2=128, coordinates partly past the edges (clamp; with
+    `zero_outside`, the DIRECT base plane's mode, those beyond -0.5 and
+    n - 0.5 get zero weight), some slices masked.  atol 1e-5 (test_pallas.py
+    allows 2e-3 against the einsum twin): the bf16 rounding points are the
+    kernel's; only exp/log1p and FMA contraction can differ."""
     rng = np.random.default_rng(9)
     ns, a, b, r1, r2 = 8, 128, 128, 16, 128
     volf = rng.uniform(0, 1, (4, ns, a, b)).astype(np.float32)
@@ -159,11 +162,14 @@ def test_composite_resample_matches_pallas(flip):
     nst = rng.uniform(0.5, 2, (r1, r2)).astype(np.float32)
     ref = np.asarray(composite_resample_pallas(
         jnp.asarray(volf), jnp.asarray(h_rows), jnp.asarray(h_cols),
-        jnp.asarray(valid), jnp.asarray(nst), 0.8, flip))
-    got = tc.composite_resample(
-        torch.from_numpy(volf).to(torch.bfloat16),
-        *(torch.from_numpy(t) for t in (h_rows, h_cols, valid, nst)), 0.8, flip).numpy()
+        jnp.asarray(valid), jnp.asarray(nst), 0.8, flip, zero_outside=zero_outside))
+    args = (torch.from_numpy(volf).to(torch.bfloat16),
+            *(torch.from_numpy(t) for t in (h_rows, h_cols, valid, nst)), 0.8, flip)
+    got = tc.composite_resample(*args, zero_outside=zero_outside).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    if zero_outside:
+        # The mode changes what the texels see.
+        assert np.abs(got - tc.composite_resample(*args).numpy()).max() > 1e-2
 
 
 @pytest.mark.parametrize("call", ["advect_xy", "shear_scan", "composite_resample"])

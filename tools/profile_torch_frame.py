@@ -3,7 +3,8 @@
     python3 tools/profile_torch_frame.py [--preset fluid3d|fluid2d]
                                          [--grid X Y Z] [--probe]
                                          [--pallas-jacobi 0|1]
-                                         [--mg-project-fused] [--frames 10]
+                                         [--mg-project-fused] [--method 0-3]
+                                         [--point-light] [--frames 10]
 
 Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
 512x512x1 grid, both with an 800x800 viewport; `--grid` replaces the
@@ -14,13 +15,17 @@ the TPU) and `--grid 150 150 150 --probe` PRESETS["fluidgi"];
 `--pallas-jacobi 0` takes the projection's twins instead of its kernels
 (on grids the TPU does not store padded);
 `--mg-project-fused` the fused projection, B18, where its gate holds, as
-at 256^3) and prints, each beside the card's name and power limit:
+at 256^3; `--method` the render method by number, 2 and 3 the DIRECT
+methods; `--point-light` the point light, lit by the projective sweep in
+place of B9) and prints, each beside the card's name and power limit:
   - the host ms/frame: median of `--frames` steps, each ending in a
     synchronize, with no profiler attached;
   - each layer's CUDA-event span per call, over 20 back-to-back calls on the
     engine's state.  3D: advect (B1 + B2), projection, light map (B9; with
     the probe also the AO and B16), cube march (B10 per visible face),
-    resolve + composite.  fluid2d: advect (B11 twice + forces),
+    resolve + composite; under a DIRECT method, in place of the last two,
+    the plane march with its warp (B10 or B17 once) and the warp +
+    composite alone.  fluid2d: advect (B11 twice + forces),
     projection (B14), visualize + composite;
   - from `torch.profiler` over `--frames` steps: device time and launches
     per frame (kernels, and copies/sets by kind; the sum of their durations
@@ -74,18 +79,24 @@ def main() -> int:
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--pallas-jacobi", type=int, default=1, choices=(0, 1))
     ap.add_argument("--mg-project-fused", action="store_true")
+    ap.add_argument("--method", type=int, default=1, choices=(0, 1, 2, 3))
+    ap.add_argument("--point-light", action="store_true")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=20)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_frame: no CUDA device")
 
-    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.core.config import PRESETS, RenderMethod
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.render.lightmap_sweep import render_light_map_fast
     from fluidx12_tpu_torch.render.pipeline import render_frame
     from fluidx12_tpu_torch.render.resolve import resolve_cube
+    from fluidx12_tpu_torch.render.screencomp import (
+        _warp_plane_to_screen,
+        ray_cast_direct_fast,
+    )
     from fluidx12_tpu_torch.render.slicecomp import ray_march_cube_fast
     from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
     from fluidx12_tpu_torch.sim.project import project
@@ -97,7 +108,8 @@ def main() -> int:
     card = smi.splitlines()[0]
     cfg = dataclasses.replace(PRESETS[args.preset], pallas_jacobi=bool(args.pallas_jacobi),
                               has_light_probe=args.probe,
-                              mg_project_fused=args.mg_project_fused)
+                              mg_project_fused=args.mg_project_fused,
+                              point_light=args.point_light)
     if args.grid:
         cfg = dataclasses.replace(cfg, grid_size=tuple(args.grid))
     radiance = None
@@ -107,6 +119,7 @@ def main() -> int:
         radiance = np.load(Path(__file__).resolve().parents[1] / "assets" / "rnl_cross.npz")[
             "radiance"]
     engine = FluidXEngine(cfg, radiance=radiance)
+    engine.render_method = RenderMethod(args.method)
     for _ in range(args.warmup):
         engine.step_frame()
     torch.cuda.synchronize()
@@ -119,7 +132,8 @@ def main() -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     frame_ms = statistics.median(times)
     print(f"[{card}] {args.preset}, grid {cfg.grid_size}, probe {args.probe}, "
-          f"pallas_jacobi={cfg.pallas_jacobi}, mg_project_fused={cfg.mg_project_fused}: "
+          f"pallas_jacobi={cfg.pallas_jacobi}, mg_project_fused={cfg.mg_project_fused}, "
+          f"{engine.render_method.name}, point_light={cfg.point_light}: "
           f"host ms/frame median "
           f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
           f"max {max(times):.3f})")
@@ -151,13 +165,35 @@ def main() -> int:
             back = bg.expand(rgba.shape[:-1] + (3,)) if env_bg is None else env_bg
             return composite_premultiplied(rgba, back)
 
-        layers.update({
-            "light map (B9)" if sh is None else "light map (B9, AO, B15 or B16)":
-                lambda _: render_light_map_fast(grid, params, cfg, sh),
-            "cube march (B10, B17)": lambda _: ray_march_cube_fast(grid, params, cfg, light,
-                                                              lod=lod, static_mask=vis_mask),
-            "resolve + composite": resolve,
-        })
+        light_name = "light map (B9)" if sh is None else "light map (B9, AO, B15 or B16)"
+        if cfg.point_light:
+            light_name = light_name.replace("B9", "the point sweep")
+        layers[light_name] = (
+            lambda _: render_light_map_fast(grid, params, cfg, sh))
+        if engine.render_method.uses_cube_map:
+            layers.update({
+                "cube march (B10, B17)": lambda _: ray_march_cube_fast(
+                    grid, params, cfg, light, lod=lod, static_mask=vis_mask),
+                "resolve + composite": resolve,
+            })
+        else:
+            spec = engine._direct_plane_spec(lod)
+            num = params.num_samples if engine.render_method.separate_light_pass else (
+                torch.tensor(cfg.max_ray_samples, dtype=torch.int32, device=grid.device))
+            print(f"[{card}] DIRECT base plane {spec}")
+
+            def march(_):
+                return ray_cast_direct_fast(grid, params, cfg, light, spec, num, rect=rect)
+
+            layers["plane march + warp (B10 or B17)"] = march
+            plane = torch.zeros((spec.res[1], spec.res[0], 4), device=grid.device)
+
+            def warp(_):
+                rgba = _warp_plane_to_screen(plane, spec, params, cfg, rect=rect)
+                back = bg.expand(rgba.shape[:-1] + (3,)) if env_bg is None else env_bg
+                return composite_premultiplied(rgba, back)
+
+            layers["warp + composite"] = warp
     else:
         layers["visualize + composite"] = lambda _: render_frame(
             grid, params, cfg, engine.render_method)
