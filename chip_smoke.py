@@ -54,13 +54,23 @@ the in-repo probe, stored padded), counting the kernel launches of each,
 times the projection of the 128^3 paths and of the fused and unfused 256^3
 ones, and compares the port on CUDA with the port on the CPU at seven small
 grids, one of them 2D, four with the probe and two stored padded on the
-TPU.  B10 is also held on a 256^3 face and on 150-lateral faces, and B17,
-on the stack the 256x256x60 frame's X+ face would give it on the compact
-layout.  B10's zero-outside mode (the DIRECT methods' enlarged base plane)
-is held against its plain version on the default camera's (1024, 896) base
-plane of 128^3 and of 150^3 (compact), both march directions, and timed in
-turns with the plain version, warm and L2-cold, beside a bound that counts
-only the texels inside the volume on the live slices (phase 2f).  Phase 3f
+TPU.  B10 is also held on a 256^3 face and on 150-lateral faces.  B17
+(rings of staged slices, a few columns a thread: `composite.composite_plan`)
+is held equal to the one-thread-a-texel design it replaced
+(`composite.composite_perthread`) and within 2e-6 of the scale of its
+plain version, both march directions, and timed in turns with that design,
+warm and L2-cold, beside the bound of what the inputs need (`b17_work`:
+prod only where a density is above 0), on three stacks: the 24^3 golden
+case's DIRECT plane
+(24, 256, 256) (phase 2f), the stack the 256x256x60 frame's X+ face would
+give it on the compact layout (128, 256, 256) (phase 2d), and a 512^3
+grid's DIRECT plane (170, 896, 1024), 1.27 GB, seen by the default camera
+turned by ORBIT_512 (phase 2g).  B10's zero-outside mode (the DIRECT
+methods' enlarged base plane) is held against its plain version on the
+default camera's (1024, 896) base plane of 128^3 and of 150^3 (compact),
+both march directions, and timed in turns with the plain version, warm and
+L2-cold, beside a bound that counts only the texels inside the volume on
+the live slices (phase 2f).  Phase 3f
 drives 20 frames of PRESETS["fluid3d"] under RAY_MARCH_DIRECT_SEPARATE and
 5 under RAY_MARCH_DIRECT_MERGED (B10 once a frame on the base plane) and 20
 with the point light (the projective sweep, no B9), with exact launch
@@ -102,6 +112,11 @@ WARMUP_FRAMES = 10
 GRID_256 = (256, 256, 256)
 # The 256x256x60 GI frame: a wide, shallow smoke layer.
 GRID_SLAB = (256, 256, 60)
+# A 512^3 grid, and the default camera turned by this orbit (mouse pixels):
+# its DIRECT base plane is face Z+ at (Ru, Rv) = (1024, 896), a (170, 896,
+# 1024) stack that B10's VMEM gate refuses, so B17 composites it.
+GRID_512 = (512, 512, 512)
+ORBIT_512 = (10.0, 40.0)
 PROBE = "assets/rnl_cross.npz"
 # About 10 ms of an H100's clock: longer than the host takes to queue the
 # timed calls of any kernel wrapper.
@@ -370,6 +385,23 @@ def b10_work(volf, h_rows, h_cols, valid, n_steps, zero_outside: bool = False):
     n_bytes = (4 * volf.element_size() * src + 4 * n_live * (r1 + r2)
                + nbytes(valid, n_steps) + 4 * 4 * r1 * r2)
     return n_bytes, 40 * int((rows_in * cols_in).sum())
+
+
+def b17_work(dens, prod, n_steps):
+    """Bytes and operations B17 needs on these inputs: every density
+    (bf16), the three prod channels only in the 32-byte sectors (16 bf16
+    of a row) that hold a density above 0 (w_rate is 0 elsewhere, so prod
+    adds nothing there), n_steps once and the four f32 planes written
+    once.  Per texel-slice with a density above 0: the clips, the alpha
+    (two transcendentals), the weight, its rate and four accumulations,
+    20 operations; 2 (the clip and its test) per other one."""
+    live = (dens > 0).reshape(-1)
+    n_live = int(live.sum())
+    pad = live.new_zeros((-live.numel()) % 16)
+    sectors = int(torch.cat([live, pad]).view(-1, 16).any(1).sum())
+    n_bytes = (dens.numel() * dens.element_size() + 3 * 32 * sectors
+               + nbytes(n_steps) + 4 * n_steps.numel() * 4)
+    return n_bytes, 20 * n_live + 2 * (dens.numel() - n_live)
 
 
 def check_b10_face(label, args, absorption, results=None):
@@ -1159,6 +1191,57 @@ def phase2c_kernels_256(dev, results):
 MARCH_GRIDS = ((60, 256, 256), (150, 150, 150), (30, 130, 98), (33, 130, 97))
 
 
+def check_b17(results, name, label, stack, absorption, reps=20):
+    """B17 on one (dens, prod, n_steps) stack: equal to the one-thread-a-
+    texel design it replaced (`composite_perthread`) and within 2e-6 of the
+    scale of its plain version, both march directions; timed in turns with
+    that design, warm and L2-cold (`measure_cold`), beside the bound of
+    what these inputs need (`b17_work`), and faster than it in both;
+    recorded under `name`.  Prints the plan and the share of the bound."""
+    from fluidx12_tpu_torch.ops.cuda import composite as C
+
+    dens, prod, n_steps = stack
+    plan = C.composite_plan(*dens.shape)
+    n_bytes, flops = b17_work(dens, prod, n_steps)
+    live = float((dens.float() > 0).float().mean())
+    print(f"B17 composite, {label}: stack {tuple(dens.shape)}, {100 * live:.1f}% of the "
+          f"texel-slices with density > 0, {n_bytes / 1e6:.1f} MB needed of "
+          f"{nbytes(*stack) / 1e6 + 16e-6 * n_steps.numel():.1f} MB in and out; plan {plan}")
+    err = 0.0
+    for flip in (False, True):
+        got = C.composite(dens, prod, n_steps, absorption, flip)
+        same = torch.equal(got, C.composite_perthread(dens, prod, n_steps, absorption, flip))
+        ref = C.composite_plain(dens, prod, n_steps, absorption, flip)
+        scale = float(ref.abs().max())
+        e = float((got - ref).abs().max())
+        print(f"  flip={flip}: {'equal to' if same else 'DIFFERS from'} the per-texel design; "
+              f"max abs diff to plain {e:.3e} (limit {2e-6 * scale:.2e}: 2e-6 of the scale, "
+              f"expf and log1pf)")
+        check(same and e <= 2e-6 * scale and scale > 0.1, f"B17 composite, {label}, flip={flip}")
+        err = max(err, e)
+        del ref
+
+    def kernel(d, p, n):
+        return C.composite(d, p, n, absorption, False)
+
+    def yardstick(d, p, n):
+        return C.composite_perthread(d, p, n, absorption, False)
+
+    measure(results, name, err, lambda: kernel(*stack),
+            lambda: C.composite_plain(dens, prod, n_steps, absorption, False),
+            n_bytes, flops, reps=reps, plain_reps=2,
+            yardstick=lambda: yardstick(*stack), yardstick_name="per-texel design")
+    check_faster(results, name)
+    measure_cold(results, name, kernel, yardstick, stack, reps=reps)
+    check_faster(results, name, cold=True)
+    r = results[name]
+    print(f"  B17 {label}: share of the bound {r['bound_ms']:.4f} ms: warm "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% (per-texel design "
+          f"{100 * r['bound_ms'] / (sum(r['yardstick_ms']) / 2):.1f}%), L2-cold "
+          f"{100 * r['bound_ms'] / (sum(r['cold_kernel_ms']) / 2):.1f}% (per-texel design "
+          f"{100 * r['bound_ms'] / (sum(r['cold_yardstick_ms']) / 2):.1f}%)")
+
+
 def check_march_grids(dev):
     """B4's plane-sweep order, B13 and both B18 halves against their plain
     versions at MARCH_GRIDS (B13 and B18's head where every dim is even),
@@ -1244,7 +1327,6 @@ def phase2d_kernels_fused_slab(dev, results):
     `torch.gradient`, and in turns with the per-cell design, warm and
     L2-cold; it must beat it in both."""
     phase("phase 2d: B18 at 256^3, B15 and B17 at the 256x256x60 frame's shapes")
-    from fluidx12_tpu_torch.ops.cuda import composite as C
     from fluidx12_tpu_torch.ops.cuda import jacobi as J
     from fluidx12_tpu_torch.ops.cuda import stencil as ST
     from fluidx12_tpu_torch.sim.mg import MG_POST, MG_PRE, mg_fused_supported
@@ -1334,23 +1416,11 @@ def phase2d_kernels_fused_slab(dev, results):
                  (dens,))
     check_faster(results, "gradient3", cold=True)
 
-    # B17 on the X+ face's stack of the 256x256x60 frame, both directions.
+    # B17 on the X+ face's stack of the 256x256x60 frame.
     _, dens_m, prod, n_steps = slab_face_stack(dev)
-    err = 0.0
-    for flip in (False, True):
-        got = C.composite(dens_m, prod, n_steps, 0.8, flip)
-        ref = C.composite_plain(dens_m, prod, n_steps, 0.8, flip)
-        scale = float(ref.abs().max())
-        e = float((got - ref).abs().max())
-        print(f"B17 composite on a {tuple(dens_m.shape)} stack, flip={flip}: max abs diff "
-              f"{e:.3e} (limit {2e-6 * scale:.2e}: 2e-6 of the scale, expf and log1pf)")
-        check(e <= 2e-6 * scale, f"B17 composite vs plain, flip={flip}")
-        err = max(err, e)
-    # Per stack element: the clips, the alpha (two transcendentals), the
-    # weight, its rate and four accumulations.
-    record("composite_slab", err, lambda: C.composite(dens_m, prod, n_steps, 0.8, False),
-           lambda: C.composite_plain(dens_m, prod, n_steps, 0.8, False),
-           nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
+    check_b17(results, "composite_slab", "the compact 256x256x60 X+ stack",
+              (dens_m, prod, n_steps), 0.8)
+    del dens_m, prod, n_steps
     print_times(results, KERNELS_FUSED + ("gradient3", "composite_slab"))
     # B3, B5, B7 and B8 on the padded frames' compact grids (the 150^3
     # frame prolongs with the twin: no B7).
@@ -1419,32 +1489,58 @@ def phase2f_direct_plane(dev, results):
         check_faster(results, name, cold=True)
         names.append(name)
 
+    # B17's branch-free division against `/` on every divisor it can meet.
+    bad = C.div_fast_mismatches(dev)
+    print(f"B17's branch-free division (div_fast) against the IEEE division: {bad} of "
+          f"739 M quotients differ (every f32 divisor in [2^-21, 2), four dividends in "
+          f"[2^-64, 2) each; limit 0)")
+    check(bad == 0, "B17's division is the division")
     # B17 on its path: the 24^3 golden case's (256, 256) base plane (64x64
-    # viewport), resampled with zero-outside weights, both directions.
+    # viewport), resampled with zero-outside weights.
     spec, args = sample_plane_inputs((24, 24, 24), dev, viewport=(64, 64))
     check(spec == (4, (2.0, 2.75), (256, 256))
           and plane_kernel(FluidConfig(grid_size=(24, 24, 24)), spec.face_id, spec.res)
           == "B17", f"the 24^3 golden case's base plane takes B17: {spec}")
     volf, h_rows, h_cols, valid, n_steps = args
     dens_m, prod = resampled_stack(volf, h_rows, h_cols, valid, True)
-    err = 0.0
-    for flip in (False, True):
-        got = C.composite(dens_m, prod, n_steps, absorption, flip)
-        ref = C.composite_plain(dens_m, prod, n_steps, absorption, flip)
-        scale = float(ref.abs().max())
-        e = float((got - ref).abs().max())
-        print(f"B17 composite on the 24^3 base plane's {tuple(dens_m.shape)} stack, "
-              f"flip={flip}: max abs diff {e:.3e} (limit {2e-6 * scale:.2e}: 2e-6 of the "
-              f"scale, expf and log1pf)")
-        check(e <= 2e-6 * scale and scale > 0.1, f"B17 composite vs plain, flip={flip}")
-        err = max(err, e)
-    # Per stack element: the clips, the alpha (two transcendentals), the
-    # weight, its rate and four accumulations.
-    measure(results, "composite", err,
-            lambda: C.composite(dens_m, prod, n_steps, absorption, False),
-            lambda: C.composite_plain(dens_m, prod, n_steps, absorption, False),
-            nbytes(dens_m, prod, n_steps, got), 20 * dens_m.numel(), plain_reps=3)
+    check_b17(results, "composite", "the 24^3 golden case's DIRECT plane",
+              (dens_m, prod, n_steps), absorption)
     print_times(results, names + ["composite"])
+
+
+def phase2g_b17_plane_512(dev, results):
+    """B17 on a 512^3 grid's DIRECT base plane: the default camera turned
+    by ORBIT_512 sees it as face Z+ at (1024, 896) texels, where B10's VMEM
+    gate fails and the TPU composites the resampled (170, 896, 1024) stack
+    with B17 (`plane_kernel`).  The stack is resampled with zero-outside
+    weights from a smooth 512^3 smoke volume (1.27 GB on the card), held
+    and timed by `check_b17`."""
+    phase("phase 2g: B17 on the 512^3 DIRECT plane, stack (170, 896, 1024)")
+    from fluidx12_tpu_torch.core.config import FluidConfig
+    from fluidx12_tpu_torch.render.screencomp import sample_camera, sample_plane_inputs
+    from fluidx12_tpu_torch.render.slicecomp import plane_kernel, resampled_stack
+
+    cfg = FluidConfig(grid_size=GRID_512)
+    spec, args = sample_plane_inputs(GRID_512, dev, orbit=ORBIT_512)
+    eye = sample_camera(cfg.viewport, ORBIT_512).eye
+    print(f"camera: the default orbit turned by orbit{ORBIT_512}, eye "
+          f"({eye[0]:.3f}, {eye[1]:.3f}, {eye[2]:.3f}); plane {spec}")
+    check(spec.face_id == 4 and spec.res == (1024, 896)
+          and plane_kernel(cfg, spec.face_id, spec.res) == "B17",
+          f"the 512^3 DIRECT plane takes B17: {spec}")
+    volf, h_rows, h_cols, valid, n_steps = args
+    del args
+    torch.cuda.reset_peak_memory_stats()
+    stack = resampled_stack(volf, h_rows, h_cols, valid, True) + (n_steps,)
+    del volf
+    check(tuple(stack[0].shape) == (170, 896, 1024), f"the 512^3 stack: {stack[0].shape}")
+    print(f"  stack {nbytes(*stack) / 1e9:.3f} GB; peak allocated while resampling "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_b17(results, "composite_plane_512", "the 512^3 DIRECT plane", stack, cfg.absorption,
+              reps=10)
+    del stack
+    torch.cuda.empty_cache()
+    print_times(results, ["composite_plane_512"])
 
 
 def projection_span_ms(engine, reps: int = 20) -> float:
@@ -1856,6 +1952,7 @@ def main() -> int:
     phase2d_kernels_fused_slab(dev, results)
     check_advect_frames(dev, results)
     phase2f_direct_plane(dev, results)
+    phase2g_b17_plane_512(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
     counts_gi, engine_256 = phase3c_256(dev, smi_line)

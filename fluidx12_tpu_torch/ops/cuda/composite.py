@@ -17,8 +17,11 @@ logical extent are the compact ones).  B17 `composite` replaces `_composite_kern
 (bf16 on the card, which is what the kernel takes; f32 on the CPU), and
 n_steps (R1, R2) f32.  Both return (4, R1, R2)
 f32: accumulated alpha, then rgb (before the 1/2pi scatter normalisation).
-The Hopper designs and what bounds them:
-fluidx12_tpu_torch/csrc/composite.cu.
+B17 is laid out by `composite_plan` (rings of staged slices, two or
+four columns a thread, prod staged only where a density is above 0);
+`composite_perthread` keeps the one-thread-a-texel design it replaced as
+a yardstick.  The Hopper designs and what bounds
+them: fluidx12_tpu_torch/csrc/composite.cu.
 
 The gates are pure-Python copies of the TPU's VMEM planners
 (composite.py:70-95, 190-240).  They decide nothing about the CUDA
@@ -30,6 +33,9 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,7 +57,10 @@ def _pick_bs(n_s: int) -> int:
 
 def composite_supported(n_s: int, r_rows: int, r_cols: int) -> bool:
     """True where the TPU can run B17 on an (n_s, R1, R2) stack
-    (composite.py:70)."""
+    (composite.py:70).  It decides the route (render/slicecomp.py), not
+    what the CUDA kernel takes: `composite_plan` lays out any stack with an
+    even R2, so every stack this gate admits (R2 % 128) can take each of
+    the kernel's column vectors."""
     return (r_cols % 128 == 0 and r_rows % 8 == 0
             and n_s % _pick_bs(n_s) == 0 and n_s >= 8)
 
@@ -200,6 +209,75 @@ composite_resample.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# B17's launch plan
+# ---------------------------------------------------------------------------
+
+# composite_kernel, compiled for these: CTAs of CTA_THREADS threads, each
+# owning `vec` consecutive columns of one row, vec one of VEC_CHOICES (8- or
+# 4-byte bf16 copies); rings of DENS_GROUPS groups of GROUP slices of the
+# densities and PROD_GROUPS of the three prod channels.  The plan takes the
+# widest vec that puts a CTA on each of an H100's SMS SMs, the narrowest
+# where none does.
+CTA_THREADS = 128
+VEC_CHOICES = (4, 2)
+GROUP = 4
+DENS_GROUPS = 3
+PROD_GROUPS = 2
+SMS = 132
+
+
+class CompositePlan(NamedTuple):
+    """How B17 cuts an (n_s, R1, R2) stack (`composite_plan`)."""
+    vec: int     # columns a thread
+    cols: int    # threads along a tile row: the tile is vec * cols columns
+    rows: int    # tile rows, CTA_THREADS // cols
+    smem: int    # the rings' shared-memory bytes
+    grid: tuple  # (column tiles, row tiles), as fx_composite forms it
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def composite_layout(n_s: int, r1: int, r2: int, vec: int) -> CompositePlan:
+    """The plan with `vec` columns a thread on an (n_s, R1, R2) stack:
+    threads along a tile row the power of two up to a warp that covers R2
+    (whole warps on one row where R2 allows), the rest derived; the rings'
+    bytes are DENS_GROUPS + 3 PROD_GROUPS groups of bf16 slices of every
+    thread's columns (csrc/composite.cu composite_smem).
+    `composite_plan`'s own, or one forced to another vec; not checked here
+    (fx_composite refuses what its kernel does not take)."""
+    cols = 1
+    while cols < 32 and cols * vec < r2:
+        cols *= 2
+    rows = CTA_THREADS // cols
+    grid = (_cdiv(_cdiv(r2, vec), cols), _cdiv(r1, rows))
+    smem = (DENS_GROUPS + 3 * PROD_GROUPS) * GROUP * CTA_THREADS * vec * 2
+    return CompositePlan(vec, cols, rows, smem, grid)
+
+
+@functools.lru_cache(maxsize=None)
+def composite_plan(n_s: int, r1: int, r2: int) -> CompositePlan:
+    """The launch plan of B17 on an (n_s, R1, R2) stack.  CTA (i, j) is
+    CTA_THREADS threads; thread t owns columns [vec (i cols + t % cols),
+    + vec) of row j rows + t / cols, where both lie inside the stack, and
+    marches all n_s slices of them, GROUP at a time, copying the next
+    groups' densities, and their prod where one of them is above 0, into
+    its rings while it composites this one.  Cached: the wrapper asks for
+    it on every call.  `fx_composite` takes the plan whole and refuses any other.  Raises
+    ValueError where no plan fits: an odd R2, an empty stack, more than
+    65535 row tiles."""
+    n_s, r1, r2 = int(n_s), int(r1), int(r2)
+    if min(n_s, r1, r2) < 1 or r2 % 2:
+        raise ValueError(f"composite_plan: no plan for an ({n_s}, {r1}, {r2}) stack")
+    plans = [composite_layout(n_s, r1, r2, v) for v in VEC_CHOICES if r2 % v == 0]
+    plan = next((p for p in plans if p.grid[0] * p.grid[1] >= SMS), plans[-1])
+    if plan.grid[1] > 65535:
+        raise ValueError(f"composite_plan: no plan for an ({n_s}, {r1}, {r2}) stack")
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # B17
 # ---------------------------------------------------------------------------
 
@@ -225,32 +303,84 @@ def composite_plain(dens, prod, n_steps, absorption: float, flip: bool) -> torch
     return torch.cat([acc_a[None], rgb], dim=0)
 
 
-def composite(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tensor:
-    """B17: front-to-back composite of a pre-resampled (n_s, R1, R2) stack;
-    see the module docstring for the arguments."""
+def _check_stack(dens, prod, n_steps, name: str) -> None:
     if (dens.ndim != 3 or dens.dtype not in (torch.bfloat16, torch.float32)
             or not dens.is_contiguous()):
-        raise ValueError(f"composite: dens must be contiguous bf16/f32 (n_s, R1, R2), "
+        raise ValueError(f"{name}: dens must be contiguous bf16/f32 (n_s, R1, R2), "
                          f"got {tuple(dens.shape)} {dens.dtype}")
     n_s, r1, r2 = dens.shape
-    for t, shape, dtype, name in ((prod, (3, n_s, r1, r2), dens.dtype, "prod"),
+    for t, shape, dtype, what in ((prod, (3, n_s, r1, r2), dens.dtype, "prod"),
                                   (n_steps, (r1, r2), torch.float32, "n_steps")):
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dens.device
                 or not t.is_contiguous()):
-            raise ValueError(f"composite: {name} must be contiguous {dtype} {shape} on "
+            raise ValueError(f"{name}: {what} must be contiguous {dtype} {shape} on "
                              f"{dens.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _check_card(dens, name: str) -> None:
+    if dens.device.type != "cuda" or dens.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the kernel takes bf16 stacks on a CUDA device, got "
+                         f"{dens.dtype} on {dens.device}")
+
+
+def composite(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tensor:
+    """B17: front-to-back composite of a pre-resampled (n_s, R1, R2) stack;
+    see the module docstring for the arguments.  Its paths
+    (render/slicecomp.py): the DIRECT methods' base plane where B10's gate
+    fails on it (the 24^3 golden case's (24, 256, 256) stack, a 512^3
+    grid's (170, 896, 1024) one) and the cube faces of unpadded grids
+    with lateral planes of 768^2 or more.  One launch, laid out by
+    `composite_plan`; on the card it raises where R2 is odd or a tensor
+    does not start on its vectors' alignment (fresh tensors always do)."""
+    _check_stack(dens, prod, n_steps, "composite")
     if dens.device.type == "cpu":
         return composite_plain(dens, prod, n_steps, absorption, flip)
-    if dens.device.type != "cuda" or dens.dtype != torch.bfloat16:
-        raise ValueError(f"composite: the kernel takes bf16 stacks on a CUDA device, got "
-                         f"{dens.dtype} on {dens.device}")
+    _check_card(dens, "composite")
+    n_s, r1, r2 = dens.shape
+    plan = composite_plan(n_s, r1, r2)
     out = torch.empty((4, r1, r2), dtype=torch.float32, device=dens.device)
-    err = _build.lib().fx_composite(
-        dens.data_ptr(), prod.data_ptr(), n_steps.data_ptr(), out.data_ptr(),
-        float(absorption), int(flip), n_s, r1, r2, _build.stream_ptr(dens))
+    err = _launch(dens, prod, n_steps, out, absorption, flip, plan)
     composite.launches += 1
     _build.check(err, "fx_composite")
     return out
 
 
 composite.launches = 0
+
+
+def _launch(dens, prod, n_steps, out, absorption: float, flip: bool,
+            plan: CompositePlan) -> int:
+    """fx_composite with `plan` as given; returns its error code."""
+    n_s, r1, r2 = dens.shape
+    return _build.lib().fx_composite(
+        dens.data_ptr(), prod.data_ptr(), n_steps.data_ptr(), out.data_ptr(),
+        float(absorption), int(flip), n_s, r1, r2, plan.vec, plan.cols,
+        _build.stream_ptr(dens))
+
+
+def composite_perthread(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tensor:
+    """The design B17 replaced, one thread a texel loading each slice as it
+    goes (`fx_composite_perthread`), kept only as a yardstick to time it
+    against.  Arguments as `composite`.  No path of the port calls it, and
+    it counts no launch.  Card tensors only."""
+    _check_stack(dens, prod, n_steps, "composite_perthread")
+    _check_card(dens, "composite_perthread")
+    n_s, r1, r2 = dens.shape
+    out = torch.empty((4, r1, r2), dtype=torch.float32, device=dens.device)
+    err = _build.lib().fx_composite_perthread(
+        dens.data_ptr(), prod.data_ptr(), n_steps.data_ptr(), out.data_ptr(),
+        float(absorption), int(flip), n_s, r1, r2, _build.stream_ptr(dens))
+    _build.check(err, "fx_composite_perthread")
+    return out
+
+
+def div_fast_mismatches(device) -> int:
+    """How many quotients a / b differ between B17's branch-free division
+    (csrc/composite.cu div_fast) and the IEEE division on the card: b over
+    every f32 in [2^-21, 2) (every mantissa of 22 binades: B17 divides by
+    max(d, 1e-6), d <= 1), four a in [2^-64, 2) each, 739 M quotients."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    for e0 in range(-21, 1):
+        _build.check(_build.lib().fx_composite_div_mismatches(
+            count.data_ptr(), e0, _build.stream_ptr(count)), "fx_composite_div_mismatches")
+    return int(count.item())

@@ -173,16 +173,27 @@ def ray_cast_direct_fast(grid: torch.Tensor, params: SceneParams, config: FluidC
     return _warp_plane_to_screen(img, spec, params, config, rect=rect)
 
 
-def sample_plane_inputs(grid, device, seed: int = 0, viewport=(800, 800)):
+def sample_camera(viewport=(800, 800), orbit=(0.0, 0.0)) -> OrbitCamera:
+    """The default camera for `viewport`, turned by `orbit` (the mouse
+    delta in pixels of `OrbitCamera.orbit`) where it is not zero."""
+    cam = OrbitCamera(width=viewport[0], height=viewport[1])
+    if any(orbit):
+        cam.orbit(*orbit)
+    return cam
+
+
+def sample_plane_inputs(grid, device, seed: int = 0, viewport=(800, 800), orbit=(0.0, 0.0)):
     """(spec, B10's arguments) for the DIRECT base plane of a smooth lit
     smoke volume on grid `grid` (x, y, z), made from `seed`, as the default
-    camera sees it at lod 0 in `viewport`: the plane march's own shapes and
-    coordinates (`slicecomp.sample_face_inputs`), for holding B10's
-    zero-outside mode against its plain version."""
+    camera turned by `orbit` (`sample_camera`) sees it at lod 0 in
+    `viewport`: the plane march's own shapes and coordinates
+    (`slicecomp.sample_face_inputs`), for holding the plane's kernel (B10's
+    zero-outside mode, or B17 after `slicecomp.resampled_stack`) against
+    its plain version."""
     cfg = FluidConfig(grid_size=grid, viewport=viewport)
-    cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
+    cam = sample_camera(viewport, orbit)
     world = m3.scaling(cfg.volume_scale)
     local_eye = (np.append(np.asarray(cam.eye, np.float64), 1.0) @ m3.inverse(world))[:3]
     spec = direct_plane_spec(local_eye, world @ cam.view_proj, cfg.viewport, cfg)
     return spec, sample_face_inputs(grid, spec.face_id, device, seed, extent=spec.extent,
-                                    res=spec.res)
+                                    res=spec.res, camera=cam)

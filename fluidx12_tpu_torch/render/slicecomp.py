@@ -368,13 +368,14 @@ def ray_march_cube_fast(grid: torch.Tensor, params: SceneParams, config: FluidCo
     return cube
 
 
-def sample_face_inputs(grid, face: int, device, seed: int = 0, extent=1.0, res=None):
+def sample_face_inputs(grid, face: int, device, seed: int = 0, extent=1.0, res=None,
+                       camera: Optional[OrbitCamera] = None):
     """B10's arguments (volf, h_rows, h_cols, valid, n_steps) for cube face
     `face` of a smooth lit smoke volume on grid `grid` (x, y, z), made from
-    `seed`, as the default camera sees it at lod 0: the march's own shapes
-    and coordinates, for holding B10 against its plain version.  With
-    `extent` and `res`, those of a DIRECT base plane on that face
-    (`face_geometry`)."""
+    `seed`, as `camera` (the default camera where None) sees it at lod 0:
+    the march's own shapes and coordinates, for holding B10 against its
+    plain version.  With `extent` and `res`, those of a DIRECT base plane
+    on that face (`face_geometry`)."""
     cfg = FluidConfig(grid_size=grid)
     rng = np.random.default_rng(seed)
     dens = torch.from_numpy(rng.uniform(0.0, 0.6, cfg.zyx).astype(np.float32)).to(device)
@@ -382,7 +383,8 @@ def sample_face_inputs(grid, face: int, device, seed: int = 0, extent=1.0, res=N
         dens = (dens.roll(1, ax) + dens + dens.roll(-1, ax)) / 3.0
     vol = torch.cat([dens[None], dens[None].expand(3, -1, -1, -1) * 0.5]).to(torch.bfloat16)
     volf = _axis_volume(vol, _FACES[face][0], cfg).to(torch.bfloat16).contiguous()
-    cam = OrbitCamera(width=cfg.viewport[0], height=cfg.viewport[1])
+    cam = camera if camera is not None else OrbitCamera(width=cfg.viewport[0],
+                                                        height=cfg.viewport[1])
     eye = torch.from_numpy(np.append(cam.eye, 1.0).astype(np.float32)).to(device)
     world_i = torch.from_numpy(m3.inverse(m3.scaling(cfg.volume_scale))).to(device)
     h_rows, h_cols, valid, n_steps, _ = face_geometry(

@@ -1002,3 +1002,87 @@ def test_gradient3_march_at_2_30_cells(dev):
     q = torch.empty(shape, device=dev).uniform_(-1.0, 1.0, generator=g)
     got = ST.gradient3(q)
     assert torch.equal(got, ST.perthread("gradient3", q)) and bool(got.isfinite().all())
+
+
+def _composite_stack(dev, shape, seed):
+    """A bf16 (n_s, R1, R2) density with an empty slice and empty rows, its
+    (3, n_s, R1, R2) prod and (R1, R2) n_steps."""
+    rng = np.random.default_rng(seed)
+    n_s, r1, r2 = shape
+    dens = torch.from_numpy(rng.uniform(-0.1, 1.0, shape).astype(np.float32))
+    dens[n_s // 2] = 0.0
+    dens[:, : r1 // 4] = 0.0
+    prod = torch.from_numpy(rng.uniform(0.0, 1.0, (3,) + shape).astype(np.float32))
+    nst = torch.from_numpy(rng.uniform(0.5, 2.0, (r1, r2)).astype(np.float32)).to(dev)
+    return dens.to(dev, torch.bfloat16), prod.to(dev, torch.bfloat16), nst
+
+
+def _launch_composite(args, flip, plan):
+    """fx_composite with `plan` as given: (error, output)."""
+    dens, prod, nst = args
+    out = torch.full((4,) + tuple(nst.shape), float("nan"), device=dens.device)
+    err = C._launch(dens, prod, nst, out, 0.8, flip, plan)
+    torch.cuda.synchronize()
+    return err, out
+
+
+# Small versions of B17's stacks (the 24^3 DIRECT plane, the compact
+# 256x256x60 X+ stack, a 512^3 DIRECT plane), then R1 ragged against the
+# tile's rows and R2 ragged against its columns.
+COMPOSITE_SHAPES = [(24, 64, 256), (128, 32, 256), (170, 24, 1024), (24, 18, 256),
+                    (9, 13, 200)]
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=lambda v: "x".join(map(str, v)))
+def test_composite_ring_matches_perthread(dev, shape, flip):
+    """B17's ring equal to the one-thread-a-texel design it replaced
+    (`composite_perthread`) and within 2e-6 of the scale of its plain
+    version, with the plan and with each vec forced (tail groups part
+    empty)."""
+    args = _composite_stack(dev, shape, 80)
+    yard = C.composite_perthread(*args, 0.8, flip)
+    ref = C.composite_plain(*args, 0.8, flip)
+    assert float((yard - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    assert torch.equal(C.composite(*args, 0.8, flip), yard)
+    n_s, r1, r2 = shape
+    for vec in C.VEC_CHOICES:
+        if r2 % vec == 0:
+            err, got = _launch_composite(args, flip, C.composite_layout(n_s, r1, r2, vec))
+            assert err == 0 and torch.equal(got, yard), vec
+
+
+def test_composite_refuses_a_plan_it_cannot_run(dev, monkeypatch):
+    """`fx_composite` runs the plan `composite_plan` gives and refuses a
+    vec it is not compiled for or that does not divide R2, threads
+    along a row that are no power of two up to a warp, and a stack that
+    does not start on its vectors; the wrapper raises on a refusal, counts
+    the launch and never falls back."""
+    shape = (12, 16, 256)
+    args = _composite_stack(dev, shape, 81)
+    plan = C.composite_plan(*shape)
+    err, got = _launch_composite(args, False, plan)
+    assert err == 0 and torch.equal(got, C.composite_perthread(*args, 0.8, False))
+    for bad in (plan._replace(vec=1), plan._replace(vec=8), plan._replace(cols=3),
+                plan._replace(cols=64)):
+        assert _launch_composite(args, False, bad)[0] != 0, bad
+    ragged = _composite_stack(dev, (12, 16, 250), 82)
+    assert _launch_composite(ragged, False, C.composite_layout(12, 16, 250, 4))[0] != 0
+    dens, prod, nst = args
+    shifted = torch.empty(dens.numel() + 1, dtype=dens.dtype, device=dev)[1:].view(shape)
+    shifted.copy_(dens)
+    assert _launch_composite((shifted, prod, nst), False, plan)[0] != 0
+    with pytest.raises(ValueError):
+        C.composite(*_composite_stack(dev, (12, 16, 255), 83), 0.8, False)
+    with monkeypatch.context() as m:
+        m.setattr(C, "composite_plan", lambda *s: plan._replace(cols=3))
+        before = C.composite.launches
+        with pytest.raises(RuntimeError):
+            C.composite(*args, 0.8, False)
+        assert C.composite.launches == before + 1
+
+
+def test_composite_division_is_the_division(dev):
+    """B17's branch-free division equals the IEEE division on every
+    divisor it can meet, each with four dividends."""
+    assert C.div_fast_mismatches(dev) == 0
