@@ -76,7 +76,18 @@ drives 20 frames of PRESETS["fluid3d"] under RAY_MARCH_DIRECT_SEPARATE and
 with the point light (the projective sweep, no B9), with exact launch
 counts; phase 4 adds a DIRECT frame where B17 composites the plane (the
 24^3 golden case, 64x64 viewport), one where B10 does (32^3) and a
-point-light frame.  Every phase prints its
+point-light frame.  The engine runs a frame as one CUDA graph a key (its
+first frame op by op, then captured; later frames replayed), so every
+launch count above is counted from replays, and phases 3, 3b, 3c and 3f
+print the host ms/frame of the frame replayed and op by op, in turns.
+Phase 3g holds the replayed frame to the frame op by op bit for bit
+(fields, pressure, image, launch counts) through ten frames of
+PRESETS["fluid3d"] (an orbit, a small orbit that keeps the key, the pause
+key, a DIRECT key and back), checks torch.profiler's count of one
+replay's device operations against one frame op by op, prints the memory
+the card reserves after one key and after six, and holds step_frames(8)
+to eight step_frame calls bit for bit on PRESETS["fluid2d"] and on the
+256^3 GI frame.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -1607,8 +1618,28 @@ def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None, metho
     print(f"{label}: median ms/frame (frames {first + 1}-{frames}, host clock "
           f"around a synchronized step): {med:.3f} ms = {1e3 / med:.2f} steps/s; "
           f"min {min(steady):.3f}, max {max(steady):.3f}; first frame {times[0]:.1f} ms "
-          f"[{smi_line}]")
+          f"(op by op, then its capture) [{smi_line}]")
     return counts, faces, engine
+
+
+def eager_vs_replayed(engine, label: str, smi_line: str, frames: int = 10) -> None:
+    """Host ms/frame of the engine's frame op by op (`_frame_eager`) and
+    replayed (`step_frame`) in turns, op by op, replayed, op by op,
+    replayed: the median of `frames` synchronized frames each.  The key's
+    graph exists already (run_frames ran it)."""
+    medians = {"op by op": [], "replayed": []}
+    for kind in ("op by op", "replayed", "op by op", "replayed"):
+        step = engine._frame_eager if kind == "op by op" else engine.step_frame
+        times = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        medians[kind].append(statistics.median(times))
+    print(f"{label}: host ms/frame in turns (median of {frames} synchronized frames each): "
+          + "; ".join(f"{kind} {a:.3f}, {b:.3f}" for kind, (a, b) in medians.items())
+          + f" [{smi_line}]")
 
 
 def phase3_main_path(dev, smi_line):
@@ -1624,6 +1655,7 @@ def phase3_main_path(dev, smi_line):
     expect.update(jacobi=2 * FRAMES, composite_resample=FRAMES * faces, advect_z=0,
                   jacobi_planewise=0, **{name: 0 for name in OWN})
     check(counts == expect, f"launch counts {counts} != {expect}")
+    eager_vs_replayed(engine, "fluid3d", smi_line)
     span = projection_span_ms(engine)
     print(f"fluid3d: projection span {span:.3f} ms/call (CUDA events, 20 calls) "
           f"[{smi_line}]")
@@ -1647,10 +1679,11 @@ def phase3b_fluid2d(dev, smi_line):
     phase(f"phase 3b: {FRAMES_2D} frames of PRESETS['fluid2d'] at 512^2 / 800^2")
     from fluidx12_tpu_torch.core.config import PRESETS
 
-    counts, _, _ = run_frames(PRESETS["fluid2d"], FRAMES_2D, dev, smi_line, "fluid2d")
+    counts, _, engine = run_frames(PRESETS["fluid2d"], FRAMES_2D, dev, smi_line, "fluid2d")
     expect = {name: 0 for name in KERNELS}
     expect.update(advect_axis=2 * FRAMES_2D, jacobi2d=FRAMES_2D, jacobi_planewise=0)
     check(counts == expect, f"launch counts {counts} != {expect}")
+    eager_vs_replayed(engine, "fluid2d", smi_line)
     return counts
 
 
@@ -1680,6 +1713,8 @@ def phase3c_256(dev, smi_line):
                       **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
                          + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB})
         check(counts == expect, f"launch counts {counts} != {expect}")
+        if probe:
+            eager_vs_replayed(engine, label, smi_line)
         out[probe] = counts, engine
     return out[True][0], out[False][1]
 
@@ -1829,11 +1864,15 @@ def phase3f_direct_and_point(dev, smi_line):
         check(lod == 0 and spec == (4, (2.0, 2.75), (896, 1024))
               and plane_kernel(cfg, spec.face_id, spec.res) == "B10",
               f"the default camera's base plane takes B10: lod {lod}, {spec}")
-        check(zero_outside == [True] * frames, "B10 ran in its zero-outside mode")
+        # The key's first frame and its capture call the march; replays
+        # run no Python.
+        check(zero_outside == [True, True], "B10 ran in its zero-outside mode")
         expect = {name: frames for name in KERNELS}
         expect.update(jacobi=2 * frames, composite_resample=frames, advect_z=0,
                       jacobi_planewise=0, **{name: 0 for name in OWN})
         check(counts == expect, f"launch counts {counts} != {expect}")
+        if method == RenderMethod.RAY_MARCH_DIRECT_SEPARATE:
+            eager_vs_replayed(engine, method.name, smi_line)
         out[method.name] = counts
 
     point = dataclasses.replace(cfg, point_light=True)
@@ -1845,6 +1884,158 @@ def phase3f_direct_and_point(dev, smi_line):
     check(counts == expect, f"launch counts {counts} != {expect}")
     out["point_light"] = counts
     return out
+
+
+def profiled_kernels(step) -> tuple:
+    """(device operations, the port's own kernels) that torch.profiler
+    records on the card during one call of `step`.  The operations count
+    kernels, copies and sets together: the profiler records a copy that a
+    CUDA graph replays as a kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(names), sum("(anonymous namespace)::" in n for n in names)
+
+
+def held_memory() -> int:
+    """The bytes the card reserves for live tensors and graph pools: the
+    memory reserved once the caching allocator's free blocks are
+    released."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def phase3g_replay_vs_eager(dev, smi_line):
+    """The frame as one CUDA graph a key, held to the frame op by op.  Two
+    engines of PRESETS["fluid3d"] from the same (initial) state run the
+    same ten frames, one by `_frame_eager`, the other by `step_frame`:
+    the default pose; an orbit (new rect and parameters: a new key); a
+    small orbit that keeps the key but changes the packed parameters (a
+    graph that captured a stale parameter tensor would differ here);
+    toggle_pause (a key of its own; the state must not move);
+    RAY_MARCH_DIRECT_SEPARATE; back to RAY_MARCH_SEPARATE (a replay of an
+    earlier key).  Fields, pressure, image and launch counts must be equal
+    bit for bit after every frame, and each frame must capture or replay
+    as its key says.  torch.profiler's kernel count of one replay must
+    equal that of one frame op by op.  The memory the card reserves is
+    printed after one key and after six.  Then `step_frames(8)` against 8
+    `step_frame` calls from the same state, bit for bit, on
+    PRESETS["fluid2d"] and on the 256^3 GI frame."""
+    phase("phase 3g: replayed frames against the frame op by op, bit for bit")
+    from fluidx12_tpu_torch.core.config import PRESETS, FluidConfig, RenderMethod
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    cfg = PRESETS["fluid3d"]
+    eager = FluidXEngine(cfg, device=dev)
+    graph = FluidXEngine(cfg, device=dev)
+    sep, direct = RenderMethod.RAY_MARCH_SEPARATE, RenderMethod.RAY_MARCH_DIRECT_SEPARATE
+
+    def method(m):
+        return lambda e: setattr(e, "render_method", m)
+
+    def unpause_direct(e):
+        e.toggle_pause()
+        e.render_method = direct
+
+    # (what, action on both engines, the graph engine's keys after it)
+    steps = [("the default pose", None, 1), ("the default pose", None, 1),
+             ("orbit(60, 25): new rect and parameters", lambda e: e.camera.orbit(60.0, 25.0), 2),
+             ("the same pose", None, 2),
+             ("orbit(1, 0): new parameters, the same key", lambda e: e.camera.orbit(1.0, 0.0), 2),
+             ("toggle_pause", lambda e: e.toggle_pause(), 3), ("paused", None, 3),
+             ("toggle_pause, RAY_MARCH_DIRECT_SEPARATE", unpause_direct, 4),
+             ("RAY_MARCH_DIRECT_SEPARATE", None, 4),
+             ("back to RAY_MARCH_SEPARATE", method(sep), 4)]
+    key = packed_before = None
+    for i, (what, action, n_keys) in enumerate(steps):
+        if action is not None:
+            action(eager)
+            action(graph)
+        prev_key, key = key, graph._prepare()
+        if what.startswith("orbit(1"):
+            check(key == prev_key and not torch.equal(graph._packed, packed_before),
+                  "the small orbit keeps the key and changes the parameters")
+        packed_before = graph._packed.clone()
+        fields_before = graph.state.fields.clone()
+        replays = key in graph._graphs
+        reset_launch_counts()
+        image_a = eager._frame_eager()
+        counts_a = launch_counts()
+        reset_launch_counts()
+        image_b = graph.step_frame()
+        counts_b = launch_counts()
+        torch.cuda.synchronize()
+        same = {"fields": torch.equal(eager.state.fields, graph.state.fields),
+                "pressure": torch.equal(eager.state.pressure, graph.state.pressure),
+                "image": torch.equal(image_a, image_b), "launch counts": counts_a == counts_b}
+        print(f"frame {i + 1} ({what}): {'replay' if replays else 'op by op, then capture'}, "
+              f"{len(graph._graphs)} keys; equal: {same}; fields max abs diff "
+              f"{float((eager.state.fields.float() - graph.state.fields.float()).abs().max()):.3e}"
+              f" ({bf16_ulps(eager.state.fields, graph.state.fields):.2f} bf16 ulp), image "
+              f"{float((image_a - image_b).abs().max()):.3e}")
+        check(all(same.values()), f"frame {i + 1} ({what}): the replayed frame equals the "
+                                  f"frame op by op: {same}")
+        check(len(graph._graphs) == n_keys and replays == (i not in (0, 2, 5, 7)),
+              f"frame {i + 1} ({what}): {len(graph._graphs)} keys, replay {replays}")
+        if graph.is_paused:
+            check(torch.equal(graph.state.fields, fields_before), "a paused frame keeps the state")
+        if i == 1:
+            mem_1 = held_memory()
+    # The replay alone (`_run`), without step_frame's copy of the image.
+    kernels = {"replay": profiled_kernels(lambda: graph._run(graph._prepare())),
+               "op by op": profiled_kernels(graph._frame_eager)}
+    print(f"torch.profiler, one frame of RAY_MARCH_SEPARATE: (device operations, the "
+          f"port's own kernels) {kernels}")
+    check(kernels["replay"] == kernels["op by op"] and kernels["replay"][1] > 0,
+          "a replay runs every kernel of the frame op by op")
+    for m in (RenderMethod.RAY_MARCH_MERGED, RenderMethod.RAY_MARCH_DIRECT_MERGED):
+        graph.render_method = m
+        graph.step_frame()
+    check(len(graph._graphs) == 6, "six keys")
+    mem_6 = held_memory()
+    print(f"memory the card reserves for both engines, the allocator's cache emptied first "
+          f"(each capture empties it too): {mem_1 / 2**20:.0f} MiB after one key, "
+          f"{mem_6 / 2**20:.0f} MiB after six [{smi_line}]")
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    radiance = np.load(PROBE)["radiance"]
+    for label, cfg, rad in (("fluid2d", PRESETS["fluid2d"], None),
+                            ("256^3 GI", FluidConfig(grid_size=GRID_256, has_light_probe=True),
+                             radiance)):
+        one, seq = (FluidXEngine(cfg, radiance=rad, device=dev) for _ in range(2))
+        for e in (one, seq):
+            e.step_frame()
+            e.step_frame()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images = one.step_frames(8)
+        torch.cuda.synchronize()
+        ms_k = (time.perf_counter() - t0) * 1e3 / 8
+        counts_k = launch_counts()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images_seq = torch.stack([seq.step_frame() for _ in range(8)])
+        torch.cuda.synchronize()
+        ms_seq = (time.perf_counter() - t0) * 1e3 / 8
+        same = {"images": torch.equal(images, images_seq),
+                "fields": torch.equal(one.state.fields, seq.state.fields),
+                "pressure": torch.equal(one.state.pressure, seq.state.pressure),
+                "launch counts": counts_k == launch_counts(),
+                "frame_index": one.frame_index == seq.frame_index == 10}
+        print(f"{label}: step_frames(8) {tuple(images.shape)} against 8 step_frame calls: "
+              f"equal {same}; host {ms_k:.3f} against {ms_seq:.3f} ms/frame [{smi_line}]")
+        check(all(same.values()), f"{label}: step_frames(8) equals 8 step_frame calls")
+        del one, seq, images, images_seq
+        torch.cuda.empty_cache()
 
 
 def phase4_cpu_vs_cuda(dev):
@@ -1960,6 +2151,7 @@ def main() -> int:
     del engine_256
     phase3e_fluidgi(dev, smi_line)
     phase3f_direct_and_point(dev, smi_line)
+    phase3g_replay_vs_eager(dev, smi_line)
     counts_direct24 = phase4_cpu_vs_cuda(dev)
     kernels = []
     # B4's plane-sweep order is B4's wrapper and source; its launches are

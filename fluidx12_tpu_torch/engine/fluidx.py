@@ -6,13 +6,31 @@ the state on `device` (the card unless the caller names another), the
 light probe and the per-frame parameters; `step_frame()` advances the
 simulation one step and returns the (H, W, 3) f32 image on the same device,
 rendered by `render_method` (`next_method` / `prev_method` cycle the four,
-as the reference's hotkeys do).
+as the reference's hotkeys do; `toggle_pause` is the pause key).
+`step_frames(k)` runs k frames and returns their (k, H, W, 3) images.
 `radiance` is the probe's (6, S, S, 3) cube map as a numpy array (the JAX
 package's `assets/rnl_cross.npz` holds one); with a config that has a
-light probe it lights the smoke with SH GI and draws the sky.  PyTorch runs
-eagerly, so there is no program cache: what the JAX engine keys its jit
-cache on (render method, LOD, face mask, DIRECT base plane, scissor rect)
-are plain arguments here.  Configurations the port does not cover yet
+light probe it lights the smoke with SH GI and draws the sky.
+
+The frame as one program.  The JAX engine jits a frame once per key
+(render method, LOD, face mask, DIRECT base plane, scissor rect) and runs
+it as one donated program.  On the card this engine captures a frame as
+one CUDA graph per key, the JAX key plus the pause state (the projection
+branches on the host dt): a key's first frame runs op by op and is then
+captured, and its later frames replay the graph.  The graph reads the
+state, the packed parameters, the SH coefficients and the sky from
+tensors that live as long as the engine, and writes the new state back
+into them; the host work between frames (the parameters, the sky, the
+base plane and the rect, each refreshed only when the pose changes) copies
+into those tensors outside the graph.  All of an engine's graphs share
+one memory pool and replay one at a time on one stream.  A replay runs no
+kernel wrapper, so it adds the launches its capture counted to
+`ops/cuda.launch_counts()`.  A capture or a replay that fails raises;
+nothing falls back to launching op by op.  On the CPU there is no graph:
+every frame runs op by op (`_frame_eager`, which is also what a graph
+captures).
+
+Configurations the port does not cover yet
 raise NotImplementedError at construction (a DIRECT frame with the eye
 inside the volume, in `step_frame`), naming their ROADMAP.md item; nothing
 falls back to another path.  The config's kernel switches are read as the JAX package
@@ -25,7 +43,7 @@ projection's kernels (sim/project.py; a grid the TPU stores padded reads
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +53,7 @@ from fluidx12_tpu_torch.core.camera import OrbitCamera
 from fluidx12_tpu_torch.core.config import FaceCullMode, FluidConfig, RenderMethod
 from fluidx12_tpu_torch.core.lod import estimate_cube_map_lod, gen_visibility_mask
 from fluidx12_tpu_torch.core.state import (
+    FluidState,
     make_initial_state,
     pack_scene_params_host,
     unpack_scene_params,
@@ -50,6 +69,14 @@ def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
     return unported_sim(config) or unported_render(config, None)
+
+
+class _FrameGraph(NamedTuple):
+    """One key's captured frame."""
+
+    graph: "torch.cuda.CUDAGraph"
+    image: torch.Tensor  # the graph's output, overwritten by every replay
+    launches: dict       # kernel launches of one replay, by wrapper
 
 
 class FluidXEngine:
@@ -70,15 +97,18 @@ class FluidXEngine:
                                   z_far=config.z_far)
         self.world = m3.scaling(config.volume_scale)
         self.world_i = m3.inverse(self.world)
-        self.state = make_initial_state(self.config, self.device)
+        # The state's buffers: every frame reads and writes these tensors.
+        self._state = make_initial_state(self.config, self.device)
         self.render_method = RenderMethod.RAY_MARCH_SEPARATE
         self.is_paused = False
         self.frame_index = 0
         # Per-pose caches of the packed parameters and the scissor rect (the
         # packed upload freezes BaseSeed on a static camera, as in the JAX
-        # engine; no kernel reads it).
-        self._frame_key = None
-        self._frame_cache: Optional[Tuple[torch.Tensor, int, Optional[int]]] = None
+        # engine; no kernel reads it).  The packed parameters and the sky
+        # are copied into one tensor each, made at their first upload.
+        self._params_key = None
+        self._params_cache: Optional[Tuple[torch.Tensor, int, Optional[int]]] = None
+        self._packed: Optional[torch.Tensor] = None
         self._rect_key = None
         self._rect_cache = None
         self._plane_key = None
@@ -91,7 +121,29 @@ class FluidXEngine:
             self.radiance = torch.from_numpy(np.asarray(radiance, np.float32)).to(self.device)
             self.sh_coeffs = project_cubemap_sh(self.radiance, order=3)[:9]
         self._env_key = None
-        self._env_cache = None
+        self._env: Optional[torch.Tensor] = None
+        # The card's captured frames by key (`_prepare`), in one pool.
+        self._graphs = {}
+        self._pool = None
+
+    @property
+    def state(self) -> FluidState:
+        """The simulation state, in buffers that live as long as the engine."""
+        return self._state
+
+    @state.setter
+    def state(self, state: FluidState) -> None:
+        """Copy `state` (fields and pressure of this config's shapes) into
+        the engine's buffers, which a captured frame reads by address."""
+        for dst, src in zip(self._state, state):
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"state: expected {tuple(dst.shape)}, got {tuple(src.shape)}")
+        self._store(state)
+
+    def _store(self, state: FluidState) -> None:
+        for dst, src in zip(self._state, state):
+            if src is not dst:
+                dst.copy_(src)
 
     def _time_step(self) -> float:
         return 0.0 if self.is_paused else self.config.time_step
@@ -102,8 +154,8 @@ class FluidXEngine:
         cfg = self.config
         dt = self._time_step()
         pose = (dt, self.camera.view.tobytes(), self.camera.proj.tobytes())
-        if pose == self._frame_key and self._frame_cache is not None:
-            return self._frame_cache
+        if pose == self._params_key and self._params_cache is not None:
+            return self._params_cache
         wvp = self.world @ self.camera.view_proj
         wvp_i = m3.inverse(wvp)
         screen_to_world = m3.inverse(self.camera.view_proj)
@@ -123,9 +175,13 @@ class FluidXEngine:
             self.world, self.world_i, wvp, wvp_i, screen_to_world,
             ray_samples, cfg.max_light_samples, mask)
         vis_mask = None if cfg.face_cull == FaceCullMode.NONE else mask
-        self._frame_key = pose
-        self._frame_cache = (torch.from_numpy(flat).to(self.device), lod, vis_mask)
-        return self._frame_cache
+        if self._packed is None:
+            self._packed = torch.from_numpy(flat).to(self.device)
+        else:
+            self._packed.copy_(torch.from_numpy(flat))
+        self._params_key = pose
+        self._params_cache = (self._packed, lod, vis_mask)
+        return self._params_cache
 
     def _screen_rect(self):
         """Host-static screen bbox of the volume (core.lod.screen_bbox),
@@ -163,31 +219,123 @@ class FluidXEngine:
 
     def _env_bg(self, params) -> Optional[torch.Tensor]:
         """The sky behind the volume, rendered once per camera pose (it
-        depends on the pose and the probe, not on the state); None without
-        a probe or in 2D."""
+        depends on the pose and the probe, not on the state) into the
+        engine's one sky tensor; None without a probe or in 2D."""
         if self.radiance is None or not self.config.is_3d:
             return None
         pose = (self.camera.view.tobytes(), self.camera.proj.tobytes())
         if pose != self._env_key:
             self._env_key = pose
-            self._env_cache = render_environment(self.radiance, params, self.config)
-        return self._env_cache
+            sky = render_environment(self.radiance, params, self.config)
+            if self._env is None:
+                self._env = sky
+            else:
+                self._env.copy_(sky)
+        return self._env
 
-    def step_frame(self) -> torch.Tensor:
-        """One full frame; returns the (H, W, 3) f32 image on the device."""
+    def _prepare(self) -> tuple:
+        """A frame's host work: the packed parameters, the base plane, the
+        scissor rect and the sky, each refreshed where the pose changed.
+        Returns the frame's key (method, LOD, face mask, plane spec, rect,
+        paused), the JAX engine's program key with the pause state added;
+        raises for what the port does not render yet."""
         packed, lod, vis_mask = self.update_frame()
-        params = unpack_scene_params(packed)
-        plane_spec = (None if self.render_method.uses_cube_map
-                      else self._direct_plane_spec(lod))
-        self.state = simulate(self.state, self._time_step(), self.config)
-        image = render_frame(self.state.color, params, self.config, self.render_method,
-                             self.sh_coeffs, lod=lod, vis_mask=vis_mask,
-                             plane_spec=plane_spec, rect=self._screen_rect(),
-                             env_bg=self._env_bg(params))
+        method = self.render_method
+        plane_spec = None if method.uses_cube_map else self._direct_plane_spec(lod)
+        missing = unported_render(self.config, method, plane_spec)
+        if missing is not None:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self._env_bg(unpack_scene_params(packed))
+        return (method, lod, vis_mask, plane_spec, self._screen_rect(), self.is_paused)
+
+    def _device_frame(self, key: tuple) -> torch.Tensor:
+        """A frame's device work on the engine's tensors: simulate, write
+        the state back into its buffers, render; returns the image."""
+        method, lod, vis_mask, plane_spec, rect, paused = key
+        cfg = self.config
+        params = unpack_scene_params(self._packed)
+        self._store(simulate(self._state, 0.0 if paused else cfg.time_step, cfg,
+                             dt=params.time_step))
+        return render_frame(self._state.color, params, cfg, method, self.sh_coeffs,
+                            lod=lod, vis_mask=vis_mask, plane_spec=plane_spec, rect=rect,
+                            env_bg=self._env)
+
+    def _frame_eager(self) -> torch.Tensor:
+        """One frame launched op by op: the CPU's frame, and on the card the
+        frame a graph captures."""
+        image = self._device_frame(self._prepare())
         self.frame_index += 1
         return image
 
-    # The render-method hotkeys (ref: FluidX12.cpp:311-334).
+    def _capture(self, key: tuple) -> _FrameGraph:
+        """Capture the frame of `key` as a CUDA graph in the engine's pool.
+        Capture records the launches without running them, so the state
+        does not advance; the launches the wrappers counted are taken back
+        out of the counts."""
+        from fluidx12_tpu_torch.ops.cuda import add_launch_counts, launch_counts
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                image = self._device_frame(key)
+        finally:
+            launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+            add_launch_counts(launches, -1)
+        return _FrameGraph(graph, image, launches)
+
+    def _run(self, key: tuple) -> torch.Tensor:
+        """One frame of `key` on the card: its graph's replay, or on the
+        key's first frame the frame op by op followed by its capture.  The
+        image returned by a replay is the graph's output, which the next
+        replay overwrites."""
+        from fluidx12_tpu_torch.ops.cuda import add_launch_counts
+
+        frame = self._graphs.get(key)
+        if frame is None:
+            image = self._device_frame(key)
+            self._graphs[key] = self._capture(key)
+            return image
+        frame.graph.replay()
+        add_launch_counts(frame.launches)
+        return frame.image
+
+    def step_frame(self) -> torch.Tensor:
+        """One full frame; returns the (H, W, 3) f32 image on the device (on
+        the card, a copy out of the key's graph)."""
+        if self.device.type != "cuda":
+            return self._frame_eager()
+        image = self._run(self._prepare()).clone()
+        self.frame_index += 1
+        return image
+
+    def step_frames(self, k: int) -> torch.Tensor:
+        """`k` frames; returns their (k, H, W, 3) images.  The frames are
+        those of `k` step_frame calls, as the JAX engine's scan of `k`
+        frames is (fluidx12_tpu/engine/fluidx.py:291-308).  On the card
+        the key's graph replays `k` times, each image copied into its
+        slot: `k` graph launches, not one graph of `k` frames, which would
+        take `k` times a frame's capture time and memory."""
+        if k <= 1:
+            return self.step_frame()[None]
+        key = self._prepare()
+        run = self._run if self.device.type == "cuda" else self._device_frame
+        images = None
+        for i in range(k):
+            image = run(key)
+            if images is None:
+                images = torch.empty((k,) + tuple(image.shape), dtype=image.dtype,
+                                     device=image.device)
+            images[i].copy_(image)
+        self.frame_index += k
+        return images
+
+    # The hotkeys (ref: FluidX12.cpp:311-334).
+    def toggle_pause(self):
+        self.is_paused = not self.is_paused
+
     def next_method(self):
         self.render_method = self.render_method.next()
 

@@ -302,9 +302,8 @@ def gradient_axis(q: torch.Tensor, axis: int) -> torch.Tensor:
     clamped neighbours, times 0.5 inside and 1 at the two boundary cells,
     where it is the one-sided difference (stencil.py:146-150)."""
     n = q.shape[axis]
-    scale = torch.full((n,), 0.5, dtype=q.dtype, device=q.device)
-    scale[0] = 1.0
-    scale[n - 1] = 1.0
+    i = torch.arange(n, device=q.device)
+    scale = torch.where((i == 0) | (i == n - 1), 1.0, 0.5).to(q.dtype)
     shape = [1, 1, 1]
     shape[axis] = n
     return _diff(q, axis) * scale.reshape(shape)

@@ -37,10 +37,13 @@ stencil gate holds, as on the TPU, and the twin elsewhere.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.core.constants import device_constant
 from fluidx12_tpu_torch.core.state import SceneParams
 from fluidx12_tpu_torch.gi.sh import evaluate_sh_irradiance_planar
 from fluidx12_tpu_torch.ops.cuda.stencil import (
@@ -96,9 +99,12 @@ def _sweep_pooled(dens_o: torch.Tensor, light_dir: torch.Tensor, major_axis: int
     return torch.exp(torch.clamp_max(log_t, 0.0)).to(dens_o.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _pool_mats(n_m: int, n_s: int, stride: int, flip: bool, device):
     """(pool (n_m, n_s), up (n_s, n_m)) slice-pooling operands with the
-    light-to-far flip folded in; tail voxels extend the last group."""
+    light-to-far flip folded in; tail voxels extend the last group.  Made
+    once per shape and kept: a captured frame reads them by address
+    (core/constants.py)."""
     pool = torch.zeros((n_m, n_s), dtype=torch.float32, device=device)
     up = torch.zeros((n_s, n_m), dtype=torch.float32, device=device)
     rows = torch.arange(n_s * stride, device=device)
@@ -277,9 +283,9 @@ def _pool2_lat(vol: torch.Tensor, arr_axis: int) -> torch.Tensor:
     trailing dims as matmuls against the restriction matrix, the leading
     dim as a pair mean (lightmap_sweep.py:440-457)."""
     if arr_axis != 2:
-        vol = torch.einsum("zyx,xm->zym", vol, _mat(_restrict_matrix(vol.shape[2]), vol))
+        vol = torch.einsum("zyx,xm->zym", vol, _mat(_restrict_matrix, vol.shape[2], vol))
     if arr_axis != 1:
-        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_restrict_matrix(vol.shape[1]), vol))
+        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_restrict_matrix, vol.shape[1], vol))
     if arr_axis != 0:
         vol = vol.reshape(vol.shape[0] // 2, 2, *vol.shape[1:]).mean(dim=1)
     return vol
@@ -289,9 +295,9 @@ def _unpool2_lat(vol: torch.Tensor, arr_axis: int) -> torch.Tensor:
     """Linear 2x upsample of the two non-major array dims, the inverse
     layout of `_pool2_lat` (cell-centred lerp, as sim/mg._prolong)."""
     if arr_axis != 2:
-        vol = torch.einsum("zyx,xm->zym", vol, _mat(_prolong_matrix(vol.shape[2]), vol))
+        vol = torch.einsum("zyx,xm->zym", vol, _mat(_prolong_matrix, vol.shape[2], vol))
     if arr_axis != 1:
-        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_prolong_matrix(vol.shape[1]), vol))
+        vol = torch.einsum("zyx,ym->zmx", vol, _mat(_prolong_matrix, vol.shape[1], vol))
     if arr_axis != 0:
         lo = torch.cat([vol[:1], vol])
         hi = torch.cat([vol, vol[-1:]])
@@ -372,8 +378,8 @@ def _ambient_occlusion(density, nx_, ny_, nz_, ref_step, config: FluidConfig):
 
     sweeps = []
     for ax, sgn in _AXIS_SWEEPS:
-        d6 = torch.zeros(3, dtype=dtype, device=density.device)
-        d6[ax] = float(sgn)
+        d6 = device_constant(tuple(float(sgn) if i == ax else 0.0 for i in range(3)),
+                             dtype, density.device)
         sweeps.append(directional_transmittance(
             dens_s, d6, ax, ref_step, config.absorption, flip=sgn > 0,
             max_slices=64, axis_aligned=True))

@@ -16,12 +16,12 @@ something else.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig, RenderMethod
+from fluidx12_tpu_torch.core.constants import device_constant
 from fluidx12_tpu_torch.core.state import SceneParams
 from fluidx12_tpu_torch.render.lightmap_sweep import (
     point_sweep_supported,
@@ -66,13 +66,6 @@ def unported_render(config: FluidConfig, method: RenderMethod, plane_spec=None):
     return None
 
 
-@functools.lru_cache(maxsize=16)
-def _max_ray_samples_on(config: FluidConfig, device: torch.device) -> torch.Tensor:
-    """The merged DIRECT method's sample count, max_ray_samples, as an int32
-    tensor on `device`, made once per (config, device), not once a frame."""
-    return torch.tensor(config.max_ray_samples, dtype=torch.int32, device=device)
-
-
 def render_frame(grid: torch.Tensor, params: SceneParams, config: FluidConfig,
                  method: RenderMethod, sh_coeffs: Optional[torch.Tensor] = None, *,
                  lod: int = 0, vis_mask=None, plane_spec=None, rect=None,
@@ -97,12 +90,12 @@ def render_frame(grid: torch.Tensor, params: SceneParams, config: FluidConfig,
             # The merged method binds max_ray_samples (Fluid.cpp:943), the
             # separate one the LOD-clamped count (Fluid.cpp:968).
             num = (params.num_samples if method.separate_light_pass
-                   else _max_ray_samples_on(config, grid.device))
+                   else device_constant(config.max_ray_samples, torch.int32, grid.device))
             rgba = ray_cast_direct_fast(grid, params, config, light_map, plane_spec, num,
                                         rect=rect)
     if env_bg is not None and config.is_3d:
         bg = env_bg.to(rgba.dtype)
     else:
-        bg = torch.tensor(config.clear_color[:3], dtype=rgba.dtype,
-                          device=rgba.device).expand(rgba.shape[:-1] + (3,))
+        bg = device_constant(tuple(config.clear_color[:3]), rgba.dtype,
+                             rgba.device).expand(rgba.shape[:-1] + (3,))
     return torch.clamp(composite_premultiplied(rgba, bg), 0.0, 1.0)

@@ -24,6 +24,7 @@ ported.)
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -33,6 +34,7 @@ import torch
 from fluidx12_tpu_torch.core import math3d as m3
 from fluidx12_tpu_torch.core.camera import OrbitCamera
 from fluidx12_tpu_torch.core.config import FaceCullMode, FluidConfig
+from fluidx12_tpu_torch.core.constants import device_constant
 from fluidx12_tpu_torch.core.padding import storage_zyx
 from fluidx12_tpu_torch.core.state import SceneParams
 from fluidx12_tpu_torch.ops.cuda.composite import (
@@ -79,6 +81,17 @@ def mxu_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(mx).float(), b.to(mx).float())
 
 
+@functools.lru_cache(maxsize=None)
+def _pool_matrix(n_m: int, n_s: int, stride: int, device: torch.device) -> torch.Tensor:
+    """(n_m, n_s) f32 box-pooling matrix of `stride` slices a group, made
+    once per shape and kept: a captured frame reads it by address
+    (core/constants.py)."""
+    pool = torch.zeros((n_m, n_s), dtype=torch.float32, device=device)
+    pool[torch.arange(n_s * stride, device=device),
+         torch.arange(n_s, device=device).repeat_interleave(stride)] = 1.0 / stride
+    return pool
+
+
 def _axis_volume(vol: torch.Tensor, axis: int, config: FluidConfig,
                  lod: int = 0) -> torch.Tensor:
     """(C, Z, Y, X) -> (C, n_s, A, B) slice-axis-major, box-pooled view of
@@ -94,9 +107,7 @@ def _axis_volume(vol: torch.Tensor, axis: int, config: FluidConfig,
     if axis == 2 and n_s * stride == n_m:
         return (v16.reshape(v16.shape[0], n_s, stride, *v16.shape[2:])
                 .float().mean(dim=2).to(mx))
-    pool = torch.zeros((n_m, n_s), dtype=torch.float32, device=vol.device)
-    pool[torch.arange(n_s * stride, device=vol.device),
-         torch.arange(n_s, device=vol.device).repeat_interleave(stride)] = 1.0 / stride
+    pool = _pool_matrix(n_m, n_s, stride, vol.device)
     if axis == 0:
         return mxu_einsum("czyx,xm->czym", v16, pool).to(mx).movedim(3, 1)
     eq = {2: "czyx,zm->cmyx", 1: "czyx,ym->cmzx"}[axis]
@@ -106,7 +117,7 @@ def _axis_volume(vol: torch.Tensor, axis: int, config: FluidConfig,
 def _local_from_uv(face_id, u, v, dtype, device):
     axis, sign, (ua, us), (va, vs) = _FACES[face_id]
     comps = [None, None, None]
-    comps[axis] = torch.tensor(float(sign), dtype=dtype, device=device)
+    comps[axis] = device_constant(float(sign), dtype, device)
     comps[ua] = u * us
     comps[va] = v * vs
     return comps

@@ -34,9 +34,10 @@ def _resize_weights(n_out: int, n_src: int, flip: bool) -> np.ndarray:
     return w
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _weights(n_out: int, n_src: int, flip: bool, device: torch.device) -> torch.Tensor:
-    """`_resize_weights` on `device`, made once per shape."""
+    """`_resize_weights` on `device`, made once per shape and kept: a
+    captured frame reads it by address (core/constants.py)."""
     return torch.from_numpy(_resize_weights(n_out, n_src, flip)).to(device)
 
 

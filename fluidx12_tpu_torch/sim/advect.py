@@ -15,6 +15,11 @@ from typing import Tuple
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.core.constants import device_constant
+
+# The impulse's edge, exp(-4) as the f32 PyTorch computes, compared as a
+# Python float (an f32 value, so the comparison is exact in f32).
+_IMPULSE_EDGE = float(torch.exp(torch.tensor(-4.0, dtype=torch.float32)))
 
 
 def apply_impulse_forces(
@@ -24,27 +29,29 @@ def apply_impulse_forces(
     config: FluidConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (velocity, color) attenuated, in the input dtype; arithmetic
-    in f32 with one rounding at the end."""
+    in f32 with one rounding at the end.  `time_step` is an f32 scalar
+    tensor; the config's constants come from `device_constant`, so a
+    frame copies nothing from the host."""
     store = c_new.dtype
     f32 = torch.float32
     dev = c_new.device
     u_new = u_new.to(f32)
     c_new = c_new.to(f32)
-    dt = torch.as_tensor(time_step, dtype=f32, device=dev)
+    dt = time_step.to(device=dev, dtype=f32)
     z, y, x = config.zyx
     zp, yp, xp = c_new.shape[-3:]
     cx = ((torch.arange(xp, dtype=f32, device=dev) + 0.5) / x).reshape(1, 1, xp)
     cy = ((torch.arange(yp, dtype=f32, device=dev) + 0.5) / y).reshape(1, yp, 1)
     cz = ((torch.arange(zp, dtype=f32, device=dev) + 0.5) / z).reshape(zp, 1, 1)
-    ip = torch.tensor(config.impulse_pos, dtype=f32, device=dev)
+    ip = device_constant(tuple(config.impulse_pos), f32, dev)
     dx, dy, dz = cx - ip[0], cy - ip[1], cz - ip[2]
 
     radius = config.impulse_radius if config.is_3d else config.impulse_radius * 0.5
     d2 = dx * dx + dy * dy + dz * dz
     basis = torch.exp(-4.0 * d2 / (radius * radius))
-    in_impulse = basis >= torch.exp(torch.tensor(-4.0, dtype=f32))
+    in_impulse = basis >= _IMPULSE_EDGE
 
-    force = torch.tensor(config.ext_force, dtype=f32, device=dev)
+    force = device_constant(tuple(config.ext_force), f32, dev)
     if config.is_3d:
         fs = config.force_scale_3d
         ext = [
@@ -58,8 +65,8 @@ def apply_impulse_forces(
     u_new = torch.stack(
         [u_new[i] + torch.where(in_impulse, ext[i] * dt, zero) for i in range(3)])
 
-    impulse_rgba = torch.tensor((*config.impulse_color, 1.0), dtype=f32,
-                                device=dev) * config.impulse_density
+    impulse_rgba = device_constant((*config.impulse_color, 1.0), f32,
+                                   dev) * config.impulse_density
     dye_t = torch.where(in_impulse, basis * dt, zero)
     c_new = torch.clamp(c_new + impulse_rgba[:, None, None, None] * dye_t[None],
                         0.0, 1.0)

@@ -35,11 +35,11 @@ from fluidx12_tpu_torch.ops.cuda.advect import (
 from fluidx12_tpu_torch.sim.advect import apply_impulse_forces
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _forces_table_on(config: FluidConfig, device: torch.device) -> torch.Tensor:
     """B2's (7, 5) forces table of `config` on `device`, built and copied
-    there once per (config, device) rather than once a step.  The kernels
-    only read it."""
+    there once per (config, device) rather than once a step, and kept: a
+    captured frame reads it by address.  The kernels only read it."""
     return torch.from_numpy(forces_table(config)).to(device)
 
 

@@ -20,6 +20,8 @@ on the port's compact volumes, with every gate on the storage dims.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -66,30 +68,37 @@ def _prolong_matrix(n_c: int) -> np.ndarray:
     f = (c - c0).astype(np.float32)
     c0 = c0.astype(np.int64)
     m = np.zeros((n_c, n_f), np.float32)
-    # Built on every call of `_prolong`, so in one vectorised pass; at a
-    # clamped edge both taps add into one cell.
+    # In one vectorised pass; at a clamped edge both taps add into one cell.
     np.add.at(m, (np.clip(c0, 0, n_c - 1), cols), 1.0 - f)
     np.add.at(m, (np.clip(c0 + 1, 0, n_c - 1), cols), f)
     return m
 
 
-def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(m).to(device=like.device, dtype=like.dtype)
+@functools.lru_cache(maxsize=None)
+def _matrix_on(build, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`build(n)` as a tensor on `device`, made once per (build, n, dtype,
+    device) rather than on every einsum, and kept: a captured frame reads
+    it by address (core/constants.py)."""
+    return torch.from_numpy(build(n)).to(device=device, dtype=dtype)
+
+
+def _mat(build, n: int, like: torch.Tensor) -> torch.Tensor:
+    return _matrix_on(build, n, like.dtype, like.device)
 
 
 def _restrict(r: torch.Tensor) -> torch.Tensor:
     """(Z, Y, X) -> (Z/2, Y/2, X/2) box average."""
     nz, ny, nx = r.shape
-    r = torch.einsum("zyx,xm->zym", r, _mat(_restrict_matrix(nx), r))
-    r = torch.einsum("zym,yn->znm", r, _mat(_restrict_matrix(ny), r))
+    r = torch.einsum("zyx,xm->zym", r, _mat(_restrict_matrix, nx, r))
+    r = torch.einsum("zym,yn->znm", r, _mat(_restrict_matrix, ny, r))
     return r.reshape(nz // 2, 2, ny // 2, nx // 2).mean(dim=1)
 
 
 def _prolong(e: torch.Tensor) -> torch.Tensor:
     """(Zc, Yc, Xc) -> (2Zc, 2Yc, 2Xc) trilinear interpolation."""
     nz, ny, nx = e.shape
-    e = torch.einsum("zyx,xm->zym", e, _mat(_prolong_matrix(nx), e))
-    e = torch.einsum("zym,yn->znm", e, _mat(_prolong_matrix(ny), e))
+    e = torch.einsum("zyx,xm->zym", e, _mat(_prolong_matrix, nx, e))
+    e = torch.einsum("zym,yn->znm", e, _mat(_prolong_matrix, ny, e))
     lo = torch.cat([e[:1], e])      # clamp
     hi = torch.cat([e, e[-1:]])
     even = 0.25 * lo[:-1] + 0.75 * e

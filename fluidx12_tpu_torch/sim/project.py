@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.core.constants import device_constant
 from fluidx12_tpu_torch.core.padding import storage_zyx
 from fluidx12_tpu_torch.ops.cuda import stencil
 from fluidx12_tpu_torch.ops.cuda.jacobi import (
@@ -102,8 +103,8 @@ def boundary_damp(velocity: torch.Tensor, config: FluidConfig) -> torch.Tensor:
     pz = axis_pos(z).reshape(z, 1, 1)
     # JAX casts a Python constant to the array's dtype before the op, where
     # torch would apply it in f32: make the bf16 rounding explicit.
-    band_hi = torch.tensor(0.97, dtype=dtype, device=dev)
-    band = torch.tensor(0.03, dtype=dtype, device=dev)
+    band_hi = device_constant(0.97, dtype, dev)
+    band = device_constant(0.03, dtype, dev)
 
     def damp(u, p):
         scale = torch.clamp((band_hi - p.abs()) / band, -1.0, 1.0)

@@ -1086,3 +1086,99 @@ def test_composite_division_is_the_division(dev):
     """B17's branch-free division equals the IEEE division on every
     divisor it can meet, each with four dividends."""
     assert C.div_fast_mismatches(dev) == 0
+
+
+# ---------------------------------------------------------------------------
+# The frame as one CUDA graph a key (engine/fluidx.py)
+# ---------------------------------------------------------------------------
+
+def _two_engines(dev, **kw):
+    """Two engines of one config on the card, from the same initial state:
+    (one that runs the frame op by op, one that replays its graphs)."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+
+    cfg = FluidConfig(**dict(dict(viewport=(96, 96)), **kw))
+    return FluidXEngine(cfg, device=dev), FluidXEngine(cfg, device=dev)
+
+
+def test_replayed_frame_equals_the_frame_op_by_op(dev):
+    """At 32^3, a 96^2 viewport: the frame `step_frame` replays from its
+    graph equals `_frame_eager`'s, bit for bit (fields, pressure, image,
+    launch counts), through two frames of the default pose (the first op
+    by op and then captured, the second a replay), an orbit (a new key), a
+    small orbit (the same key, new packed parameters: a graph that read a
+    stale parameter tensor would differ), the pause key (the state does
+    not move) and the DIRECT key, and back to the orbit's key (a
+    replay)."""
+    from fluidx12_tpu_torch.core.config import RenderMethod
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    eager, graph = _two_engines(dev, grid_size=(32, 32, 32))
+    actions = [None, None, lambda e: e.camera.orbit(60.0, 25.0),
+               lambda e: e.camera.orbit(1.0, 0.0), lambda e: e.toggle_pause(),
+               lambda e: (e.toggle_pause(),
+                          setattr(e, "render_method", RenderMethod.RAY_MARCH_DIRECT_SEPARATE)),
+               lambda e: setattr(e, "render_method", RenderMethod.RAY_MARCH_SEPARATE)]
+    keys, replayed = [], []
+    for action in actions:
+        if action is not None:
+            action(eager)
+            action(graph)
+        key = graph._prepare()
+        replayed.append(key in graph._graphs)
+        keys.append(key)
+        before = graph.state.fields.clone()
+        reset_launch_counts()
+        image_a = eager._frame_eager()
+        counts_a = launch_counts()
+        reset_launch_counts()
+        image_b = graph.step_frame()
+        assert launch_counts() == counts_a
+        assert torch.equal(image_a, image_b)
+        assert torch.equal(eager.state.fields, graph.state.fields)
+        assert torch.equal(eager.state.pressure, graph.state.pressure)
+        if graph.is_paused:
+            assert torch.equal(graph.state.fields, before)
+    assert replayed == [False, True, False, True, False, False, True]
+    assert keys[3] == keys[2] and len(graph._graphs) == 4
+
+
+def test_step_frames_replays_the_frame(dev):
+    """`step_frames(4)` on the card equals four `step_frame` calls from the
+    same state bit for bit (2D at 128^2, B11 and B14; the 32^3 cube path),
+    and counts the launches of four frames."""
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    for grid in ((128, 128, 1), (32, 32, 32)):
+        one, seq = _two_engines(dev, grid_size=grid)
+        for e in (one, seq):
+            e.step_frame()
+        reset_launch_counts()
+        images = one.step_frames(4)
+        counts = launch_counts()
+        reset_launch_counts()
+        assert torch.equal(images, torch.stack([seq.step_frame() for _ in range(4)]))
+        assert launch_counts() == counts and counts["advect_axis" if grid[2] == 1
+                                                    else "advect_xy"] > 0
+        assert torch.equal(one.state.fields, seq.state.fields)
+        assert one.frame_index == seq.frame_index == 5
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A frame that copies host data to the card cannot be captured: the
+    key's first frame runs op by op, its capture raises, and so does every
+    later frame of the key; nothing falls back to launching op by op."""
+    from fluidx12_tpu_torch.engine import fluidx as FX
+
+    _, engine = _two_engines(dev, grid_size=(32, 32, 32))
+    render = FX.render_frame
+
+    def copying_render(grid, *args, **kwargs):
+        torch.tensor(0.0, device=grid.device)  # a host-to-device copy
+        return render(grid, *args, **kwargs)
+
+    monkeypatch.setattr(FX, "render_frame", copying_render)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            engine.step_frame()
+        assert engine._graphs == {}

@@ -18,8 +18,10 @@ the TPU) and `--grid 150 150 150 --probe` PRESETS["fluidgi"];
 at 256^3; `--method` the render method by number, 2 and 3 the DIRECT
 methods; `--point-light` the point light, lit by the projective sweep in
 place of B9) and prints, each beside the card's name and power limit:
-  - the host ms/frame: median of `--frames` steps, each ending in a
-    synchronize, with no profiler attached;
+  - the host ms/frame of the frame replayed from its CUDA graph
+    (`step_frame`) and of the same frame op by op (`_frame_eager`), in
+    turns (op by op, replayed, op by op, replayed): medians of `--frames`
+    steps, each ending in a synchronize, with no profiler attached;
   - each layer's CUDA-event span per call, over 20 back-to-back calls on the
     engine's state.  3D: advect (B1 + B2), projection, light map (B9; with
     the probe also the AO and B16), cube march (B10 per visible face),
@@ -27,15 +29,17 @@ place of B9) and prints, each beside the card's name and power limit:
     the plane march with its warp (B10 or B17 once) and the warp +
     composite alone.  fluid2d: advect (B11 twice + forces),
     projection (B14), visualize + composite;
-  - from `torch.profiler` over `--frames` steps: device time and launches
-    per frame (kernels, and copies/sets by kind; the sum of their durations
-    and the union of their intervals, which counts once the overlap of a
-    programmatic dependent launch with the kernel before it), the 12
-    kernels with the most device time and then the port's own kernels
-    outside them, and the device busy share, the union
-    per frame over the unprofiled frame time (the profiler's own host cost
-    stretches the frame it watches, so its wall time is not the
-    denominator).
+  - from `torch.profiler` over `--frames` steps, replayed and then op by
+    op: device time and launches per frame (kernels, and copies/sets by
+    kind; the sum of their durations and the union of their intervals,
+    which counts once the overlap of a programmatic dependent launch with
+    the kernel before it), the launches of the port's own kernels that
+    start before the kernel before them ends (the programmatic dependent
+    launches that took effect), the device busy share, the union per frame
+    over the unprofiled frame time (the profiler's own host cost stretches
+    the frame it watches, so its wall time is not the denominator); for
+    the replayed frames also the 12 kernels with the most device time and
+    then the port's own kernels outside them.
 Needs a CUDA device; exits non-zero without one.
 """
 
@@ -70,6 +74,71 @@ def span_ms(fn, calls: int = SPAN_CALLS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def profile_frames(step, kind: str, frames: int, frame_ms: float, card: str,
+                   top: bool) -> int:
+    """torch.profiler over `frames` calls of `step`: device time, busy,
+    launches, copies, programmatic dependent launches that took effect and
+    busy share per frame (and with `top` the kernels with the most device
+    time); 1 where the profiler recorded no device time, else 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copy_like = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / frames
+    if dev_ms == 0.0:
+        print(f"[{card}] {kind}: torch.profiler recorded no device time")
+        return 1
+    # The union of the events' intervals: a kernel started by programmatic
+    # dependent launch runs (waiting) while the one before it finishes, so
+    # the sum of durations counts that overlap twice.
+    busy_us, reach = 0.0, None
+    overlaps = 0
+    for start, end, name in sorted((e.time_range.start, e.time_range.end, e.name)
+                                   for e in device):
+        if reach is not None and start < reach and "(anonymous namespace)::" in name:
+            overlaps += 1
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy_ms = busy_us / 1e3 / frames
+    print(f"[{card}] {kind}, profiler: {dev_ms:.3f} ms of device time per frame (sum of "
+          f"durations), {busy_ms:.3f} ms busy (their union); "
+          f"{len(kernels) / frames:.1f} kernel launches and "
+          f"{len(copy_like) / frames:.1f} copies/sets per frame; "
+          f"{overlaps / frames:.1f} of the port's own launches a frame start before the "
+          f"kernel before them ends; device busy "
+          f"{100.0 * busy_ms / frame_ms:.1f}% of the unprofiled frame ({frame_ms:.3f} ms)")
+    copies = collections.Counter(e.name for e in copy_like)
+    print(f"[{card}] {kind}, copies/sets per frame by kind: " + ", ".join(
+        f"{name} {n / frames:.1f}" for name, n in copies.most_common()))
+    if not top:
+        return 0
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in device:
+        by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
+    names = [name for name, _ in by_name.most_common(12)]
+    # Then the port's own kernels (csrc/*.cu, each in a top-level anonymous
+    # namespace) that the 12 longest leave out.
+    own = [name for name, _ in by_name.most_common()
+           if name not in names and name.startswith(("(anonymous namespace)::",
+                                                     "void (anonymous namespace)::"))]
+    for name in names + own:
+        print(f"  {by_name[name] / 1e3 / frames:8.4f} ms/frame  "
+              f"{count[name] / frames:6.1f}x  {name[:110]}")
+    return 0
 
 
 def main() -> int:
@@ -124,19 +193,21 @@ def main() -> int:
         engine.step_frame()
     torch.cuda.synchronize()
 
-    times = []
-    for _ in range(args.frames):
-        t0 = time.perf_counter()
-        engine.step_frame()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    frame_ms = statistics.median(times)
+    steps = {"replayed": engine.step_frame, "op by op": engine._frame_eager}
+    medians = {kind: [] for kind in steps}
+    for kind in ("op by op", "replayed", "op by op", "replayed"):
+        times = []
+        for _ in range(args.frames):
+            t0 = time.perf_counter()
+            steps[kind]()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        medians[kind].append(statistics.median(times))
     print(f"[{card}] {args.preset}, grid {cfg.grid_size}, probe {args.probe}, "
           f"pallas_jacobi={cfg.pallas_jacobi}, mg_project_fused={cfg.mg_project_fused}, "
           f"{engine.render_method.name}, point_light={cfg.point_light}: "
-          f"host ms/frame median "
-          f"{frame_ms:.3f} over {args.frames} frames (min {min(times):.3f}, "
-          f"max {max(times):.3f})")
+          f"host ms/frame, medians of {args.frames} frames in turns: "
+          + "; ".join(f"{kind} {a:.3f}, {b:.3f}" for kind, (a, b) in medians.items()))
 
     # Per-layer spans on the engine's state, as step_frame calls them.
     st = engine.state
@@ -201,54 +272,10 @@ def main() -> int:
         print(f"[{card}] layer {name}: {span_ms(fn):.3f} ms/call (CUDA events, "
               f"{SPAN_CALLS} calls)")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.frames):
-            engine.step_frame()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    copy_like = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
-    dev_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3 / args.frames
-    if dev_ms == 0.0:
-        print("torch.profiler recorded no device time")
-        return 1
-    # The union of the events' intervals: a kernel started by programmatic
-    # dependent launch runs (waiting) while the one before it finishes, so
-    # the sum of durations counts that overlap twice.
-    busy_us, reach = 0.0, None
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    busy_ms = busy_us / 1e3 / args.frames
-    print(f"[{card}] profiler: {dev_ms:.3f} ms of device time per frame (sum of "
-          f"durations), {busy_ms:.3f} ms busy (their union); "
-          f"{len(kernels) / args.frames:.1f} kernel launches and "
-          f"{len(copy_like) / args.frames:.1f} copies/sets per frame; device busy "
-          f"{100.0 * busy_ms / frame_ms:.1f}% of the unprofiled frame")
-    copies = collections.Counter(e.name for e in copy_like)
-    print(f"[{card}] copies/sets per frame by kind: " + ", ".join(
-        f"{name} {n / args.frames:.1f}" for name, n in copies.most_common()))
-    by_name = collections.Counter()
-    count = collections.Counter()
-    for e in device:
-        by_name[e.name] += e.time_range.elapsed_us()
-        count[e.name] += 1
-    top = [name for name, _ in by_name.most_common(12)]
-    # Then the port's own kernels (csrc/*.cu, each in a top-level anonymous
-    # namespace) that the 12 longest leave out.
-    own = [name for name, _ in by_name.most_common()
-           if name not in top and name.startswith(("(anonymous namespace)::",
-                                                   "void (anonymous namespace)::"))]
-    for name in top + own:
-        print(f"  {by_name[name] / 1e3 / args.frames:8.4f} ms/frame  "
-              f"{count[name] / args.frames:6.1f}x  {name[:110]}")
+    for kind, step in steps.items():
+        if profile_frames(step, kind, args.frames, statistics.median(medians[kind]), card,
+                          top=kind == "replayed"):
+            return 1
     return 0
 
 
