@@ -87,7 +87,19 @@ key, a DIRECT key and back), checks torch.profiler's count of one
 replay's device operations against one frame op by op, prints the memory
 the card reserves after one key and after six, and holds step_frames(8)
 to eight step_frame calls bit for bit on PRESETS["fluid2d"] and on the
-256^3 GI frame.  Every phase prints its
+256^3 GI frame.  The faithful stack's two marches, R1 (`view_march`, one
+thread a view ray) and R2 (`light_march`, one thread a voxel), which
+replace the JAX package's XLA scans and no TPU kernel, are held against
+their plain versions at full width on developed smoke (phase 2h: R2 at
+128^3 and at 150^3 with the probe, R1 on the default camera's cube faces
+and on the 800^2 DIRECT rays, separate and merged; within 1e-5 except on
+at most 0.1% of the values, with bounds counted from the samples each ray
+took); phase 3h drives PRESETS["fluid3d"] after toggle_ez() under the four
+methods, the DIRECT methods with the eye inside the volume, a point light
+inside the volume and PRESETS["fluidgi"] after toggle_ez() (the probe's SH
+and AO in both kernels), with exact launch counts, the host ms/frame
+replayed and op by op, and each key's replays held to its frames op by op
+bit for bit; phase 4 adds two faithful frames at 32^3.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -141,6 +153,7 @@ F32_FLOPS = 67e12
 _ADV = "fluidx12_tpu_torch/csrc/advect.cu"
 _STN = "fluidx12_tpu_torch/csrc/stencil.cu"
 _JAC = "fluidx12_tpu_torch/csrc/jacobi.cu"
+_RM = "fluidx12_tpu_torch/csrc/raymarch.cu"
 # name: (ID, source, the TPU kernel it replaces), in frame order.
 KERNELS = {
     "advect_xy": ("B1", _ADV, "fluidx12_tpu/ops/pallas/advect.py:365"),
@@ -165,6 +178,9 @@ KERNELS = {
     "gradient3": ("B15", _STN, "fluidx12_tpu/ops/pallas/stencil.py:138"),
     "composite": ("B17", "fluidx12_tpu_torch/csrc/composite.cu",
                   "fluidx12_tpu/ops/pallas/composite.py:33"),
+    # R1 and R2 replace no TPU kernel: the XLA scans of the faithful stack.
+    "view_march": ("R1", _RM, "fluidx12_tpu/render/raymarch_core.py:337"),
+    "light_march": ("R2", _RM, "fluidx12_tpu/render/lightmap.py:36"),
 }
 # The projection's kernels: launched on the default preset's path only.
 PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
@@ -178,8 +194,10 @@ KERNELS_FUSED = ("jacobi_divrr", "jacobi_grad")
 # B15, on the 256x256x60 GI frame only, and B17, on no frame of phase 3
 # (the DIRECT plane of phase 4's 24^3 golden case is its path).
 KERNELS_SLAB = ("gradient3", "composite")
+# The faithful stack's R1 and R2, on the paths of phase 3h only.
+KERNELS_FAITHFUL = ("view_march", "light_march")
 # Each path's own kernels: launched on no other path of phase 3.
-OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB
+OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL
 
 
 def phase(name: str) -> None:
@@ -1575,10 +1593,12 @@ def projection_span_ms(engine, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None, method=None):
+def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None, method=None,
+               state=None, setup=None):
     """`frames` frames of FluidXEngine(cfg, radiance) under `method` (the
-    engine's default, RAY_MARCH_SEPARATE, when None) with the launch counts
-    set to 0 just before; returns (counts, visible faces, engine)."""
+    engine's default, RAY_MARCH_SEPARATE, when None), from `state` (the
+    engine's initial one when None) after `setup(engine)`, with the launch
+    counts set to 0 just before; returns (counts, visible faces, engine)."""
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1586,6 +1606,10 @@ def run_frames(cfg, frames: int, dev, smi_line, label: str, radiance=None, metho
     engine = FluidXEngine(cfg, radiance=radiance, device=dev)
     if method is not None:
         engine.render_method = method
+    if state is not None:
+        engine.state = state
+    if setup is not None:
+        setup(engine)
     _, _, vis_mask = engine.update_frame()
     faces = bin(vis_mask).count("1") if cfg.is_3d else 0
     reset_launch_counts()
@@ -1711,7 +1735,7 @@ def phase3c_256(dev, smi_line):
         expect.update(jacobi=2 * frames, jacobi_planewise=frames,
                       composite_resample=frames * faces, gi_light=frames if probe else 0,
                       **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
-                         + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB})
+                         + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL})
         check(counts == expect, f"launch counts {counts} != {expect}")
         if probe:
             eager_vs_replayed(engine, label, smi_line)
@@ -2038,6 +2062,408 @@ def phase3g_replay_vs_eager(dev, smi_line):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The faithful stack: R1 (view_march) and R2 (light_march)
+# ---------------------------------------------------------------------------
+
+# f32 operations a sample of the faithful marches does (csrc/raymarch.cu),
+# for their bound: every view sample forms its position, box test and uvw
+# and the density's trilinear value (12 for the corners' coordinates, 21
+# for the seven lerps) and its step (53); a dense one adds the rgb's three
+# trilinear channels, the step controller and the accumulation, and the
+# light map's trilinear sample (163 in all) or, merged, the light's
+# combination (108), plus with the probe the six gradient taps, the
+# rotation, the normalisations and the SH irradiance (333); every
+# light-ray sample forms its position, box test, uvw, one trilinear
+# channel, the step and the transmittance (65).  R2's voxel forms its
+# centre and its density (54), and a dense voxel its light (20, or 353
+# with the probe).
+R1_VIEW_OPS, R1_DENSE_OPS, R1_DENSE_MERGED_OPS, PROBE_OPS, LIGHT_SAMPLE_OPS = 53, 163, 108, 333, 65
+R2_VOXEL_OPS, R2_DENSE_OPS = 54, 20
+# Frames of a developed smoke state that the faithful kernels and frames
+# start from (replays of the fast stack), and frames of each faithful run.
+WARM_FRAMES = 60
+FRAMES_FAITHFUL = 6
+# The DIRECT methods' eye inside the volume: the default camera dollied
+# most of the way to its focus.
+DOLLY_INSIDE = 15.5
+# A point light inside the volume (light_pos / volume_scale < 1.1).
+INTERIOR_LIGHT = dict(point_light=True, light_pos=(5.0, 2.0, -3.0))
+# R1 merged is held to its plain version on every this-many-th 800^2 ray.
+MERGED_STRIDE = 7
+
+
+def warm_engine(cfg, dev, radiance=None, frames: int = WARM_FRAMES):
+    """A FluidXEngine of `cfg` after `frames` frames of the fast stack: a
+    developed smoke state for the faithful kernels and frames."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+
+    engine = FluidXEngine(cfg, radiance=radiance, device=dev)
+    for _ in range(frames):
+        engine.step_frame()
+    torch.cuda.synchronize()
+    return engine
+
+
+def held(got, ref, what: str) -> float:
+    """Holds `got` to `ref` with the faithful stack's tolerance
+    (utils/compare.few_off: within 1e-5 except on at most 0.1% of the
+    values, a sample so near zero_threshold or the box edge that the two
+    take the other branch); returns the max abs difference."""
+    from fluidx12_tpu_torch.utils.compare import few_off
+
+    ok, err = few_off(got, ref, what)
+    check(ok, f"{what} within 1e-5 of its plain version")
+    return err
+
+
+def r1_flops(samples, merged: bool, probe: bool) -> float:
+    """R1's f32 operations on this run's rays, from its sample counts
+    (view, dense view, light-ray samples per ray)."""
+    views, dense, lights = (float(samples[..., k].sum()) for k in range(3))
+    dense_ops = (R1_DENSE_MERGED_OPS + (PROBE_OPS if probe else 0)) if merged else R1_DENSE_OPS
+    return views * R1_VIEW_OPS + dense * dense_ops + lights * LIGHT_SAMPLE_OPS
+
+
+def r2_flops(samples, grid, zero: float, probe: bool) -> float:
+    """R2's f32 operations on this run's voxels, from its sample counts."""
+    dense = float((grid[3].float() >= zero).sum())
+    return (grid[3].numel() * R2_VOXEL_OPS + dense * (R2_DENSE_OPS + (PROBE_OPS if probe else 0))
+            + float(samples.sum()) * LIGHT_SAMPLE_OPS)
+
+
+def check_r2(results, name, engine, label):
+    """R2 on the warm engine's colour grid against its plain version, timed,
+    with its bound; returns the kernel's light map."""
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg = engine.config
+    params = unpack_scene_params(engine.update_frame()[0])
+    grid = engine.state.color
+    env = RC.make_light_env(params, engine.sh_coeffs, cfg)
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    num = params.num_light_samples
+    samples = torch.empty(cfg.zyx, dtype=torch.int32, device=grid.device)
+    got = R.light_march(grid, packed, flags, num, cfg, samples=samples)
+    err = held(got, light_map_plain(grid.float(), env, num, cfg), f"R2 {label}")
+    flops = r2_flops(samples, grid, cfg.zero_threshold, env.has_probe)
+    measure(results, name, err, lambda: R.light_march(grid, packed, flags, num, cfg),
+            lambda: light_map_plain(grid.float(), env, num, cfg), nbytes(grid, got), flops,
+            reps=10, plain_reps=1)
+    r = results[name]
+    print(f"R2 {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms); "
+          f"{float(samples.sum()):.4g} light samples, bound {r['bound_ms'] * 1e3:.1f} us "
+          f"({r['bound_by']})")
+    return got
+
+
+def check_r1(results, name, grid, rays, num, env, cfg, label, light_map=None, num_light=None,
+             stride: int = 1):
+    """R1 on `rays` (origin, direction, t_max, active) against its plain
+    version, the plain one on every `stride`-th ray (merged: its nested
+    loops run per sample), timed, with its bound."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    origin, ray_dir, t_max, active = rays
+    n = active.numel()
+    lead = tuple(active.shape)
+    samples = torch.empty(lead + (3,), dtype=torch.int32, device=grid.device)
+    kw = dict(light_map=light_map, num_light_samples=num_light)
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    got = R.view_march(grid, origin, ray_dir, t_max, active, num, packed, flags, cfg,
+                       samples=samples, **kw)
+
+    def plain():
+        sub = [t.reshape(n, -1)[::stride].squeeze(-1) for t in (origin, ray_dir, t_max, active)]
+        sub[0], sub[1] = sub[0].contiguous(), sub[1].contiguous()
+        return RC.view_march(grid.float(), sub[0], sub[1], sub[2], num, env, cfg,
+                             active=sub[3], **kw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = held(got.reshape(n, 4)[::stride], ref, f"R1 {label}")
+    merged = light_map is None
+    flops = r1_flops(samples, merged, env.has_probe)
+    n_bytes = nbytes(grid, origin, ray_dir, t_max, active, got) + (
+        0 if light_map is None else nbytes(light_map))
+
+    def kernel():
+        return R.view_march(grid, origin, ray_dir, t_max, active, num, packed, flags, cfg, **kw)
+
+    if stride == 1:
+        measure(results, name, err, kernel, plain, n_bytes, flops, reps=10, plain_reps=1)
+    else:
+        bound_ms, bound_by = bound(n_bytes, flops)
+        results[name] = dict(max_abs_err=err, ms=time_ms(kernel, 5, what=name),
+                             plain_ms=plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+    r = results[name]
+    views, dense, lights = (float(samples[..., k].sum()) for k in range(3))
+    print(f"R1 {label}: {n} rays, {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms"
+          f"{f' on every {stride}th ray, one call' if stride > 1 else ''}); samples: "
+          f"{views:.4g} view, {dense:.4g} dense, {lights:.4g} light; bound "
+          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+
+
+def phase2h_faithful_kernels(dev, results):
+    """R1 and R2, the faithful stack's marches, against their plain versions
+    at full width on developed smoke (WARM_FRAMES frames of the fast
+    stack): R2 on PRESETS["fluid3d"]'s 128^3 grid (the kernels line's row)
+    and on PRESETS["fluidgi"]'s 150^3 with the probe (SH irradiance and AO
+    rays); R1 on the default camera's cube faces at lod 0 with R2's light
+    map (the kernels line's row), on the 800^2 DIRECT rays separate, and
+    merged (shadow rays per sample), held on every MERGED_STRIDE-th ray.
+    Returns the two warm engines, whose states phase 3h starts from."""
+    phase("phase 2h: R1 and R2 (the faithful marches) vs plain versions at full width")
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.core.constants import device_constant
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.render.cubemap import cube_rays
+    from fluidx12_tpu_torch.render.raycast import direct_rays
+    from fluidx12_tpu_torch.render.raymarch_core import make_light_env
+
+    warm = warm_engine(PRESETS["fluid3d"], dev)
+    warm_gi = warm_engine(PRESETS["fluidgi"], dev, radiance=np.load(PROBE)["radiance"])
+    light_map = check_r2(results, "light_march", warm, "128^3")
+    check_r2(results, "light_march_150_probe", warm_gi, "150^3 with the probe")
+
+    cfg = warm.config
+    packed, lod, _ = warm.update_frame()
+    params = unpack_scene_params(packed)
+    grid = warm.state.color
+    env = make_light_env(params, None, cfg)
+    check_r1(results, "view_march", grid, cube_rays(params, cfg, lod, dev), params.num_samples,
+             env, cfg, f"cube faces, lod {lod}, separate", light_map=light_map)
+    origin, ray_dir, hit = direct_rays(params, cfg, dev)
+    rays = (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit)
+    check_r1(results, "view_march_direct", grid, rays, params.num_samples, env, cfg,
+             "800^2 DIRECT, separate", light_map=light_map)
+    check_r1(results, "view_march_direct_merged", grid, rays,
+             device_constant(cfg.max_ray_samples, torch.int32, dev), env, cfg,
+             "800^2 DIRECT, merged", num_light=params.num_light_samples, stride=MERGED_STRIDE)
+    return warm, warm_gi
+
+
+def faithful_projection_counts(cfg) -> dict:
+    """Launches of the projection's kernels per frame with fast_sim=False
+    (no multigrid; sim/project.py): B3 and B8 where the stencil gate holds,
+    B4 once for all the sweeps where the TPU tunes it (its plane-sweep
+    order where the order says so), on the storage dims where the TPU
+    stores the grid padded."""
+    from fluidx12_tpu_torch.core.padding import storage_zyx
+    from fluidx12_tpu_torch.ops.cuda import jacobi as J
+    from fluidx12_tpu_torch.ops.cuda import stencil as ST
+
+    storage = storage_zyx(cfg)
+    kernels = cfg.use_pallas and (storage != cfg.zyx or cfg.pallas_jacobi)
+    stencil = int(kernels and ST.stencil_pallas_supported(storage))
+    tuning = J.jacobi_tuning(storage, cfg.num_pressure_iters) if kernels else None
+    return dict(divergence=stencil, grad_damp=stencil, jacobi=int(tuning is not None),
+                jacobi_planewise=int(tuning is not None and J.window_order(storage, tuning[1])
+                                     == J.ORDER_PLANEWISE))
+
+
+def fast_sim_counts(frames: int) -> dict:
+    """The default preset's fast simulation a frame (phase 3): B1, B2, B3,
+    B4 twice, B5, B6, B7, B8."""
+    return dict(advect_xy=frames, advect_z_forces=frames, divergence=frames, jacobi=2 * frames,
+                residual=frames, jacobi_packed=frames, prolong_correct=frames,
+                grad_damp=frames)
+
+
+def replay_matches_eager(cfg, dev, label, setup, method, state, radiance=None,
+                         frames: int = 3) -> None:
+    """Two engines of `cfg` from `state`, after `setup`, under `method`: the
+    frames `step_frame` replays equal those of `_frame_eager` bit for bit
+    (fields, pressure, image, launch counts), as phase 3g holds them."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    eager, graph = (FluidXEngine(cfg, radiance=radiance, device=dev) for _ in range(2))
+    for e in (eager, graph):
+        e.state = state
+        e.render_method = method
+        setup(e)
+    for i in range(frames):
+        reset_launch_counts()
+        image_a = eager._frame_eager()
+        counts_a = launch_counts()
+        reset_launch_counts()
+        image_b = graph.step_frame()
+        torch.cuda.synchronize()
+        same = {"fields": torch.equal(eager.state.fields, graph.state.fields),
+                "pressure": torch.equal(eager.state.pressure, graph.state.pressure),
+                "image": torch.equal(image_a, image_b), "launch counts": counts_a == launch_counts()}
+        check(all(same.values()) and len(graph._graphs) == 1,
+              f"{label}, frame {i + 1}: the replayed frame equals the frame op by op: {same}")
+    print(f"{label}: {frames} frames replayed equal the frames op by op bit for bit (fields, "
+          f"pressure, image, launch counts)")
+    del eager, graph
+    torch.cuda.empty_cache()
+
+
+def eye_inside_256(dev, smi_line, results, frames, inside):
+    """RAY_MARCH_DIRECT_SEPARATE at 256^3 (no probe) with the eye inside
+    the volume, from 4 * WARM_FRAMES frames of smoke (after 20 frames the
+    plume is not yet in the view from inside): the fast simulation as
+    phase 3c runs it (B1-B4, B7, B8, B13; B4 twice, once in its
+    plane-sweep order), B9's light map (swept at half the lateral size,
+    upsampled to the grid's dims) and R1 on it, exact launch counts, the
+    replays held to the frames op by op; then R1 held to its plain version
+    on the 800^2 rays with that map and with it averaged to
+    (3, 256, 128, 128)."""
+    from fluidx12_tpu_torch.core.config import FluidConfig, RenderMethod
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap_sweep import render_light_map_fast
+    from fluidx12_tpu_torch.render.raycast import direct_rays
+
+    cfg = FluidConfig(grid_size=GRID_256)
+    method = RenderMethod.RAY_MARCH_DIRECT_SEPARATE
+    label = "256^3, eye inside the volume, RAY_MARCH_DIRECT_SEPARATE"
+    warm = warm_engine(cfg, dev, frames=4 * WARM_FRAMES)
+    state = warm.state
+    del warm
+    counts, _, engine = run_frames(cfg, frames, dev, smi_line, label, method=method,
+                                   state=state, setup=inside)
+    # Phase 3c's 256^3 counts, with R1 for B10.
+    expect = {name: frames for name in KERNELS}
+    expect.update(jacobi=2 * frames, jacobi_planewise=frames, composite_resample=0,
+                  gi_light=0, light_march=0,
+                  **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
+                     + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB})
+    check(counts == expect, f"{label}: launch counts {counts} != {expect}")
+    eager_vs_replayed(engine, label, smi_line, frames=5)
+    params = unpack_scene_params(engine.update_frame()[0])
+    grid = engine.state.color
+    # B9 sweeps at half the lateral size here and the map comes back
+    # upsampled to the grid's dims; R1 is held on that map and on it
+    # averaged to (3, Z, Y/2, X/2), a map of other dims than the grid's.
+    light_map = render_light_map_fast(grid, params, cfg, None).float().contiguous()
+    check(tuple(light_map.shape) == (3,) + cfg.zyx,
+          f"B9's light map at the grid's dims: {tuple(light_map.shape)}")
+    z, y, x = cfg.zyx
+    half = light_map.reshape(3, z, y // 2, 2, x // 2, 2).mean(dim=(3, 5)).contiguous()
+    origin, ray_dir, hit = direct_rays(params, cfg, dev)
+    rays = (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit)
+    env = RC.make_light_env(params, None, cfg)
+    for name, lm, what in (("view_march_direct_256_inside", light_map, "B9's map"),
+                           ("view_march_direct_256_half_map", half,
+                            "B9's map averaged to (3, 256, 128, 128)")):
+        check_r1(results, name, grid, rays, params.num_samples, env, cfg,
+                 f"800^2 DIRECT from inside the 256^3 volume, separate, {what}", light_map=lm)
+    del engine
+    replay_matches_eager(cfg, dev, label, inside, method, state)
+
+
+def phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results):
+    """The faithful stack at full width, each run FRAMES_FAITHFUL frames
+    from a warm engine's developed state, with exact launch counts:
+    PRESETS["fluid3d"] after toggle_ez() under the four methods (the gather
+    advect: no B1 or B2; the projection without multigrid: B3, B4's 64
+    sweeps in one call, B8; R2 a frame under the separate methods, R1 a
+    frame; no B9 or B10); the DIRECT methods with the eye inside the volume
+    (the fast stack but the faithful march: B1-B8, B9 under
+    DIRECT_SEPARATE, R1, no B10); a point light inside the volume (the
+    fast simulation, the faithful render: R2 and R1, no B9 or B10); and
+    PRESETS["fluidgi"] after toggle_ez() under the separate and merged cube
+    methods (the probe's SH and AO in R2 and in R1; the padded route's
+    projection without multigrid).  The host ms/frame replayed and op by
+    op, and every key's replays held to its frames op by op bit for bit.
+    Last the eye inside the 256^3 volume under DIRECT_SEPARATE, where R1
+    reads the light map of B9's half-size sweep (`eye_inside_256`).
+    Returns the counts of the toggled default preset's RAY_MARCH_SEPARATE
+    run (R1's and R2's row)."""
+    phase(f"phase 3h: the faithful stack, {FRAMES_FAITHFUL} frames a run from "
+          f"{WARM_FRAMES} frames of developed smoke")
+    from fluidx12_tpu_torch.core.config import PRESETS, RenderMethod
+
+    t0 = time.perf_counter()
+    frames = FRAMES_FAITHFUL
+    cfg = PRESETS["fluid3d"]
+    toggled = dataclasses.replace(cfg, fast_render=False, fast_sim=False)
+    state = warm.state
+
+    def toggle(e):
+        check(e.toggle_ez() is False and not e.config.fast_sim, "toggle_ez: the faithful stack")
+
+    def inside(e):
+        e.camera.dolly(DOLLY_INSIDE)
+        check(e._direct_plane_spec(0) is None, "the eye inside the volume: no base plane")
+
+    out = None
+    for method in RenderMethod:
+        label = f"toggle_ez, {method.name}"
+        counts, _, engine = run_frames(cfg, frames, dev, smi_line, label, method=method,
+                                       state=state, setup=toggle)
+        expect = {name: 0 for name in KERNELS}
+        expect.update(view_march=frames, light_march=frames if method.separate_light_pass else 0,
+                      **{k: frames * v for k, v in faithful_projection_counts(toggled).items()})
+        check(counts == expect, f"{label}: launch counts {counts} != {expect}")
+        eager_vs_replayed(engine, label, smi_line, frames=5)
+        if method == RenderMethod.RAY_MARCH_SEPARATE:
+            out = counts
+        del engine
+    for method in (RenderMethod.RAY_MARCH_DIRECT_SEPARATE, RenderMethod.RAY_MARCH_DIRECT_MERGED):
+        label = f"eye inside the volume, {method.name}"
+        counts, _, engine = run_frames(cfg, frames, dev, smi_line, label, method=method,
+                                       state=state, setup=inside)
+        expect = {name: 0 for name in KERNELS}
+        expect.update(jacobi_planewise=0, view_march=frames, **fast_sim_counts(frames),
+                      shear_scan=frames if method.separate_light_pass else 0)
+        check(counts == expect, f"{label}: launch counts {counts} != {expect}")
+        eager_vs_replayed(engine, label, smi_line, frames=5)
+        del engine
+    point = dataclasses.replace(cfg, **INTERIOR_LIGHT)
+    counts, _, engine = run_frames(point, frames, dev, smi_line, "interior point light",
+                                   state=state)
+    expect = {name: 0 for name in KERNELS}
+    expect.update(jacobi_planewise=0, view_march=frames, light_march=frames,
+                  **fast_sim_counts(frames))
+    check(counts == expect, f"interior point light: launch counts {counts} != {expect}")
+    eager_vs_replayed(engine, "interior point light", smi_line, frames=5)
+    del engine
+
+    gi = PRESETS["fluidgi"]
+    radiance = np.load(PROBE)["radiance"]
+    gi_proj = faithful_projection_counts(dataclasses.replace(gi, fast_render=False,
+                                                             fast_sim=False))
+    for method in (RenderMethod.RAY_MARCH_SEPARATE, RenderMethod.RAY_MARCH_MERGED):
+        label = f"fluidgi, toggle_ez, {method.name}"
+        counts, _, engine = run_frames(gi, frames, dev, smi_line, label, radiance=radiance,
+                                       method=method, state=warm_gi.state, setup=toggle)
+        expect = {name: 0 for name in KERNELS}
+        expect.update(view_march=frames, light_march=frames if method.separate_light_pass else 0,
+                      **{k: frames * v for k, v in gi_proj.items()})
+        check(counts == expect, f"{label}: launch counts {counts} != {expect}")
+        eager_vs_replayed(engine, label, smi_line, frames=5)
+        del engine
+    torch.cuda.empty_cache()
+
+    for label, c, setup, method, st, rad in (
+            ("toggle_ez, RAY_MARCH_SEPARATE", cfg, toggle, RenderMethod.RAY_MARCH_SEPARATE,
+             state, None),
+            ("toggle_ez, RAY_MARCH_DIRECT_MERGED", cfg, toggle,
+             RenderMethod.RAY_MARCH_DIRECT_MERGED, state, None),
+            ("eye inside, RAY_MARCH_DIRECT_SEPARATE", cfg, inside,
+             RenderMethod.RAY_MARCH_DIRECT_SEPARATE, state, None),
+            ("interior point light", point, lambda e: None, RenderMethod.RAY_MARCH_SEPARATE,
+             state, None),
+            ("fluidgi, toggle_ez, RAY_MARCH_MERGED", gi, toggle, RenderMethod.RAY_MARCH_MERGED,
+             warm_gi.state, radiance)):
+        replay_matches_eager(c, dev, label, setup, method, st, radiance=rad)
+    eye_inside_256(dev, smi_line, results, frames, inside)
+    print(f"phase 3h wall time: {time.perf_counter() - t0:.1f} s [{smi_line}]")
+    return out
+
+
 def phase4_cpu_vs_cuda(dev):
     """The port on CUDA against the port on the CPU, 3 frames at six small
     grids: the pallas_jacobi=False path at (128, 128, 16), the default
@@ -2057,7 +2483,11 @@ def phase4_cpu_vs_cuda(dev):
     16), so B17 composites it after the zero-outside resample;
     RAY_MARCH_DIRECT_SEPARATE at 32^3, where B10 marches the plane in its
     zero-outside mode; and the point light at 32^3 (the cube path, no B9).
-    Returns the launch counts of the 24^3 DIRECT frames, B17's path."""
+    Last the faithful stack at 32^3 (64 ray and 16 light samples): the
+    separate cube method (R2 and R1) and RAY_MARCH_DIRECT_MERGED with the
+    probe (R1's shadow, SH and AO per sample), the CPU's frames through the
+    kernels' plain versions.  Returns the launch counts of the 24^3 DIRECT
+    frames, B17's path."""
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig, RenderMethod
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
@@ -2069,6 +2499,9 @@ def phase4_cpu_vs_cuda(dev):
     golden = dict(grid_size=(24, 24, 24), viewport=(64, 64), max_ray_samples=32,
                   max_light_samples=8, num_pressure_iters=16)
     direct = RenderMethod.RAY_MARCH_DIRECT_MERGED
+    # The faithful stack (R1 and R2's plain versions on the CPU), with the
+    # sample counts cut so that the CPU's nested loops stay short.
+    faithful = dict(fast_render=False, fast_sim=False, max_ray_samples=64, max_light_samples=16)
     b17_counts = None
     for kw, method in ((dict(grid_size=(128, 128, 16), pallas_jacobi=False), None),
                        (dict(grid_size=(128, 128, 64), pallas_jacobi=True), None),
@@ -2081,7 +2514,10 @@ def phase4_cpu_vs_cuda(dev):
                        (dict(grid_size=(150, 150, 72), has_light_probe=True), None),
                        (golden, direct),
                        (dict(grid_size=(32, 32, 32)), RenderMethod.RAY_MARCH_DIRECT_SEPARATE),
-                       (dict(grid_size=(32, 32, 32), point_light=True), None)):
+                       (dict(grid_size=(32, 32, 32), point_light=True), None),
+                       (dict(faithful, grid_size=(32, 32, 32)), None),
+                       (dict(faithful, grid_size=(32, 32, 32), has_light_probe=True),
+                        RenderMethod.RAY_MARCH_DIRECT_MERGED)):
         cfg = FluidConfig(**dict(dict(viewport=(96, 96)), **kw))
         engines = [FluidXEngine(cfg, radiance=radiance, device=d) for d in ("cpu", dev)]
         for e in engines:
@@ -2118,7 +2554,12 @@ def phase4_cpu_vs_cuda(dev):
             want.update(composite=0, composite_resample=3 * b10)
             check(b17 == 0 and {k: counts[k] for k in want} == want,
                   f"the padded route ran on {kw}: {counts}, expected {want}")
-        if method is not None:
+        if not cfg.fast_render:
+            separate = method is None or method.separate_light_pass
+            check(counts["view_march"] == 3 and counts["light_march"] == 3 * separate
+                  and counts["advect_xy"] == counts["shear_scan"] == 0,
+                  f"the faithful stack ran R1 and R2 on {kw}: {counts}")
+        elif method is not None:
             b17 = cfg.grid_size == golden["grid_size"]
             check(counts["composite"] == (3 if b17 else 0)
                   and counts["composite_resample"] == (0 if b17 else 3),
@@ -2144,6 +2585,7 @@ def main() -> int:
     check_advect_frames(dev, results)
     phase2f_direct_plane(dev, results)
     phase2g_b17_plane_512(dev, results)
+    warm, warm_gi = phase2h_faithful_kernels(dev, results)
     counts = phase3_main_path(dev, smi_line)
     counts_2d = phase3b_fluid2d(dev, smi_line)
     counts_gi, engine_256 = phase3c_256(dev, smi_line)
@@ -2152,6 +2594,9 @@ def main() -> int:
     phase3e_fluidgi(dev, smi_line)
     phase3f_direct_and_point(dev, smi_line)
     phase3g_replay_vs_eager(dev, smi_line)
+    counts_faithful = phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results)
+    del warm, warm_gi
+    torch.cuda.empty_cache()
     counts_direct24 = phase4_cpu_vs_cuda(dev)
     kernels = []
     # B4's plane-sweep order is B4's wrapper and source; its launches are
@@ -2164,6 +2609,7 @@ def main() -> int:
                 else counts_gi if kname in KERNELS_256 + ("jacobi_planewise",)
                 else counts_fused if kname in KERNELS_FUSED
                 else counts_direct24 if kname == "composite"
+                else counts_faithful if kname in KERNELS_FAITHFUL
                 else counts_slab if kname in KERNELS_SLAB else counts)
         launches = path[kname]
         # B12 is on no path of the port (ROADMAP.md, queue B).

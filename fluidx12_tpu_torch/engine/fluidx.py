@@ -30,19 +30,28 @@ nothing falls back to launching op by op.  On the CPU there is no graph:
 every frame runs op by op (`_frame_eager`, which is also what a graph
 captures).
 
-Configurations the port does not cover yet
-raise NotImplementedError at construction (a DIRECT frame with the eye
-inside the volume, in `step_frame`), naming their ROADMAP.md item; nothing
-falls back to another path.  The config's kernel switches are read as the JAX package
-reads them on its TPU: `pallas_jacobi` and `mg_project_fused` choose the
-projection's kernels (sim/project.py; a grid the TPU stores padded reads
-`use_pallas` alone there), `advect_fuse_xy` B1 or B11 twice
-(sim/advect_fast.py); `use_pallas=False`, `pallas_advect=False` and
+The fast and faithful stacks.  `fast_sim` and `fast_render` choose the
+simulation's advect and the render stack as in the JAX package;
+`toggle_ez()` flips both (the reference's 'X' hotkey) and drops every
+captured graph, since the key does not hold the config.  The faithful
+render stack (kernels R1 and R2) also serves what the fast one cannot: a
+DIRECT frame with the eye inside the volume (no base plane) and a point
+light inside the volume (which warns once).
+
+Configurations the port does not cover yet raise NotImplementedError at
+construction, naming their ROADMAP.md item; nothing falls back to another
+path.  The config's kernel switches are read as the JAX package reads them
+on its TPU: `pallas_jacobi` and `mg_project_fused` choose the projection's
+kernels (sim/project.py; a grid the TPU stores padded reads `use_pallas`
+alone there), `advect_fuse_xy` B1 or B11 twice (sim/advect_fast.py);
+`use_pallas=False` or `pallas_advect=False` on the fast stack and
 `block_resolve=True` select code the port does not have, and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,7 +69,7 @@ from fluidx12_tpu_torch.core.state import (
 )
 from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
 from fluidx12_tpu_torch.render.environment import render_environment
-from fluidx12_tpu_torch.render.pipeline import render_frame, unported_render
+from fluidx12_tpu_torch.render.pipeline import point_light_ok, render_frame, unported_render
 from fluidx12_tpu_torch.render.screencomp import direct_plane_spec
 from fluidx12_tpu_torch.sim.step import simulate, unported_sim
 
@@ -68,7 +77,7 @@ from fluidx12_tpu_torch.sim.step import simulate, unported_sim
 def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
-    return unported_sim(config) or unported_render(config, None)
+    return unported_sim(config) or unported_render(config)
 
 
 class _FrameGraph(NamedTuple):
@@ -125,6 +134,7 @@ class FluidXEngine:
         # The card's captured frames by key (`_prepare`), in one pool.
         self._graphs = {}
         self._pool = None
+        self._warned_point_light = False
 
     @property
     def state(self) -> FluidState:
@@ -200,11 +210,14 @@ class FluidXEngine:
 
     def _direct_plane_spec(self, lod: int = 0):
         """The DIRECT methods' base plane (render/screencomp.DirectPlaneSpec)
-        for the camera pose, or None with the eye inside the volume; host
-        math, cached on the pose and `lod`.  Each LOD level halves the
-        plane's texel density (ref: the LOD-clamped sample count binding,
-        Fluid.cpp:968; engine/fluidx.py:222-249)."""
-        if not self.config.is_3d:
+        for the camera pose, or None: off the fast stack, for a point light
+        inside the volume, and with the eye inside the volume (the faithful
+        march then renders the frame); host math, cached on the pose and
+        `lod`.  Each LOD level halves the plane's texel density (ref: the
+        LOD-clamped sample count binding, Fluid.cpp:968;
+        engine/fluidx.py:222-249)."""
+        cfg = self.config
+        if not (cfg.fast_render and cfg.is_3d) or not point_light_ok(cfg):
             return None
         pose = (self.camera.view.tobytes(), self.camera.proj.tobytes(), lod)
         if pose == self._plane_key:
@@ -237,14 +250,16 @@ class FluidXEngine:
         """A frame's host work: the packed parameters, the base plane, the
         scissor rect and the sky, each refreshed where the pose changed.
         Returns the frame's key (method, LOD, face mask, plane spec, rect,
-        paused), the JAX engine's program key with the pause state added;
-        raises for what the port does not render yet."""
+        paused), the JAX engine's program key with the pause state added."""
+        cfg = self.config
+        if cfg.fast_render and not point_light_ok(cfg) and not self._warned_point_light:
+            self._warned_point_light = True
+            warnings.warn("point_light with the light inside the volume: the projective "
+                          "sweep needs an exterior light; using the faithful per-ray "
+                          "paths.", stacklevel=3)
         packed, lod, vis_mask = self.update_frame()
         method = self.render_method
         plane_spec = None if method.uses_cube_map else self._direct_plane_spec(lod)
-        missing = unported_render(self.config, method, plane_spec)
-        if missing is not None:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self._env_bg(unpack_scene_params(packed))
         return (method, lod, vis_mask, plane_spec, self._screen_rect(), self.is_paused)
 
@@ -341,3 +356,14 @@ class FluidXEngine:
 
     def prev_method(self):
         self.render_method = self.render_method.prev()
+
+    def toggle_ez(self) -> bool:
+        """Switch between the fast and the faithful stacks: flips
+        `fast_render` and `fast_sim` together (the reference's 'X' hotkey,
+        FluidX12.cpp:330-332; engine/fluidx.py:320-335) and drops every
+        captured frame graph, whose key does not hold the config.  Returns
+        the new fast-stack state."""
+        fast = not self.config.fast_render
+        self.config = dataclasses.replace(self.config, fast_render=fast, fast_sim=fast)
+        self._graphs.clear()
+        return fast

@@ -108,6 +108,22 @@ C3 = 0.24770795610037568833406429782001
 C4 = 0.88622692545275801364908374167057
 
 
+def evaluate_sh_irradiance(coeffs: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
+    """Irradiance (..., 3) from the (9, 3) coefficients along unit normals
+    (..., 3), clamped at 0; x and y are negated first, as in the reference
+    (SHIrradianceTypeless.hlsli:16-37)."""
+    x = -normal[..., 0:1]
+    y = -normal[..., 1:2]
+    z = normal[..., 2:3]
+    c = coeffs
+    irr = ((C1 * (x * x - y * y)) * c[8]
+           + (C3 * (3.0 * z * z - 1.0)) * c[6]
+           + C4 * c[0]
+           + (2.0 * C1) * (c[4] * x * y + c[7] * x * z + c[5] * y * z)
+           + (2.0 * C2) * (c[3] * x + c[1] * y + c[2] * z))
+    return torch.clamp_min(irr, 0.0)
+
+
 def evaluate_sh_irradiance_planar(coeffs: torch.Tensor, nx: torch.Tensor,
                                   ny: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
     """Irradiance (3, ...) from the (9, 3) coefficients along unit

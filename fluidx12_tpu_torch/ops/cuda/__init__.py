@@ -4,6 +4,9 @@ fluidx12_tpu/ops/pallas/), each beside its plain PyTorch version.
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); it adds one to its `launches` count
 where it launches, so a run can show that the main path went through it.
+R1 and R2 (raymarch.py) launch only: their plain versions march with the
+render layer's machinery, so they live in render/ beside their JAX
+counterparts, and render/ takes them for a CPU tensor.
 Kernel modules import nothing CUDA-specific at import time: the library is
 built and loaded at the first launch (ops/cuda/_build.py).
 """
@@ -16,7 +19,8 @@ def wrappers():
     frame order, then B12 `advect_z` (on no preset's path), the 2D
     preset's B11 and B14, the 256^3 GI frame's B13 and B16, the fused
     projection's B18 (`jacobi_divrr`, `jacobi_grad`) and the 256x256x60 GI
-    frame's B15 and B17."""
+    frame's B15 and B17, then the faithful stack's R1 (`view_march`) and
+    R2 (`light_march`)."""
     from fluidx12_tpu_torch.ops.cuda.advect import (
         advect_axis,
         advect_xy,
@@ -32,6 +36,7 @@ def wrappers():
         jacobi_packed,
         jacobi_rr,
     )
+    from fluidx12_tpu_torch.ops.cuda.raymarch import light_march, view_march
     from fluidx12_tpu_torch.ops.cuda.stencil import (
         divergence,
         gi_light,
@@ -49,7 +54,8 @@ def wrappers():
             "composite_resample": composite_resample, "advect_z": advect_z,
             "advect_axis": advect_axis, "jacobi2d": jacobi2d, "jacobi_rr": jacobi_rr,
             "gi_light": gi_light, "jacobi_divrr": jacobi_divrr, "jacobi_grad": jacobi_grad,
-            "gradient3": gradient3, "composite": composite}
+            "gradient3": gradient3, "composite": composite, "view_march": view_march,
+            "light_march": light_march}
 
 
 def reset_launch_counts() -> None:

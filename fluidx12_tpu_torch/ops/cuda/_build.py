@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Shared memory a CTA may take on an H100 (227 KB): the launch plans fit it.
 SMEM_PER_CTA = 232448
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "fx_advect_xy": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fx_advect_xy_perthread": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -74,6 +74,9 @@ _SIGNATURES = {
     "fx_gradient3": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fx_gradient3_perthread": [_P, _P, _I, _I, _I, _P],
     "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
+    "fx_view_march": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _L, _I, _I, _F, _F, _I, _P],
+    "fx_light_march": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _P],
 }
 
 _lib = None

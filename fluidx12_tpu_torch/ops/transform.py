@@ -16,6 +16,12 @@ def transform_point_h(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return p[..., 0:1] * m[0] + p[..., 1:2] * m[1] + p[..., 2:3] * m[2] + m[3]
 
 
+def transform_point(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(p, 1) @ M with perspective divide -> (..., 3)."""
+    h = transform_point_h(p, m)
+    return h[..., :3] / h[..., 3:4]
+
+
 def transform_ndc(ndc: torch.Tensor, z: float, m: torch.Tensor) -> torch.Tensor:
     """(x, y, z, 1) @ M for 2-component ndc and scalar z -> (..., 3) after divide."""
     zz = torch.full(ndc.shape[:-1] + (1,), float(z), dtype=ndc.dtype, device=ndc.device)

@@ -402,8 +402,8 @@ def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
     """(3, Z, Y, X) incident light per voxel for the configured light,
     directional or (`point_light`) a point outside the volume: light
     colour * shadow, plus the flat ambient or, with a light probe and its
-    (9, 3) `sh_coeffs`, the GI ambient (a point light inside the volume is
-    rejected by render/pipeline.unported_render)."""
+    (9, 3) `sh_coeffs`, the GI ambient (a point light inside the volume
+    takes the faithful stack instead, render/pipeline.render_frame)."""
     dtype = config.render_dtype
     density = grid[3].to(dtype)
     local_light = transform_vector(params.light_pt, params.world_i)

@@ -1,11 +1,18 @@
-"""Impulse injection, forces, saturation and dissipation (the unfused form
-of fluidx12_tpu/sim/advect.py `apply_impulse_forces`; CSAdvect.hlsl:57-78,
-Impulse.hlsli).
+"""Semi-Lagrangian advection with impulse injection, forces and
+dissipation (mirror of fluidx12_tpu/sim/advect.py; CSAdvect.hlsl).
 
-The fast path fuses this step into kernel B2's epilogue
-(ops/cuda/advect.py); this form runs after an advect whose z pass did not
-fuse it (more than one sub-step, or un-premultiplied colour) and after
-every 2D advect, which has no z pass.
+`advect` is the faithful step (`fast_sim=False`): backtrace each voxel
+centre through the velocity (`pos - u * dt`) and resample velocity and
+colour there in one 7-channel trilinear gather with MIRROR addressing (the
+reference's LINEAR_MIRROR sampler, Fluid.cpp:452), then
+`apply_impulse_forces`.  It computes in f32 and returns f32, as the JAX
+package's does; the step rounds to the storage dtype at its end.
+
+`apply_impulse_forces` is also the unfused form of the fast path's forces
+(CSAdvect.hlsl:57-78, Impulse.hlsli): the fast path fuses it into kernel
+B2's epilogue (ops/cuda/advect.py); this form runs after an advect whose z
+pass did not fuse it (more than one sub-step, or un-premultiplied colour)
+and after every 2D advect, which has no z pass.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
 from fluidx12_tpu_torch.core.constants import device_constant
+from fluidx12_tpu_torch.ops.sampling import AddressMode, texel_centres, trilinear_sample
 
 # The impulse's edge, exp(-4) as the f32 PyTorch computes, compared as a
 # Python float (an f32 value, so the comparison is exact in f32).
@@ -78,3 +86,28 @@ def apply_impulse_forces(
 
     atten = torch.clamp_min(1.0 - config.dissipation * dt, 0.0)
     return (u_new * atten).to(store), (c_new * atten).to(store)
+
+
+def _voxel_centers(config: FluidConfig, dtype, device) -> torch.Tensor:
+    """Simulation-space voxel centres (Z, Y, X, 3) = (index + 0.5) / size,
+    the last axis (x, y, z) in uvw order (GridToSimulationSpace,
+    Simulation.hlsli:7-10)."""
+    z, y, x = config.zyx
+    cz, cy, cx = torch.meshgrid(*(texel_centres(n, dtype, device) for n in (z, y, x)),
+                                indexing="ij")
+    return torch.stack([cx, cy, cz], dim=-1)
+
+
+def advect(velocity: torch.Tensor, color: torch.Tensor, time_step: torch.Tensor,
+           config: FluidConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One faithful advection step of velocity (3, Z, Y, X) and colour
+    (4, Z, Y, X) in any storage dtype; `time_step` an f32 scalar tensor.
+    Returns f32 (velocity, colour)."""
+    f32 = torch.float32
+    velocity = velocity.to(f32)
+    color = color.to(f32)
+    dt = time_step.to(device=velocity.device, dtype=f32)
+    pos = _voxel_centers(config, f32, velocity.device)
+    adv = pos - velocity.movedim(0, -1) * dt
+    sampled = trilinear_sample(torch.cat([velocity, color]), adv, mode=AddressMode.MIRROR)
+    return apply_impulse_forces(sampled[:3], sampled[3:], time_step, config)

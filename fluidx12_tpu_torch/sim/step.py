@@ -1,5 +1,7 @@
 """One full simulation step: advect then project (mirror of
-fluidx12_tpu/sim/step.py on the fast stack)."""
+fluidx12_tpu/sim/step.py): the fast advect (kernels B1 and B2, or B11) or,
+with `fast_sim=False`, the faithful gather advect of sim/advect.py; then
+the projection, which reads `fast_sim` itself (no multigrid when off)."""
 
 from __future__ import annotations
 
@@ -17,10 +19,7 @@ def unported_sim(config: FluidConfig):
     """The ROADMAP item a simulation config still needs, or None.  The
     JAX package runs other code for each of these switches; the port runs
     none in its place."""
-    if not config.fast_sim:
-        return ("the faithful gather advect, fast_sim=False (ROADMAP.md queue A, "
-                "'The faithful simulation')")
-    if not (config.use_pallas and config.pallas_advect):
+    if config.fast_sim and not (config.use_pallas and config.pallas_advect):
         return ("the mirror-addressed advect twin, use_pallas=False or "
                 "pallas_advect=False (ROADMAP.md queue A, 'The XLA twins')")
     return None
@@ -37,11 +36,19 @@ def simulate(state: FluidState, time_step: float, config: FluidConfig,
     missing = unported_sim(config)
     if missing is not None:
         raise NotImplementedError(f"not ported yet: {missing}")
-    from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
-
     store = state.fields.dtype
     if dt is None:
         dt = device_constant(float(time_step), torch.float32, state.fields.device)
-    fields = advect_fields_fast(state.fields, dt, config)
+    if config.fast_sim:
+        from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
+
+        fields = advect_fields_fast(state.fields, dt, config)
+    else:
+        # The gather advect returns f32: the projection runs on f32 fields
+        # and the state rounds once, below (sim/step.py:44-51).
+        from fluidx12_tpu_torch.sim.advect import advect
+
+        velocity, color = advect(state.fields[:3], state.fields[3:], dt, config)
+        fields = torch.cat([velocity, color])
     fields, pressure = project(fields, state.pressure, time_step, config)
     return FluidState(fields=fields.to(store), pressure=pressure)

@@ -1,1 +1,1 @@
-"""Image helpers."""
+"""Image helpers, and the tolerance the faithful stack is held to."""

@@ -18,6 +18,7 @@ from fluidx12_tpu_torch.ops.cuda import jacobi as J
 from fluidx12_tpu_torch.ops.cuda import stencil as ST
 from fluidx12_tpu_torch.ops.cuda import sweep as S
 from fluidx12_tpu_torch.render.slicecomp import sample_face_inputs
+from fluidx12_tpu_torch.utils.compare import few_off
 
 pytestmark = pytest.mark.cuda
 
@@ -1101,24 +1102,60 @@ def _two_engines(dev, **kw):
     return FluidXEngine(cfg, device=dev), FluidXEngine(cfg, device=dev)
 
 
-def test_replayed_frame_equals_the_frame_op_by_op(dev):
-    """At 32^3, a 96^2 viewport: the frame `step_frame` replays from its
-    graph equals `_frame_eager`'s, bit for bit (fields, pressure, image,
-    launch counts), through two frames of the default pose (the first op
-    by op and then captured, the second a replay), an orbit (a new key), a
-    small orbit (the same key, new packed parameters: a graph that read a
-    stale parameter tensor would differ), the pause key (the state does
-    not move) and the DIRECT key, and back to the orbit's key (a
-    replay)."""
+def _method(method_name):
     from fluidx12_tpu_torch.core.config import RenderMethod
+
+    return lambda e: setattr(e, "render_method", RenderMethod[method_name])
+
+
+# A point light inside the volume (light_pos / volume_scale < 1.1), and the
+# dolly that moves the default camera's eye inside it.
+INTERIOR_LIGHT = dict(point_light=True, light_pos=(5.0, 2.0, -3.0))
+DOLLY_INSIDE = 15.5
+# The faithful cases' sample counts.
+MARCH = dict(max_ray_samples=48, max_light_samples=16)
+# Each case of the replay test: (config fields, the action on both engines
+# before each frame (None: none), whether each frame's key was captured
+# before it, R1's and R2's launches a frame).  "fast_keys" walks the fast
+# stack's keys: two frames of the default pose, an orbit (a new key), a
+# small orbit (the same key, new packed parameters: a graph that read a
+# stale parameter tensor would differ), the pause key (the state does not
+# move), the DIRECT key, and back to the orbit's key.  The others are the
+# faithful keys: toggle_ez under a cube and a DIRECT method, the eye
+# inside the volume under both DIRECT methods, a point light inside it.
+REPLAY_CASES = {
+    "fast_keys": ({}, [None, None, lambda e: e.camera.orbit(60.0, 25.0),
+                       lambda e: e.camera.orbit(1.0, 0.0), lambda e: e.toggle_pause(),
+                       lambda e: (e.toggle_pause(), _method("RAY_MARCH_DIRECT_SEPARATE")(e)),
+                       _method("RAY_MARCH_SEPARATE")],
+                  [False, True, False, True, False, False, True], (0, 0)),
+    "toggle_ez_separate": (MARCH, [lambda e: (e.toggle_ez(), _method("RAY_MARCH_SEPARATE")(e)),
+                                None, None], [False, True, True], (1, 1)),
+    "toggle_ez_direct_merged": (MARCH, [lambda e: (e.toggle_ez(),
+                                                _method("RAY_MARCH_DIRECT_MERGED")(e)),
+                                     None, None], [False, True, True], (1, 0)),
+    "eye_inside_direct_merged": (MARCH, [lambda e: (e.camera.dolly(DOLLY_INSIDE),
+                                                 _method("RAY_MARCH_DIRECT_MERGED")(e)),
+                                      None, None], [False, True, True], (1, 0)),
+    "eye_inside_direct_separate": (MARCH, [lambda e: (e.camera.dolly(DOLLY_INSIDE),
+                                                   _method("RAY_MARCH_DIRECT_SEPARATE")(e)),
+                                        None, None], [False, True, True], (1, 0)),
+    "interior_point_light": (dict(MARCH, **INTERIOR_LIGHT), [None, None, None], [False, True, True], (1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(REPLAY_CASES))
+def test_replayed_frame_equals_the_frame_op_by_op(dev, case):
+    """At 32^3, a 96^2 viewport: the frame
+    `step_frame` replays from its graph equals `_frame_eager`'s, bit for
+    bit (fields, pressure, image, launch counts), through each case's
+    frames (REPLAY_CASES): a key's first frame runs op by op and is
+    captured, its later frames replay; R1 and R2 launch as the path
+    says."""
     from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
 
-    eager, graph = _two_engines(dev, grid_size=(32, 32, 32))
-    actions = [None, None, lambda e: e.camera.orbit(60.0, 25.0),
-               lambda e: e.camera.orbit(1.0, 0.0), lambda e: e.toggle_pause(),
-               lambda e: (e.toggle_pause(),
-                          setattr(e, "render_method", RenderMethod.RAY_MARCH_DIRECT_SEPARATE)),
-               lambda e: setattr(e, "render_method", RenderMethod.RAY_MARCH_SEPARATE)]
+    kw, actions, want_replayed, (r1, r2) = REPLAY_CASES[case]
+    eager, graph = _two_engines(dev, grid_size=(32, 32, 32), **kw)
     keys, replayed = [], []
     for action in actions:
         if action is not None:
@@ -1134,13 +1171,15 @@ def test_replayed_frame_equals_the_frame_op_by_op(dev):
         reset_launch_counts()
         image_b = graph.step_frame()
         assert launch_counts() == counts_a
+        assert (counts_a["view_march"], counts_a["light_march"]) == (r1, r2)
         assert torch.equal(image_a, image_b)
         assert torch.equal(eager.state.fields, graph.state.fields)
         assert torch.equal(eager.state.pressure, graph.state.pressure)
         if graph.is_paused:
             assert torch.equal(graph.state.fields, before)
-    assert replayed == [False, True, False, True, False, False, True]
-    assert keys[3] == keys[2] and len(graph._graphs) == 4
+    assert replayed == want_replayed
+    assert replayed == [key in keys[:i] for i, key in enumerate(keys)]
+    assert len(graph._graphs) == len(set(keys))
 
 
 def test_step_frames_replays_the_frame(dev):
@@ -1182,3 +1221,103 @@ def test_failed_capture_raises(dev, monkeypatch):
         with pytest.raises(RuntimeError):
             engine.step_frame()
         assert engine._graphs == {}
+
+
+# ---------------------------------------------------------------------------
+# The faithful stack: R1 (view_march) and R2 (light_march)
+# ---------------------------------------------------------------------------
+
+def _faithful_inputs(dev, probe=False, point=False, seed=0):
+    """A config of 24^3 (32 ray and 8 light samples), a smoke grid in bf16
+    on `dev` (density up to 0.6, some of it below zero_threshold) and the
+    light environment of the engine's default pose."""
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.render.raymarch_core import make_light_env
+
+    kw = dict(grid_size=(24, 24, 24), viewport=(48, 48), max_ray_samples=32,
+              max_light_samples=8, has_light_probe=probe)
+    if point:
+        kw.update(INTERIOR_LIGHT)
+    cfg = FluidConfig(**kw)
+    rng = np.random.default_rng(seed)
+    dens = rng.uniform(0.0, 0.6, cfg.zyx).astype(np.float32)
+    for ax in range(3):
+        dens = (np.roll(dens, 1, ax) + dens + np.roll(dens, -1, ax)) / 3
+    dens = np.maximum(dens - 0.15, 0.0) * 2.0
+    grid = np.concatenate([dens[None] * np.array([0.9, 0.7, 0.5], np.float32)[:, None, None, None],
+                           dens[None]])
+    grid = torch.from_numpy(grid).to(dev, torch.bfloat16)
+    engine = FluidXEngine(cfg, device=dev)
+    params = unpack_scene_params(engine.update_frame()[0])
+    sh = torch.from_numpy(rng.uniform(-0.4, 1.2, (9, 3)).astype(np.float32)).to(dev)
+    return cfg, grid, params, make_light_env(params, sh if probe else None, cfg)
+
+
+@pytest.mark.parametrize("case", ["directional", "probe", "point"])
+def test_light_march_matches_plain(dev, case):
+    """R2 against its plain version (render/lightmap.light_map_plain) on
+    the card: within 1e-5 except at most 0.1% of the values (a branch near
+    zero_threshold), and its per-voxel sample counts zero where the voxel
+    is empty (no ray leaves it)."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _faithful_inputs(dev, probe=case == "probe",
+                                              point=case == "point")
+    samples = torch.empty(cfg.zyx, dtype=torch.int32, device=dev)
+    got = R.light_march(grid, RC.pack_env(env), RC.env_flags(env, cfg),
+                        params.num_light_samples, cfg, samples=samples)
+    ref = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 24, 24, 24) and few_off(got, ref, f"R2, {case}")[0]
+    dense = grid[3].float() >= cfg.zero_threshold
+    assert int(samples[~dense].abs().sum()) == 0 and int(samples.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["separate", "separate_half_map", "merged", "merged_probe",
+                                  "merged_point"])
+def test_view_march_matches_plain(dev, case):
+    """R1 against its plain version (render/raymarch_core.view_march) on the
+    card, on rays from points in and around the box with random
+    directions, finite and infinite t_max and a random active mask:
+    separate (the plain light map, and that map averaged to half the
+    grid's lateral size, (3, Z, Y/2, X/2): R1 reads the map at its own
+    dims) and merged, with the probe and with an interior point
+    light; within 1e-5 except at most 0.1% of the values."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _faithful_inputs(dev, probe=case == "merged_probe",
+                                              point=case == "merged_point")
+    rng = np.random.default_rng(1)
+    n = 3000
+    o = rng.uniform(-1.6, 1.6, (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(rng.uniform(size=n) < 0.3, rng.uniform(0.2, 2.0, n), np.inf)
+    origin, ray_dir = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    origin, hit = RC.compute_ray_origin(origin, ray_dir)
+    active = hit & torch.from_numpy(rng.uniform(size=n) < 0.9).to(dev)
+    t_max = torch.from_numpy(t_max.astype(np.float32)).to(dev)
+    separate = case.startswith("separate")
+    light_map = (light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+                 if separate else None)
+    if case == "separate_half_map":
+        z, y, x = cfg.zyx
+        light_map = light_map.reshape(3, z, y // 2, 2, x // 2, 2).mean(dim=(3, 5)).contiguous()
+    samples = torch.empty((n, 3), dtype=torch.int32, device=dev)
+    got = R.view_march(grid, origin, ray_dir, t_max, active, params.num_samples,
+                       RC.pack_env(env), RC.env_flags(env, cfg), cfg, light_map=light_map,
+                       num_light_samples=params.num_light_samples, samples=samples)
+    ref = RC.view_march(grid.float(), origin, ray_dir, t_max, params.num_samples, env, cfg,
+                        light_map=light_map, num_light_samples=params.num_light_samples,
+                        active=active)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 4) and float(ref[..., 3].max()) > 0.05
+    assert few_off(got, ref, f"R1, {case}")[0]
+    assert int(samples[~active].abs().sum()) == 0 and int(samples[:, 0].max()) > 1
+    assert bool((samples[:, 1] <= samples[:, 0]).all()) and int(samples[:, 1].sum()) > 0
+    assert (int(samples[:, 2].sum()) > 0) == (not separate)

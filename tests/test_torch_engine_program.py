@@ -146,14 +146,21 @@ def test_paused_frame_matches_the_jax_engine(runs):
     assert diff.max() <= 2 and diff.mean() < 0.05, (diff.max(), diff.mean())
 
 
-# The four frame paths: the cube map, a DIRECT method, 2D and the point
-# light (the projective sweep).
+# The frame paths: the cube map, a DIRECT method, 2D and the point light
+# (the projective sweep); the faithful stack after `toggle_ez`, a DIRECT
+# method with the eye inside the volume (the faithful march) and a point
+# light inside the volume (the faithful stack).
 PATHS = {
     "fluid3d": (GOLDEN, None),
     "direct": (GOLDEN, TorchMethod.RAY_MARCH_DIRECT_SEPARATE),
     "fluid2d": (dict(grid_size=(64, 64, 1), viewport=(64, 64), num_pressure_iters=16), None),
     "point_light": (dict(GOLDEN, point_light=True), None),
+    "toggled": (GOLDEN, TorchMethod.RAY_MARCH_MERGED),
+    "direct_eye_inside": (GOLDEN, TorchMethod.RAY_MARCH_DIRECT_MERGED),
+    "interior_point_light": (dict(GOLDEN, point_light=True, light_pos=(5.0, 2.0, -3.0)), None),
 }
+# What each of those paths does to the engine before its frames.
+SETUP = {"toggled": lambda e: e.toggle_ez(), "direct_eye_inside": lambda e: e.camera.dolly(15.5)}
 
 
 @pytest.mark.parametrize("path", list(PATHS))
@@ -165,11 +172,13 @@ def test_steady_frame_makes_no_tensor_from_host_data(path, monkeypatch):
     CUDA graph cannot capture.  The frame's constants are made once
     (core/constants.py) and its parameters copied only when the pose
     changes.  The warm-up frames make some (the parameters, the cached
-    constants), which the spies must see."""
+    constants), which the spies must see; on every path a new pose
+    uploads its parameters again."""
     kw, method = PATHS[path]
     engine = torch_fluidx.FluidXEngine(TorchConfig(**kw), device="cpu")
     if method is not None:
         engine.render_method = method
+    SETUP.get(path, lambda e: None)(engine)
     callers = []
 
     def spy(fn):
@@ -197,9 +206,10 @@ def test_steady_frame_makes_no_tensor_from_host_data(path, monkeypatch):
     assert image.shape == (64, 64, 3)
     outside = [c for c in callers if not c[2]]
     assert outside == [], outside
-    if method is None:
-        # A new pose uploads its parameters again, once.
-        engine.camera.orbit(5.0, 0.0)
-        callers.clear()
-        engine.step_frame()
-        assert [c for c in callers if c[0] == "engine/fluidx.py"], callers
+    if path == "direct_eye_inside":
+        assert engine._direct_plane_spec(0) is None
+    # A new pose uploads its parameters again, once.
+    engine.camera.orbit(5.0, 0.0)
+    callers.clear()
+    engine.step_frame()
+    assert [c for c in callers if c[0] == "engine/fluidx.py"], callers

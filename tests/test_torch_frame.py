@@ -5,6 +5,7 @@ import dataclasses
 import functools
 import importlib
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -199,16 +200,19 @@ def test_golden_fluid2d():
 
 def test_unported_configs_raise():
     """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item, instead of running another path: the faithful
-    simulation and render stacks (`fast_render=False`, a point light inside
-    the volume, a DIRECT frame with the eye inside the volume); the switches that select the JAX package's XLA twins (`use_pallas=False`,
+    its ROADMAP item, instead of running another path: the switches that
+    select the JAX package's XLA twins (`use_pallas=False`,
     `pallas_advect=False`: the mirror-addressed advect twin, the einsum
     sweep and march) and `cube_cast_blocked` (`block_resolve=True`), at
-    construction and again in `simulate` and `render_frame`.  The default
-    preset (pallas_jacobi=True), the 2D preset, GI and every kernel the JAX
-    gates choose (B15 and B18 among them) are covered, and so are
-    `advect_fuse_xy=False` (B11 twice, tests/test_torch_padded.py), a point
-    light outside the volume and the DIRECT methods (tests/test_torch_direct.py)."""
+    construction and again in `simulate` and `render_frame`.  The faithful
+    simulation and render stacks now run, in 3D and 2D: `fast_render=False`,
+    `fast_sim=False`, a point light inside the volume, and a DIRECT frame
+    with the eye inside the volume (tests/test_torch_faithful.py holds them
+    to JAX).  The default preset (pallas_jacobi=True), the 2D preset, GI and
+    every kernel the JAX gates choose (B15 and B18 among them) are covered,
+    and so are `advect_fuse_xy=False` (B11 twice,
+    tests/test_torch_padded.py), a point light outside the volume and the
+    fast DIRECT methods (tests/test_torch_direct.py)."""
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core.state import make_initial_state, unpack_scene_params
     from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
@@ -219,14 +223,19 @@ def test_unported_configs_raise():
                               device="cpu")
     torch_fluidx.FluidXEngine(dataclasses.replace(PRESETS["fluid3d"], point_light=True),
                               device="cpu")
-    base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32))
+    base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32), max_ray_samples=16,
+                       max_light_samples=4, num_pressure_iters=4)
     twins = "ROADMAP.md queue A, 'The XLA twins'"
-    others = "ROADMAP.md queue A, 'The other render methods'"
-    for change, match in ((dict(grid_size=(64, 64, 1), fast_sim=False), "ROADMAP"),
-                          (dict(fast_render=False), others),
-                          (dict(point_light=True, light_pos=(5.0, 2.0, -3.0)), others),
-                          (dict(fast_sim=False), "ROADMAP"),
-                          (dict(use_pallas=False), twins), (dict(pallas_advect=False), twins),
+    for change in (dict(grid_size=(64, 64, 1), fast_sim=False), dict(fast_render=False),
+                   dict(point_light=True, light_pos=(5.0, 2.0, -3.0)), dict(fast_sim=False)):
+        engine = torch_fluidx.FluidXEngine(dataclasses.replace(base, **change), device="cpu")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            img = engine.step_frame()
+        assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all()), change
+        # Only the interior point light on the fast stack warns (once).
+        assert len(caught) == int("point_light" in change), (change, caught)
+    for change, match in ((dict(use_pallas=False), twins), (dict(pallas_advect=False), twins),
                           (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
         cfg = dataclasses.replace(base, **change)
         with pytest.raises(NotImplementedError, match=match):
@@ -243,16 +252,17 @@ def test_unported_configs_raise():
             torch_render(state.color, params, dataclasses.replace(base, **change),
                          torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
     # The DIRECT methods render; with the eye inside the volume (no base
-    # plane) they raise, in the engine and in render_frame.
+    # plane) they take the faithful march, in the engine and in
+    # render_frame.
     for method in (torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_SEPARATE,
                    torch_fluidx.RenderMethod.RAY_MARCH_DIRECT_MERGED):
         engine.render_method = method
         assert engine.step_frame().shape == (32, 32, 3)
-        pose = engine.camera.view.copy(), engine.camera.eye.copy()
+        pose = engine.camera.view, engine.camera.eye
+        engine.camera.view, engine.camera.eye = pose[0].copy(), pose[1].copy()
         engine.camera.dolly(15.5)
         assert engine._direct_plane_spec(0) is None
-        with pytest.raises(NotImplementedError, match=others):
-            engine.step_frame()
-        with pytest.raises(NotImplementedError, match=others):
-            torch_render(state.color, params, base, method, plane_spec=None)
+        assert engine.step_frame().shape == (32, 32, 3)
+        assert torch_render(state.color, params, base, method,
+                            plane_spec=None).shape == (32, 32, 3)
         engine.camera.view, engine.camera.eye = pose

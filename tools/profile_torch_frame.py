@@ -4,7 +4,8 @@
                                          [--grid X Y Z] [--probe]
                                          [--pallas-jacobi 0|1]
                                          [--mg-project-fused] [--method 0-3]
-                                         [--point-light] [--frames 10]
+                                         [--point-light] [--light-pos X Y Z]
+                                         [--faithful] [--eye-inside] [--frames 10]
 
 Runs `FluidXEngine(PRESETS[preset])` (fluid3d: 128^3 grid, fluid2d:
 512x512x1 grid, both with an 800x800 viewport; `--grid` replaces the
@@ -17,7 +18,12 @@ the TPU) and `--grid 150 150 150 --probe` PRESETS["fluidgi"];
 `--mg-project-fused` the fused projection, B18, where its gate holds, as
 at 256^3; `--method` the render method by number, 2 and 3 the DIRECT
 methods; `--point-light` the point light, lit by the projective sweep in
-place of B9) and prints, each beside the card's name and power limit:
+place of B9, and with `--light-pos` inside the volume (e.g. 5 2 -3) by the
+faithful stack; `--faithful` the faithful stack, `toggle_ez()` after
+construction (the gather advect, the projection without multigrid, R2
+and R1); `--eye-inside` the camera dollied into the volume, where a
+DIRECT method takes R1) and prints, each beside the card's name and power
+limit:
   - the host ms/frame of the frame replayed from its CUDA graph
     (`step_frame`) and of the same frame op by op (`_frame_eager`), in
     turns (op by op, replayed, op by op, replayed): medians of `--frames`
@@ -27,7 +33,8 @@ place of B9) and prints, each beside the card's name and power limit:
     the probe also the AO and B16), cube march (B10 per visible face),
     resolve + composite; under a DIRECT method, in place of the last two,
     the plane march with its warp (B10 or B17 once) and the warp +
-    composite alone.  fluid2d: advect (B11 twice + forces),
+    composite alone; on the faithful stack the gather advect, R2's light
+    map and R1's cube march or screen march.  fluid2d: advect (B11 twice + forces),
     projection (B14), visualize + composite;
   - from `torch.profiler` over `--frames` steps, replayed and then op by
     op: device time and launches per frame (kernels, and copies/sets by
@@ -150,6 +157,9 @@ def main() -> int:
     ap.add_argument("--mg-project-fused", action="store_true")
     ap.add_argument("--method", type=int, default=1, choices=(0, 1, 2, 3))
     ap.add_argument("--point-light", action="store_true")
+    ap.add_argument("--light-pos", type=float, nargs=3, metavar=("X", "Y", "Z"))
+    ap.add_argument("--faithful", action="store_true")
+    ap.add_argument("--eye-inside", action="store_true")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=20)
     args = ap.parse_args()
@@ -159,14 +169,18 @@ def main() -> int:
     from fluidx12_tpu_torch.core.config import PRESETS, RenderMethod
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.render.cubemap import ray_march_cube
+    from fluidx12_tpu_torch.render.lightmap import render_light_map
     from fluidx12_tpu_torch.render.lightmap_sweep import render_light_map_fast
-    from fluidx12_tpu_torch.render.pipeline import render_frame
+    from fluidx12_tpu_torch.render.pipeline import point_light_ok, render_frame
+    from fluidx12_tpu_torch.render.raycast import ray_cast_direct
     from fluidx12_tpu_torch.render.resolve import resolve_cube
     from fluidx12_tpu_torch.render.screencomp import (
         _warp_plane_to_screen,
         ray_cast_direct_fast,
     )
     from fluidx12_tpu_torch.render.slicecomp import ray_march_cube_fast
+    from fluidx12_tpu_torch.sim.advect import advect
     from fluidx12_tpu_torch.sim.advect_fast import advect_fields_fast
     from fluidx12_tpu_torch.sim.project import project
     from fluidx12_tpu_torch.utils.image import composite_premultiplied
@@ -181,6 +195,8 @@ def main() -> int:
                               point_light=args.point_light)
     if args.grid:
         cfg = dataclasses.replace(cfg, grid_size=tuple(args.grid))
+    if args.light_pos:
+        cfg = dataclasses.replace(cfg, light_pos=tuple(args.light_pos))
     radiance = None
     if args.probe:
         import numpy as np
@@ -189,6 +205,11 @@ def main() -> int:
             "radiance"]
     engine = FluidXEngine(cfg, radiance=radiance)
     engine.render_method = RenderMethod(args.method)
+    if args.faithful:
+        engine.toggle_ez()
+        cfg = engine.config
+    if args.eye_inside:
+        engine.camera.dolly(15.5)
     for _ in range(args.warmup):
         engine.step_frame()
     torch.cuda.synchronize()
@@ -205,7 +226,9 @@ def main() -> int:
         medians[kind].append(statistics.median(times))
     print(f"[{card}] {args.preset}, grid {cfg.grid_size}, probe {args.probe}, "
           f"pallas_jacobi={cfg.pallas_jacobi}, mg_project_fused={cfg.mg_project_fused}, "
-          f"{engine.render_method.name}, point_light={cfg.point_light}: "
+          f"{engine.render_method.name}, point_light={cfg.point_light} at {cfg.light_pos}, "
+          f"fast_render={cfg.fast_render}, fast_sim={cfg.fast_sim}, eye inside "
+          f"{args.eye_inside}: "
           f"host ms/frame, medians of {args.frames} frames in turns: "
           + "; ".join(f"{kind} {a:.3f}, {b:.3f}" for kind, (a, b) in medians.items()))
 
@@ -214,15 +237,52 @@ def main() -> int:
     packed, lod, vis_mask = engine.update_frame()
     params = unpack_scene_params(packed)
     dt = torch.tensor(cfg.time_step, dtype=torch.float32, device=st.fields.device)
-    copies = [st.fields.clone() for _ in range(SPAN_CALLS + 1)]
+    # The projection's input: f32 fields after the gather advect, the
+    # storage dtype after the fast one.
+    proj_dtype = st.fields.dtype if cfg.fast_sim else torch.float32
+    copies = [st.fields.to(proj_dtype).clone() for _ in range(SPAN_CALLS + 1)]
     grid = st.color
     layers = {
+        "advect (the gather, plain torch)": lambda _: advect(st.fields[:3], st.fields[3:], dt,
+                                                             cfg),
+    } if not cfg.fast_sim else {
         "advect (B1 + B2)" if cfg.is_3d else "advect (B11 x2 + forces)":
             lambda _: advect_fields_fast(st.fields, dt, cfg),
+    }
+    layers.update({
         "projection (B18)" if cfg.mg_project_fused else "projection":
             lambda i: project(copies[i], st.pressure, cfg.time_step, cfg),
-    }
-    if cfg.is_3d:
+    })
+    faithful = cfg.is_3d and not (cfg.fast_render and point_light_ok(cfg))
+    faithful_direct = (cfg.is_3d and not engine.render_method.uses_cube_map
+                       and engine._direct_plane_spec(lod) is None)
+    if faithful or faithful_direct:
+        sh = engine.sh_coeffs
+        bg = torch.tensor(cfg.clear_color[:3], device=grid.device)
+        env_bg = engine._env_bg(params)
+        light = None
+        if engine.render_method.separate_light_pass:
+            if faithful:
+                layers["light map (R2)"] = lambda _: render_light_map(grid, params, cfg, sh)
+                light = render_light_map(grid, params, cfg, sh)
+            else:
+                layers["light map (B9)"] = lambda _: render_light_map_fast(grid, params, cfg, sh)
+                light = render_light_map_fast(grid, params, cfg, sh)
+        if engine.render_method.uses_cube_map:
+            cube = ray_march_cube(grid, params, cfg, lod=lod, light_map=light, sh_coeffs=sh)
+            layers["cube march (R1)"] = lambda _: ray_march_cube(grid, params, cfg, lod=lod,
+                                                                 light_map=light, sh_coeffs=sh)
+
+            def resolve(_):
+                rgba = resolve_cube(cube, params, cfg, rect=engine._screen_rect())
+                back = bg.expand(rgba.shape[:-1] + (3,)) if env_bg is None else env_bg
+                return composite_premultiplied(rgba, back)
+
+            layers["resolve + composite"] = resolve
+        else:
+            layers["screen march (R1)"] = lambda _: ray_cast_direct(grid, params, cfg,
+                                                                    light_map=light, sh_coeffs=sh)
+    elif cfg.is_3d:
         sh = engine.sh_coeffs
         light = render_light_map_fast(grid, params, cfg, sh)
         cube = ray_march_cube_fast(grid, params, cfg, light, lod=lod, static_mask=vis_mask)
