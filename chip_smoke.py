@@ -87,14 +87,18 @@ key, a DIRECT key and back), checks torch.profiler's count of one
 replay's device operations against one frame op by op, prints the memory
 the card reserves after one key and after six, and holds step_frames(8)
 to eight step_frame calls bit for bit on PRESETS["fluid2d"] and on the
-256^3 GI frame.  The faithful stack's two marches, R1 (`view_march`, one
-thread a view ray) and R2 (`light_march`, one thread a voxel), which
-replace the JAX package's XLA scans and no TPU kernel, are held against
-their plain versions at full width on developed smoke (phase 2h: R2 at
-128^3 and at 150^3 with the probe, R1 on the default camera's cube faces
-and on the 800^2 DIRECT rays, separate and merged; within 1e-5 except on
-at most 0.1% of the values, with bounds counted from the samples each ray
-took); phase 3h drives PRESETS["fluid3d"] after toggle_ez() under the four
+256^3 GI frame.  The faithful stack's two marches, R1 (`view_march`,
+persistent warps fetching rays by tiles: `raymarch.view_plan`) and R2
+(`light_march`, a CTA a brick, its dense voxels queued: `raymarch.light_plan`),
+which replace the JAX package's XLA scans and no TPU kernel, are held
+against their plain versions at full width on developed smoke and on dense
+smoke (phase 2h: R2 at 128^3 and at 150^3 with the probe, R1 on the
+default camera's cube faces and on the 800^2 DIRECT rays, separate and
+merged; within 1e-5 except on at most 0.1% of the values, with bounds
+counted from the samples each ray took), equal bit for bit to the
+one-thread-a-ray designs they replaced (`raymarch.view_march_perthread`,
+`light_march_perthread`) and timed in turns with them, warm and L2-cold,
+and must beat them in each; phase 3h drives PRESETS["fluid3d"] after toggle_ez() under the four
 methods, the DIRECT methods with the eye inside the volume, a point light
 inside the volume and PRESETS["fluidgi"] after toggle_ez() (the probe's SH
 and AO in both kernels), with exact launch counts, the host ms/frame
@@ -363,7 +367,9 @@ def print_times(results, names) -> None:
                else "B8" if name.startswith("grad_damp")
                else "B9" if name.startswith("shear_scan")
                else "B11" if name.startswith("advect_axis")
-               else "B15" if name.startswith("gradient3") else "B4")
+               else "B15" if name.startswith("gradient3")
+               else "R1" if name.startswith("view_march")
+               else "R2" if name.startswith("light_march") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})")
@@ -2091,6 +2097,13 @@ DOLLY_INSIDE = 15.5
 INTERIOR_LIGHT = dict(point_light=True, light_pos=(5.0, 2.0, -3.0))
 # R1 merged is held to its plain version on every this-many-th 800^2 ray.
 MERGED_STRIDE = 7
+# Dense smoke for R1 and R2: PRESETS["fluid3d"] after DENSE_FRAMES frames;
+# where under DENSE_MIN of its view samples are dense, a synthetic field
+# of seed DENSE_SEED with DENSE_SHARE of its voxels dense.
+DENSE_FRAMES = 600
+DENSE_MIN = 0.10
+DENSE_SEED = 18
+DENSE_SHARE = 0.30
 
 
 def warm_engine(cfg, dev, radiance=None, frames: int = WARM_FRAMES):
@@ -2132,9 +2145,28 @@ def r2_flops(samples, grid, zero: float, probe: bool) -> float:
             + float(samples.sum()) * LIGHT_SAMPLE_OPS)
 
 
-def check_r2(results, name, engine, label):
-    """R2 on the warm engine's colour grid against its plain version, timed,
-    with its bound; returns the kernel's light map."""
+def time_r_designs(results, name, kernel, yardstick, operands, reps: int = 10) -> None:
+    """Times R1's or R2's design in turns with the per-thread design it
+    replaced, warm (`kernel()`, `yardstick()`) and with the
+    operands out of L2 (`kernel(*ops)`, `yardstick(*ops)` over copies of
+    `operands`), and fails unless it beats it in both."""
+    r = results[name]
+    y0 = time_ms(yardstick, reps)
+    k0 = time_ms(kernel, reps, what=name)
+    k1 = time_ms(kernel, reps, what=name)
+    r.update(yardstick_name="per-thread design", yardstick_ms=[y0, time_ms(yardstick, reps)],
+             kernel_ms=[k0, k1], ms=(k0 + k1) / 2)
+    measure_cold(results, name, kernel, yardstick, operands, reps=reps)
+    print_times(results, [name])
+    check_faster(results, name)
+    check_faster(results, name, cold=True)
+
+
+def check_r2(results, name, engine, label, grid=None):
+    """R2 on the warm engine's colour grid (or `grid`, of its dims) against
+    its plain version and, bit for bit, the per-thread design it replaced;
+    timed in turns with that design, warm and L2-cold, with its bound;
+    returns the kernel's light map."""
     from fluidx12_tpu_torch.core.state import unpack_scene_params
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
@@ -2142,19 +2174,27 @@ def check_r2(results, name, engine, label):
 
     cfg = engine.config
     params = unpack_scene_params(engine.update_frame()[0])
-    grid = engine.state.color
+    grid = engine.state.color if grid is None else grid
     env = RC.make_light_env(params, engine.sh_coeffs, cfg)
     packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
     num = params.num_light_samples
     samples = torch.empty(cfg.zyx, dtype=torch.int32, device=grid.device)
+    samples_old = torch.empty_like(samples)
     got = R.light_march(grid, packed, flags, num, cfg, samples=samples)
+    old = R.light_march_perthread(grid, packed, flags, num, cfg, samples=samples_old)
+    check(torch.equal(got, old) and torch.equal(samples, samples_old),
+          f"R2 {label}: equal to its per-thread design bit for bit")
     err = held(got, light_map_plain(grid.float(), env, num, cfg), f"R2 {label}")
     flops = r2_flops(samples, grid, cfg.zero_threshold, env.has_probe)
     measure(results, name, err, lambda: R.light_march(grid, packed, flags, num, cfg),
             lambda: light_map_plain(grid.float(), env, num, cfg), nbytes(grid, got), flops,
             reps=10, plain_reps=1)
+    time_r_designs(results, name, lambda g=grid: R.light_march(g, packed, flags, num, cfg),
+                   lambda g=grid: R.light_march_perthread(g, packed, flags, num, cfg), (grid,))
     r = results[name]
-    print(f"R2 {label}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms); "
+    dense = float((grid[3].float() >= cfg.zero_threshold).float().mean())
+    print(f"R2 {label}: {r['ms']:.4f} ms (per-thread design {min(r['yardstick_ms']):.4f}, plain "
+          f"{r['plain_ms']:.2f} ms); {100 * dense:.2f}% of the voxels dense, "
           f"{float(samples.sum()):.4g} light samples, bound {r['bound_ms'] * 1e3:.1f} us "
           f"({r['bound_by']})")
     return got
@@ -2164,7 +2204,9 @@ def check_r1(results, name, grid, rays, num, env, cfg, label, light_map=None, nu
              stride: int = 1):
     """R1 on `rays` (origin, direction, t_max, active) against its plain
     version, the plain one on every `stride`-th ray (merged: its nested
-    loops run per sample), timed, with its bound."""
+    loops run per sample), and, bit for bit, the per-thread design it
+    replaced; timed in turns with that design, warm and L2-cold, with its
+    bound.  Returns the share of the view samples that were dense."""
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
 
@@ -2172,10 +2214,15 @@ def check_r1(results, name, grid, rays, num, env, cfg, label, light_map=None, nu
     n = active.numel()
     lead = tuple(active.shape)
     samples = torch.empty(lead + (3,), dtype=torch.int32, device=grid.device)
+    samples_old = torch.empty_like(samples)
     kw = dict(light_map=light_map, num_light_samples=num_light)
     packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
     got = R.view_march(grid, origin, ray_dir, t_max, active, num, packed, flags, cfg,
                        samples=samples, **kw)
+    old = R.view_march_perthread(grid, origin, ray_dir, t_max, active, num, packed, flags, cfg,
+                                 samples=samples_old, **kw)
+    check(torch.equal(got, old) and torch.equal(samples, samples_old),
+          f"R1 {label}: equal to its per-thread design bit for bit")
 
     def plain():
         sub = [t.reshape(n, -1)[::stride].squeeze(-1) for t in (origin, ray_dir, t_max, active)]
@@ -2193,61 +2240,117 @@ def check_r1(results, name, grid, rays, num, env, cfg, label, light_map=None, nu
     flops = r1_flops(samples, merged, env.has_probe)
     n_bytes = nbytes(grid, origin, ray_dir, t_max, active, got) + (
         0 if light_map is None else nbytes(light_map))
+    operands = (grid, origin, ray_dir, t_max, active) + (() if merged else (light_map,))
 
-    def kernel():
-        return R.view_march(grid, origin, ray_dir, t_max, active, num, packed, flags, cfg, **kw)
+    def launch(fn):
+        def call(g=grid, o=origin, d=ray_dir, t=t_max, a=active, lm=light_map):
+            return fn(g, o, d, t, a, num, packed, flags, cfg, light_map=lm,
+                      num_light_samples=num_light)
+        return call
 
+    kernel, yardstick = launch(R.view_march), launch(R.view_march_perthread)
     if stride == 1:
         measure(results, name, err, kernel, plain, n_bytes, flops, reps=10, plain_reps=1)
     else:
         bound_ms, bound_by = bound(n_bytes, flops)
-        results[name] = dict(max_abs_err=err, ms=time_ms(kernel, 5, what=name),
-                             plain_ms=plain_s * 1e3, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=None)
+        results[name] = dict(max_abs_err=err, plain_ms=plain_s * 1e3, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None)
+    time_r_designs(results, name, kernel, yardstick, operands, reps=10 if stride == 1 else 5)
     r = results[name]
     views, dense, lights = (float(samples[..., k].sum()) for k in range(3))
-    print(f"R1 {label}: {n} rays, {r['ms']:.4f} ms (plain {r['plain_ms']:.2f} ms"
+    print(f"R1 {label}: {n} rays, {r['ms']:.4f} ms (per-thread design "
+          f"{min(r['yardstick_ms']):.4f} ms, plain {r['plain_ms']:.2f} ms"
           f"{f' on every {stride}th ray, one call' if stride > 1 else ''}); samples: "
-          f"{views:.4g} view, {dense:.4g} dense, {lights:.4g} light; bound "
-          f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+          f"{views:.4g} view, {dense:.4g} dense ({100 * dense / max(views, 1.0):.2f}%), "
+          f"{lights:.4g} light; bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+    return dense / max(views, 1.0)
+
+
+def synthetic_smoke(cfg, dev, seed: int = DENSE_SEED):
+    """A (4, Z, Y, X) colour grid in the storage dtype of seeded smooth
+    noise (numpy default_rng(seed), three box passes along each axis),
+    DENSE_SHARE of its voxels above zero_threshold: density up to 0.5,
+    rgb a fixed colour times it."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.0, 1.0, cfg.zyx).astype(np.float32)
+    for ax in range(3):
+        for _ in range(3):
+            d = (np.roll(d, 1, ax) + d + np.roll(d, -1, ax)) / 3.0
+    cut = np.quantile(d, 1.0 - DENSE_SHARE)
+    d = np.where(d > cut, cfg.zero_threshold + 0.5 * (d - cut) / (d.max() - cut), 0.0)
+    rgb = np.array([0.9, 0.7, 0.5], np.float32)[:, None, None, None] * d[None]
+    grid = np.concatenate([rgb, d[None]]).astype(np.float32)
+    return torch.from_numpy(grid).to(dev, torch.bfloat16).contiguous()
 
 
 def phase2h_faithful_kernels(dev, results):
     """R1 and R2, the faithful stack's marches, against their plain versions
-    at full width on developed smoke (WARM_FRAMES frames of the fast
-    stack): R2 on PRESETS["fluid3d"]'s 128^3 grid (the kernels line's row)
-    and on PRESETS["fluidgi"]'s 150^3 with the probe (SH irradiance and AO
-    rays); R1 on the default camera's cube faces at lod 0 with R2's light
-    map (the kernels line's row), on the 800^2 DIRECT rays separate, and
-    merged (shadow rays per sample), held on every MERGED_STRIDE-th ray.
-    Returns the two warm engines, whose states phase 3h starts from."""
-    phase("phase 2h: R1 and R2 (the faithful marches) vs plain versions at full width")
+    and, bit for bit, the per-thread designs they replaced, timed in turns
+    with those designs, warm and L2-cold, at full width on developed smoke
+    (WARM_FRAMES frames of the fast stack): R2 on PRESETS["fluid3d"]'s
+    128^3 grid (the kernels line's row) and on PRESETS["fluidgi"]'s 150^3
+    with the probe (SH irradiance and AO rays); R1 on the default camera's
+    cube faces at lod 0 with R2's light map (the kernels line's row), on
+    the 800^2 DIRECT rays separate, and merged (shadow rays per sample),
+    held on every MERGED_STRIDE-th ray.  Then the same four on dense smoke:
+    PRESETS["fluid3d"] after DENSE_FRAMES frames, or, where under
+    DENSE_MIN of its cube view samples are dense, a seeded synthetic field
+    (`synthetic_smoke`).  Returns the two warm engines, whose states phase
+    3h starts from."""
+    phase("phase 2h: R1 and R2 (the faithful marches) vs plain versions and their per-thread "
+          "designs at full width")
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core.constants import device_constant
     from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
     from fluidx12_tpu_torch.render.cubemap import cube_rays
     from fluidx12_tpu_torch.render.raycast import direct_rays
-    from fluidx12_tpu_torch.render.raymarch_core import make_light_env
 
     warm = warm_engine(PRESETS["fluid3d"], dev)
     warm_gi = warm_engine(PRESETS["fluidgi"], dev, radiance=np.load(PROBE)["radiance"])
-    light_map = check_r2(results, "light_march", warm, "128^3")
+    dense_engine = warm_engine(PRESETS["fluid3d"], dev, frames=DENSE_FRAMES)
     check_r2(results, "light_march_150_probe", warm_gi, "150^3 with the probe")
 
     cfg = warm.config
     packed, lod, _ = warm.update_frame()
     params = unpack_scene_params(packed)
-    grid = warm.state.color
-    env = make_light_env(params, None, cfg)
-    check_r1(results, "view_march", grid, cube_rays(params, cfg, lod, dev), params.num_samples,
-             env, cfg, f"cube faces, lod {lod}, separate", light_map=light_map)
+    env = RC.make_light_env(params, None, cfg)
+    cube = cube_rays(params, cfg, lod, dev)
     origin, ray_dir, hit = direct_rays(params, cfg, dev)
     rays = (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit)
-    check_r1(results, "view_march_direct", grid, rays, params.num_samples, env, cfg,
-             "800^2 DIRECT, separate", light_map=light_map)
-    check_r1(results, "view_march_direct_merged", grid, rays,
-             device_constant(cfg.max_ray_samples, torch.int32, dev), env, cfg,
-             "800^2 DIRECT, merged", num_light=params.num_light_samples, stride=MERGED_STRIDE)
+    merged_num = device_constant(cfg.max_ray_samples, torch.int32, dev)
+    light_map = None
+    for engine, suffix, what in ((warm, "", f"{WARM_FRAMES} frames"),
+                                 (dense_engine, "_dense", f"{DENSE_FRAMES} frames")):
+        grid = engine.state.color
+        if suffix:
+            # The same pose as the 60-frame state's rays (the engines' poses agree).
+            lm = R.light_march(grid, RC.pack_env(env), RC.env_flags(env, cfg),
+                               params.num_light_samples, cfg)
+            probe = torch.empty(cube[3].shape + (3,), dtype=torch.int32, device=dev)
+            R.view_march(grid, *cube, params.num_samples, RC.pack_env(env),
+                         RC.env_flags(env, cfg), cfg, light_map=lm, samples=probe)
+            share = float(probe[..., 1].sum()) / max(float(probe[..., 0].sum()), 1.0)
+            voxels = float((grid[3].float() >= cfg.zero_threshold).float().mean())
+            print(f"dense smoke: after {DENSE_FRAMES} frames {100 * voxels:.2f}% of the voxels "
+                  f"and {100 * share:.2f}% of the cube view samples are dense")
+            if share < DENSE_MIN:
+                grid = synthetic_smoke(cfg, dev)
+                what = (f"a seeded synthetic field (default_rng({DENSE_SEED}), "
+                        f"{100 * DENSE_SHARE:.0f}% of the voxels dense)")
+                print(f"dense smoke: under {100 * DENSE_MIN:.0f}% dense there; R1 and R2 are "
+                      f"held and timed on {what} instead")
+        light_map = check_r2(results, f"light_march{suffix}", engine, f"128^3, {what}", grid=grid)
+        check_r1(results, f"view_march{suffix}", grid, cube, params.num_samples, env, cfg,
+                 f"cube faces, lod {lod}, separate, {what}", light_map=light_map)
+        check_r1(results, f"view_march_direct{suffix}", grid, rays, params.num_samples, env,
+                 cfg, f"800^2 DIRECT, separate, {what}", light_map=light_map)
+        check_r1(results, f"view_march_direct_merged{suffix}", grid, rays, merged_num, env, cfg,
+                 f"800^2 DIRECT, merged, {what}", num_light=params.num_light_samples,
+                 stride=MERGED_STRIDE)
+    del dense_engine
+    torch.cuda.empty_cache()
     return warm, warm_gi
 
 

@@ -75,8 +75,11 @@ _SIGNATURES = {
     "fx_gradient3_perthread": [_P, _P, _I, _I, _I, _P],
     "fx_gi_light": [_P, _P, _P, _P, _P, _F, _I, _I, _I, _P],
     "fx_view_march": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _L, _I, _I, _F, _F, _I, _P],
-    "fx_light_march": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _P],
+                      _L, _I, _I, _F, _F, _I, _I, _I, _I, _I, _P],
+    "fx_view_march_perthread": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _L, _I, _I, _F, _F, _I, _P],
+    "fx_light_march": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _P],
+    "fx_light_march_perthread": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _P],
 }
 
 _lib = None

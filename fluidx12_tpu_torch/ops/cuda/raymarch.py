@@ -5,9 +5,12 @@ These replace no TPU kernel: they replace the JAX package's XLA scans of
 fluidx12_tpu/render/raymarch_core.py `view_march` (:337-420; in merged
 mode nesting `cast_light_ray`'s scan per sample) and of
 fluidx12_tpu/render/lightmap.py `render_light_map` (:36-108), which as
-plain PyTorch would be hundreds of thousands of launches a frame.  The
-Hopper design (one thread a ray or voxel, the plain versions' arithmetic
-op for op) and what bounds it: fluidx12_tpu_torch/csrc/raymarch.cu.
+plain PyTorch would be hundreds of thousands of launches a frame.  R1 is
+laid out by `view_plan` (persistent warps that fetch rays by 8 x 4 tiles
+from a per-launch counter), R2 by `light_plan` (a CTA a brick of voxels, its dense ones
+queued and marched as full warps).  `view_march_perthread` and `light_march_perthread`
+keep the one-thread-a-ray designs they replaced as yardsticks.  The Hopper
+designs and what bounds them: fluidx12_tpu_torch/csrc/raymarch.cu.
 
 Unlike the other wrappers here, these two launch only: their plain
 versions march with the render layer's machinery, so they live beside
@@ -22,7 +25,9 @@ nothing from the host.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,6 +38,126 @@ from fluidx12_tpu_torch.ops.cuda import _build
 FLAG_PREMULTIPLIED, FLAG_PROBE, FLAG_POINT_LIGHT = 1, 2, 4
 ENV_SIZE = 48
 
+# ---------------------------------------------------------------------------
+# The launch plans (csrc/raymarch.cu's constants)
+# ---------------------------------------------------------------------------
+
+# R1: CTAs of VIEW_THREADS threads, as many as the card holds at once (or
+# fewer where the rays are fewer); a warp's rays are a tile of TILE_RAYS,
+# tile_w x TILE_RAYS / tile_w of the rays' (rows, cols) plane, tile_w one
+# of TILE_WIDTHS (8 x 4 tiles, or 32 x 1 where the plane has fewer than 4
+# rows); a warp fetches once all its lanes are idle.
+VIEW_THREADS = 128
+TILE_RAYS = 32
+TILE_WIDTHS = (8, 32)
+# R2: CTAs of LIGHT_WARPS warps, each a brick of BRICK_X x by x bz voxels,
+# by * bz at most MAX_BRICK_ROWS; the plan's (by, bz) is BRICK_YZ, or
+# BRICK_YZ_PROBE with the light probe (a dense voxel then marches two rays,
+# and half the brick keeps its CTA's queue to one voxel a lane).
+LIGHT_WARPS = 8
+BRICK_X = 32
+MAX_BRICK_ROWS = 32
+BRICK_YZ = (4, 4)
+BRICK_YZ_PROBE = (4, 2)
+# Tap offsets are 32-bit below this many values a grid's channels hold.
+OFFSETS_32 = 1 << 31
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class ViewPlan(NamedTuple):
+    """How R1 orders an (rows, cols) plane of rays (`view_plan`)."""
+    rows: int
+    cols: int
+    tile_w: int     # tile columns; a tile is tile_w x TILE_RAYS // tile_w rays
+    tiles_x: int
+    tiles_y: int
+    wide: bool      # 64-bit tap offsets
+
+    @property
+    def slots(self) -> int:
+        return TILE_RAYS * self.tiles_x * self.tiles_y
+
+
+def view_layout(rows: int, cols: int, tile_w: int, wide: bool = False) -> ViewPlan:
+    """The plan of `tile_w`-wide tiles on an (rows, cols) plane of rays:
+    `view_plan`'s own, or one forced; not checked here (fx_view_march
+    refuses what its kernel does not take)."""
+    tile_h = TILE_RAYS // tile_w if tile_w > 0 else 1
+    return ViewPlan(rows, cols, tile_w, _cdiv(cols, max(tile_w, 1)), _cdiv(rows, tile_h), wide)
+
+
+def _lead_plane(lead) -> tuple:
+    """(rows, cols) of rays of leading shape `lead`: the last axis along a
+    row, the others' product down the rows."""
+    lead = tuple(int(d) for d in lead)
+    return (math.prod(lead[:-1]), lead[-1]) if lead else (1, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def view_plan(lead: tuple, grid_zyx: tuple, map_zyx: Optional[tuple] = None) -> ViewPlan:
+    """The launch plan of R1 on rays of leading shape `lead` ((6, R, R)
+    cube texels, (H, W) screen rows, (N,)), over a (4, *grid_zyx) grid and
+    a (3, *map_zyx) light map, if any.  Slot s of the launch is ray
+    s % TILE_RAYS of tile s // TILE_RAYS (row-major in the tile, tiles
+    row-major); a warp whose lanes are all idle takes the next slots from a
+    counter, one a lane.  Offsets are 64-bit only where 32-bit ones do not
+    reach every tap.  Cached: the wrapper asks on every call.  Raises
+    ValueError where no plan fits: no rays, or 2^31 slots or more."""
+    rows, cols = _lead_plane(lead)
+    if rows < 1 or cols < 1:
+        raise ValueError(f"view_plan: no plan for rays of shape {lead}")
+    wide = (4 * math.prod(grid_zyx) >= OFFSETS_32
+            or (map_zyx is not None and 3 * math.prod(map_zyx) >= OFFSETS_32))
+    plan = view_layout(rows, cols, 8 if rows >= TILE_RAYS // 8 else 32, wide=wide)
+    if plan.slots >= OFFSETS_32:
+        raise ValueError(f"view_plan: no plan for rays of shape {lead}")
+    return plan
+
+
+class LightPlan(NamedTuple):
+    """How R2 cuts a (Z, Y, X) grid into bricks (`light_plan`)."""
+    by: int
+    bz: int
+    bricks: tuple   # (along x, along y, along z); a CTA each, x fastest
+    wide: bool
+
+
+def light_layout(zyx, by: int, bz: int, wide: bool = False) -> LightPlan:
+    """The plan of BRICK_X x by x bz bricks on a (Z, Y, X) grid:
+    `light_plan`'s own, or one forced; not checked here (fx_light_march
+    refuses what its kernel does not take)."""
+    z, y, x = (int(d) for d in zyx)
+    return LightPlan(by, bz, (_cdiv(x, BRICK_X), _cdiv(y, max(by, 1)), _cdiv(z, max(bz, 1))),
+                     wide)
+
+
+@functools.lru_cache(maxsize=None)
+def light_plan(zyx: tuple, probe: bool = False) -> LightPlan:
+    """The launch plan of R2 on a (4, *zyx) grid, with the light probe or
+    without.  CTA (i, j, k) owns voxels
+    x in [BRICK_X i, + BRICK_X), y in [by j, + by), z in [bz k, + bz),
+    where inside the grid: warp w tests rows w, w + LIGHT_WARPS, ... of the brick
+    (row r at y = by j + r % by, z = bz k + r // by; one voxel a lane),
+    writes the light of every empty voxel and queues the dense ones in
+    shared memory; then the warps march the queue 32 voxels at a time.
+    Cached.  Raises ValueError where no plan fits: an empty grid, 2^31
+    bricks or more."""
+    z, y, x = (int(d) for d in zyx)
+    if min(z, y, x) < 1:
+        raise ValueError(f"light_plan: no plan for a {zyx} grid")
+    plan = light_layout(zyx, *(BRICK_YZ_PROBE if probe else BRICK_YZ),
+                        wide=4 * z * y * x >= OFFSETS_32)
+    if math.prod(plan.bricks) >= OFFSETS_32:
+        raise ValueError(f"light_plan: no plan for a {zyx} grid")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# R1 and R2
+# ---------------------------------------------------------------------------
 
 def _check(grid: torch.Tensor, env: torch.Tensor, counts, name: str) -> None:
     if grid.device.type != "cuda":
@@ -50,6 +175,66 @@ def _check(grid: torch.Tensor, env: torch.Tensor, counts, name: str) -> None:
             raise ValueError(f"{name}: sample counts must be int32 scalars on the grid's device")
 
 
+def _view_operands(grid, origin, ray_dir, t_max, active, num_samples, env, light_map,
+                   num_light_samples, samples, name: str):
+    """Checks R1's operands; returns the rays as (n, ...) views, n and the
+    rays' leading shape."""
+    if light_map is None and num_light_samples is None:
+        raise ValueError(f"{name}: merged mode needs num_light_samples")
+    counts = [num_samples] + ([] if num_light_samples is None else [num_light_samples])
+    _check(grid, env, counts, name)
+    dev = grid.device
+    lead = tuple(origin.shape[:-1])
+    n = math.prod(lead)
+    rays = [origin.reshape(n, 3), ray_dir.reshape(n, 3), t_max.reshape(n), active.reshape(n)]
+    if (any(r.device != dev or not r.is_contiguous() for r in rays)
+            or any(r.dtype != torch.float32 for r in rays[:3]) or rays[3].dtype != torch.bool):
+        raise ValueError(f"{name}: origin, ray_dir, t_max (f32) and active (bool) must be "
+                         "contiguous on the grid's device")
+    if light_map is not None and (light_map.ndim != 4 or light_map.shape[0] != 3
+                                  or light_map.dtype != torch.float32
+                                  or not light_map.is_contiguous() or light_map.device != dev):
+        raise ValueError(f"{name}: light_map must be a contiguous f32 (3, Z, Y, X) "
+                         "tensor on the grid's device")
+    if samples is not None and (samples.dtype != torch.int32 or samples.numel() != 3 * n
+                                or not samples.is_contiguous() or samples.device != dev):
+        raise ValueError(f"{name}: samples must be a contiguous int32 (..., 3) tensor")
+    return rays, n, lead
+
+
+def _view_common(grid, rays, n, light_map, env, num_samples, num_light_samples, out, samples,
+                 flags, config) -> list:
+    """fx_view_march's arguments up to its plan."""
+    lm_dims = (0, 0, 0) if light_map is None else tuple(light_map.shape[1:])
+    return [grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:],
+            None if light_map is None else light_map.data_ptr(), *lm_dims, env.data_ptr(),
+            *(r.data_ptr() for r in rays), num_samples.data_ptr(),
+            None if num_light_samples is None else num_light_samples.data_ptr(),
+            out.data_ptr(), None if samples is None else samples.data_ptr(), n,
+            config.max_ray_samples, config.max_light_samples, float(config.absorption),
+            float(config.zero_threshold), flags]
+
+
+def _view_launch(plan, grid, origin, ray_dir, t_max, active, num_samples, env, flags, config,
+                 light_map=None, num_light_samples=None, samples=None, name: str = "view_march"):
+    """R1 with `plan`: a ViewPlan as given, "own" for `view_plan`'s, None
+    for the per-thread design; returns (out, error code)."""
+    rays, n, lead = _view_operands(grid, origin, ray_dir, t_max, active, num_samples, env,
+                                   light_map, num_light_samples, samples, name)
+    if plan == "own":
+        plan = view_plan(lead, tuple(grid.shape[1:]),
+                         None if light_map is None else tuple(light_map.shape[1:]))
+    out = torch.empty(lead + (4,), dtype=torch.float32, device=grid.device)
+    args = _view_common(grid, rays, n, light_map, env, num_samples, num_light_samples, out,
+                        samples, flags, config)
+    if plan is None:
+        err = _build.lib().fx_view_march_perthread(*args, _build.stream_ptr(grid))
+    else:
+        err = _build.lib().fx_view_march(*args, plan.rows, plan.cols, plan.tile_w,
+                                         int(plan.wide), _build.stream_ptr(grid))
+    return out, err
+
+
 def view_march(grid: torch.Tensor, origin: torch.Tensor, ray_dir: torch.Tensor,
                t_max: torch.Tensor, active: torch.Tensor, num_samples: torch.Tensor,
                env: torch.Tensor, flags: int, config: FluidConfig,
@@ -63,45 +248,51 @@ def view_march(grid: torch.Tensor, origin: torch.Tensor, ray_dir: torch.Tensor,
     flags the packed light environment; light_map (3, Z', Y', X') f32, of
     its own dims, selects the separate mode.  `samples` (an int32 tensor
     of (..., 3)), where given, receives each ray's view samples, dense
-    view samples and light-ray samples taken (the bound's count)."""
-    if light_map is None and num_light_samples is None:
-        raise ValueError("view_march: merged mode needs num_light_samples")
-    counts = [num_samples] + ([] if num_light_samples is None else [num_light_samples])
-    _check(grid, env, counts, "view_march")
-    dev = grid.device
-    lead = tuple(origin.shape[:-1])
-    n = 1
-    for d in lead:
-        n *= d
-    rays = [origin.reshape(n, 3), ray_dir.reshape(n, 3), t_max.reshape(n), active.reshape(n)]
-    if (any(r.device != dev or not r.is_contiguous() for r in rays)
-            or any(r.dtype != torch.float32 for r in rays[:3]) or rays[3].dtype != torch.bool):
-        raise ValueError("view_march: origin, ray_dir, t_max (f32) and active (bool) must be "
-                         "contiguous on the grid's device")
-    if light_map is not None and (light_map.ndim != 4 or light_map.shape[0] != 3
-                                  or light_map.dtype != torch.float32
-                                  or not light_map.is_contiguous() or light_map.device != dev):
-        raise ValueError("view_march: light_map must be a contiguous f32 (3, Z, Y, X) "
-                         "tensor on the grid's device")
-    if samples is not None and (samples.dtype != torch.int32 or samples.numel() != 3 * n
-                                or not samples.is_contiguous() or samples.device != dev):
-        raise ValueError("view_march: samples must be a contiguous int32 (..., 3) tensor")
-    out = torch.empty(lead + (4,), dtype=torch.float32, device=dev)
-    lm_dims = (0, 0, 0) if light_map is None else tuple(light_map.shape[1:])
-    err = _build.lib().fx_view_march(
-        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:],
-        None if light_map is None else light_map.data_ptr(), *lm_dims, env.data_ptr(),
-        *(r.data_ptr() for r in rays), num_samples.data_ptr(),
-        None if num_light_samples is None else num_light_samples.data_ptr(),
-        out.data_ptr(), None if samples is None else samples.data_ptr(), n,
-        config.max_ray_samples, config.max_light_samples, float(config.absorption),
-        float(config.zero_threshold), flags, _build.stream_ptr(grid))
+    view samples and light-ray samples taken (the bound's count).  One
+    launch, laid out by `view_plan`; launches on one device must follow
+    each other on one stream (they share the fetch counter)."""
+    out, err = _view_launch("own", grid, origin, ray_dir, t_max, active, num_samples, env, flags,
+                            config, light_map, num_light_samples, samples)
     view_march.launches += 1
     _build.check(err, "fx_view_march")
     return out
 
 
 view_march.launches = 0
+
+
+def view_march_perthread(*args, **kwargs) -> torch.Tensor:
+    """The design R1 replaced, one thread a ray in storage order
+    (`fx_view_march_perthread`), kept only as a yardstick to time it
+    against.  Arguments as `view_march`.  No path of the port calls it,
+    and it counts no launch."""
+    out, err = _view_launch(None, *args, name="view_march_perthread", **kwargs)
+    _build.check(err, "fx_view_march_perthread")
+    return out
+
+
+def _light_launch(plan, grid, env, flags, num_light_samples, config, samples=None,
+                  name: str = "light_march"):
+    """R2 with `plan`: a LightPlan as given, "own" for `light_plan`'s, None
+    for the per-thread design; returns (out, error code)."""
+    _check(grid, env, [num_light_samples], name)
+    if plan == "own":
+        plan = light_plan(tuple(grid.shape[1:]), bool(flags & FLAG_PROBE))
+    if samples is not None and (samples.dtype != torch.int32
+                                or samples.numel() != grid[0].numel()
+                                or not samples.is_contiguous() or samples.device != grid.device):
+        raise ValueError(f"{name}: samples must be a contiguous int32 (Z, Y, X) tensor")
+    out = torch.empty((3,) + tuple(grid.shape[1:]), dtype=torch.float32, device=grid.device)
+    args = [grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:], env.data_ptr(),
+            num_light_samples.data_ptr(), out.data_ptr(),
+            None if samples is None else samples.data_ptr(), config.max_light_samples,
+            float(config.absorption), float(config.zero_threshold), flags]
+    if plan is None:
+        err = _build.lib().fx_light_march_perthread(*args, _build.stream_ptr(grid))
+    else:
+        err = _build.lib().fx_light_march(*args, plan.by, plan.bz, int(plan.wide),
+                                          _build.stream_ptr(grid))
+    return out, err
 
 
 def light_march(grid: torch.Tensor, env: torch.Tensor, flags: int,
@@ -111,22 +302,21 @@ def light_march(grid: torch.Tensor, env: torch.Tensor, flags: int,
     in its storage dtype (bf16 or f32) (render/lightmap.light_map_plain);
     env and flags the packed light environment; num_light_samples an
     int32 device scalar.  `samples` (int32, (Z, Y, X)), where given,
-    receives each voxel's light samples taken."""
-    _check(grid, env, [num_light_samples], "light_march")
-    if samples is not None and (samples.dtype != torch.int32
-                                or samples.numel() != grid[0].numel()
-                                or not samples.is_contiguous() or samples.device != grid.device):
-        raise ValueError("light_march: samples must be a contiguous int32 (Z, Y, X) tensor")
-    out = torch.empty((3,) + tuple(grid.shape[1:]), dtype=torch.float32, device=grid.device)
-    err = _build.lib().fx_light_march(
-        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:], env.data_ptr(),
-        num_light_samples.data_ptr(), out.data_ptr(),
-        None if samples is None else samples.data_ptr(), config.max_light_samples,
-        float(config.absorption), float(config.zero_threshold), flags,
-        _build.stream_ptr(grid))
+    receives each voxel's light samples taken.  One launch, laid out by
+    `light_plan`."""
+    out, err = _light_launch("own", grid, env, flags, num_light_samples, config, samples)
     light_march.launches += 1
     _build.check(err, "fx_light_march")
     return out
 
 
 light_march.launches = 0
+
+
+def light_march_perthread(*args, **kwargs) -> torch.Tensor:
+    """The design R2 replaced, one thread a voxel (`fx_light_march_perthread`),
+    kept only as a yardstick to time it against.  Arguments as
+    `light_march`.  No path of the port calls it, and it counts no launch."""
+    out, err = _light_launch(None, *args, name="light_march_perthread", **kwargs)
+    _build.check(err, "fx_light_march_perthread")
+    return out

@@ -5,6 +5,7 @@ GPU machine run them with
 machine has no JAX, which tests/conftest.py imports).  chip_smoke.py makes
 the same comparison at the presets' full shapes."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -1321,3 +1322,178 @@ def test_view_march_matches_plain(dev, case):
     assert int(samples[~active].abs().sum()) == 0 and int(samples[:, 0].max()) > 1
     assert bool((samples[:, 1] <= samples[:, 0]).all()) and int(samples[:, 1].sum()) > 0
     assert (int(samples[:, 2].sum()) > 0) == (not separate)
+
+
+# R1's and R2's designs (view_plan, light_plan) against the per-thread
+# designs they replaced: (grid zyx, density fill, dtype, probe, point light).
+R_CASES = {
+    "empty": ((24, 24, 24), "empty", torch.bfloat16, False, False),
+    "dense": ((24, 24, 24), "dense", torch.bfloat16, False, False),
+    "ragged": ((22, 13, 20), "smoke", torch.bfloat16, False, False),
+    "f32": ((24, 24, 24), "smoke", torch.float32, False, False),
+    "probe": ((24, 24, 24), "smoke", torch.bfloat16, True, False),
+    "point": ((24, 24, 24), "smoke", torch.bfloat16, False, True),
+}
+
+
+def _design_inputs(dev, case):
+    """R_CASES[case]'s config (32 ray and 8 light samples), colour grid
+    (density all 0, all at least 0.05, or smoke with about a third of the
+    voxels dense), scene parameters and light environment."""
+    from fluidx12_tpu_torch.core.state import unpack_scene_params
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.render.raymarch_core import make_light_env
+
+    zyx, fill, dtype, probe, point = R_CASES[case]
+    kw = dict(grid_size=zyx[::-1], viewport=(48, 48), max_ray_samples=32, max_light_samples=8,
+              has_light_probe=probe)
+    if point:
+        kw.update(INTERIOR_LIGHT)
+    # The engine (the scene parameters) takes x = y; the kernels any dims.
+    cfg = FluidConfig(**dict(kw, grid_size=(24, 24, 24)))
+    rng = np.random.default_rng(11)
+    dens = rng.uniform(0.0, 0.6, zyx).astype(np.float32)
+    for ax in range(3):
+        dens = (np.roll(dens, 1, ax) + dens + np.roll(dens, -1, ax)) / 3
+    dens = {"empty": 0.0 * dens, "dense": 0.05 + 0.5 * dens,
+            "smoke": np.maximum(dens - 0.28, 0.0) * 3.0}[fill].astype(np.float32)
+    grid = np.concatenate([dens[None] * np.array([0.9, 0.7, 0.5], np.float32)[:, None, None, None],
+                           dens[None]])
+    grid = torch.from_numpy(grid).to(dev, dtype).contiguous()
+    engine = FluidXEngine(cfg, device=dev)
+    params = unpack_scene_params(engine.update_frame()[0])
+    sh = torch.from_numpy(rng.uniform(-0.4, 1.2, (9, 3)).astype(np.float32)).to(dev)
+    cfg = dataclasses.replace(cfg, grid_size=zyx[::-1])
+    return cfg, grid, params, make_light_env(params, sh if probe else None, cfg)
+
+
+def _design_rays(dev, shape, seed=1):
+    """Rays of leading `shape` from points in and around the box, at their
+    box entries, random directions, finite and infinite t_max, an active
+    mask (hit, and 90% of those)."""
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy(rng.uniform(-1.6, 1.6, shape + (3,)).astype(np.float32)).to(dev)
+    d = rng.standard_normal(shape + (3,)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True)).to(dev)
+    origin, hit = RC.compute_ray_origin(o, d)
+    t_max = np.where(rng.uniform(size=shape) < 0.3, rng.uniform(0.2, 2.0, shape), np.inf)
+    active = hit & torch.from_numpy(rng.uniform(size=shape) < 0.9).to(dev)
+    return (origin.contiguous(), d.contiguous(),
+            torch.from_numpy(t_max.astype(np.float32)).to(dev), active.contiguous())
+
+
+@pytest.mark.parametrize("case", list(R_CASES))
+def test_light_march_equals_its_perthread_design(dev, case):
+    """R2 (`light_plan`'s bricks, queued dense voxels) equals the
+    one-thread-a-voxel design it replaced bit for bit, light and samples,
+    under its plan and forced ones: 1 x 1 and 2 x 8 bricks, 64-bit
+    offsets."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    cfg, grid, params, env = _design_inputs(dev, case)
+    args = (grid, RC.pack_env(env), RC.env_flags(env, cfg), params.num_light_samples, cfg)
+    s_new = torch.full(cfg.zyx, -1, dtype=torch.int32, device=dev)
+    s_old = torch.full(cfg.zyx, -2, dtype=torch.int32, device=dev)
+    got = R.light_march(*args, samples=s_new)
+    old = R.light_march_perthread(*args, samples=s_old)
+    assert torch.equal(got, old) and torch.equal(s_new, s_old)
+    assert (int(s_new.sum()) > 0) == (R_CASES[case][1] != "empty")
+    for plan in (R.light_layout(cfg.zyx, 1, 1), R.light_layout(cfg.zyx, 2, 8),
+                 R.light_layout(cfg.zyx, 4, 4, wide=True)):
+        out, err = R._light_launch(plan, *args)
+        assert err == 0 and torch.equal(out, old)
+
+
+@pytest.mark.parametrize("mode", ["separate", "half_map", "merged"])
+@pytest.mark.parametrize("case", list(R_CASES))
+def test_view_march_equals_its_perthread_design(dev, case, mode):
+    """R1 (`view_plan`'s persistent warps fetching 8 x 4 tiles) equals the
+    one-thread-a-ray design it replaced bit for bit, output and samples,
+    on a (20, 28) plane and on 3000 rays in a row (32 x 1 tiles), separate
+    (a light map of the grid's dims, and one of half its lateral dims) and
+    merged; under its plan and forced ones: 32 x 1 tiles, 64-bit
+    offsets."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, case)
+    light_map = None
+    if mode != "merged":
+        light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    if mode == "half_map" and R_CASES[case][0] == (24, 24, 24):
+        z, y, x = cfg.zyx
+        light_map = light_map.reshape(3, z, y // 2, 2, x // 2, 2).mean(dim=(3, 5)).contiguous()
+    kw = dict(light_map=light_map, num_light_samples=params.num_light_samples)
+    for shape in ((20, 28), (3000,)):
+        rays = _design_rays(dev, shape)
+        args = (grid, *rays, params.num_samples, RC.pack_env(env), RC.env_flags(env, cfg), cfg)
+        s_new = torch.full(shape + (3,), -1, dtype=torch.int32, device=dev)
+        s_old = torch.full(shape + (3,), -2, dtype=torch.int32, device=dev)
+        got = R.view_march(*args, samples=s_new, **kw)
+        old = R.view_march_perthread(*args, samples=s_old, **kw)
+        assert torch.equal(got, old) and torch.equal(s_new, s_old)
+        assert int(s_new[..., 0].sum()) > 0
+        rows, cols = R._lead_plane(shape)
+        for plan in (R.view_layout(rows, cols, 32), R.view_layout(rows, cols, 8, wide=True)):
+            out, err = R._view_launch(plan, *args, **kw)
+            assert err == 0 and torch.equal(out, old)
+
+
+def test_view_march_counter_resets_between_launches(dev):
+    """R1's fetch counter is back at 0 after every launch: two launches in
+    a row, and a CUDA graph of one launch replayed three times, give the
+    first launch's output bit for bit (a counter left where a launch ended
+    would start the next one past its last ray)."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, "probe")
+    light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    args = (grid, *_design_rays(dev, (20, 28)), params.num_samples, RC.pack_env(env),
+            RC.env_flags(env, cfg), cfg)
+    first = R.view_march(*args, light_map=light_map)
+    assert torch.equal(R.view_march(*args, light_map=light_map), first)
+    assert float(first[..., 3].max()) > 0.05
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        R.view_march(*args, light_map=light_map)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = R.view_march(*args, light_map=light_map)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert torch.equal(R.view_march(*args, light_map=light_map), first)
+
+
+def test_raymarch_plans_the_kernels_refuse_raise(dev):
+    """fx_view_march refuses tiles other than 8 and 32 wide and a plane
+    that is not the rays'; fx_light_march a brick of no rows or of more
+    rows than a lane's word of dense bits; the wrappers' check raises on
+    the refusal; nothing is launched."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    cfg, grid, params, env = _design_inputs(dev, "ragged")
+    light = (grid, RC.pack_env(env), RC.env_flags(env, cfg), params.num_light_samples, cfg)
+    for by, bz in ((0, 4), (3, 11), (4, 0)):
+        _, err = R._light_launch(R.light_layout(cfg.zyx, by, bz), *light)
+        assert err != 0
+        with pytest.raises(RuntimeError):
+            _build.check(err, "fx_light_march")
+    args = (grid, *_design_rays(dev, (20, 28)), params.num_samples, *light[1:3], cfg)
+    for plan in (R.view_layout(20, 28, 16), R.view_layout(20, 28, 4),
+                 R.view_layout(21, 28, 8)):
+        _, err = R._view_launch(plan, *args, num_light_samples=params.num_light_samples)
+        assert err != 0
+    torch.cuda.synchronize()
