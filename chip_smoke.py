@@ -103,7 +103,17 @@ methods, the DIRECT methods with the eye inside the volume, a point light
 inside the volume and PRESETS["fluidgi"] after toggle_ez() (the probe's SH
 and AO in both kernels), with exact launch counts, the host ms/frame
 replayed and op by op, and each key's replays held to its frames op by op
-bit for bit; phase 4 adds two faithful frames at 32^3.  Every phase prints its
+bit for bit; phase 3i runs the engine shell at full width,
+`fluidx12_tpu_torch.engine.cli.main` in-process: the default launch for 60
+frames with screenshots, metrics and the watchdog at batch 1 and 8 (equal
+frames, PNGs equal to the frames, launches exactly phase 3's), a session
+saved after 30 frames and resumed in a fresh engine (frames 31-60 bit for
+bit), PRESETS["fluidgi"] with the npz probe and with it as a float DDS
+(equal frames), PRESETS["fluid2d"] and --method 2 (launches as phases 3e,
+3b and 3f counted them), --profile-passes and a --profile trace with CUDA
+kernel events, and prints the host ms/frame of FrameLoop.run against bare
+step_frame calls and the watchdog's cost; phase 4 adds two faithful frames
+at 32^3.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -136,6 +146,8 @@ FRAMES_DIRECT = 20
 FRAMES_DIRECT_MERGED = 5
 FRAMES_POINT = 20
 WARMUP_FRAMES = 10
+# Phase 3i's watchdog period, in frames.
+WATCHDOG = 20
 GRID_256 = (256, 256, 256)
 # The 256x256x60 GI frame: a wide, shallow smoke layer.
 GRID_SLAB = (256, 256, 60)
@@ -2567,6 +2579,278 @@ def phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results):
     return out
 
 
+def scaled_counts(counts: dict, frames_from: int, frames_to: int) -> dict:
+    """`counts` of `frames_from` frames scaled to `frames_to` frames (each
+    count a whole number of launches a frame)."""
+    check(all(n % frames_from == 0 for n in counts.values()),
+          f"{counts} are whole launches a frame over {frames_from} frames")
+    return {k: n // frames_from * frames_to for k, n in counts.items()}
+
+
+def write_float_cube_dds(path: str, cube: np.ndarray) -> None:
+    """A DX10 RGBA32F cube-map DDS of the (6, S, S, 3) f32 `cube`, alpha 1."""
+    import struct
+
+    size = cube.shape[1]
+    header = bytearray(148)
+    header[0:4] = b"DDS "
+    struct.pack_into("<7I", header, 4, 124, 0x1007, size, size, 0, 1, 1)
+    struct.pack_into("<II", header, 4 + 72, 32, 0x4)
+    header[4 + 80:4 + 84] = b"DX10"
+    struct.pack_into("<I", header, 4 + 108, 0x1000 | 0x8)
+    struct.pack_into("<I", header, 4 + 112, 0x200 | 0xFE00)
+    struct.pack_into("<5I", header, 128, 2, 3, 0x4, 1, 0)
+    rgba = np.concatenate([cube, np.ones(cube.shape[:-1] + (1,), np.float32)], axis=-1)
+    with open(path, "wb") as f:
+        f.write(bytes(header))
+        f.write(np.ascontiguousarray(rgba, np.float32).tobytes())
+
+
+def run_cli(argv, label: str, expect=None) -> dict:
+    """cli.main(argv) on the card with the launch counts set to 0 just
+    before; the frames it dispatched (as FrameLoop paced them), its engine,
+    its stderr and the launch counts of its frame loop (read as
+    FrameLoop.run returns, before --profile-passes), which must equal
+    `expect` where given."""
+    import contextlib
+    import io
+
+    from fluidx12_tpu_torch.engine import cli
+    from fluidx12_tpu_torch.engine import frame_loop as FL
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    got = {"frames": []}
+    pace, run = FL.FrameLoop._pace, FL.FrameLoop.run
+
+    def recording(self, image):
+        got["frames"].extend(image.unbind(0) if image.ndim == 4 else [image])
+        got["engine"] = self.engine
+        return pace(self, image)
+
+    def counted(self, *args, **kwargs):
+        out = run(self, *args, **kwargs)
+        got["counts"] = launch_counts()
+        return out
+
+    err = io.StringIO()
+    FL.FrameLoop._pace, FL.FrameLoop.run = recording, counted
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        FL.FrameLoop._pace, FL.FrameLoop.run = pace, run
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got["stderr"] = err.getvalue()
+    print(f"{label}: cli.main({' '.join(argv)}) -> {rc} in {secs:.2f} s, "
+          f"{len(got['frames'])} frames; stderr: {got['stderr'].strip()!r}")
+    check(rc == 0, f"{label}: exit code {rc}")
+    check(got["stderr"].startswith("[fluidx12-tpu-torch] device: cuda ("),
+          f"{label}: the banner names the card")
+    if expect is not None:
+        check(got["counts"] == expect, f"{label}: launch counts {got['counts']} != {expect}")
+    image = got["frames"][-1]
+    check(bool(torch.isfinite(image).all()) and image.is_cuda, f"{label}: finite frames")
+    return got
+
+
+def passes_printed(stderr: str) -> dict:
+    """{pass: ms} of the `[profile] name ms` lines."""
+    out = {}
+    for line in stderr.splitlines():
+        if line.startswith("[profile]"):
+            _, name, ms, _ = line.split()
+            out[name] = float(ms)
+    return out
+
+
+def shell_ms(engine, frames: int, turns: int = 3) -> dict:
+    """Host ms/frame, in turns on one engine whose key is captured: a
+    bare loop of `frames` step_frame calls and FrameLoop.run(frames) with
+    batch 1 and 8, each ending in a synchronize (FrameLoop.run ends with
+    the last frame on the host), and step_frame synchronized each frame
+    (the median of its frames)."""
+    from fluidx12_tpu_torch.engine.frame_loop import FrameLoop
+
+    loop = FrameLoop(engine, show_fps=False)
+
+    def bare():
+        for _ in range(frames):
+            engine.step_frame()
+        torch.cuda.synchronize()
+
+    def synced():
+        times = []
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            engine.step_frame()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {"step_frame": [], "FrameLoop.run, batch 1": [], "FrameLoop.run, batch 8": [],
+           "step_frame synchronized (median)": []}
+    for _ in range(turns):
+        for name, fn in (("step_frame", bare),
+                         ("FrameLoop.run, batch 1", lambda: loop.run(frames)),
+                         ("FrameLoop.run, batch 8", lambda: loop.run(frames, batch=8))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            out[name].append((time.perf_counter() - t0) * 1e3 / frames)
+        out["step_frame synchronized (median)"].append(synced())
+    return out
+
+
+def phase3i_shell(dev, smi_line, counts_3d, counts_2d, counts_fluidgi, counts_direct_merged):
+    """The engine shell at full width: `python -m fluidx12_tpu_torch.engine.cli`
+    called in-process on the card.  (a) The default launch (PRESETS["fluid3d"],
+    128^3 / 800^2) for FRAMES frames with screenshots, metrics and the
+    watchdog, with batch 1 and 8: the two last frames equal bit for bit,
+    the PNGs decode to the frames' to_srgb_u8, the launches exactly phase
+    3's.  (b) 30 frames and a checkpoint, then a fresh engine restored from
+    it for 30 more: its frames equal the uninterrupted run's frames 31-60
+    bit for bit.  (c) PRESETS["fluidgi"] with the default probe and with the
+    same probe written to a float DDS (equal frames), PRESETS["fluid2d"]
+    and --method 2, launches as phases 3e, 3b and 3f counted them.  (d)
+    --profile-passes and a --profile trace with CUDA kernel events.  (e)
+    printed, not gated: host ms/frame of FrameLoop.run against bare
+    step_frame calls, and the watchdog's cost."""
+    import os
+    import tempfile
+
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.engine.frame_loop import FrameLoop
+    from fluidx12_tpu_torch.utils.image import to_srgb_u8
+    from fluidx12_tpu_torch.utils.native import get_native_lib
+    from fluidx12_tpu_torch.utils.png import read_png
+
+    phase("phase 3i: the shell, python -m fluidx12_tpu_torch.engine.cli at full width")
+    half = FRAMES // 2
+    base = ["--no-fps"]
+    print(f"PNG encoder: {'native' if get_native_lib() is not None else 'numpy'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) The default launch, per frame and eight frames a dispatch.
+        runs = {}
+        for batch in (1, 8):
+            shots = os.path.join(tmp, f"b{batch}_f_{{frame}}.png")
+            metrics = os.path.join(tmp, f"b{batch}_m.jsonl")
+            runs[batch] = run_cli(
+                base + ["--frames", str(FRAMES), "--screenshot", shots, "--screenshot-every",
+                        str(half), "--metrics", metrics, "--watchdog", str(WATCHDOG), "--batch",
+                        str(batch)], f"fluid3d, batch {batch}", expect=counts_3d)
+            frames = runs[batch]["frames"]
+            check(len(frames) == FRAMES, f"batch {batch}: {len(frames)} frames")
+            for n in (half, FRAMES):
+                check(np.array_equal(read_png(shots.format(frame=n)),
+                                     to_srgb_u8(frames[n - 1])),
+                      f"batch {batch}: the PNG of frame {n} is its frame")
+            # The watchdog runs after the dispatch that crosses each multiple
+            # of its period (frames 24, 40, 60 with batch 8).
+            ends = list(range(batch, FRAMES, batch)) + [FRAMES]
+            due = [e for p, e in zip([0] + ends, ends) if e // WATCHDOG > p // WATCHDOG]
+            recs = [json.loads(line) for line in open(metrics)]
+            check([r["frame"] for r in recs] == due
+                  and all(r["healthy"] and r["cfl_disp"] is not None for r in recs),
+                  f"batch {batch}: the watchdog's metrics {recs}")
+            print(f"batch {batch}: watchdog metrics {recs}")
+        check(torch.equal(runs[1]["frames"][-1], runs[8]["frames"][-1]),
+              "batch 1 and batch 8 give the same last frame")
+        same = sum(torch.equal(a, b) for a, b in zip(runs[1]["frames"], runs[8]["frames"]))
+        print(f"batch 1 and 8: {same} of {FRAMES} frames equal bit for bit")
+        check(same == FRAMES, "batch 1 and 8 give the same frames")
+
+        # (b) Resume from a checkpoint in a fresh engine.
+        ckpt = os.path.join(tmp, "session.npz")
+        first = run_cli(base + ["--frames", str(half), "--checkpoint", ckpt], "first half")
+        check(all(torch.equal(a, b) for a, b in zip(first["frames"], runs[1]["frames"])),
+              "the first half equals the uninterrupted run")
+        second = run_cli(base + ["--frames", str(FRAMES - half), "--restore", ckpt],
+                         "restored half")
+        check(second["engine"].frame_index == FRAMES, "the restored run ends at frame 60")
+        diff = [i + half + 1 for i, (a, b) in enumerate(zip(second["frames"],
+                                                             runs[1]["frames"][half:]))
+                if not torch.equal(a, b)]
+        check(not diff, f"resumed frames equal frames {half + 1}-{FRAMES} (differ: {diff})")
+        print(f"resume: frames {half + 1}-{FRAMES} equal bit for bit")
+        del runs, first, second
+
+        # (c) The other launches.
+        gi = run_cli(base + ["--preset", "fluidgi", "--frames", str(FRAMES_FLUIDGI)],
+                     "fluidgi", expect=counts_fluidgi)
+        dds_path = os.path.join(tmp, "probe.dds")
+        write_float_cube_dds(dds_path, np.load(PROBE)["radiance"])
+        gi_dds = run_cli(base + ["--preset", "fluidgi", "--radiance", dds_path, "--frames",
+                                 str(FRAMES_FLUIDGI)], "fluidgi --radiance", expect=counts_fluidgi)
+        check(torch.equal(gi["frames"][-1], gi_dds["frames"][-1]),
+              "the DDS probe renders what the npz probe does")
+        del gi, gi_dds
+        run_cli(base + ["--preset", "fluid2d", "--frames", str(FRAMES_2D)], "fluid2d",
+                expect=counts_2d)
+        direct = run_cli(base + ["--method", "2", "--frames", str(FRAMES_DIRECT),
+                                 "--profile-passes"], "--method 2",
+                         expect=scaled_counts(counts_direct_merged, FRAMES_DIRECT_MERGED,
+                                              FRAMES_DIRECT))
+        ms = passes_printed(direct["stderr"])
+        check(list(ms) == ["advect", "project", "light_map", "plane_march", "warp", "total"]
+              and all(v > 0 for v in ms.values()), f"--method 2 passes {ms}")
+        del direct
+
+        # (d) The pass profiler and a trace.
+        prof_dir = os.path.join(tmp, "prof")
+        n = 10
+        prof = run_cli(base + ["--frames", str(n), "--profile", prof_dir, "--profile-passes"],
+                       "--profile", expect=scaled_counts(counts_3d, FRAMES, n))
+        ms = passes_printed(prof["stderr"])
+        check(list(ms) == ["advect", "project", "light_map", "cube_march", "resolve", "total"]
+              and all(v > 0 for v in ms.values()), f"fluid3d passes {ms}")
+        print(f"fluid3d passes, ms (CUDA events, 5 calls each): {ms} [{smi_line}]")
+        del prof
+        trace = os.path.join(prof_dir, "trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        print(f"--profile: {trace} {os.path.getsize(trace)} bytes, {len(events)} events, "
+              f"{len(kernels)} CUDA kernel events")
+        check(len(kernels) > 0, "the trace holds CUDA kernel events")
+
+    # (e) The loop's own cost, printed.
+    engine = FluidXEngine(PRESETS["fluid3d"], device=dev)
+    for _ in range(WARMUP_FRAMES):
+        engine.step_frame()
+    times = shell_ms(engine, FRAMES)
+    for name, ms in times.items():
+        print(f"shell, fluid3d: {name}: " + ", ".join(f"{t:.3f}" for t in ms)
+              + f" ms/frame ({FRAMES} frames a turn, in turns) [{smi_line}]")
+    # What FrameLoop.run adds once a run: its last frame to the host as u8.
+    image = engine.step_frame()
+    finish = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_srgb_u8(image)
+        finish.append((time.perf_counter() - t0) * 1e3)
+    print(f"shell, fluid3d: a run's end, the last frame to the host as u8: median "
+          f"{statistics.median(finish):.3f} ms (10 calls) [{smi_line}]")
+    import contextlib
+    import io
+
+    loop = FrameLoop(engine, show_fps=False)
+    costs = []
+    with contextlib.redirect_stdout(io.StringIO()):  # the CFL warnings
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop._watchdog()
+            costs.append((time.perf_counter() - t0) * 1e3)
+    print(f"shell, fluid3d: the watchdog's cost: median {statistics.median(costs):.3f} ms a "
+          f"call, min {min(costs):.3f}, max {max(costs):.3f} (20 calls, the card idle; "
+          f"{loop.cfl_warnings} CFL warnings) [{smi_line}]")
+
+
 def phase4_cpu_vs_cuda(dev):
     """The port on CUDA against the port on the CPU, 3 frames at six small
     grids: the pallas_jacobi=False path at (128, 128, 16), the default
@@ -2694,11 +2978,14 @@ def main() -> int:
     counts_gi, engine_256 = phase3c_256(dev, smi_line)
     counts_fused, counts_slab = phase3d_fused_and_slab(dev, smi_line, engine_256)
     del engine_256
-    phase3e_fluidgi(dev, smi_line)
-    phase3f_direct_and_point(dev, smi_line)
+    counts_fluidgi = phase3e_fluidgi(dev, smi_line)
+    counts_direct = phase3f_direct_and_point(dev, smi_line)
     phase3g_replay_vs_eager(dev, smi_line)
     counts_faithful = phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results)
     del warm, warm_gi
+    torch.cuda.empty_cache()
+    phase3i_shell(dev, smi_line, counts, counts_2d, counts_fluidgi,
+                  counts_direct["RAY_MARCH_DIRECT_MERGED"])
     torch.cuda.empty_cache()
     counts_direct24 = phase4_cpu_vs_cuda(dev)
     kernels = []

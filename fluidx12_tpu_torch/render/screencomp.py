@@ -158,19 +158,29 @@ def ray_cast_direct_fast(grid: torch.Tensor, params: SceneParams, config: FluidC
                          light_map: torch.Tensor, spec: DirectPlaneSpec,
                          num_samples: torch.Tensor, rect=None) -> torch.Tensor:
     """(H, W, 4) premultiplied RGBA of the (4, Z, Y, X) colour grid lit by
-    `light_map`, by the DIRECT methods' shear-warp (screencomp.py:200-257).
-    `num_samples` is the method's ray-sample count: max_ray_samples for the
-    merged method, the LOD-clamped count for the separate one."""
+    `light_map`, by the DIRECT methods' shear-warp (screencomp.py:200-257):
+    the base plane's march, then its warp to the screen.  `num_samples` is
+    the method's ray-sample count: max_ray_samples for the merged method,
+    the LOD-clamped count for the separate one."""
+    img = march_direct_plane(grid, params, config, light_map, spec, num_samples)
+    return _warp_plane_to_screen(img, spec, params, config, rect=rect)
+
+
+def march_direct_plane(grid: torch.Tensor, params: SceneParams, config: FluidConfig,
+                       light_map: torch.Tensor, spec: DirectPlaneSpec,
+                       num_samples: torch.Tensor) -> torch.Tensor:
+    """The base plane's (Rv, Ru, 4) premultiplied image: the colour grid
+    lit by `light_map`, resampled onto the plane and composited (B10 in its
+    zero-outside mode, or B17, `slicecomp.plane_kernel`)."""
     dtype = config.render_dtype
     local_eye = transform_point_h(params.eye_pt, params.world_i)[:3].to(dtype)
     dens = grid[3:4].to(dtype)
     prod = grid[:3].to(dtype) * light_map.to(dtype)
     vol = torch.cat([dens, prod]).to(mxu16(grid.device))
     volf = _axis_volume(vol, _FACES[spec.face_id][0], config, lod=0)
-    img = _march_face(spec.face_id, volf, local_eye, num_samples, config, dtype, lod=0,
-                      b17=plane_kernel(config, spec.face_id, spec.res) == "B17",
-                      extent=spec.extent, res=spec.res)
-    return _warp_plane_to_screen(img, spec, params, config, rect=rect)
+    return _march_face(spec.face_id, volf, local_eye, num_samples, config, dtype, lod=0,
+                       b17=plane_kernel(config, spec.face_id, spec.res) == "B17",
+                       extent=spec.extent, res=spec.res)
 
 
 def sample_camera(viewport=(800, 800), orbit=(0.0, 0.0)) -> OrbitCamera:

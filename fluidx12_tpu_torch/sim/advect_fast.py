@@ -24,6 +24,7 @@ import functools
 import torch
 
 from fluidx12_tpu_torch.core.config import FluidConfig
+from fluidx12_tpu_torch.ops.cuda import advect as _kernels
 from fluidx12_tpu_torch.ops.cuda.advect import (
     advect_axis,
     advect_xy,
@@ -33,6 +34,27 @@ from fluidx12_tpu_torch.ops.cuda.advect import (
     forces_table,
 )
 from fluidx12_tpu_torch.sim.advect import apply_impulse_forces
+
+# The kernels' clamp on a per-axis backtrace displacement, in voxels
+# (fluidx12_tpu/sim/advect_fast.py:36).
+MAX_DISP = int(_kernels.MAX_DISP)
+
+
+def max_backtrace_disp(velocity: torch.Tensor, time_step: float,
+                       config: FluidConfig) -> torch.Tensor:
+    """Largest per-axis, per-substep backtrace displacement in voxels of
+    the (3, Z, Y, X) velocity, as an f32 scalar on its device
+    (fluidx12_tpu/sim/advect_fast.py:39).  The frame loop's watchdog reads
+    it between frames, never inside a captured one, to warn before the
+    fast advect's MAX_DISP clamp makes it part ways with the faithful
+    one.  The port stores the grid compact, so there is nothing to crop."""
+    z, y, x = config.zyx
+    n_sub = max(int(config.advect_substeps), 1)
+    dt_sub = float(torch.tensor(time_step, dtype=torch.float32) / n_sub)
+    dims = (x, y, z) if config.is_3d else (x, y)
+    peak = velocity[:len(dims)].abs().float().amax(dim=(1, 2, 3))
+    disp = [peak[i] * n for i, n in enumerate(dims)]
+    return torch.stack(disp).amax() * dt_sub
 
 
 @functools.lru_cache(maxsize=None)

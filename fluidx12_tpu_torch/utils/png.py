@@ -1,5 +1,12 @@
-"""Minimal PNG reader (numpy + zlib), for comparing frames with the golden
-images under tests/goldens/ (mirror of fluidx12_tpu/utils/png.read_png)."""
+"""PNG output for screenshots and a minimal reader (mirror of
+fluidx12_tpu/utils/png.py; ref: stb_image_write + FluidX::SaveImage,
+FluidX12.cpp:640-660).
+
+`write_png` prefers the native encoder (native/libfxnative.so through
+utils/native.py, where it is built); the numpy + zlib encoder writes a
+valid PNG with filter-0 rows.  Both run on the host.  `read_png` reads
+what either writes and the golden images under tests/goldens/.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +14,54 @@ import struct
 import zlib
 
 import numpy as np
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write an (H, W, 3|4) uint8 image to `path`."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError("write_png expects uint8")
+    if image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"expected (H, W, 3|4), got {image.shape}")
+
+    from fluidx12_tpu_torch.utils.native import get_native_lib
+
+    lib = get_native_lib()
+    if lib is not None:
+        import ctypes
+
+        h, w, c = image.shape
+        ok = lib.fx_write_png(
+            path.encode(), image.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            ctypes.c_int(w), ctypes.c_int(h), ctypes.c_int(c), ctypes.c_int(w * c),
+        )
+        if ok:
+            return
+        # fall through to the numpy encoder on failure
+
+    _write_png_numpy(path, image)
+
+
+def _write_png_numpy(path: str, image: np.ndarray) -> None:
+    h, w, c = image.shape
+    color_type = 2 if c == 3 else 6
+
+    def chunk(tag: bytes, payload: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(payload))
+            + tag
+            + payload
+            + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF)
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * c)], axis=1)
+    idat = zlib.compress(raw.tobytes(), 6)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", ihdr))
+        f.write(chunk(b"IDAT", idat))
+        f.write(chunk(b"IEND", b""))
 
 
 def read_png(path: str) -> np.ndarray:

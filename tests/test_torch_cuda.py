@@ -1497,3 +1497,115 @@ def test_raymarch_plans_the_kernels_refuse_raise(dev):
         _, err = R._view_launch(plan, *args, num_light_samples=params.num_light_samples)
         assert err != 0
     torch.cuda.synchronize()
+
+
+# The engine shell on the card (chip_smoke.py phase 3i runs it at full
+# width).  SHELL: the golden case's 24^3 grid at a 64^2 viewport.
+SHELL = ["--gridSize", "24", "24", "24", "--viewport", "64", "64", "--maxRaySamples", "32",
+         "--maxLightSamples", "8", "--no-fps"]
+
+
+def test_cli_batched_equals_per_frame_on_the_card(dev, monkeypatch, tmp_path):
+    """cli.main on the card with batch 1 and 8: the same last frame, bit
+    for bit, and its screenshot decodes to it."""
+    from fluidx12_tpu_torch.engine import cli
+    from fluidx12_tpu_torch.engine import frame_loop as FL
+    from fluidx12_tpu_torch.utils.image import to_srgb_u8
+    from fluidx12_tpu_torch.utils.png import read_png
+
+    got = []
+    finish = FL.FrameLoop._finish
+
+    def keep(self, last, *args):
+        got.append((last, self.engine.frame_index))
+        return finish(self, last, *args)
+
+    monkeypatch.setattr(FL.FrameLoop, "_finish", keep)
+    for batch in (1, 8):
+        shot = str(tmp_path / f"b{batch}.png")
+        assert cli.main(SHELL + ["--frames", "20", "--batch", str(batch),
+                                 "--screenshot", shot]) == 0
+        last, frame_index = got[-1]
+        assert last.is_cuda and frame_index == 20
+        assert np.array_equal(read_png(shot), to_srgb_u8(last))
+    assert torch.equal(got[0][0], got[1][0])
+
+
+def test_frame_loop_keeps_at_most_frames_in_flight(dev, monkeypatch):
+    from fluidx12_tpu_torch.engine import frame_loop as FL
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+
+    loop = FL.FrameLoop(FluidXEngine(FluidConfig(grid_size=(32, 32, 32), viewport=(96, 96)),
+                                     device=dev), show_fps=False)
+    pace = FL.FrameLoop._pace
+    outstanding = []
+
+    def watched(self, image):
+        pace(self, image)
+        assert len(self._in_flight) <= self.FRAMES_IN_FLIGHT
+        outstanding.append(sum(not e.query() for e in self._in_flight))
+
+    monkeypatch.setattr(FL.FrameLoop, "_pace", watched)
+    for batch in (1, 4):
+        loop.run(12, batch=batch)
+    assert len(outstanding) == 12 + 3
+    assert max(outstanding) <= FL.FrameLoop.FRAMES_IN_FLIGHT
+    assert not loop._in_flight  # the run's end leaves nothing outstanding
+
+
+def test_profile_passes_times_on_the_card(dev):
+    from fluidx12_tpu_torch.core.config import RenderMethod
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.engine.profiler import profile_passes
+
+    eng = FluidXEngine(FluidConfig(grid_size=(32, 32, 32), viewport=(96, 96)), device=dev)
+    eng.step_frame()
+    before = eng.state.fields.clone()
+    for method, keys in ((RenderMethod.RAY_MARCH_SEPARATE, ["cube_march", "resolve"]),
+                         (RenderMethod.RAY_MARCH_DIRECT_MERGED, ["plane_march", "warp"])):
+        eng.render_method = method
+        out = profile_passes(eng)
+        assert list(out) == ["advect", "project", "light_map"] + keys + ["total"]
+        assert all(v > 0.0 for v in out.values())
+    assert torch.equal(eng.state.fields, before)
+
+
+def test_session_round_trip_on_the_card_is_bit_identical(dev, tmp_path):
+    from fluidx12_tpu_torch.core.config import RenderMethod
+    from fluidx12_tpu_torch.engine.checkpoint import load_session, save_session
+
+    a, b = _two_engines(dev, grid_size=(32, 32, 32))
+    a.render_method = RenderMethod.RAY_MARCH_DIRECT_SEPARATE
+    a.camera.orbit(17.0, 9.0)
+    for _ in range(4):
+        a.step_frame()
+    path = str(tmp_path / "sess.npz")
+    save_session(path, a)
+    load_session(path, b)
+    assert b.frame_index == a.frame_index and b.render_method == a.render_method
+    assert torch.equal(b.state.fields, a.state.fields)
+    for _ in range(3):
+        assert torch.equal(b.step_frame(), a.step_frame())
+
+
+def test_watchdog_between_replays_keeps_them_right(dev, tmp_path):
+    """The watchdog reads the state between replays and resets it through
+    `engine.state`: the next replays equal an engine's that had no
+    watchdog, and after a reset a fresh engine's frames."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.engine.frame_loop import FrameLoop
+
+    a, b = _two_engines(dev, grid_size=(32, 32, 32))
+    loop = FrameLoop(a, show_fps=False, metrics_path=str(tmp_path / "m.jsonl"))
+    for _ in range(3):
+        a.step_frame()
+        b.step_frame()
+    loop._watchdog()
+    for _ in range(3):
+        assert torch.equal(a.step_frame(), b.step_frame())
+    a.state.fields[3, 0, 0, 0] = float("nan")
+    loop._watchdog()
+    assert loop.recoveries == 1
+    fresh = FluidXEngine(a.config, device=dev)
+    for _ in range(3):
+        assert torch.equal(a.step_frame(), fresh.step_frame())
