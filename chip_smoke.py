@@ -112,8 +112,18 @@ bit), PRESETS["fluidgi"] with the npz probe and with it as a float DDS
 (equal frames), PRESETS["fluid2d"] and --method 2 (launches as phases 3e,
 3b and 3f counted them), --profile-passes and a --profile trace with CUDA
 kernel events, and prints the host ms/frame of FrameLoop.run against bare
-step_frame calls and the watchdog's cost; phase 4 adds two faithful frames
-at 32^3.  Every phase prints its
+step_frame calls and the watchdog's cost; phase 3j differentiates the
+faithful stack at full width (`adjoint_config`, ADJOINT: PRESETS["fluid3d"]
+with fast_sim, fast_render, use_pallas, mg_pressure and quantize_cube_map
+off and f32 state): two steps of SmokeModel.step with grad give the frames
+of the same steps without it bit for bit and the same launches, the
+backward of the second image's sum launches R1b and R2b (the adjoints,
+csrc/raymarch_grad.cu) once each and gives a finite non-zero gradient, R2b
+at 128^3 and R1b on the cube rays and on DIRECT rays are held to autograd
+through the plain versions within 1e-4 of its largest magnitude and timed,
+tests/test_adjoint.py's finite-difference check passes at 16^3, and the
+fast stack's kernels, the merged march and the light probe raise under
+grad; phase 4 adds two faithful frames at 32^3.  Every phase prints its
 lines; any failure raises, so the exit code is non-zero and the final JSON
 line is not printed.  The last line is {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches (on its path), error, time,
@@ -170,6 +180,7 @@ _ADV = "fluidx12_tpu_torch/csrc/advect.cu"
 _STN = "fluidx12_tpu_torch/csrc/stencil.cu"
 _JAC = "fluidx12_tpu_torch/csrc/jacobi.cu"
 _RM = "fluidx12_tpu_torch/csrc/raymarch.cu"
+_RMG = "fluidx12_tpu_torch/csrc/raymarch_grad.cu"
 # name: (ID, source, the TPU kernel it replaces), in frame order.
 KERNELS = {
     "advect_xy": ("B1", _ADV, "fluidx12_tpu/ops/pallas/advect.py:365"),
@@ -197,6 +208,9 @@ KERNELS = {
     # R1 and R2 replace no TPU kernel: the XLA scans of the faithful stack.
     "view_march": ("R1", _RM, "fluidx12_tpu/render/raymarch_core.py:337"),
     "light_march": ("R2", _RM, "fluidx12_tpu/render/lightmap.py:36"),
+    # R1b and R2b replace the JAX autodiff (jax.grad) of those scans.
+    "view_march_grad": ("R1b", _RMG, "fluidx12_tpu/render/raymarch_core.py:337"),
+    "light_march_grad": ("R2b", _RMG, "fluidx12_tpu/render/lightmap.py:36"),
 }
 # The projection's kernels: launched on the default preset's path only.
 PROJECTION = ("divergence", "jacobi", "residual", "jacobi_packed", "prolong_correct",
@@ -212,8 +226,10 @@ KERNELS_FUSED = ("jacobi_divrr", "jacobi_grad")
 KERNELS_SLAB = ("gradient3", "composite")
 # The faithful stack's R1 and R2, on the paths of phase 3h only.
 KERNELS_FAITHFUL = ("view_march", "light_march")
+# The adjoint's R1b and R2b, on the backward of phase 3j only.
+KERNELS_ADJOINT = ("view_march_grad", "light_march_grad")
 # Each path's own kernels: launched on no other path of phase 3.
-OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL
+OWN = KERNELS_2D + KERNELS_256 + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL + KERNELS_ADJOINT
 
 
 def phase(name: str) -> None:
@@ -1753,7 +1769,8 @@ def phase3c_256(dev, smi_line):
         expect.update(jacobi=2 * frames, jacobi_planewise=frames,
                       composite_resample=frames * faces, gi_light=frames if probe else 0,
                       **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
-                         + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL})
+                         + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB + KERNELS_FAITHFUL
+                         + KERNELS_ADJOINT})
         check(counts == expect, f"launch counts {counts} != {expect}")
         if probe:
             eager_vs_replayed(engine, label, smi_line)
@@ -2453,7 +2470,7 @@ def eye_inside_256(dev, smi_line, results, frames, inside):
     expect.update(jacobi=2 * frames, jacobi_planewise=frames, composite_resample=0,
                   gi_light=0, light_march=0,
                   **{name: 0 for name in ("residual", "jacobi_packed", "advect_z")
-                     + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB})
+                     + KERNELS_2D + KERNELS_FUSED + KERNELS_SLAB + KERNELS_ADJOINT})
     check(counts == expect, f"{label}: launch counts {counts} != {expect}")
     eager_vs_replayed(engine, label, smi_line, frames=5)
     params = unpack_scene_params(engine.update_frame()[0])
@@ -2577,6 +2594,370 @@ def phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results):
     eye_inside_256(dev, smi_line, results, frames, inside)
     print(f"phase 3h wall time: {time.perf_counter() - t0:.1f} s [{smi_line}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The adjoint: torch.autograd through the faithful stack, R1b and R2b
+# ---------------------------------------------------------------------------
+
+# f32 operations of the adjoints, for their bound (csrc/raymarch_grad.cu;
+# counted from the source, as R1_VIEW_OPS and the rest): R1b runs each view
+# sample of its ray again (R1's 53) and, per dense sample, the step and the
+# opacity again (16) and the walk back: the position and two corner sets
+# (33), the 7 channels' lerps (147), the accumulation's and the step's
+# adjoints (65), the 7 lerps' adjoints (357), 56 atomics and the position's
+# adjoint (15): 689.  R2b tests each voxel (R2's 54) and, per light sample
+# of a dense voxel, runs it again (65) and walks it back: the position and
+# corners (21), one lerp (21), the transmittance's and the step's adjoints
+# (35), the lerp's adjoint (51), 8 atomics and the position's adjoint (8):
+# 209.
+R1B_VIEW_OPS, R1B_DENSE_OPS = R1_VIEW_OPS, 689
+R2B_VOXEL_OPS, R2B_SAMPLE_OPS = R2_VOXEL_OPS, 209
+# The pieces the plain march's autograd takes the 800^2 DIRECT rays in: it
+# keeps about 450 bytes a ray a step (some 55 GB at 800^2 rays and 192
+# steps), so it marches and differentiates 200 rows of rays at a time.
+ADJOINT_DIRECT_PIECES = 4
+# tests/test_adjoint.py's render config (:85-89) for the finite differences.
+ADJOINT_FD = dict(grid_size=(16, 16, 16), viewport=(24, 24), num_pressure_iters=4,
+                  max_ray_samples=12, max_light_samples=4)
+
+
+def adjoint_config(**kw):
+    """ADJOINT: PRESETS["fluid3d"] on the faithful stack the JAX package
+    differentiates (README.md; tests/test_adjoint.py), f32 state."""
+    from fluidx12_tpu_torch.core.config import PRESETS
+
+    return dataclasses.replace(PRESETS["fluid3d"], **dict(
+        dict(fast_sim=False, fast_render=False, use_pallas=False, mg_pressure=False,
+             quantize_cube_map=False, sim_dtype=torch.float32), **kw))
+
+
+def held_grad(got, ref, what: str) -> float:
+    """Holds an adjoint's gradient to autograd's through the plain version:
+    within 1e-4 of its largest magnitude (atomics and autograd sum in other
+    orders); returns the max abs difference."""
+    err = float((got.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    print(f"{what}: max |autograd| {scale:.4g}, max |kernel - autograd| {err:.3e} "
+          f"({err / max(scale, 1e-30):.2e} of it)")
+    check(bool(torch.isfinite(got).all()) and scale > 0.0 and err <= 1e-4 * scale,
+          f"{what} within 1e-4 of autograd's largest magnitude")
+    return err
+
+
+def plain_backward_ms(loss) -> float:
+    """The device time of one autograd backward of `loss` (CUDA events)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss.backward()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def check_r2b(results, grid, env, cfg, num, smi_line):
+    """R2b at full width against autograd through `light_map_plain` with a
+    seeded cotangent, timed beside the plain backward, with its bound."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    cot = torch.from_numpy(np.random.default_rng(20).standard_normal((3,) + cfg.zyx)
+                           .astype(np.float32)).to(grid.device)
+    samples = torch.empty(cfg.zyx, dtype=torch.int32, device=grid.device)
+    got = R.light_march_grad(grid, packed, flags, num, cfg, cot, samples=samples)
+    torch.cuda.reset_peak_memory_stats()
+    g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
+    loss = (light_map_plain(g_ref, env, num, cfg) * cot).sum()
+    plain_ms = plain_backward_ms(loss)
+    plain_peak = torch.cuda.max_memory_allocated()
+    err = held_grad(got, g_ref.grad, f"R2b at {cfg.zyx}")
+    del loss, g_ref
+    taken = float(samples.sum())
+    flops = grid[3].numel() * R2B_VOXEL_OPS + taken * R2B_SAMPLE_OPS
+    # In: the density channel (the only one R2b reads) and the cotangent;
+    # out: the grid's cotangent (channels 0-2 zero).
+    bound_ms, bound_by = bound(nbytes(grid[3], cot, got), flops)
+    ms = time_ms(lambda: R.light_march_grad(grid, packed, flags, num, cfg, cot), 5, what="R2b")
+    # The traffic if every tap and atomic went to device memory.
+    traffic = taken * 8 * (2 * 4 + 8)
+    results["light_march_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"R2b at {cfg.zyx}: {ms:.4f} ms, plain autograd backward {plain_ms:.2f} ms (peak "
+          f"{plain_peak / 2**30:.2f} GiB with its forward), bound {bound_ms * 1e3:.1f} us "
+          f"({bound_by}); {taken:.4g} light samples walked; every tap and atomic at the memory "
+          f"rate {traffic / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line}]")
+
+
+def check_r1b(results, name, grid, light_map, rays, num, env, cfg, label, smi_line,
+              pieces: int = 1):
+    """R1b against autograd through the plain separate-light march with a
+    seeded cotangent on `rays` (origin, direction, t_max, active), timed
+    beside the plain backward, with its bound; stored under `name`.  The
+    plain march takes the rays in `pieces` along their first axis, each
+    piece's backward adding into the same gradients: rays march
+    independently, so the sum is the whole rays' gradient, and the plain
+    ms is the pieces' sum."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    lead = tuple(rays[3].shape)
+    cot = torch.from_numpy(np.random.default_rng(21).standard_normal(lead + (4,))
+                           .astype(np.float32)).to(grid.device)
+    samples = torch.empty(lead + (2,), dtype=torch.int32, device=grid.device)
+    g_grid, g_lm = R.view_march_grad(grid, light_map, *rays, num, packed, flags, cfg, cot,
+                                     samples=samples)
+    torch.cuda.reset_peak_memory_stats()
+    g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
+    lm_ref = light_map.clone().requires_grad_(True)
+    plain_ms = 0.0
+    for piece, c in zip(zip(*(r.chunk(pieces) for r in rays)), cot.chunk(pieces)):
+        loss = (RC.view_march(g_ref, piece[0], piece[1], piece[2], num, env, cfg,
+                              light_map=lm_ref, active=piece[3]) * c).sum()
+        plain_ms += plain_backward_ms(loss)
+        del loss
+    plain_peak = torch.cuda.max_memory_allocated()
+    err = max(held_grad(g_grid, g_ref.grad, f"R1b {label}, grid"),
+              held_grad(g_lm, lm_ref.grad, f"R1b {label}, light map"))
+    del g_ref, lm_ref
+    views, dense = (float(samples[..., k].sum()) for k in range(2))
+    flops = views * R1B_VIEW_OPS + dense * R1B_DENSE_OPS
+    # In: the grid, the map, the rays, the cotangent; out: the grid's and the map's cotangents.
+    bound_ms, bound_by = bound(nbytes(grid, light_map, *rays, cot, grid, light_map), flops)
+    ms = time_ms(lambda: R.view_march_grad(grid, light_map, *rays, num, packed, flags, cfg, cot),
+                 5, what=name)
+    traffic = dense * 8 * 7 * (4 + 8)
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    print(f"R1b {label}: {ms:.4f} ms on {math.prod(lead)} rays ({views:.4g} view samples, "
+          f"{dense:.4g} dense walked), plain autograd backward {plain_ms:.2f} ms in {pieces} "
+          f"piece(s) (peak {plain_peak / 2**30:.2f} GiB with its forward), bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_by}); every tap and atomic at the memory rate "
+          f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line}]")
+
+
+def adjoint_fd_start(model):
+    """The FD checks' state: two steps of `model` from its initial state."""
+    params = model.default_params()
+    state = model.init()
+    with torch.no_grad():
+        for _ in range(2):
+            state, _ = model.step(state, params)
+    return state
+
+
+def adjoint_card_vs_cpu(dev):
+    """The 16^3 / 24^2 adjoint (ADJOINT_FD) on the card, through R1, R2, R1b
+    and R2b, against the same on the CPU, through the plain versions under
+    autograd, from one state, with the simulation (the gather advect, the
+    Jacobi twins) in f32 and in bf16: the gradient of the second image's
+    sum with respect to an initial velocity perturbation, of the
+    simulation's dtype, within 1e-4 (f32) or 5e-2 (bf16, some six
+    roundings of its largest magnitude: the state, the perturbation and
+    every sim op's gradient are bf16 there) of the CPU's largest
+    magnitude."""
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.models.smoke import SmokeModel
+
+    start = adjoint_fd_start(SmokeModel(adjoint_config(**ADJOINT_FD), device=dev))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        grads = []
+        for device in (dev, torch.device("cpu")):
+            model = SmokeModel(adjoint_config(**ADJOINT_FD, sim_dtype=dtype), device=device)
+            params = model.default_params()
+            fields = start.fields.to(device=device, dtype=dtype)
+            v = torch.zeros((3,) + model.config.zyx, dtype=dtype, device=device,
+                            requires_grad=True)
+            st = FluidState(fields=torch.cat([fields[:3] + v, fields[3:]]),
+                            pressure=start.pressure.to(device=device, dtype=dtype))
+            st, _ = model.step(st, params)
+            model.step(st, params)[1].sum().backward()
+            check(v.grad.dtype == dtype, f"the gradient is {dtype}: {v.grad.dtype}")
+            grads.append(v.grad.float().cpu())
+        err = float((grads[0] - grads[1]).abs().max())
+        scale = float(grads[1].abs().max())
+        print(f"16^3 adjoint, {dtype} simulation: card vs CPU max |g| {scale:.4g}, max |card - "
+              f"CPU| {err:.3e} ({err / max(scale, 1e-30):.2e} of it, tolerance {tol:g})")
+        check(bool(torch.isfinite(grads[0]).all()) and scale > 0.0 and err <= tol * scale,
+              f"the card's {dtype} adjoint within {tol:g} of the CPU's largest magnitude")
+
+
+def adjoint_fd(dev):
+    """tests/test_adjoint.py's directional-derivative check at its own 16^3
+    / 24^2 config on the card, through R1 and R2 and their adjoints: from
+    two steps of the initial state, the image's sum, central differences
+    along default_rng(7)'s direction with its step and tolerance."""
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.models.smoke import SmokeModel
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    model = SmokeModel(adjoint_config(**ADJOINT_FD), device=dev)
+    params = model.default_params()
+    state = adjoint_fd_start(model)
+
+    def loss(v):
+        st = FluidState(fields=torch.cat([state.fields[:3] + v, state.fields[3:]]),
+                        pressure=state.pressure)
+        return model.step(st, params)[1].sum()
+
+    v = torch.zeros((3,) + model.config.zyx, device=dev, requires_grad=True)
+    reset_launch_counts()
+    loss(v).backward()
+    counts = launch_counts()
+    check(counts["view_march_grad"] == 1 and counts["light_march_grad"] == 1,
+          f"the 16^3 adjoint ran R1b and R2b once each: {counts}")
+    d = np.random.default_rng(7).normal(size=tuple(v.shape)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d)).to(dev)
+    eps = 2e-2
+    with torch.no_grad():
+        fd = float(loss(eps * d) - loss(-eps * d)) / (2 * eps)
+    ad = float((v.grad * d).sum())
+    print(f"16^3 / 24^2 adjoint on the card: directional derivative {ad:.6g}, central FD "
+          f"{fd:.6g} (rtol 8e-2, atol 1e-3)")
+    check(math.isfinite(ad) and math.isfinite(fd) and abs(ad - fd) <= 1e-3 + 8e-2 * abs(fd)
+          and abs(v.grad).max() > 1e-8, "the 16^3 adjoint agrees with finite differences")
+
+
+def adjoint_guards(dev, state):
+    """Under grad the fast stack's kernels (use_pallas=True with
+    fast_sim=False: B3 first), the merged march and the light probe raise
+    NotImplementedError; ADJOINT's own forward does not."""
+    from fluidx12_tpu_torch.core.config import RenderMethod
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.models.smoke import SmokeModel
+
+    sh = torch.from_numpy(np.random.default_rng(23).uniform(-0.4, 1.2, (9, 3))
+                          .astype(np.float32)).to(dev)
+    for label, cfg, method, match in (
+            ("use_pallas=True", adjoint_config(use_pallas=True), RenderMethod.RAY_MARCH_SEPARATE,
+             "divergence: this kernel has no adjoint"),
+            ("RAY_MARCH_MERGED", adjoint_config(), RenderMethod.RAY_MARCH_MERGED, "6b"),
+            ("the light probe", adjoint_config(has_light_probe=True),
+             RenderMethod.RAY_MARCH_SEPARATE, "6b")):
+        model = SmokeModel(cfg, method=method, sh_coeffs=sh, device=dev)
+        v = torch.zeros((3,) + cfg.zyx, device=dev, requires_grad=True)
+        st = FluidState(fields=torch.cat([state.fields[:3] + v, state.fields[3:]]),
+                        pressure=state.pressure)
+        try:
+            model.step(st, model.default_params())
+        except NotImplementedError as e:
+            check(match in str(e), f"{label}: the refusal names its cause: {e}")
+            print(f"under grad, {label} raises: {str(e)[:110]}...")
+        else:
+            raise RuntimeError(f"check failed: {label} under grad did not raise")
+    torch.cuda.synchronize()
+
+
+def phase3j_adjoint(dev, smi_line, warm, results):
+    """The adjoint on the card: torch.autograd through the faithful stack at
+    ADJOINT (`adjoint_config`: PRESETS["fluid3d"], 128^3 / 800^2, 192 view
+    and 64 light samples, 64 Jacobi sweeps, RAY_MARCH_SEPARATE) from the
+    warm engine's developed smoke (f32).  (a) Two steps of SmokeModel.step
+    with grad give the frames of the same steps under torch.no_grad() bit
+    for bit, with the same launches (R1 and R2 once a step).  (b) R2b at
+    128^3 and R1b on the 6 x 128^2 cube rays against autograd through the
+    plain versions (seeded cotangents), and R1b on the 800^2 DIRECT_SEPARATE
+    rays (the plain march in ADJOINT_DIRECT_PIECES pieces).  (c) The loss is
+    the second image's sum, its gradient with respect to an initial
+    velocity perturbation (3 x 128^3): finite, non-zero, with R1b and R2b
+    launched once each in the backward (the counts set to 0 just before
+    the forward, read after the backward).  (d) tests/test_adjoint.py's FD
+    check at 16^3, and the 16^3 adjoint with an f32 and a bf16 simulation
+    against the CPU's (`adjoint_card_vs_cpu`).  (e) The guards.  Prints the forward's and the
+    backward's ms (CUDA events) and the peak memory.  Returns the launch
+    counts of (c)."""
+    phase("phase 3j: the adjoint, torch.autograd through the faithful stack at full width")
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.models.smoke import SmokeModel
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.cubemap import cube_rays
+    from fluidx12_tpu_torch.render.lightmap import render_light_map
+    from fluidx12_tpu_torch.render.raycast import direct_rays
+
+    t0 = time.perf_counter()
+    cfg = adjoint_config()
+    model = SmokeModel(cfg, device=dev)
+    params = model.default_params()
+    state = FluidState(fields=warm.state.fields.float().contiguous(),
+                       pressure=warm.state.pressure.clone())
+
+    def two_steps(v):
+        st = FluidState(fields=torch.cat([state.fields[:3] + v, state.fields[3:]]),
+                        pressure=state.pressure)
+        st, first = model.step(st, params)
+        return first, model.step(st, params)[1]
+
+    # (a) and (c): the forward without grad, then with it, then its backward.
+    v = torch.zeros((3,) + cfg.zyx, device=dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        frames_ng = two_steps(v)
+    counts_ng = launch_counts()
+    v.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    reset_launch_counts()
+    ev[0].record()
+    frames = two_steps(v)
+    loss = frames[1].sum()
+    ev[1].record()
+    counts_fwd = launch_counts()
+    loss.backward()
+    ev[2].record()
+    ev[2].synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    check(all(torch.equal(a.detach(), b) for a, b in zip(frames, frames_ng)),
+          "ADJOINT's frames with grad equal those under torch.no_grad() bit for bit")
+    expect = {name: 0 for name in KERNELS}
+    expect.update(jacobi_planewise=0, view_march=2, light_march=2)
+    check(counts_ng == expect and counts_fwd == expect,
+          f"ADJOINT's forward launches R1 and R2 once a step, with grad and without: "
+          f"{counts_ng}, {counts_fwd}")
+    check(counts == dict(expect, view_march_grad=1, light_march_grad=1),
+          f"the backward launched R1b and R2b once each: {counts}")
+    g = v.grad
+    gmax = float(g.abs().max())
+    check(bool(torch.isfinite(g).all()) and gmax > 0.0,
+          "the 2-step adjoint's gradient is finite and non-zero")
+    print(f"ADJOINT, 2 steps of SmokeModel.step (128^3 / 800^2, f32 state): forward with grad "
+          f"{fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (CUDA events); peak memory above the "
+          f"state {peak / 2**30:.2f} GiB, torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; gradient of the image's sum "
+          f"w.r.t. the initial velocity: max |g| {gmax:.4g}, {int((g != 0).sum())} of "
+          f"{g.numel()} non-zero [{smi_line}]")
+    del frames, frames_ng, loss, g, v
+    torch.cuda.empty_cache()
+
+    # (b) The kernels against autograd through the plain versions.
+    grid = state.color.contiguous()
+    env = RC.make_light_env(params, None, cfg)
+    light_map = render_light_map(grid, params, cfg).float().contiguous()
+    check_r2b(results, grid, env, cfg, params.num_light_samples, smi_line)
+    torch.cuda.empty_cache()
+    check_r1b(results, "view_march_grad", grid, light_map,
+              cube_rays(params, cfg, 0, dev), params.num_samples, env, cfg,
+              "on the 6 x 128^2 cube rays", smi_line)
+    torch.cuda.empty_cache()
+    origin, ray_dir, hit = direct_rays(params, cfg, dev)
+    check_r1b(results, "view_march_grad_direct", grid, light_map,
+              (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit),
+              params.num_samples, env, cfg, "on the 800^2 DIRECT_SEPARATE rays", smi_line,
+              pieces=ADJOINT_DIRECT_PIECES)
+    torch.cuda.empty_cache()
+    adjoint_fd(dev)
+    adjoint_card_vs_cpu(dev)
+    adjoint_guards(dev, state)
+    torch.cuda.empty_cache()
+    print(f"phase 3j wall time: {time.perf_counter() - t0:.1f} s [{smi_line}]")
+    return counts
 
 
 def scaled_counts(counts: dict, frames_from: int, frames_to: int) -> dict:
@@ -2982,6 +3363,7 @@ def main() -> int:
     counts_direct = phase3f_direct_and_point(dev, smi_line)
     phase3g_replay_vs_eager(dev, smi_line)
     counts_faithful = phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results)
+    counts_adjoint = phase3j_adjoint(dev, smi_line, warm, results)
     del warm, warm_gi
     torch.cuda.empty_cache()
     phase3i_shell(dev, smi_line, counts, counts_2d, counts_fluidgi,
@@ -3000,6 +3382,7 @@ def main() -> int:
                 else counts_fused if kname in KERNELS_FUSED
                 else counts_direct24 if kname == "composite"
                 else counts_faithful if kname in KERNELS_FAITHFUL
+                else counts_adjoint if kname in KERNELS_ADJOINT
                 else counts_slab if kname in KERNELS_SLAB else counts)
         launches = path[kname]
         # B12 is on no path of the port (ROADMAP.md, queue B).

@@ -15,6 +15,22 @@ engine runs, so the library renders what the app does
 host-static per-pose extras (the DIRECT base plane, the scissor rect, the
 face visibility mask) are computed here for the model's camera; pass
 `camera=` for another pose.
+
+`step` is differentiable with torch.autograd on the faithful stack, the
+config the JAX package differentiates with jax.grad (README.md,
+tests/test_adjoint.py): fast_sim=False, fast_render=False,
+use_pallas=False, mg_pressure=False, quantize_cube_map=False (its u8
+rounding has zero gradient), f32 `sim_dtype` for clean gradients:
+
+    v = torch.zeros((3,) + cfg.zyx, device="cuda", requires_grad=True)
+    st = FluidState(torch.cat([state.fields[:3] + v, state.fields[3:]]), state.pressure)
+    model.step(st, params)[1].sum().backward()      # v.grad
+
+On the CPU the plain versions differentiate; on the card R1 and R2 run as
+autograd Functions whose backward kernels are R1b and R2b
+(ops/cuda/raymarch.py).  The merged methods, the light probe and the fast
+stack's kernels raise NotImplementedError under grad on the card
+(ROADMAP.md queue A, item 6b; `ops/cuda/_build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -102,7 +118,8 @@ class SmokeModel:
 
     def step(self, state: FluidState, params: SceneParams) -> Tuple[FluidState, torch.Tensor]:
         """One sim+render step; returns (state, (H, W, 3) image).  The
-        projection's branch reads dt on the host (one fetch a step)."""
+        projection's branch reads dt on the host (one fetch a step).  The
+        entry point the adjoint differentiates (module docstring)."""
         cfg = self.config
         state = simulate(state, float(params.time_step), cfg, dt=params.time_step)
         image = render_frame(state.color, params, cfg, self.method, self.sh_coeffs,

@@ -6,7 +6,11 @@ kernel for a CUDA tensor (or raises); it adds one to its `launches` count
 where it launches, so a run can show that the main path went through it.
 R1 and R2 (raymarch.py) launch only: their plain versions march with the
 render layer's machinery, so they live in render/ beside their JAX
-counterparts, and render/ takes them for a CPU tensor.
+counterparts, and render/ takes them for a CPU tensor.  Under autograd R1
+and R2 run as autograd Functions whose backward kernels are R1b
+(`view_march_grad`) and R2b (`light_march_grad`); every other wrapper
+raises there on a CUDA operand that requires grad (`_build.refuse_grad`),
+as the JAX package's Pallas kernels have no adjoint either.
 Kernel modules import nothing CUDA-specific at import time: the library is
 built and loaded at the first launch (ops/cuda/_build.py).
 """
@@ -20,7 +24,8 @@ def wrappers():
     preset's B11 and B14, the 256^3 GI frame's B13 and B16, the fused
     projection's B18 (`jacobi_divrr`, `jacobi_grad`) and the 256x256x60 GI
     frame's B15 and B17, then the faithful stack's R1 (`view_march`) and
-    R2 (`light_march`)."""
+    R2 (`light_march`) and their adjoints R1b (`view_march_grad`) and R2b
+    (`light_march_grad`)."""
     from fluidx12_tpu_torch.ops.cuda.advect import (
         advect_axis,
         advect_xy,
@@ -36,7 +41,12 @@ def wrappers():
         jacobi_packed,
         jacobi_rr,
     )
-    from fluidx12_tpu_torch.ops.cuda.raymarch import light_march, view_march
+    from fluidx12_tpu_torch.ops.cuda.raymarch import (
+        light_march,
+        light_march_grad,
+        view_march,
+        view_march_grad,
+    )
     from fluidx12_tpu_torch.ops.cuda.stencil import (
         divergence,
         gi_light,
@@ -55,7 +65,8 @@ def wrappers():
             "advect_axis": advect_axis, "jacobi2d": jacobi2d, "jacobi_rr": jacobi_rr,
             "gi_light": gi_light, "jacobi_divrr": jacobi_divrr, "jacobi_grad": jacobi_grad,
             "gradient3": gradient3, "composite": composite, "view_march": view_march,
-            "light_march": light_march}
+            "light_march": light_march, "view_march_grad": view_march_grad,
+            "light_march_grad": light_march_grad}
 
 
 def reset_launch_counts() -> None:

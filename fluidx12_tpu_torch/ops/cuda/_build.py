@@ -80,6 +80,9 @@ _SIGNATURES = {
                                 _P, _P, _P, _L, _I, _I, _F, _F, _I, _P],
     "fx_light_march": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _P],
     "fx_light_march_perthread": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _P],
+    "fx_view_march_grad": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
+    "fx_light_march_grad": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _P],
 }
 
 _lib = None
@@ -158,6 +161,23 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} (cudaError_t)")
+
+
+def refuse_grad(name: str, *operands) -> None:
+    """Raise where autograd would have to go through a kernel that has no
+    adjoint: under `torch.is_grad_enabled()`, an operand that requires
+    grad.  Every launching wrapper of B1-B18 calls it before its launch (on
+    the CPU the plain versions stay differentiable).  The JAX package has
+    no adjoint for its Pallas kernels either (tests/test_adjoint.py): its
+    differentiable path is the faithful stack with use_pallas=False."""
+    import torch
+
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in operands):
+        raise NotImplementedError(
+            f"{name}: this kernel has no adjoint on the card, as its Pallas kernel has none "
+            "in the JAX package.  Differentiate the faithful stack: fast_sim=False, "
+            "fast_render=False, use_pallas=False, mg_pressure=False (README.md)")
 
 
 def stream_ptr(t) -> int:

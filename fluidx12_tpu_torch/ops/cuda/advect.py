@@ -446,6 +446,7 @@ def advect_xy(vol: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         raise ValueError("advect_xy: needs velocity channels 0 and 1")
     if not _on_cuda(vol, "advect_xy"):
         return advect_xy_plain(vol, scales)
+    _build.refuse_grad("advect_xy", vol, scales)
     c, z, y, x = vol.shape
     plan = advect_plan((z, y, x), vol.dtype, c)
     out = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
@@ -474,6 +475,7 @@ def advect_axis(vol: torch.Tensor, scale: torch.Tensor, axis: int,
                          f"out of range for {tuple(vol.shape)}")
     if not _on_cuda(vol, "advect_axis"):
         return advect_axis_plain(vol, scale, axis, disp_ch)
+    _build.refuse_grad("advect_axis", vol, scale)
     c, z, y, x = vol.shape
     out = torch.empty_like(vol)
     err = _launch_axis(vol, out, scale, disp_ch, axis_plan((z, y, x), vol.dtype, axis, c))
@@ -503,6 +505,7 @@ def advect_z_forces(vol: torch.Tensor, scal: torch.Tensor, table: torch.Tensor,
     _check_f32(table, (vol.shape[0], 5), vol, "advect_z_forces table")
     if not _on_cuda(vol, "advect_z_forces"):
         return advect_z_forces_plain(vol, scal, table, consts, True, store)
+    _build.refuse_grad("advect_z_forces", vol, scal, table)
     out = _launch_z(vol, scal, table.data_ptr(), consts, True, store)
     advect_z_forces.launches += 1
     return out
@@ -519,6 +522,7 @@ def advect_z(vol: torch.Tensor, scal: torch.Tensor,
     _check_z(vol, scal, store, "advect_z")
     if not _on_cuda(vol, "advect_z"):
         return advect_z_forces_plain(vol, scal, None, None, False, store)
+    _build.refuse_grad("advect_z", vol, scal)
     out = _launch_z(vol, scal, None, (0.0,) * 5, False, store)
     advect_z.launches += 1
     return out
@@ -574,6 +578,7 @@ def perthread(kind: str, vol: torch.Tensor, scales: torch.Tensor, table=None, co
                          f"out of range for {tuple(vol.shape)}")
     if not _on_cuda(vol, "perthread"):
         raise ValueError("perthread: the per-voxel designs run on card tensors only")
+    _build.refuse_grad("perthread", vol, scales, table)
     c, z, y, x = vol.shape
     lib = _build.lib()
     if kind == "axis":

@@ -193,6 +193,7 @@ def composite_resample(volf, h_rows, h_cols, valid, n_steps, absorption: float,
                                         absorption, flip, zero_outside)
     if volf.device.type != "cuda":
         raise ValueError(f"composite_resample: unsupported device {volf.device}")
+    _build.refuse_grad("composite_resample", volf, h_rows, h_cols, valid, n_steps)
     _, n_s, a_dim, b_dim = volf.shape
     r1, r2 = n_steps.shape
     out = torch.empty((4, r1, r2), dtype=torch.float32, device=volf.device)
@@ -336,6 +337,7 @@ def composite(dens, prod, n_steps, absorption: float, flip: bool) -> torch.Tenso
     if dens.device.type == "cpu":
         return composite_plain(dens, prod, n_steps, absorption, flip)
     _check_card(dens, "composite")
+    _build.refuse_grad("composite", dens, prod, n_steps)
     n_s, r1, r2 = dens.shape
     plan = composite_plan(n_s, r1, r2)
     out = torch.empty((4, r1, r2), dtype=torch.float32, device=dens.device)
@@ -365,6 +367,7 @@ def composite_perthread(dens, prod, n_steps, absorption: float, flip: bool) -> t
     it counts no launch.  Card tensors only."""
     _check_stack(dens, prod, n_steps, "composite_perthread")
     _check_card(dens, "composite_perthread")
+    _build.refuse_grad("composite_perthread", dens, prod, n_steps)
     n_s, r1, r2 = dens.shape
     out = torch.empty((4, r1, r2), dtype=torch.float32, device=dens.device)
     err = _build.lib().fx_composite_perthread(

@@ -499,6 +499,7 @@ def jacobi(q: torch.Tensor, b: torch.Tensor, iters: int, slab: int = 16,
         raise ValueError(f"jacobi: unsupported volume shape {plan_zyx}")
     if not on_card:
         return jacobi_plain(q, b, iters, slab, inner, plan_zyx)
+    _build.refuse_grad("jacobi", q, b)
     out = _launch(q, b, iters, order)
     jacobi.launches += 1
     jacobi.planewise_launches += order == ORDER_PLANEWISE
@@ -517,6 +518,7 @@ def jacobi_packed(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     cluster launch, which needs a `packed_plan`: X = 64 and Z * Y <= 4096."""
     if not _check(q, b, iters, "jacobi_packed"):
         return jacobi_packed_plain(q, b, iters)
+    _build.refuse_grad("jacobi_packed", q, b)
     out = _launch(q, b, iters, ORDER_PACKED)
     jacobi_packed.launches += 1
     return out
@@ -535,6 +537,7 @@ def jacobi_rr(q: torch.Tensor, b: torch.Tensor, iters: int, scale: float = 1.0):
     _check_even(q, "jacobi_rr")
     if not on_card:
         return jacobi_rr_plain(q, b, iters, scale)
+    _build.refuse_grad("jacobi_rr", q, b)
     z, y, x = q.shape
     out = torch.empty_like(q)
     scratch = torch.empty_like(q) if iters > 1 else out
@@ -561,6 +564,7 @@ def jacobi_divrr(fields: torch.Tensor, q: torch.Tensor, iters: int, scale: float
     _check_even(q, "jacobi_divrr")
     if not on_card:
         return jacobi_divrr_plain(fields, q, iters, scale)
+    _build.refuse_grad("jacobi_divrr", fields, q)
     z, y, x = q.shape
     out = torch.empty_like(q)
     scratch = torch.empty_like(q) if iters > 1 else out
@@ -589,6 +593,7 @@ def jacobi_grad(q: torch.Tensor, b: torch.Tensor, fields: torch.Tensor, iters: i
     _check_velocity(fields, q, "jacobi_grad")
     if not on_card:
         return jacobi_grad_plain(q, b, fields, iters, rho)
+    _build.refuse_grad("jacobi_grad", q, b, fields)
     z, y, x = q.shape
     out = torch.empty_like(q)
     scratch = torch.empty_like(q) if iters > 1 else out
@@ -624,6 +629,7 @@ def sweepwise(kind: str, q: torch.Tensor, b: torch.Tensor | None, iters: int,
     mode = _SWEEPWISE_ORDERS[order] if kind == "sweeps" else _SWEEPWISE_MODES[kind]
     if not _check(q, q if b is None else b, iters, "sweepwise"):
         raise ValueError("sweepwise: the per-sweep design runs on card tensors only")
+    _build.refuse_grad("sweepwise", q, b, fields)
     if fields is not None:
         _check_velocity(fields, q, "sweepwise")
     if kind in ("rr", "divrr"):
@@ -663,6 +669,7 @@ def jacobi2d(q: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
     needs Y and X in multiples of 4 and 16-byte aligned rows."""
     if not _check(q, b, iters, "jacobi2d", ndim=2):
         return jacobi2d_plain(q, b, iters)
+    _build.refuse_grad("jacobi2d", q, b)
     out = _launch(q[None], b[None], iters, ORDER_2D)[0]
     jacobi2d.launches += 1
     return out

@@ -21,6 +21,15 @@ environment arrives packed, one (48,) f32 tensor made on the frame's device
 by tensor ops (render/raymarch_core.pack_env), with its switches as
 `flags`; the sample counts are device int32 scalars, so a frame copies
 nothing from the host.
+
+Under autograd (`torch.is_grad_enabled()` and the grid or the light map
+requiring grad) `view_march` and `light_march` run as autograd Functions:
+the forward launches R1 or R2 exactly as without grad, and the backward
+launches R1b (`view_march_grad`) or R2b (`light_march_grad`), the hand
+adjoints in fluidx12_tpu_torch/csrc/raymarch_grad.cu.  The merged march and
+the light probe have no adjoint on the card yet (ROADMAP.md queue A, item
+6b): they raise under grad, as do gradients asked of the rays or the light
+environment.
 """
 
 from __future__ import annotations
@@ -235,6 +244,59 @@ def _view_launch(plan, grid, origin, ray_dir, t_max, active, num_samples, env, f
     return out, err
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_unported_grad(name: str, what: str) -> None:
+    raise NotImplementedError(
+        f"{name}: no adjoint on the card yet for {what} (ROADMAP.md queue A, item 6b). "
+        "Differentiate a separate-light method without the light probe "
+        "(RAY_MARCH_SEPARATE, RAY_MARCH_DIRECT_SEPARATE), or run on the CPU")
+
+
+def _refuse_operand_grad(name: str, *tensors) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the adjoint on the card gives the gradients of the grid and the light "
+            "map only, not of the rays or the light environment")
+
+
+class _ViewMarchFn(torch.autograd.Function):
+    """R1 forward, R1b backward: the cotangents of the grid and the light map."""
+
+    @staticmethod
+    def forward(ctx, grid, light_map, origin, ray_dir, t_max, active, num_samples, env, flags,
+                config, samples):
+        ctx.save_for_backward(grid, light_map, origin, ray_dir, t_max, active, num_samples, env)
+        ctx.flags, ctx.config = flags, config
+        return _view_forward(grid, origin, ray_dir, t_max, active, num_samples, env, flags,
+                             config, light_map, None, samples)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grid, light_map, *rest = ctx.saved_tensors
+        g_grid, g_lm = view_march_grad(grid, light_map, *rest, ctx.flags, ctx.config, grad_out)
+        return ((g_grid.to(grid.dtype) if ctx.needs_input_grad[0] else None,
+                 g_lm if ctx.needs_input_grad[1] else None) + (None,) * 9)
+
+
+class _LightMarchFn(torch.autograd.Function):
+    """R2 forward, R2b backward: the cotangent of the grid (its density)."""
+
+    @staticmethod
+    def forward(ctx, grid, env, flags, num_light_samples, config, samples):
+        ctx.save_for_backward(grid, env, num_light_samples)
+        ctx.flags, ctx.config = flags, config
+        return _light_forward(grid, env, flags, num_light_samples, config, samples)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grid, env, num_light_samples = ctx.saved_tensors
+        g_grid = light_march_grad(grid, env, ctx.flags, num_light_samples, ctx.config, grad_out)
+        return (g_grid.to(grid.dtype),) + (None,) * 5
+
+
 def view_march(grid: torch.Tensor, origin: torch.Tensor, ray_dir: torch.Tensor,
                t_max: torch.Tensor, active: torch.Tensor, num_samples: torch.Tensor,
                env: torch.Tensor, flags: int, config: FluidConfig,
@@ -250,7 +312,23 @@ def view_march(grid: torch.Tensor, origin: torch.Tensor, ray_dir: torch.Tensor,
     of (..., 3)), where given, receives each ray's view samples, dense
     view samples and light-ray samples taken (the bound's count).  One
     launch, laid out by `view_plan`; launches on one device must follow
-    each other on one stream (they share the fetch counter)."""
+    each other on one stream (they share the fetch counter).  Under
+    autograd, where the grid or the light map requires grad, the same
+    launch runs in an autograd Function whose backward is R1b; the merged
+    mode raises there."""
+    if _wants_grad(grid, light_map, origin, ray_dir, t_max, env):
+        if light_map is None:
+            _refuse_unported_grad("view_march", "the merged march (a shadow ray a sample)")
+        _refuse_operand_grad("view_march", origin, ray_dir, t_max, env)
+        return _ViewMarchFn.apply(grid, light_map, origin, ray_dir, t_max, active, num_samples,
+                                  env, flags, config, samples)
+    return _view_forward(grid, origin, ray_dir, t_max, active, num_samples, env, flags, config,
+                         light_map, num_light_samples, samples)
+
+
+def _view_forward(grid, origin, ray_dir, t_max, active, num_samples, env, flags, config,
+                  light_map, num_light_samples, samples) -> torch.Tensor:
+    """R1's launch, counted."""
     out, err = _view_launch("own", grid, origin, ray_dir, t_max, active, num_samples, env, flags,
                             config, light_map, num_light_samples, samples)
     view_march.launches += 1
@@ -266,6 +344,7 @@ def view_march_perthread(*args, **kwargs) -> torch.Tensor:
     (`fx_view_march_perthread`), kept only as a yardstick to time it
     against.  Arguments as `view_march`.  No path of the port calls it,
     and it counts no launch."""
+    _build.refuse_grad("view_march_perthread", *args[:6], *kwargs.values())
     out, err = _view_launch(None, *args, name="view_march_perthread", **kwargs)
     _build.check(err, "fx_view_march_perthread")
     return out
@@ -303,7 +382,20 @@ def light_march(grid: torch.Tensor, env: torch.Tensor, flags: int,
     env and flags the packed light environment; num_light_samples an
     int32 device scalar.  `samples` (int32, (Z, Y, X)), where given,
     receives each voxel's light samples taken.  One launch, laid out by
-    `light_plan`."""
+    `light_plan`.  Under autograd, where the grid requires grad, the same
+    launch runs in an autograd Function whose backward is R2b; the light
+    probe raises there."""
+    if _wants_grad(grid, env):
+        if flags & FLAG_PROBE:
+            _refuse_unported_grad("light_march", "the light probe (the AO ray and the SH "
+                                  "irradiance along the density gradient)")
+        _refuse_operand_grad("light_march", env)
+        return _LightMarchFn.apply(grid, env, flags, num_light_samples, config, samples)
+    return _light_forward(grid, env, flags, num_light_samples, config, samples)
+
+
+def _light_forward(grid, env, flags, num_light_samples, config, samples) -> torch.Tensor:
+    """R2's launch, counted."""
     out, err = _light_launch("own", grid, env, flags, num_light_samples, config, samples)
     light_march.launches += 1
     _build.check(err, "fx_light_march")
@@ -317,6 +409,98 @@ def light_march_perthread(*args, **kwargs) -> torch.Tensor:
     """The design R2 replaced, one thread a voxel (`fx_light_march_perthread`),
     kept only as a yardstick to time it against.  Arguments as
     `light_march`.  No path of the port calls it, and it counts no launch."""
+    _build.refuse_grad("light_march_perthread", *args[:2])
     out, err = _light_launch(None, *args, name="light_march_perthread", **kwargs)
     _build.check(err, "fx_light_march_perthread")
     return out
+
+
+# ---------------------------------------------------------------------------
+# R1b and R2b: the adjoints (csrc/raymarch_grad.cu)
+# ---------------------------------------------------------------------------
+
+def _cotangent(grad_out: torch.Tensor, shape, ref: torch.Tensor, name: str) -> torch.Tensor:
+    """grad_out as a contiguous f32 tensor of `shape` on ref's device whose
+    start is 16-byte aligned (R1b reads it as float4)."""
+    if tuple(grad_out.shape) != tuple(shape) or grad_out.device != ref.device:
+        raise ValueError(f"{name}: the cotangent must be {tuple(shape)} on {ref.device}, got "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    g = grad_out.to(torch.float32).contiguous()
+    return g if g.data_ptr() % 16 == 0 else g.clone()
+
+
+def view_march_grad(grid: torch.Tensor, light_map: torch.Tensor, origin: torch.Tensor,
+                    ray_dir: torch.Tensor, t_max: torch.Tensor, active: torch.Tensor,
+                    num_samples: torch.Tensor, env: torch.Tensor, flags: int,
+                    config: FluidConfig, grad_out: torch.Tensor,
+                    samples: Optional[torch.Tensor] = None):
+    """R1b: the adjoint of `view_march` in separate mode.  From grad_out,
+    the (..., 4) cotangent of R1's output on these operands, the f32
+    cotangents of the grid (4, Z, Y, X) and of the light map (3, Z', Y',
+    X'), as autograd through render/raymarch_core.view_march gives them
+    (to rounding: the taps' cotangents are summed by atomics).  `samples`
+    (an int32 tensor of (..., 2)), where given, receives each ray's view
+    samples run again and dense samples walked.  One launch, a thread a
+    ray, with a tape of 12 bytes a ray a view sample (max_ray_samples)."""
+    if light_map is None:
+        raise ValueError("view_march_grad: separate mode only (a light map)")
+    rays, n, lead = _view_operands(grid, origin, ray_dir, t_max, active, num_samples, env,
+                                   light_map, None, None, "view_march_grad")
+    if samples is not None and (samples.dtype != torch.int32 or samples.numel() != 2 * n
+                                or not samples.is_contiguous() or samples.device != grid.device):
+        raise ValueError("view_march_grad: samples must be a contiguous int32 (..., 2) tensor")
+    g = _cotangent(grad_out, lead + (4,), grid, "view_march_grad")
+    plan = view_plan(lead, tuple(grid.shape[1:]), tuple(light_map.shape[1:]))
+    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    g_lm = torch.zeros(light_map.shape, dtype=torch.float32, device=grid.device)
+    tape = torch.empty(3 * config.max_ray_samples * n, dtype=torch.float32, device=grid.device)
+    err = _build.lib().fx_view_march_grad(
+        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:],
+        light_map.data_ptr(), *light_map.shape[1:], env.data_ptr(),
+        *(r.data_ptr() for r in rays), num_samples.data_ptr(), g.data_ptr(), g_grid.data_ptr(),
+        g_lm.data_ptr(), tape.data_ptr(),
+        None if samples is None else samples.data_ptr(), n, config.max_ray_samples,
+        float(config.absorption), float(config.zero_threshold), flags, int(plan.wide),
+        _build.stream_ptr(grid))
+    view_march_grad.launches += 1
+    _build.check(err, "fx_view_march_grad")
+    return g_grid, g_lm
+
+
+view_march_grad.launches = 0
+
+
+def light_march_grad(grid: torch.Tensor, env: torch.Tensor, flags: int,
+                     num_light_samples: torch.Tensor, config: FluidConfig,
+                     grad_out: torch.Tensor,
+                     samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """R2b: the adjoint of `light_march` without the light probe.  From
+    grad_out, the (3, Z, Y, X) cotangent of R2's light map on these
+    operands, the f32 (4, Z, Y, X) cotangent of the grid (channels 0-2
+    zero), as autograd through render/lightmap.light_map_plain gives it (to
+    rounding).  `samples` (int32, (Z, Y, X)), where given, receives each
+    voxel's light samples walked.  One launch, a thread a voxel, with a
+    tape of 12 bytes a voxel a light sample (max_light_samples)."""
+    _check(grid, env, [num_light_samples], "light_march_grad")
+    if flags & FLAG_PROBE:
+        raise ValueError("light_march_grad: no light probe")
+    if samples is not None and (samples.dtype != torch.int32
+                                or samples.numel() != grid[0].numel()
+                                or not samples.is_contiguous() or samples.device != grid.device):
+        raise ValueError("light_march_grad: samples must be a contiguous int32 (Z, Y, X) tensor")
+    g = _cotangent(grad_out, (3,) + tuple(grid.shape[1:]), grid, "light_march_grad")
+    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    tape = torch.empty(3 * config.max_light_samples * grid[0].numel(), dtype=torch.float32,
+                       device=grid.device)
+    err = _build.lib().fx_light_march_grad(
+        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:], env.data_ptr(),
+        num_light_samples.data_ptr(), g.data_ptr(), g_grid[3].data_ptr(), tape.data_ptr(),
+        None if samples is None else samples.data_ptr(), config.max_light_samples,
+        float(config.absorption), float(config.zero_threshold), flags,
+        int(light_plan(tuple(grid.shape[1:])).wide), _build.stream_ptr(grid))
+    light_march_grad.launches += 1
+    _build.check(err, "fx_light_march_grad")
+    return g_grid
+
+
+light_march_grad.launches = 0

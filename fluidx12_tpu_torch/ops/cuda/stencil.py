@@ -378,6 +378,7 @@ def divergence(fields: torch.Tensor) -> torch.Tensor:
     _check_fields(fields, "divergence")
     if not _on_cuda(fields, "divergence"):
         return divergence_plain(fields)
+    _build.refuse_grad("divergence", fields)
     _, z, y, x = fields.shape
     plan = stencil_plan("divergence", (z, y, x))
     out = torch.empty((z, y, x), dtype=torch.float32, device=fields.device)
@@ -403,6 +404,7 @@ def residual(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_residual(q, b, "residual")
     if not _on_cuda(q, "residual"):
         return residual_plain(q, b)
+    _build.refuse_grad("residual", q, b)
     z, y, x = q.shape
     plan = stencil_plan("residual", (z, y, x))
     out = torch.empty_like(q)
@@ -430,6 +432,7 @@ def prolong_correct(q: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
     _check_prolong(q, e_c, "prolong_correct")
     if not _on_cuda(q, "prolong_correct"):
         return prolong_correct_plain(q, e_c)
+    _build.refuse_grad("prolong_correct", q, e_c)
     z, y, x = q.shape
     plan = stencil_plan("prolong", (z, y, x))
     out = torch.empty_like(q)
@@ -457,6 +460,7 @@ def grad_damp(fields: torch.Tensor, pressure: torch.Tensor, rho: float) -> torch
     _check_grad_damp(fields, pressure, "grad_damp")
     if not _on_cuda(fields, "grad_damp"):
         return grad_damp_plain(fields, pressure, rho)
+    _build.refuse_grad("grad_damp", fields, pressure)
     _, z, y, x = fields.shape
     plan = stencil_plan("grad_damp", (z, y, x))
     err = _build.lib().fx_grad_damp(
@@ -496,6 +500,7 @@ def perthread(kind: str, a: torch.Tensor, b: torch.Tensor | None = None,
         raise ValueError(f"perthread: unknown kind {kind!r}")
     if not _on_cuda(a, "perthread"):
         raise ValueError("perthread: the per-cell designs run on card tensors only")
+    _build.refuse_grad("perthread", a, b)
     z, y, x = a.shape[-3:]
     lib = _build.lib()
     if kind == "gradient3":
@@ -538,6 +543,7 @@ def gradient3(q: torch.Tensor) -> torch.Tensor:
     _check_gradient3(q, "gradient3")
     if not _on_cuda(q, "gradient3"):
         return gradient3_plain(q)
+    _build.refuse_grad("gradient3", q)
     z, y, x = q.shape
     plan = stencil_plan("gradient3", (z, y, x))
     out = torch.empty((3, z, y, x), dtype=torch.float32, device=q.device)
@@ -568,6 +574,7 @@ def gi_light(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,
                          f"{tuple(env.shape)}")
     if not _on_cuda(density, "gi_light"):
         return gi_light_plain(density, shadow, ao, sh_coeffs, world3, env, zero_threshold)
+    _build.refuse_grad("gi_light", density, shadow, ao, sh_coeffs, world3, env)
     # The 39 constants row-major in one f32 tensor on the card: no copy to
     # the host.
     consts = torch.cat([sh_coeffs.reshape(-1), world3.reshape(-1), env.reshape(-1)]

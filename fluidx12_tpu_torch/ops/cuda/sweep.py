@@ -104,6 +104,7 @@ def shear_scan(log_att: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         return shear_scan_plain(log_att, s)
     if log_att.device.type != "cuda":
         raise ValueError(f"shear_scan: unsupported device {log_att.device}")
+    _build.refuse_grad("shear_scan", log_att, s)
     (tile_a, tile_b), threads, smem = shear_plan(log_att.shape)
     out = torch.empty_like(log_att)
     err = _build.lib().fx_shear_scan(
@@ -124,6 +125,7 @@ def twopass(log_att: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     it counts no launch.  Card tensors only, as `shear_scan` takes them."""
     if log_att.device.type != "cuda":
         raise ValueError("twopass: the two-launch design runs on card tensors only")
+    _build.refuse_grad("twopass", log_att, s)
     n_s, n_a, n_b = log_att.shape
     scratch = torch.empty((n_s, 2 * n_a, 2 * n_b), dtype=torch.float32,
                           device=log_att.device)

@@ -58,7 +58,8 @@ def render_light_map(grid: torch.Tensor, params: SceneParams, config: FluidConfi
                      sh_coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The (3, Z, Y, X) light map, in the render dtype, of the (4, Z, Y, X)
     colour grid (any storage dtype): R2 for a CUDA grid, the plain
-    version for a CPU grid."""
+    version for a CPU grid.  Under autograd R2 runs as an autograd Function
+    whose backward is R2b (without the light probe)."""
     env = RC.make_light_env(params, sh_coeffs, config)
     if grid.device.type == "cpu":
         return light_map_plain(grid.to(config.render_dtype), env, params.num_light_samples,

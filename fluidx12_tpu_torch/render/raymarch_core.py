@@ -331,7 +331,10 @@ def march_view(grid: torch.Tensor, origin: torch.Tensor, ray_dir: torch.Tensor,
                active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`view_march` on the grid's device: kernel R1 for a CUDA grid (in its
     storage dtype, with a contiguous f32 light map of its own dims), the
-    plain version in the render dtype for a CPU grid."""
+    plain version in the render dtype for a CPU grid.  Both keep autograd's
+    graph (the casts are differentiable): on the card, where the grid or
+    the light map requires grad, R1 runs as an autograd Function whose
+    backward is R1b (separate mode only)."""
     if active is None:
         active = torch.ones(origin.shape[:-1], dtype=torch.bool, device=origin.device)
     if grid.device.type == "cpu":

@@ -1609,3 +1609,169 @@ def test_watchdog_between_replays_keeps_them_right(dev, tmp_path):
     fresh = FluidXEngine(a.config, device=dev)
     for _ in range(3):
         assert torch.equal(a.step_frame(), fresh.step_frame())
+
+
+# ---------------------------------------------------------------------------
+# The adjoint: R1b (view_march_grad), R2b (light_march_grad) and the guard
+# ---------------------------------------------------------------------------
+
+def _grad_close(got, ref, what):
+    """The adjoints' tolerance: within 1e-4 of the autograd gradient's
+    largest magnitude (the taps' cotangents are summed by atomics, and
+    autograd's products associate otherwise), plus one bf16 rounding of
+    each value where `got` is bf16 (the gradient of a bf16 grid)."""
+    diff = (got.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max())
+    slack = 2.0 ** -8 * ref.float().abs() if got.dtype == torch.bfloat16 else 0.0
+    err = float(diff.max())
+    print(f"{what}: max |autograd| {scale:.4g}, max |kernel - autograd| {err:.3g}")
+    return scale > 0.0 and bool((diff <= 1e-4 * scale + slack).all())
+
+
+@pytest.mark.parametrize("case", ["separate", "half_map", "f32", "straight", "ragged"])
+def test_view_march_grad_matches_autograd(dev, case):
+    """R1b against autograd through the plain separate-light march on the
+    card, for the grid and the light map, with a seeded cotangent on rays
+    from points in and around the box (finite and infinite t_max, an
+    active mask): a light map of the grid's dims and of half its lateral
+    dims, an f32 grid, straight (not premultiplied) colour and ragged
+    dims; and through the autograd Function: the same forward bit for bit,
+    gradients within the tolerance, one R1b launch a backward."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, {"f32": "f32", "ragged": "ragged"}.get(case,
+                                                                                      "probe"))
+    if case == "straight":
+        cfg = dataclasses.replace(cfg, pre_multiplied=False)
+    light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    if case == "half_map":
+        z, y, x = cfg.zyx
+        light_map = light_map.reshape(3, z, y // 2, 2, x // 2, 2).mean(dim=(3, 5)).contiguous()
+    rays = _design_rays(dev, (20, 28))
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    cot = torch.from_numpy(np.random.default_rng(5).standard_normal((20, 28, 4))
+                           .astype(np.float32)).to(dev)
+    g_ref = grid.to(torch.float32, copy=True).requires_grad_(True)
+    lm_ref = light_map.clone().requires_grad_(True)
+    ref = RC.view_march(g_ref, rays[0], rays[1], rays[2], params.num_samples, env, cfg,
+                        light_map=lm_ref, active=rays[3])
+    (ref * cot).sum().backward()
+    samples = torch.full((20, 28, 2), -1, dtype=torch.int32, device=dev)
+    g_grid, g_lm = R.view_march_grad(grid, light_map, *rays, params.num_samples, packed, flags,
+                                     cfg, cot, samples=samples)
+    torch.cuda.synchronize()
+    assert _grad_close(g_grid, g_ref.grad, f"R1b {case}, grid")
+    assert _grad_close(g_lm, lm_ref.grad, f"R1b {case}, light map")
+    assert int(samples[..., 1].sum()) > 0 and bool((samples[..., 1] <= samples[..., 0]).all())
+    # Through the Function, as render/raymarch_core.march_view calls it.
+    g_in = grid.clone().requires_grad_(True)
+    lm_in = light_map.clone().requires_grad_(True)
+    before = R.view_march_grad.launches
+    out = R.view_march(g_in, *rays, params.num_samples, packed, flags, cfg, light_map=lm_in)
+    with torch.no_grad():
+        plain_out = R.view_march(grid, *rays, params.num_samples, packed, flags, cfg,
+                                 light_map=light_map)
+    assert out.requires_grad and torch.equal(out.detach(), plain_out)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert R.view_march_grad.launches == before + 1 and g_in.grad.dtype == grid.dtype
+    assert _grad_close(g_in.grad, g_ref.grad, f"R1b {case} through autograd, grid")
+    assert _grad_close(lm_in.grad, lm_ref.grad, f"R1b {case} through autograd, light map")
+
+
+@pytest.mark.parametrize("case", ["smoke", "dense", "f32", "point", "ragged"])
+def test_light_march_grad_matches_autograd(dev, case):
+    """R2b against autograd through `light_map_plain` on the card (no
+    probe), with a seeded cotangent on the map: smoke, dense smoke, an f32
+    grid, an interior point light and ragged dims; and through the autograd
+    Function, one R2b launch a backward."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    design = {"smoke": "probe", "dense": "dense", "f32": "f32", "point": "point",
+              "ragged": "ragged"}[case]
+    cfg, grid, params, env = _design_inputs(dev, design)
+    env = env._replace(has_probe=False)
+    cfg = dataclasses.replace(cfg, has_light_probe=False)
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    num = params.num_light_samples
+    cot = torch.from_numpy(np.random.default_rng(6).standard_normal((3,) + cfg.zyx)
+                           .astype(np.float32)).to(dev)
+    g_ref = grid.to(torch.float32, copy=True).requires_grad_(True)
+    (light_map_plain(g_ref, env, num, cfg) * cot).sum().backward()
+    samples = torch.full(cfg.zyx, -1, dtype=torch.int32, device=dev)
+    g_grid = R.light_march_grad(grid, packed, flags, num, cfg, cot, samples=samples)
+    torch.cuda.synchronize()
+    assert _grad_close(g_grid, g_ref.grad, f"R2b {case}")
+    assert float(g_grid[:3].abs().max()) == 0.0 and int(samples.sum()) > 0
+    g_in = grid.clone().requires_grad_(True)
+    before = R.light_march_grad.launches
+    out = R.light_march(g_in, packed, flags, num, cfg)
+    assert out.requires_grad and torch.equal(out.detach(),
+                                             R.light_march(grid, packed, flags, num, cfg))
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert R.light_march_grad.launches == before + 1
+    assert _grad_close(g_in.grad, g_ref.grad, f"R2b {case} through autograd")
+
+
+@pytest.mark.parametrize("kernel", ["grad_damp", "jacobi", "advect_xy"])
+def test_kernels_without_an_adjoint_refuse_grad(dev, kernel):
+    """B8, B4 and B1 raise NotImplementedError under autograd on operands
+    that require grad (B8 writes the velocity in place, which autograd
+    would not see), and run as before under torch.no_grad() or on
+    operands that do not require grad."""
+    from fluidx12_tpu_torch.ops.cuda import launch_counts
+
+    rng = np.random.default_rng(3)
+    fields = torch.from_numpy(rng.standard_normal((7, 64, 128, 128)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((64, 128, 128)).astype(np.float32)).to(dev)
+    calls = {"grad_damp": lambda f, p: ST.grad_damp(f, p, 0.48),
+             "jacobi": lambda f, p: J.jacobi(p, f[3].contiguous(), 4, *J.jacobi_tuning(
+                 (64, 128, 128), 4)),
+             "advect_xy": lambda f, p: A.advect_xy(
+                 f.to(torch.bfloat16), torch.tensor([8.0, 8.0], device=dev))}
+    call = calls[kernel]
+    before = launch_counts()[kernel]
+    # The operands each call reads: the fields (and, B8 and B4, the pressure).
+    for which in range(1 if kernel == "advect_xy" else 2):
+        args = [fields.clone(), q.clone()]
+        args[which].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="no adjoint"):
+            call(*args)
+    assert launch_counts()[kernel] == before
+    with torch.no_grad():
+        call(fields.clone().requires_grad_(True), q.clone())
+    call(fields.clone(), q.clone())
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == before + 2
+
+
+def test_adjoint_refuses_the_merged_march_and_the_probe(dev):
+    """Under autograd R1 in merged mode and R2 with the light probe raise
+    NotImplementedError naming ROADMAP.md's item 6b, as do gradients asked
+    of the rays; without grad both launch as before."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    cfg, grid, params, env = _design_inputs(dev, "probe")
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    rays = _design_rays(dev, (20, 28))
+    g = grid.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="6b"):
+        R.view_march(g, *rays, params.num_samples, packed, flags, cfg,
+                     num_light_samples=params.num_light_samples)
+    with pytest.raises(NotImplementedError, match="6b"):
+        R.light_march(g, packed, flags, params.num_light_samples, cfg)
+    light_map = R.light_march(grid, packed, flags, params.num_light_samples, cfg)
+    origin = rays[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="rays"):
+        R.view_march(grid, origin, *rays[1:], params.num_samples, packed, flags, cfg,
+                     light_map=light_map)
+    with torch.no_grad():
+        R.view_march(g, *rays, params.num_samples, packed, flags, cfg,
+                     num_light_samples=params.num_light_samples)
+        R.light_march(g, packed, flags, params.num_light_samples, cfg)
