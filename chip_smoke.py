@@ -260,17 +260,6 @@ def time_ms(fn, reps: int, warmup: int = 2, what: str | None = None) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
-    """Largest |a - b| per channel (leading axis) in bf16 ulps at that
-    channel's largest magnitude: one extra rounding of data at that scale."""
-    a, b = a.float(), b.float()
-    dims = tuple(range(1, a.ndim))
-    mag = torch.maximum(a.abs().amax(dim=dims, keepdim=True),
-                        b.abs().amax(dim=dims, keepdim=True)).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7.0)
-    return float(((a - b).abs() / ulp).max())
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -570,6 +559,7 @@ def check_advect(results, suffix, vol, scales, scal, table, consts):
     two launches through a scratch, one thread a voxel) and failing unless
     faster; rows "advect_xy" + suffix and "advect_z_forces" + suffix of
     `results`.  Returns B1's output, B2's input."""
+    from fluidx12_tpu_torch.utils.compare import bf16_ulps
     from fluidx12_tpu_torch.ops.cuda import advect as A
 
     shape = tuple(vol.shape)
@@ -1986,6 +1976,7 @@ def phase3g_replay_vs_eager(dev, smi_line):
     printed after one key and after six.  Then `step_frames(8)` against 8
     `step_frame` calls from the same state, bit for bit, on
     PRESETS["fluid2d"] and on the 256^3 GI frame."""
+    from fluidx12_tpu_torch.utils.compare import bf16_ulps
     phase("phase 3g: replayed frames against the frame op by op, bit for bit")
     from fluidx12_tpu_torch.core.config import PRESETS, FluidConfig, RenderMethod
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
@@ -3232,6 +3223,160 @@ def phase3i_shell(dev, smi_line, counts_3d, counts_2d, counts_fluidgi, counts_di
           f"{loop.cfl_warnings} CFL warnings) [{smi_line}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3k: the XLA twins, the ensemble and the sharded frame
+# ---------------------------------------------------------------------------
+
+FRAMES_TWIN = 13
+ENSEMBLE = 4
+
+
+def twin_frames(cfg, dev, label: str, expect: dict, frames: int = 3) -> None:
+    """`frames` frames of `cfg` from rest on the card, replayed (step_frame)
+    and op by op (_frame_eager), each held to the same frames on the CPU
+    within phase 4's tolerance (1 bf16 ulp at each channel's scale, 2 u8
+    levels), with the launch counts of the two card runs `expect` times
+    `frames` each."""
+    from fluidx12_tpu_torch.utils.compare import bf16_ulps
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.utils.image import to_srgb_u8
+
+    runs = {}
+    for kind, device in (("cpu", "cpu"), ("replayed", dev), ("op by op", dev)):
+        engine = FluidXEngine(cfg, device=device)
+        step = engine._frame_eager if kind == "op by op" else engine.step_frame
+        if kind == "replayed":
+            reset_launch_counts()
+        for _ in range(frames):
+            img = step()
+        runs[kind] = (engine.state.fields.float().cpu(), to_srgb_u8(img).astype(np.int32))
+    counts = launch_counts()
+    want = {k: 2 * frames * v for k, v in expect.items()}
+    check(counts == want, f"{label}: launch counts {counts} != {want}")
+    for kind in ("replayed", "op by op"):
+        ulps = bf16_ulps(runs[kind][0], runs["cpu"][0])
+        img_err = int(np.abs(runs[kind][1] - runs["cpu"][1]).max())
+        print(f"{label}: {frames} frames {kind} on the card vs the CPU: fields {ulps:.2f} bf16 "
+              f"ulp at each channel's scale, image max u8 diff {img_err} (limits 1 and 2)")
+        check(ulps <= 1.0 and img_err <= 2, f"{label}: {kind} CUDA vs CPU")
+
+
+def phase3k_twins_ensemble_sharded(dev, smi_line, counts_main):
+    """(a) The XLA twins at full width: replace(PRESETS["fluid3d"],
+    use_pallas=False), which launches no kernel, and pallas_advect=False,
+    which launches B3-B10 as the main path and neither B1 nor B2; a few
+    frames replayed and op by op held to the CPU's, then FRAMES_TWIN frames
+    timed.  (b) SmokeEnsemble(PRESETS["fluid3d"], batch=ENSEMBLE): each
+    member bit for bit with a lone SmokeModel.step from its state, the
+    launches exactly ENSEMBLE times one member's, ms per ensemble frame.
+    (c) sharded_simulate + sharded_render_frame at world size 1 on nccl
+    (use_pallas=False, 128^3 / 800^2, without and with the probe), held to
+    the single-device reference the dry run builds (parallel/dryrun.py):
+    from rest, as the JAX dry run, colour within 2e-5 and image within
+    2e-4; from the twin's developed state, within 1 bf16 ulp at each
+    channel's scale and image within 2e-4."""
+    phase("phase 3k: use_pallas=False and pallas_advect=False, SmokeEnsemble(batch="
+          f"{ENSEMBLE}) and the world-size-1 sharded frame at 128^3 / 800^2")
+    from fluidx12_tpu_torch.core.config import PRESETS
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.models.smoke import SmokeModel
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.parallel import dryrun
+    from fluidx12_tpu_torch.parallel.domain import shard_state, sharded_simulate
+    from fluidx12_tpu_torch.parallel.ensemble import SmokeEnsemble
+    from fluidx12_tpu_torch.parallel.mesh import init_distributed, make_grid_mesh
+    from fluidx12_tpu_torch.parallel.render import sharded_render_frame
+
+    t_start = time.perf_counter()
+    base = PRESETS["fluid3d"]
+    twin = dataclasses.replace(base, use_pallas=False)
+    no_advect = dataclasses.replace(base, pallas_advect=False)
+    per_frame = {k: v // FRAMES for k, v in counts_main.items()}
+    twin_frames(twin, dev, "use_pallas=False", {k: 0 for k in counts_main})
+    twin_frames(no_advect, dev, "pallas_advect=False",
+                dict(per_frame, advect_xy=0, advect_z_forces=0))
+    engine = None
+    for label, cfg in (("use_pallas=False", twin), ("pallas_advect=False", no_advect)):
+        counts, faces, engine = run_frames(cfg, FRAMES_TWIN, dev, smi_line, label)
+        want = ({k: 0 for k in counts_main} if cfg is twin else
+                dict({k: FRAMES_TWIN * v for k, v in per_frame.items()}, advect_xy=0,
+                     advect_z_forces=0, composite_resample=FRAMES_TWIN * faces))
+        check(counts == want, f"{label}: launch counts {counts} != {want}")
+        eager_vs_replayed(engine, label, smi_line, frames=5)
+        if cfg is twin:
+            developed = FluidState(engine.state.fields.clone(), engine.state.pressure.clone())
+
+    ens = SmokeEnsemble(base, batch=ENSEMBLE, device=dev)
+    states, params = ens.init(seed=0), ens.default_params()
+    model = ens.model
+    reset_launch_counts()
+    lone = [model.step(FluidState(states.fields[0].clone(), states.pressure[0].clone()),
+                       model.default_params())]
+    one = launch_counts()
+    lone += [model.step(FluidState(states.fields[b].clone(), states.pressure[b].clone()),
+                        model.default_params()) for b in range(1, ENSEMBLE)]
+    reset_launch_counts()
+    out, images = ens.step(states, params)
+    ens_counts = launch_counts()
+    check(ens_counts == {k: ENSEMBLE * v for k, v in one.items()} and one["advect_xy"] == 1,
+          f"ensemble launches {ens_counts} != {ENSEMBLE} x {one}")
+    for b, (st, img) in enumerate(lone):
+        check(torch.equal(st.fields, out.fields[b]) and torch.equal(st.pressure, out.pressure[b])
+              and torch.equal(img, images[b]), f"ensemble member {b} bit for bit with a lone run")
+    check(not torch.equal(out.fields[0], out.fields[1]), "ensemble members differ")
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        out, images = ens.step(out, params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"SmokeEnsemble(batch={ENSEMBLE}): members bit for bit with lone SmokeModel.step "
+          f"runs; launches a frame {ens_counts} ({ENSEMBLE} x one member's); median ms per "
+          f"ensemble frame (op by op, host clock around a synchronized step, frames 2-6) "
+          f"{statistics.median(times[1:]):.3f} [{smi_line}]")
+
+    init_distributed(0, 1, dev, None)
+    try:
+        mesh = make_grid_mesh(1, dev)
+        # From rest, as the JAX dry run, under its gates; then from the
+        # twin's developed smoke, where the bf16 state's last bit differs
+        # here and there: within 1 bf16 ulp at each channel's scale.
+        for label, cfg, start in (
+                ("sharded, from rest", twin, None),
+                ("sharded, probe, from rest", dataclasses.replace(twin, has_light_probe=True),
+                 None),
+                ("sharded, developed", twin, developed),
+                ("sharded, probe, developed", dataclasses.replace(twin, has_light_probe=True),
+                 developed)):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = dryrun.run_domain(mesh, cfg, frames=2, state0=start)
+            print(f"{label}, world size 1 on nccl: {res} against the single-device reference "
+                  f"(limits: from rest colour 2e-5 and image 2e-4; developed 1 bf16 ulp and "
+                  f"image 2e-4); two sharded frames and their reference "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{smi_line}]")
+            if start is None:
+                dryrun.check(res)
+            check(res["state_ulps"] <= 1.0 and res["image"] <= 2e-4, f"{label}: held")
+            check(sum(launch_counts().values()) == 0, f"{label}: no kernel launched")
+        times = []
+        state = shard_state(developed, mesh)
+        params = SmokeModel(twin, device=dev).default_params()
+        for _ in range(4):
+            t0 = time.perf_counter()
+            state = sharded_simulate(state, twin.time_step, twin, mesh)
+            sharded_render_frame(state.color, params, twin, mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"sharded frame, world size 1 on nccl: median ms/frame "
+              f"{statistics.median(times[1:]):.3f} (host clock, frames 2-4) [{smi_line}]")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 3k wall time: {time.perf_counter() - t_start:.1f} s [{smi_line}]")
+
+
 def phase4_cpu_vs_cuda(dev):
     """The port on CUDA against the port on the CPU, 3 frames at six small
     grids: the pallas_jacobi=False path at (128, 128, 16), the default
@@ -3256,6 +3401,7 @@ def phase4_cpu_vs_cuda(dev):
     probe (R1's shadow, SH and AO per sample), the CPU's frames through the
     kernels' plain versions.  Returns the launch counts of the 24^3 DIRECT
     frames, B17's path."""
+    from fluidx12_tpu_torch.utils.compare import bf16_ulps
     phase("phase 4: port on CUDA vs port on CPU, 3 frames each")
     from fluidx12_tpu_torch.core.config import FluidConfig, RenderMethod
     from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
@@ -3368,6 +3514,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase3i_shell(dev, smi_line, counts, counts_2d, counts_fluidgi,
                   counts_direct["RAY_MARCH_DIRECT_MERGED"])
+    torch.cuda.empty_cache()
+    phase3k_twins_ensemble_sharded(dev, smi_line, counts)
     torch.cuda.empty_cache()
     counts_direct24 = phase4_cpu_vs_cuda(dev)
     kernels = []

@@ -38,14 +38,16 @@ render stack (kernels R1 and R2) also serves what the fast one cannot: a
 DIRECT frame with the eye inside the volume (no base plane) and a point
 light inside the volume (which warns once).
 
-Configurations the port does not cover yet raise NotImplementedError at
-construction, naming their ROADMAP.md item; nothing falls back to another
-path.  The config's kernel switches are read as the JAX package reads them
-on its TPU: `pallas_jacobi` and `mg_project_fused` choose the projection's
-kernels (sim/project.py; a grid the TPU stores padded reads `use_pallas`
-alone there), `advect_fuse_xy` B1 or B11 twice (sim/advect_fast.py);
-`use_pallas=False` or `pallas_advect=False` on the fast stack and
-`block_resolve=True` select code the port does not have, and raise.
+A configuration the port does not cover (`block_resolve=True`, ROADMAP.md
+'Do not port') raises NotImplementedError at construction, naming its
+ROADMAP.md item; nothing falls back to another path.  The config's kernel
+switches are read as the JAX package reads them on its TPU:
+`pallas_jacobi` and `mg_project_fused` choose the projection's kernels
+(sim/project.py; a grid the TPU stores padded reads `use_pallas` alone
+there), `advect_fuse_xy` B1 or B11 twice (sim/advect_fast.py), and
+`use_pallas=False` or `pallas_advect=False` the JAX package's XLA twins
+in plain torch, the f32 advect twin and (`use_pallas=False`) the einsum
+sweep and march (render/lightmap_sweep.py, render/slicecomp.py).
 """
 
 from __future__ import annotations
@@ -71,13 +73,13 @@ from fluidx12_tpu_torch.gi.sh import project_cubemap_sh
 from fluidx12_tpu_torch.render.environment import render_environment
 from fluidx12_tpu_torch.render.pipeline import point_light_ok, render_frame, unported_render
 from fluidx12_tpu_torch.render.screencomp import direct_plane_spec
-from fluidx12_tpu_torch.sim.step import simulate, unported_sim
+from fluidx12_tpu_torch.sim.step import simulate
 
 
 def unported(config: FluidConfig) -> Optional[str]:
     """The ROADMAP item this config still needs, or None (on the CPU and on
     the card alike)."""
-    return unported_sim(config) or unported_render(config)
+    return unported_render(config)
 
 
 class _FrameGraph(NamedTuple):

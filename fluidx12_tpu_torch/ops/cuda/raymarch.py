@@ -29,13 +29,18 @@ launches R1b (`view_march_grad`) or R2b (`light_march_grad`), the hand
 adjoints in fluidx12_tpu_torch/csrc/raymarch_grad.cu.  The merged march and
 the light probe have no adjoint on the card yet (ROADMAP.md queue A, item
 6b): they raise under grad, as do gradients asked of the rays or the light
-environment.
+environment.  R1b and R2b add their cotangents by f32 atomicAdd, whose
+order varies from run to run, so under
+`torch.use_deterministic_algorithms(True)` their backwards raise before
+launching (or warn, with `warn_only=True`), as torch's own atomic CUDA
+backwards do (`check_deterministic`).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -255,6 +260,25 @@ def _refuse_unported_grad(name: str, what: str) -> None:
         "(RAY_MARCH_SEPARATE, RAY_MARCH_DIRECT_SEPARATE), or run on the CPU")
 
 
+def check_deterministic(name: str) -> None:
+    """Refuse an adjoint kernel that accumulates by atomics under
+    `torch.use_deterministic_algorithms(True)`, as torch's own CUDA
+    backwards that do (`grid_sample`'s among them) refuse: a RuntimeError
+    naming the kernel, or a warning under `warn_only=True`.  Both flags
+    are read here, before any launch."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return
+    msg = (f"{name} does not have a deterministic implementation (it adds its "
+           "cotangents by f32 atomicAdd, in an order that varies from run to run), but "
+           "you set 'torch.use_deterministic_algorithms(True)'. You can turn off "
+           "determinism just for this operation, or you can use the 'warn_only=True' "
+           "option, if that's acceptable for your application.")
+    if torch.is_deterministic_algorithms_warn_only_enabled():
+        warnings.warn(msg)
+    else:
+        raise RuntimeError(msg)
+
+
 def _refuse_operand_grad(name: str, *tensors) -> None:
     if any(t.requires_grad for t in tensors):
         raise NotImplementedError(
@@ -275,6 +299,7 @@ class _ViewMarchFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        check_deterministic("view_march_grad (R1b)")
         grid, light_map, *rest = ctx.saved_tensors
         g_grid, g_lm = view_march_grad(grid, light_map, *rest, ctx.flags, ctx.config, grad_out)
         return ((g_grid.to(grid.dtype) if ctx.needs_input_grad[0] else None,
@@ -292,6 +317,7 @@ class _LightMarchFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        check_deterministic("light_march_grad (R2b)")
         grid, env, num_light_samples = ctx.saved_tensors
         g_grid = light_march_grad(grid, env, ctx.flags, num_light_samples, ctx.config, grad_out)
         return (g_grid.to(grid.dtype),) + (None,) * 5

@@ -30,7 +30,7 @@ kernels (PyTorch multiplies by the reciprocal of a host scalar there).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -315,23 +315,26 @@ def gradient3_plain(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([gradient_axis(q, ax) for ax in (_AX_X, _AX_Y, _AX_Z)])
 
 
-def fallback_normal_dirs(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor):
+def fallback_normal_dirs(gx: torch.Tensor, gy: torch.Tensor, gz: torch.Tensor,
+                         z0: int = 0, zg: Optional[int] = None):
     """-(gx, gy, gz), with the voxel centre (i + 0.5) / n * 2 - 1 per axis
     where its squared length is below 1e-16: the reference's radial
-    fallback for a degenerate gradient (RayMarch.hlsli:279)."""
+    fallback for a degenerate gradient (RayMarch.hlsli:279).  `z0` and
+    `zg` are the global z offset and extent of a Z-sharded slab (the
+    centre is the global one, parallel/light.py)."""
     n1, n2, n3 = -gx, -gy, -gz
     degenerate = n1 * n1 + n2 * n2 + n3 * n3 < 1e-16
 
-    def centres(axis):
+    def centres(axis, offset=0, total=None):
         n = gx.shape[axis]
         shape = [1, 1, 1]
         shape[axis] = n
-        i = torch.arange(n, dtype=gx.dtype, device=gx.device) + 0.5
-        return (_div(i, float(n)) * 2.0 - 1.0).reshape(shape)
+        i = (offset + torch.arange(n, dtype=gx.dtype, device=gx.device)) + 0.5
+        return (_div(i, float(total or n)) * 2.0 - 1.0).reshape(shape)
 
     return (torch.where(degenerate, centres(_AX_X), n1),
             torch.where(degenerate, centres(_AX_Y), n2),
-            torch.where(degenerate, centres(_AX_Z), n3))
+            torch.where(degenerate, centres(_AX_Z, z0, zg), n3))
 
 
 def gi_light_plain(density: torch.Tensor, shadow: torch.Tensor, ao: torch.Tensor,

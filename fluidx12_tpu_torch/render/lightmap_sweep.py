@@ -1,7 +1,7 @@
 """Light map: the sheared slice sweep for a directional light, the
 projective sweep for a point light outside the volume, and the GI ambient
 from the light probe (mirror of fluidx12_tpu/render/lightmap_sweep.py,
-without the Z-sharding hooks).
+with the Z-sharding hooks that parallel/light.py calls).
 
 For parallel rays the accumulated optical depth is, in a frame sheared by
 the light's lateral slope, an exclusive cumulative sum over slices:
@@ -11,10 +11,14 @@ the light's lateral slope, an exclusive cumulative sum over slices:
 which kernel B9 computes in one streaming scan (ops/cuda/sweep.py).  The
 slice-major relayout + box pooling around it are matmuls against pooling
 matrices, in bf16 on the card (`mxu_einsum`), as the JAX package runs them.
-The port takes the scan on every grid; the JAX package falls back to an
-einsum shear form where its kernel does not tile (n_b % 128), which agrees
-with the scan to f32 summation order (tests/test_pallas.py).  Lateral dims
-of 256 and more sweep at half lateral resolution (`_pool2_lat`).
+The port takes the scan on every grid (ROADMAP.md C4).  With
+`use_pallas=False`, and in the Z-sharded sweep (a `prefix_fn`), it runs the
+JAX package's einsum form instead (lightmap_sweep.py:132-160): dense
+shear weights, four f32 einsums and a cumsum, in plain torch.  The sharded
+form passes each slice's global index (`k_ids`) and a `prefix_fn` that adds
+the optical depth of the earlier ranks' slices, one sheared (W_a, W_b)
+plane each.  Lateral dims of 256 and more sweep at half lateral resolution
+(`_pool2_lat`).
 
 A point light (`point_light`, the reference's dormant _POINT_LIGHT_ mode)
 outside the volume rides the projective form of the same sweep
@@ -22,9 +26,9 @@ outside the volume rides the projective form of the same sweep
 per slice step, so the optical depth is again an exclusive cumsum over
 slices in that slope frame.  The JAX package runs it as einsums, with no
 Pallas kernel, and so does the port (plain torch, f32 matmuls); a
-point-light frame runs no B9.  A light inside the volume needs the
-faithful per-ray path, which the port does not have
-(`point_sweep_supported`).
+point-light frame runs no B9.  A light inside the volume
+(`point_sweep_supported` false) takes the faithful per-ray light map
+instead, kernel R2 by render/lightmap.py (render/pipeline.render_frame).
 
 With a light probe (`sh_coeffs`), the ambient term is the SH irradiance
 along the density's negated gradient, times a six-sweep ambient occlusion,
@@ -90,13 +94,46 @@ def scan_args(dens_o: torch.Tensor, light_dir: torch.Tensor, major_axis: int,
 
 
 def _sweep_pooled(dens_o: torch.Tensor, light_dir: torch.Tensor, major_axis: int,
-                  sizes, stride: int, ref_step: torch.Tensor,
-                  absorption: float) -> torch.Tensor:
+                  sizes, stride: int, ref_step: torch.Tensor, absorption: float,
+                  k_ids: torch.Tensor | None = None, prefix_fn=None,
+                  use_pallas: bool = True) -> torch.Tensor:
     """Shear -> exclusive cumsum -> unshear of a pooled, light-to-far
-    ordered (m, n_a, n_b) slice stack; returns its transmittance."""
-    log_t = shear_scan(*scan_args(dens_o, light_dir, major_axis, sizes, stride,
-                                  ref_step, absorption))
-    return torch.exp(torch.clamp_max(log_t, 0.0)).to(dens_o.dtype)
+    ordered (m, n_a, n_b) slice stack; returns its transmittance.  Kernel
+    B9 where `use_pallas` holds and the stack is the whole sweep; else the
+    einsum form (lightmap_sweep.py:60-160), where `k_ids` (m,) are the
+    slices' global indices (arange by default) and `prefix_fn`, given this
+    stack's total sheared optical depth (W_a, W_b), returns the earlier
+    ranks' (parallel/light.py)."""
+    log_att, s = scan_args(dens_o, light_dir, major_axis, sizes, stride, ref_step, absorption)
+    if use_pallas and prefix_fn is None and k_ids is None:
+        log_t = shear_scan(log_att, s)
+        return torch.exp(torch.clamp_max(log_t, 0.0)).to(dens_o.dtype)
+    dtype = dens_o.dtype
+    dev = dens_o.device
+    m, n_a, n_b = dens_o.shape
+    log_att = log_att.to(dtype)
+    slope_a, slope_b, pad_a, pad_b = s.to(dtype).unbind()
+    k = (torch.arange(m, dtype=dtype, device=dev) if k_ids is None else k_ids.to(dtype))
+    w_a, w_b = 2 * n_a, 2 * n_b
+    # Shear weights: G[j, w] = logA[j, w - pad - j * slope].
+    sw_a = _resample_weights(torch.arange(w_a, dtype=dtype, device=dev)[None, :] - pad_a
+                             - k[:, None] * slope_a, n_a)                 # (m, W_a, n_a)
+    sw_b = _resample_weights(torch.arange(w_b, dtype=dtype, device=dev)[None, :] - pad_b
+                             - k[:, None] * slope_b, n_b)                 # (m, W_b, n_b)
+    sheared = torch.einsum("kwa,kab->kwb", sw_a, log_att)
+    sheared = torch.einsum("kvb,kwb->kwv", sw_b, sheared)                 # (m, W_a, W_b)
+    # Exclusive: CastLightRay's first sample is a step beyond the voxel.
+    excl = torch.cumsum(sheared, dim=0) - sheared
+    if prefix_fn is not None:
+        excl = excl + prefix_fn(sheared.sum(dim=0))[None]
+    # Unshear: D[k, p] = E[k, p + pad + k * slope].
+    uw_a = _resample_weights(torch.arange(n_a, dtype=dtype, device=dev)[None, :] + pad_a
+                             + k[:, None] * slope_a, w_a)                 # (m, n_a, W_a)
+    uw_b = _resample_weights(torch.arange(n_b, dtype=dtype, device=dev)[None, :] + pad_b
+                             + k[:, None] * slope_b, w_b)
+    out = torch.einsum("kaw,kwv->kav", uw_a, excl)
+    log_t = torch.einsum("kbv,kav->kab", uw_b, out)
+    return torch.exp(torch.clamp_max(log_t, 0.0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,11 +164,13 @@ def directional_transmittance(density: torch.Tensor, light_dir: torch.Tensor,
                               major_axis: int, ref_step: torch.Tensor,
                               absorption: float, flip: bool,
                               max_slices: int = _MAX_SLICES,
-                              axis_aligned: bool = False) -> torch.Tensor:
+                              axis_aligned: bool = False,
+                              use_pallas: bool = True) -> torch.Tensor:
     """Per-voxel transmittance toward a directional light; (Z, Y, X).
     `axis_aligned` (a light exactly along the major axis, as the AO's six
     sweeps are) replaces the shear by a bare exclusive cumsum over the
-    slices, which is what the shear computes at zero slope."""
+    slices, which is what the shear computes at zero slope; `use_pallas`
+    False takes the einsum sweep for B9 (`_sweep_pooled`)."""
     dtype = density.dtype
     z, y, x = density.shape
     sizes = (x, y, z)
@@ -150,7 +189,7 @@ def directional_transmittance(density: torch.Tensor, light_dir: torch.Tensor,
         transm = torch.exp(torch.clamp_max(excl, 0.0))
     else:
         transm = _sweep_pooled(dens_o, light_dir, major_axis, sizes, stride,
-                               ref_step, absorption)
+                               ref_step, absorption, use_pallas=use_pallas)
     eq_up = {0: "mzy,mx->zyx", 1: "mzx,my->zyx", 2: "myx,mz->zyx"}[major_axis]
     return mxu_einsum(eq_up, transm, up).to(dtype)
 
@@ -173,7 +212,8 @@ def _resample_weights(coords: torch.Tensor, n_src: int) -> torch.Tensor:
 
 def _sweep_pooled_point(dens_o: torch.Tensor, light_local: torch.Tensor, major_axis: int,
                         sizes, stride: int, ref_step: torch.Tensor, absorption: float,
-                        flip: bool) -> torch.Tensor:
+                        flip: bool, k_ids: torch.Tensor | None = None, prefix_fn=None,
+                        n_s_global: int | None = None) -> torch.Tensor:
     """Projective shear sweep of a pooled, light-to-far ordered (n_s, n_a,
     n_b) slice stack toward the light at `light_local`, which lies outside
     the volume on the near side of the sweep (lightmap_sweep.py:163-281).
@@ -187,6 +227,7 @@ def _sweep_pooled_point(dens_o: torch.Tensor, light_local: torch.Tensor, major_a
     rem_local = [_ARR_TO_LOCAL[a] for a in (0, 1, 2) if a != arr_axis]
     n_m = sizes[major_axis]
     n_s, n_a, n_b = dens_o.shape
+    n_sg = n_s if n_s_global is None else n_s_global
     step_m = 2.0 * stride / n_m
     dev = dens_o.device
 
@@ -194,19 +235,19 @@ def _sweep_pooled_point(dens_o: torch.Tensor, light_local: torch.Tensor, major_a
     l_a = light_local[rem_local[0]].to(dtype)
     l_b = light_local[rem_local[1]].to(dtype)
     # The light in slice / lateral index coordinates (slice 0 nearest it).
-    s_l = (l_m + 1.0) * 0.5 * n_s - 0.5
-    k_l = (n_s - 1.0 - s_l) if flip else s_l
+    s_l = (l_m + 1.0) * 0.5 * n_sg - 0.5
+    k_l = (n_sg - 1.0 - s_l) if flip else s_l
     k_l = torch.clamp_max(k_l, -0.5)
     pl_a = (l_a + 1.0) * 0.5 * n_a - 0.5
     pl_b = (l_b + 1.0) * 0.5 * n_b - 0.5
-    k = torch.arange(n_s, dtype=dtype, device=dev)
+    k = torch.arange(n_s, dtype=dtype, device=dev) if k_ids is None else k_ids.to(dtype)
     denom = k - k_l
 
     # Slope grids spanning every voxel's ray: both extremes of p and of the
     # (positive) denominator.
     w_a, w_b = 2 * n_a, 2 * n_b
     den0 = -k_l
-    den1 = (n_s - 1.0) - k_l
+    den1 = (n_sg - 1.0) - k_l
 
     def w_bounds(pl, n_lat):
         cands = torch.stack([(0.0 - pl) / den0, (0.0 - pl) / den1,
@@ -232,6 +273,8 @@ def _sweep_pooled_point(dens_o: torch.Tensor, light_local: torch.Tensor, major_a
                     + (wb * (2.0 / n_b))[None, :] ** 2)
     sheared = sheared * (ds / ref_step)[None]
     excl = torch.cumsum(sheared, dim=0) - sheared
+    if prefix_fn is not None:
+        excl = excl + prefix_fn(sheared.sum(dim=0))[None]
 
     # Unshear: D[k, p] = E[k, (p - pL) / (k - kL) on the slope grid].
     pa = torch.arange(n_a, dtype=dtype, device=dev)
@@ -426,10 +469,11 @@ def render_light_map_fast(grid: torch.Tensor, params: SceneParams,
         # the lateral sizes from the pooled shape.
         shadow = _unpool2_lat(directional_transmittance(
             _pool2_lat(density, arr_axis), light_dir, major_axis, ref_step,
-            config.absorption, flip), arr_axis)
+            config.absorption, flip, use_pallas=config.use_pallas), arr_axis)
     else:
         shadow = directional_transmittance(density, light_dir, major_axis, ref_step,
-                                           config.absorption, flip)
+                                           config.absorption, flip,
+                                           use_pallas=config.use_pallas)
     env3 = params.light_color[:3] * params.light_color[3]
     dense = density >= config.zero_threshold
     shadow = torch.where(dense, shadow, torch.ones_like(shadow))

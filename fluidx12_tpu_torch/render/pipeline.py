@@ -11,8 +11,10 @@ takes it: the light map by render/lightmap.py (kernel R2) for the separate
 methods, the cube march of render/cubemap.py or the screen-space march of
 render/raycast.py (kernel R1; also a fast-stack DIRECT frame whose eye is
 inside the volume, `plane_spec` None).  `use_pallas=False` on the fast
-stack and `block_resolve` raise NotImplementedError naming their ROADMAP.md
-item rather than running something else.
+stack runs the JAX package's XLA twins there: the einsum shear sweep and
+the einsum + cumprod march (render/lightmap_sweep.py, render/slicecomp.py).
+`block_resolve` raises NotImplementedError naming its ROADMAP.md item
+rather than running something else.
 """
 
 from __future__ import annotations
@@ -50,9 +52,6 @@ def unported_render(config: FluidConfig):
     renders it."""
     if not config.is_3d:
         return None
-    if not config.use_pallas and config.fast_render and point_light_ok(config):
-        return ("the einsum shear sweep and the einsum + cumprod march, "
-                "use_pallas=False (ROADMAP.md queue A, 'The XLA twins')")
     if config.block_resolve:
         return ("cube_cast_blocked, block_resolve=True (ROADMAP.md, 'Do not port'; "
                 "queue C, C7)")

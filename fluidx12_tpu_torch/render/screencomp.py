@@ -8,13 +8,15 @@ fluidx12_tpu/render/screencomp.py).
    once on an enlarged plane: extents past 1 cover the rays that exit
    through side faces, and lateral texels outside the volume get zero
    weight (B10's zero_outside mode, or the zero-outside resample before
-   B17, by the TPU's gate, `slicecomp.plane_kernel`).
+   B17, by the TPU's gate, `slicecomp.plane_kernel`; with
+   `use_pallas=False` the einsum + cumprod chain, as at the JAX package's
+   screencomp.py:231).
 2. **Warp.**  Per pixel, the eye ray's hit on the base plane maps the
    composited plane image to the screen by one bilinear fetch.
 
 The plane's geometry (face, extents, texels) is host math per camera pose
 (`direct_plane_spec`, an own copy of the JAX package's); an eye inside the
-volume has none, and render/pipeline.py raises for it.
+volume has none, and render/pipeline.py takes the faithful march for it.
 """
 
 from __future__ import annotations
@@ -171,7 +173,7 @@ def march_direct_plane(grid: torch.Tensor, params: SceneParams, config: FluidCon
                        num_samples: torch.Tensor) -> torch.Tensor:
     """The base plane's (Rv, Ru, 4) premultiplied image: the colour grid
     lit by `light_map`, resampled onto the plane and composited (B10 in its
-    zero-outside mode, or B17, `slicecomp.plane_kernel`)."""
+    zero-outside mode, or B17, or the einsum chain, `slicecomp.plane_kernel`)."""
     dtype = config.render_dtype
     local_eye = transform_point_h(params.eye_pt, params.world_i)[:3].to(dtype)
     dens = grid[3:4].to(dtype)

@@ -16,10 +16,17 @@ lateral dim that does not tile, which with x = y means a lateral plane of
 with kernel B17; the port does the same there, and takes B10 on every
 other face.  The DIRECT methods (render/screencomp.py) march one enlarged
 base plane of a face the same way, by the same gate (`plane_kernel`), with
-zero weight outside the volume.  (The JAX package keeps an einsum +
-cumprod twin for small stacks, below its `_FUSE_MIN_STACK`; that twin
-agrees with the kernel within 2e-3, tests/test_pallas.py, and is not
-ported.)
+zero weight outside the volume.
+
+With `use_pallas=False` the JAX package runs its einsum + cumprod chain
+instead (slicecomp.py:332-427), and so does the port in plain torch
+(`_march_face_einsum`): the two resample matmuls, as `resampled_stack` forms them, then
+front-to-back transmittance as a cumulative product over the slices.  The
+Z-sharded render (parallel/render.py) takes the same chain with its hooks:
+`slice_start` marches a rank's block of slices and (`partial`) also returns
+the block's transmittance, for OVER composition across ranks; `row_start`
+and `psum_axis` split the first resample's contraction over the rows of a
+rank's slab and all-reduce it.
 """
 
 from __future__ import annotations
@@ -64,6 +71,9 @@ _ARR_TO_LOCAL = {1: 2, 2: 1, 3: 0}   # array dim -> local axis
 # Stack size (slices x rows x cols) from which the TPU composites a face in
 # a kernel rather than its XLA chain (fluidx12_tpu/render/slicecomp.py:71).
 _FUSE_MIN_STACK = 1024 * 1024
+
+# Opacity cap of the einsum march (fluidx12_tpu/render/slicecomp.py:55).
+_EPS_ALPHA = 1e-6
 
 
 def mxu16(device) -> torch.dtype:
@@ -144,12 +154,13 @@ def plane_dims(face_id: int, res) -> tuple:
 
 def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
                   num_samples: torch.Tensor, config: FluidConfig, dtype,
-                  lod: int = 0, extent=1.0, res=None):
+                  lod: int = 0, extent=1.0, res=None, slice_start: int = 0):
     """Kernel B10's per-face arguments: (h_rows (n_s, R1), h_cols
     (n_s, R2), valid (n_s,), n_steps (R1, R2)), all f32 and contiguous,
     plus `swapped` (`plane_dims`).  A cube face by default; the DIRECT
     methods' base plane with `extent` (Lu, Lv) > 1, its lateral half-extents,
-    and `res` (Ru, Rv), its texels."""
+    and `res` (Ru, Rv), its texels.  `slice_start` is the global index of
+    the first of the `n_s` slices (a rank's block, parallel/render.py)."""
     axis, sign, (ua, us), (va, vs) = _FACES[face_id]
     dev = local_eye.device
     z, y, x = config.zyx
@@ -163,8 +174,8 @@ def face_geometry(face_id: int, n_s: int, local_eye: torch.Tensor,
     u_line = ((torch.arange(r_u, dtype=dtype, device=dev) + 0.5) / r_u * 2.0 - 1.0) * l_u
     v_line = -((torch.arange(r_v, dtype=dtype, device=dev) + 0.5) / r_v * 2.0 - 1.0) * l_v
     e_m = local_eye[axis]
-    cell = ((torch.arange(n_s, dtype=dtype, device=dev) * stride + 0.5 * stride)
-            / n_m) * 2.0 - 1.0
+    cell = (((slice_start + torch.arange(n_s, dtype=dtype, device=dev)) * stride
+             + 0.5 * stride) / n_m) * 2.0 - 1.0
     denom = float(sign) - e_m
     denom = torch.where(denom.abs() < 1e-8, torch.full_like(denom, 1e-8), denom)
     s = (cell - e_m) / denom
@@ -239,10 +250,13 @@ def _pads(config: FluidConfig, lod: int, planes) -> bool:
 
 
 def _route(config: FluidConfig, lod: int, planes) -> list:
-    """"B10" or "B17" for each (axis, R1, R2) of `planes`: B10 on every
-    one where the TPU re-pads (`_pads`; the port marches the compact
+    """"B10", "B17" or "einsum" for each (axis, R1, R2) of `planes`: the
+    einsum + cumprod chain on every one with `use_pallas=False`; B10 on
+    every one where the TPU re-pads (`_pads`; the port marches the compact
     volume, whose clamps give the padded kernel's zero-weight ghosts), else
     B17 where `_takes_b17` holds on the compact dims and B10 elsewhere."""
+    if not config.use_pallas:
+        return ["einsum"] * len(planes)
     if _pads(config, lod, planes):
         return ["B10"] * len(planes)
     return ["B17" if _takes_b17(_n_slices(config, axis, lod), *_lateral(config.zyx, axis),
@@ -262,14 +276,14 @@ def padded_march(config: FluidConfig, lod: int, live) -> bool:
 
 
 def march_kernels(config: FluidConfig, lod: int, live) -> dict:
-    """{face: "B10" or "B17"} for the cube faces in `live`: the TPU's route
+    """{face: "B10", "B17" or "einsum"} for the cube faces in `live`: the TPU's route
     for each face at this LOD."""
     live = list(live)
     return dict(zip(live, _route(config, lod, _cube_planes(config, lod, live))))
 
 
 def plane_kernel(config: FluidConfig, face_id: int, res) -> str:
-    """"B10" or "B17": the TPU's route for the DIRECT methods' base plane
+    """"B10", "B17" or "einsum": the TPU's route for the DIRECT methods' base plane
     of cube face `face_id` with `res` (Ru, Rv) texels, at lod 0.  Its
     re-pad asks B10's gate in both orientations of the plane
     (screencomp.py:241-247); the compact route reads the plane's own."""
@@ -315,15 +329,81 @@ def resampled_stack(volf: torch.Tensor, h_rows: torch.Tensor, h_cols: torch.Tens
     return dens.contiguous(), res[1:4].contiguous()
 
 
+def _march_face_einsum(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
+                       num_samples: torch.Tensor, config: FluidConfig, dtype, lod: int = 0,
+                       extent=1.0, res=None, slice_start: int = 0,
+                       row_start: Optional[int] = None, psum_axis=None,
+                       partial: bool = False):
+    """The JAX package's einsum + cumprod march of one face
+    (fluidx12_tpu/render/slicecomp.py:332-427): the (4, n_s, A, B) volume
+    resampled to the face by two matmuls in the matmul dtype, then
+    front-to-back compositing with the exclusive transmittance as a
+    cumulative product of (1 - alpha) over the slices.  Returns (R1, R2, 4)
+    = (rgb / 2pi, alpha).  The sharded hooks: `slice_start`, the global
+    index of `volf`'s first slice; `row_start`, the global index of its
+    first row of dim 2, whose contraction `psum_axis` (parallel/mesh.GridMesh)
+    then all-reduces in f32; `partial` also returns the block's total
+    transmittance (R1, R2)."""
+    sign = _FACES[face_id][1]
+    h_rows, h_cols, valid, n_steps, swapped = face_geometry(
+        face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod, extent, res,
+        slice_start)
+    z, y, x = config.zyx
+    sizes = (x, y, z)
+    rem_local = _rem_local(face_id)
+    outside = max((extent, extent) if isinstance(extent, float) else extent) > 1.0
+    mx = mxu16(volf.device)
+    w_rows = _interp_weights(h_rows, sizes[rem_local[0]], outside)    # (n_s, R1, A)
+    w_cols = _interp_weights(h_cols, sizes[rem_local[1]], outside)    # (n_s, R2, B)
+    if row_start is not None:
+        w_rows = w_rows[:, :, row_start:row_start + volf.shape[2]]
+    t1 = mxu_einsum("mrv,cmvu->cmru", w_rows, volf)
+    if psum_axis is not None:
+        # The rows' partial contraction, summed over the ranks in f32
+        # before the half cast: the X and Y faces' one collective.
+        t1 = psum_axis.psum(t1)
+    res_ = mxu_einsum("msu,cmru->cmrs", w_cols, t1.to(mx)).to(mx)
+
+    dens = torch.clamp(res_[0].to(dtype), 0.0, 1.0)                    # (n_s, R1, R2)
+    a_ref = torch.clamp(dens * config.absorption, 0.0, 0.999)
+    alpha = 1.0 - torch.pow(1.0 - a_ref, n_steps[None])
+    alpha = torch.where(valid[:, None, None] > 0.0, alpha, torch.zeros_like(alpha))
+    alpha = torch.clamp(alpha, 0.0, 1.0 - _EPS_ALPHA)
+    # Slices ascend, so front to back is a prefix product toward a positive
+    # face and a suffix product toward a negative one.
+    one_m = 1.0 - alpha
+    cp = torch.cumprod(one_m if sign > 0 else one_m.flip(0), dim=0)
+    transm = torch.cat([torch.ones_like(cp[:1]), cp[:-1]])
+    if sign < 0:
+        transm = transm.flip(0)
+    w = alpha * transm
+    # Scatter rate = prod / density, so weight the premultiplied rgb * light
+    # by w / density.
+    w_rate = torch.where(dens > 0, w / torch.clamp_min(dens, 1e-6), torch.zeros_like(w))
+    prod = res_[1:4]
+    out_rgb = torch.einsum("cmrs,mrs->rsc", prod.float(), w_rate.to(prod.dtype).float())
+    scatter = torch.cat([out_rgb / (2.0 * math.pi), w.sum(dim=0)[..., None]], dim=-1)
+    if swapped:
+        scatter = scatter.transpose(0, 1)
+    if partial:
+        t_tot = cp[-1].T if swapped else cp[-1]
+        return scatter, t_tot
+    return scatter
+
+
 def _march_face(face_id: int, volf: torch.Tensor, local_eye: torch.Tensor,
                 num_samples: torch.Tensor, config: FluidConfig, dtype,
                 lod: int = 0, b17: bool = False, extent=1.0, res=None) -> torch.Tensor:
     """March one cube face with B10, or with the resample and B17 where
-    `b17`; returns (R, R, 4) = (rgb / 2pi, alpha), R = cube_map_size >> lod.
-    With `extent` (Lu, Lv) and `res` (Ru, Rv) it marches the DIRECT
-    methods' enlarged base plane instead, (Rv, Ru, 4): where the plane
-    reaches beyond the volume, texels outside it get zero weight, not the
-    edge clamp (fluidx12_tpu/render/slicecomp.py:226-234)."""
+    `b17`, or with `use_pallas=False` by the einsum + cumprod chain
+    (`_march_face_einsum`); returns (R, R, 4) = (rgb / 2pi, alpha), R =
+    cube_map_size >> lod.  With `extent` (Lu, Lv) and `res` (Ru, Rv) it
+    marches the DIRECT methods' enlarged base plane instead, (Rv, Ru, 4):
+    where the plane reaches beyond the volume, texels outside it get zero
+    weight, not the edge clamp (fluidx12_tpu/render/slicecomp.py:226-234)."""
+    if not config.use_pallas:
+        return _march_face_einsum(face_id, volf, local_eye, num_samples, config, dtype, lod,
+                                  extent, res)
     h_rows, h_cols, valid, n_steps, swapped = face_geometry(
         face_id, volf.shape[1], local_eye, num_samples, config, dtype, lod, extent, res)
     flip = _FACES[face_id][1] < 0

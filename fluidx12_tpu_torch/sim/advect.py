@@ -35,11 +35,13 @@ def apply_impulse_forces(
     c_new: torch.Tensor,  # (4, Z, Y, X)
     time_step: torch.Tensor,
     config: FluidConfig,
+    z0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (velocity, color) attenuated, in the input dtype; arithmetic
     in f32 with one rounding at the end.  `time_step` is an f32 scalar
     tensor; the config's constants come from `device_constant`, so a
-    frame copies nothing from the host."""
+    frame copies nothing from the host.  `z0` is the global z index of the
+    first plane, for a Z-slab of the volume (parallel/domain.py)."""
     store = c_new.dtype
     f32 = torch.float32
     dev = c_new.device
@@ -50,7 +52,7 @@ def apply_impulse_forces(
     zp, yp, xp = c_new.shape[-3:]
     cx = ((torch.arange(xp, dtype=f32, device=dev) + 0.5) / x).reshape(1, 1, xp)
     cy = ((torch.arange(yp, dtype=f32, device=dev) + 0.5) / y).reshape(1, yp, 1)
-    cz = ((torch.arange(zp, dtype=f32, device=dev) + 0.5) / z).reshape(zp, 1, 1)
+    cz = ((torch.arange(z0, z0 + zp, dtype=f32, device=dev) + 0.5) / z).reshape(zp, 1, 1)
     ip = device_constant(tuple(config.impulse_pos), f32, dev)
     dx, dy, dz = cx - ip[0], cy - ip[1], cz - ip[2]
 

@@ -1,5 +1,6 @@
 """One full simulation step: advect then project (mirror of
-fluidx12_tpu/sim/step.py): the fast advect (kernels B1 and B2, or B11) or,
+fluidx12_tpu/sim/step.py): the fast advect (kernels B1 and B2, or B11, or
+with `use_pallas=False` or `pallas_advect=False` its f32 XLA twin) or,
 with `fast_sim=False`, the faithful gather advect of sim/advect.py; then
 the projection, which reads `fast_sim` itself (no multigrid when off)."""
 
@@ -15,16 +16,6 @@ from fluidx12_tpu_torch.core.state import FluidState
 from fluidx12_tpu_torch.sim.project import project
 
 
-def unported_sim(config: FluidConfig):
-    """The ROADMAP item a simulation config still needs, or None.  The
-    JAX package runs other code for each of these switches; the port runs
-    none in its place."""
-    if config.fast_sim and not (config.use_pallas and config.pallas_advect):
-        return ("the mirror-addressed advect twin, use_pallas=False or "
-                "pallas_advect=False (ROADMAP.md queue A, 'The XLA twins')")
-    return None
-
-
 def simulate(state: FluidState, time_step: float, config: FluidConfig,
              dt: Optional[torch.Tensor] = None) -> FluidState:
     """Advect + project the combined (7, Z, Y, X) state.  Arithmetic runs
@@ -33,9 +24,6 @@ def simulate(state: FluidState, time_step: float, config: FluidConfig,
     projection's branch; `dt` the same value as an f32 scalar on the
     state's device (the engine passes the packed parameters' `time_step`),
     by default a constant made once per value."""
-    missing = unported_sim(config)
-    if missing is not None:
-        raise NotImplementedError(f"not ported yet: {missing}")
     store = state.fields.dtype
     if dt is None:
         dt = device_constant(float(time_step), torch.float32, state.fields.device)
@@ -44,8 +32,9 @@ def simulate(state: FluidState, time_step: float, config: FluidConfig,
 
         fields = advect_fields_fast(state.fields, dt, config)
     else:
-        # The gather advect returns f32: the projection runs on f32 fields
-        # and the state rounds once, below (sim/step.py:44-51).
+        # The gather advect returns f32 (so does the fast advect's twin):
+        # the projection runs on f32 fields and the state rounds once,
+        # below (sim/step.py:44-51).
         from fluidx12_tpu_torch.sim.advect import advect
 
         velocity, color = advect(state.fields[:3], state.fields[3:], dt, config)

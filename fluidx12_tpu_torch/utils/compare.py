@@ -6,6 +6,9 @@ position inside the box); where a sample lies within rounding of such an
 edge the two sides may take different branches, and that ray's values
 differ by more than rounding.  So a few values may be off: `few_off`
 allows `frac` of them beyond `atol`.
+
+`bf16_ulps` measures a bf16 state against another in units of one extra
+rounding at each channel's scale.
 """
 
 from __future__ import annotations
@@ -28,3 +31,14 @@ def few_off(got, ref, what: str, atol: float = 1e-5, frac: float = 1e-3):
     err = float(diff.max())
     print(f"{what}: {off} of {diff.numel()} values beyond {atol}, max abs diff {err:.3e}")
     return bool(torch.isfinite(got).all()) and off <= frac * diff.numel(), err
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| per channel (leading axis) in bf16 ulps at that
+    channel's largest magnitude: one extra rounding of data at that scale."""
+    a, b = a.float(), b.float()
+    dims = tuple(range(1, a.ndim))
+    mag = torch.maximum(a.abs().amax(dim=dims, keepdim=True),
+                        b.abs().amax(dim=dims, keepdim=True)).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7.0)
+    return float(((a - b).abs() / ulp).max())

@@ -19,7 +19,7 @@ from fluidx12_tpu_torch.ops.cuda import jacobi as J
 from fluidx12_tpu_torch.ops.cuda import stencil as ST
 from fluidx12_tpu_torch.ops.cuda import sweep as S
 from fluidx12_tpu_torch.render.slicecomp import sample_face_inputs
-from fluidx12_tpu_torch.utils.compare import few_off
+from fluidx12_tpu_torch.utils.compare import bf16_ulps, few_off
 
 pytestmark = pytest.mark.cuda
 
@@ -67,15 +67,6 @@ def _advect_state(dev, zyx, seed):
     scal = torch.tensor([8.0, cfg.time_step], device=dev)
     return (torch.from_numpy(f).to(dev, torch.bfloat16), torch.tensor([8.0, 8.0], device=dev),
             scal, torch.from_numpy(A.forces_table(cfg)).to(dev), A.force_consts(cfg))
-
-
-def _ulps(a, b):
-    """Largest |a - b| per channel in bf16 ulps at that channel's largest
-    magnitude (chip_smoke.bf16_ulps)."""
-    a, b = a.float(), b.float()
-    mag = torch.maximum(a.abs().amax(dim=(1, 2, 3), keepdim=True),
-                        b.abs().amax(dim=(1, 2, 3), keepdim=True)).clamp_min(2.0 ** -126)
-    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7.0)).max())
 
 
 def _forced_plan(zyx, xy_tile, z_tile, warps):
@@ -137,7 +128,7 @@ def test_advect_windows_match_plain(dev, zyx, forced):
         got = A.advect_z_forces(want_xy, scal, table, consts)
         z = A.advect_z(want_xy, scal)
     assert torch.equal(xy, want_xy)
-    assert _ulps(got, A.advect_z_forces_plain(want_xy, scal, table, consts)) <= 1.0
+    assert bf16_ulps(got, A.advect_z_forces_plain(want_xy, scal, table, consts)) <= 1.0
     assert torch.equal(z, A.advect_z_forces_plain(want_xy, scal, None, None, forces=False))
 
 
@@ -148,7 +139,7 @@ def test_advect_perthread_yardsticks_match_plain(dev):
     vol, scales, scal, table, consts = _advect_state(dev, (20, 38, 150), 22)
     xy = A.perthread("xy", vol, scales)
     assert torch.equal(xy, A.advect_xy_plain(vol, scales))
-    assert _ulps(A.perthread("z_forces", xy, scal, table, consts),
+    assert bf16_ulps(A.perthread("z_forces", xy, scal, table, consts),
                  A.advect_z_forces_plain(xy, scal, table, consts)) <= 1.0
     assert torch.equal(A.perthread("z", xy, scal),
                        A.advect_z_forces_plain(xy, scal, None, None, forces=False))
@@ -1775,3 +1766,122 @@ def test_adjoint_refuses_the_merged_march_and_the_probe(dev):
         R.view_march(g, *rays, params.num_samples, packed, flags, cfg,
                      num_light_samples=params.num_light_samples)
         R.light_march(g, packed, flags, params.num_light_samples, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The XLA twins, the ensemble, the world-size-1 sharded frame, C9
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("change", ["use_pallas", "pallas_advect"])
+def test_twin_frames_match_cpu(dev, change):
+    """Three frames of a 32^3 engine with `use_pallas=False` (the advect
+    twin, the einsum sweep and march: no kernel) or `pallas_advect=False`
+    (the twin advect, then B3-B10) on the card, replayed, against the same
+    frames on the CPU: within 1 bf16 ulp at each channel's scale and 2 u8
+    levels, chip_smoke.py phase 4's tolerance."""
+    from fluidx12_tpu_torch.engine.fluidx import FluidXEngine
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.utils.image import to_srgb_u8
+
+    cfg = FluidConfig(grid_size=(32, 32, 32), viewport=(64, 64), **{change: False})
+    engines = [FluidXEngine(cfg, device=d) for d in ("cpu", dev)]
+    reset_launch_counts()
+    images = []
+    for e in engines:
+        for _ in range(3):
+            img = e.step_frame()
+        images.append(to_srgb_u8(img).astype(np.int32))
+    counts = launch_counts()
+    assert counts["advect_xy"] == counts["advect_z_forces"] == 0
+    assert (sum(counts.values()) == 0) == (change == "use_pallas")
+    assert bf16_ulps(engines[0].state.fields, engines[1].state.fields.cpu()) <= 1.0
+    assert int(np.abs(images[0] - images[1]).max()) <= 2
+
+
+def test_ensemble_members_match_lone_runs(dev):
+    """SmokeEnsemble of three 32^3 members on the card: each bit for bit
+    with a lone SmokeModel.step from its state, and exactly three times one
+    member's launches."""
+    from fluidx12_tpu_torch.core.state import FluidState
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.parallel.ensemble import SmokeEnsemble
+
+    ens = SmokeEnsemble(FluidConfig(grid_size=(32, 32, 32), viewport=(64, 64)), batch=3,
+                        device=dev)
+    states, params = ens.init(seed=1), ens.default_params()
+    reset_launch_counts()
+    lone = ens.model.step(FluidState(states.fields[0].clone(), states.pressure[0].clone()),
+                          ens.model.default_params())
+    one = launch_counts()
+    rest = [ens.model.step(FluidState(states.fields[b].clone(), states.pressure[b].clone()),
+                           ens.model.default_params()) for b in (1, 2)]
+    reset_launch_counts()
+    out, images = ens.step(states, params)
+    assert launch_counts() == {k: 3 * v for k, v in one.items()} and one["advect_xy"] == 1
+    for b, (st, img) in enumerate([lone] + rest):
+        assert torch.equal(st.fields, out.fields[b]) and torch.equal(img, images[b])
+
+
+def test_sharded_frame_world_size_1_nccl(dev):
+    """sharded_simulate + sharded_render_frame on one card (nccl, world
+    size 1, from a HashStore) at 48^3 with and without the probe, against
+    the single-device reference of the dry run: colour within 2e-5, image
+    within 2e-4; no kernel launched."""
+    import torch.distributed as dist
+
+    from fluidx12_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from fluidx12_tpu_torch.parallel import dryrun
+    from fluidx12_tpu_torch.parallel.mesh import init_distributed, make_grid_mesh
+
+    init_distributed(0, 1, dev, None)
+    try:
+        mesh = make_grid_mesh(1, dev)
+        for probe in (False, True):
+            cfg = FluidConfig(grid_size=(48, 48, 48), viewport=(64, 64), use_pallas=False,
+                              has_light_probe=probe)
+            reset_launch_counts()
+            res = dryrun.run_domain(mesh, cfg, frames=3)
+            dryrun.check(res)
+            assert sum(launch_counts().values()) == 0 and res["exchanges"] > 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kernel", ["view_march_grad", "light_march_grad"])
+def test_adjoint_refuses_deterministic_mode(dev, kernel):
+    """Under torch.use_deterministic_algorithms(True) the backward through
+    R1 or R2 raises a RuntimeError naming R1b or R2b before launching it
+    (they add cotangents by f32 atomics); with warn_only=True it warns and
+    launches."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+
+    cfg, grid, params, env = _design_inputs(dev, "probe")
+    env = env._replace(has_probe=False)
+    cfg = dataclasses.replace(cfg, has_light_probe=False)
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    rays = _design_rays(dev, (20, 28))
+    fn = getattr(R, kernel)
+
+    def backward():
+        g = grid.clone().requires_grad_(True)
+        if kernel == "view_march_grad":
+            lm = R.light_march(grid, packed, flags, params.num_light_samples, cfg)
+            out = R.view_march(g, *rays, params.num_samples, packed, flags, cfg, light_map=lm)
+        else:
+            out = R.light_march(g, packed, flags, params.num_light_samples, cfg)
+        out.sum().backward()
+        torch.cuda.synchronize()
+
+    before = fn.launches
+    try:
+        torch.use_deterministic_algorithms(True)
+        with pytest.raises(RuntimeError, match="R1b" if kernel == "view_march_grad" else "R2b"):
+            backward()
+        assert fn.launches == before
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with pytest.warns(UserWarning, match="deterministic"):
+            backward()
+        assert fn.launches == before + 1
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -199,20 +199,22 @@ def test_golden_fluid2d():
 
 
 def test_unported_configs_raise():
-    """What the port does not cover yet raises NotImplementedError naming
-    its ROADMAP item, instead of running another path: the switches that
-    select the JAX package's XLA twins (`use_pallas=False`,
-    `pallas_advect=False`: the mirror-addressed advect twin, the einsum
-    sweep and march) and `cube_cast_blocked` (`block_resolve=True`), at
-    construction and again in `simulate` and `render_frame`.  The faithful
-    simulation and render stacks now run, in 3D and 2D: `fast_render=False`,
-    `fast_sim=False`, a point light inside the volume, and a DIRECT frame
-    with the eye inside the volume (tests/test_torch_faithful.py holds them
-    to JAX).  The default preset (pallas_jacobi=True), the 2D preset, GI and
-    every kernel the JAX gates choose (B15 and B18 among them) are covered,
-    and so are `advect_fuse_xy=False` (B11 twice,
-    tests/test_torch_padded.py), a point light outside the volume and the
-    fast DIRECT methods (tests/test_torch_direct.py)."""
+    """What the port does not cover raises NotImplementedError naming its
+    ROADMAP item, instead of running another path: `cube_cast_blocked`
+    (`block_resolve=True`, 'Do not port'), at construction and again in
+    `render_frame`.  Everything else runs: the switches that select the
+    JAX package's XLA twins (`use_pallas=False`, `pallas_advect=False`: the
+    mirror- and clamp-addressed advect twins, the einsum sweep and march;
+    tests/test_torch_twins.py holds them to JAX) in the engine, in
+    `simulate` and in `render_frame`, and the faithful simulation and
+    render stacks, in 3D and 2D: `fast_render=False`, `fast_sim=False`, a
+    point light inside the volume, and a DIRECT frame with the eye inside
+    the volume (tests/test_torch_faithful.py holds them to JAX).  The
+    default preset (pallas_jacobi=True), the 2D preset, GI and every kernel
+    the JAX gates choose (B15 and B18 among them) are covered, and so are
+    `advect_fuse_xy=False` (B11 twice, tests/test_torch_padded.py), a point
+    light outside the volume and the fast DIRECT methods
+    (tests/test_torch_direct.py)."""
     from fluidx12_tpu_torch.core.config import PRESETS
     from fluidx12_tpu_torch.core.state import make_initial_state, unpack_scene_params
     from fluidx12_tpu_torch.render.pipeline import render_frame as torch_render
@@ -225,32 +227,32 @@ def test_unported_configs_raise():
                               device="cpu")
     base = TorchConfig(grid_size=(24, 24, 24), viewport=(32, 32), max_ray_samples=16,
                        max_light_samples=4, num_pressure_iters=4)
-    twins = "ROADMAP.md queue A, 'The XLA twins'"
     for change in (dict(grid_size=(64, 64, 1), fast_sim=False), dict(fast_render=False),
-                   dict(point_light=True, light_pos=(5.0, 2.0, -3.0)), dict(fast_sim=False)):
+                   dict(point_light=True, light_pos=(5.0, 2.0, -3.0)), dict(fast_sim=False),
+                   dict(use_pallas=False), dict(pallas_advect=False),
+                   dict(grid_size=(64, 64, 1), use_pallas=False),
+                   dict(use_pallas=False, point_light=True)):
         engine = torch_fluidx.FluidXEngine(dataclasses.replace(base, **change), device="cpu")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             img = engine.step_frame()
         assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all()), change
         # Only the interior point light on the fast stack warns (once).
-        assert len(caught) == int("point_light" in change), (change, caught)
-    for change, match in ((dict(use_pallas=False), twins), (dict(pallas_advect=False), twins),
-                          (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
-        cfg = dataclasses.replace(base, **change)
-        with pytest.raises(NotImplementedError, match=match):
-            torch_fluidx.FluidXEngine(cfg, device="cpu")
+        assert len(caught) == int(change.get("light_pos") == (5.0, 2.0, -3.0)), (change, caught)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Do not port'"):
+        torch_fluidx.FluidXEngine(dataclasses.replace(base, block_resolve=True), device="cpu")
     engine = torch_fluidx.FluidXEngine(base, device="cpu")
     state = make_initial_state(base, "cpu")
     params = unpack_scene_params(engine.update_frame()[0])
     for change in (dict(use_pallas=False), dict(pallas_advect=False)):
-        with pytest.raises(NotImplementedError, match=twins):
-            simulate(state, base.time_step, dataclasses.replace(base, **change))
-    for change, match in ((dict(use_pallas=False), twins),
-                          (dict(block_resolve=True), "ROADMAP.md, 'Do not port'")):
-        with pytest.raises(NotImplementedError, match=match):
-            torch_render(state.color, params, dataclasses.replace(base, **change),
-                         torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
+        out = simulate(state, base.time_step, dataclasses.replace(base, **change))
+        assert out.fields.dtype == base.sim_dtype and bool(torch.isfinite(out.fields).all())
+    img = torch_render(state.color, params, dataclasses.replace(base, use_pallas=False),
+                       torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
+    assert img.shape == (32, 32, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Do not port'"):
+        torch_render(state.color, params, dataclasses.replace(base, block_resolve=True),
+                     torch_fluidx.RenderMethod.RAY_MARCH_SEPARATE)
     # The DIRECT methods render; with the eye inside the volume (no base
     # plane) they take the faithful march, in the engine and in
     # render_frame.
