@@ -385,6 +385,8 @@ def print_times(results, names) -> None:
                else "B9" if name.startswith("shear_scan")
                else "B11" if name.startswith("advect_axis")
                else "B15" if name.startswith("gradient3")
+               else "R1b" if name.startswith("view_march_grad")
+               else "R2b" if name.startswith("light_march_grad")
                else "R1" if name.startswith("view_march")
                else "R2" if name.startswith("light_march") else "B4")
         print(f"  {kid} {name}: kernel {r['ms']:.4f} ms, plain "
@@ -2165,11 +2167,12 @@ def r2_flops(samples, grid, zero: float, probe: bool) -> float:
             + float(samples.sum()) * LIGHT_SAMPLE_OPS)
 
 
-def time_r_designs(results, name, kernel, yardstick, operands, reps: int = 10) -> None:
-    """Times R1's or R2's design in turns with the per-thread design it
-    replaced, warm (`kernel()`, `yardstick()`) and with the
+def time_r_designs(results, name, kernel, yardstick, operands, reps: int = 10,
+                   checked: bool = True) -> None:
+    """Times R1's, R2's, R1b's or R2b's design in turns with the per-thread
+    design it replaced, warm (`kernel()`, `yardstick()`) and with the
     operands out of L2 (`kernel(*ops)`, `yardstick(*ops)` over copies of
-    `operands`), and fails unless it beats it in both."""
+    `operands`), and (`checked`) fails unless it beats it in both."""
     r = results[name]
     y0 = time_ms(yardstick, reps)
     k0 = time_ms(kernel, reps, what=name)
@@ -2178,8 +2181,9 @@ def time_r_designs(results, name, kernel, yardstick, operands, reps: int = 10) -
              kernel_ms=[k0, k1], ms=(k0 + k1) / 2)
     measure_cold(results, name, kernel, yardstick, operands, reps=reps)
     print_times(results, [name])
-    check_faster(results, name)
-    check_faster(results, name, cold=True)
+    if checked:
+        check_faster(results, name)
+        check_faster(results, name, cold=True)
 
 
 def check_r2(results, name, engine, label, grid=None):
@@ -2592,18 +2596,23 @@ def phase3h_faithful_frames(dev, smi_line, warm, warm_gi, results):
 # ---------------------------------------------------------------------------
 
 # f32 operations of the adjoints, for their bound (csrc/raymarch_grad.cu;
-# counted from the source, as R1_VIEW_OPS and the rest): R1b runs each view
+# counted from the source, as R1_VIEW_OPS and the rest; each tape entry is
+# read once and its prev taken from it, not recomputed): R1b runs each view
 # sample of its ray again (R1's 53) and, per dense sample, the step and the
-# opacity again (16) and the walk back: the position and two corner sets
-# (33), the 7 channels' lerps (147), the accumulation's and the step's
-# adjoints (65), the 7 lerps' adjoints (357), 56 atomics and the position's
-# adjoint (15): 689.  R2b tests each voxel (R2's 54) and, per light sample
-# of a dense voxel, runs it again (65) and walks it back: the position and
-# corners (21), one lerp (21), the transmittance's and the step's adjoints
-# (35), the lerp's adjoint (51), 8 atomics and the position's adjoint (8):
+# opacity again (16, replay_view :291-292) and the walk back: the position
+# and two corner sets (33, walk_view :334-337), the 7 channels' lerps (147,
+# :343-348), the accumulation's and the step's adjoints (65, :354-376), the
+# 7 lerps' adjoints (357, :380-389), 56 atomics and the position's adjoint
+# (15, :393-396): 689.  R2b tests each voxel (R2's 54) and, per light
+# sample of a dense voxel, runs it again (65, walk_light :449-452) and
+# walks it back: the position and corners (21, :473), one lerp (21, :477),
+# the transmittance's and the step's adjoints (35, :479-482), the lerp's
+# adjoint (51, :486), 8 atomics and the position's adjoint (8, :488-490):
 # 209.
 R1B_VIEW_OPS, R1B_DENSE_OPS = R1_VIEW_OPS, 689
 R2B_VOXEL_OPS, R2B_SAMPLE_OPS = R2_VOXEL_OPS, 209
+# What the tape of one launch of R1b or R2b may take at ADJOINT's shapes.
+GRAD_SCRATCH_MAX = 256e6
 # The pieces the plain march's autograd takes the 800^2 DIRECT rays in: it
 # keeps about 450 bytes a ray a step (some 55 GB at 800^2 rays and 192
 # steps), so it marches and differentiates 200 rows of rays at a time.
@@ -2647,9 +2656,45 @@ def plain_backward_ms(loss) -> float:
     return start.elapsed_time(end)
 
 
-def check_r2b(results, grid, env, cfg, num, smi_line):
+def grad_occupancy_line(grid, wide: bool = False) -> None:
+    """Prints what cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    say of R1b, R2b and their yardsticks for `grid`'s storage type."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+
+    for kernel, merge in [(k, False) for k in R.GRAD_KERNELS] + [("view_march_grad", True)]:
+        o = R.grad_occupancy(kernel, grid, wide, merge)
+        print(f"  {kernel}{', merged atomics' if merge else ''}: {o['registers']} registers a "
+              f"thread, {o['local_bytes']} bytes local, "
+              f"{o['ctas_per_sm']} CTAs of {o['threads']} threads an SM: "
+              f"{o['ctas_per_sm'] * o['threads'] // 32} resident warps an SM")
+
+
+def check_scratch(label: str, floats: int, yardstick_floats: int, smi_line: str) -> None:
+    """Prints a launch's tape beside its yardstick's and fails above
+    GRAD_SCRATCH_MAX."""
+    print(f"{label}: scratch (the tape) {4 * floats / 1e6:.1f} MB a launch, the per-thread "
+          f"design's {4 * yardstick_floats / 1e6:.1f} MB [{smi_line}]")
+    check(4 * floats <= GRAD_SCRATCH_MAX,
+          f"{label}: the tape within {GRAD_SCRATCH_MAX / 1e6:.0f} MB")
+
+
+def held_yardstick(got, ref, what: str) -> float:
+    """Holds a new adjoint kernel to its yardstick within 1e-4 of the
+    yardstick's largest magnitude (the atomics' order); returns the max
+    abs difference."""
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and scale > 0.0 and err <= 1e-4 * scale,
+          f"{what} within 1e-4 of its per-thread design's largest magnitude")
+    return err
+
+
+def check_r2b(results, name, grid, env, cfg, num, label, smi_line, plain: bool = True):
     """R2b at full width against autograd through `light_map_plain` with a
-    seeded cotangent, timed beside the plain backward, with its bound."""
+    seeded cotangent (or, `plain` false, against its per-thread design
+    only), timed in turns with the per-thread design it replaced, warm and
+    L2-cold (where `plain`, it must beat it in both), beside the plain
+    backward, with its bound and its scratch."""
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
     from fluidx12_tpu_torch.render.lightmap import light_map_plain
@@ -2658,39 +2703,56 @@ def check_r2b(results, grid, env, cfg, num, smi_line):
     cot = torch.from_numpy(np.random.default_rng(20).standard_normal((3,) + cfg.zyx)
                            .astype(np.float32)).to(grid.device)
     samples = torch.empty(cfg.zyx, dtype=torch.int32, device=grid.device)
+    samples_old = torch.empty_like(samples)
     got = R.light_march_grad(grid, packed, flags, num, cfg, cot, samples=samples)
-    torch.cuda.reset_peak_memory_stats()
-    g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
-    loss = (light_map_plain(g_ref, env, num, cfg) * cot).sum()
-    plain_ms = plain_backward_ms(loss)
-    plain_peak = torch.cuda.max_memory_allocated()
-    err = held_grad(got, g_ref.grad, f"R2b at {cfg.zyx}")
-    del loss, g_ref
+    old = R.light_march_grad_perthread(grid, packed, flags, num, cfg, cot, samples=samples_old)
+    check(torch.equal(samples, samples_old),
+          f"R2b {label}: the same samples walked as the per-thread design")
+    err_old = held_yardstick(got, old, f"R2b {label}")
+    plain_ms, plain_peak, err = float("nan"), float("nan"), err_old
+    if plain:
+        torch.cuda.reset_peak_memory_stats()
+        g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
+        loss = (light_map_plain(g_ref, env, num, cfg) * cot).sum()
+        plain_ms = plain_backward_ms(loss)
+        plain_peak = torch.cuda.max_memory_allocated()
+        err = held_grad(got, g_ref.grad, f"R2b {label}")
+        del loss, g_ref
     taken = float(samples.sum())
     flops = grid[3].numel() * R2B_VOXEL_OPS + taken * R2B_SAMPLE_OPS
     # In: the density channel (the only one R2b reads) and the cotangent;
     # out: the grid's cotangent (channels 0-2 zero).
     bound_ms, bound_by = bound(nbytes(grid[3], cot, got), flops)
-    ms = time_ms(lambda: R.light_march_grad(grid, packed, flags, num, cfg, cot), 5, what="R2b")
+    results[name] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    time_r_designs(results, name,
+                   lambda g=grid, c=cot: R.light_march_grad(g, packed, flags, num, cfg, c),
+                   lambda g=grid, c=cot: R.light_march_grad_perthread(g, packed, flags, num,
+                                                                      cfg, c),
+                   (grid, cot), reps=5, checked=plain)
+    plan = R.light_grad_plan(cfg.zyx)
+    check_scratch(f"R2b {label}", R.light_grad_tape_floats(plan, grid, cfg.max_light_samples),
+                  3 * cfg.max_light_samples * grid[0].numel(), smi_line)
     # The traffic if every tap and atomic went to device memory.
     traffic = taken * 8 * (2 * 4 + 8)
-    results["light_march_grad"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    print(f"R2b at {cfg.zyx}: {ms:.4f} ms, plain autograd backward {plain_ms:.2f} ms (peak "
-          f"{plain_peak / 2**30:.2f} GiB with its forward), bound {bound_ms * 1e3:.1f} us "
-          f"({bound_by}); {taken:.4g} light samples walked; every tap and atomic at the memory "
-          f"rate {traffic / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line}]")
+    print(f"R2b {label}: {results[name]['ms']:.4f} ms, plain autograd backward {plain_ms:.2f} ms "
+          f"(peak {plain_peak / 2**30:.2f} GiB with its forward), bound {bound_ms * 1e3:.1f} us "
+          f"({bound_by}); {taken:.4g} light samples walked; {err_old:.3e} from the per-thread "
+          f"design; every tap and atomic at the memory rate "
+          f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line}]")
 
 
 def check_r1b(results, name, grid, light_map, rays, num, env, cfg, label, smi_line,
-              pieces: int = 1):
+              pieces: int = 1, plain: bool = True):
     """R1b against autograd through the plain separate-light march with a
-    seeded cotangent on `rays` (origin, direction, t_max, active), timed
-    beside the plain backward, with its bound; stored under `name`.  The
-    plain march takes the rays in `pieces` along their first axis, each
-    piece's backward adding into the same gradients: rays march
-    independently, so the sum is the whole rays' gradient, and the plain
-    ms is the pieces' sum."""
+    seeded cotangent on `rays` (origin, direction, t_max, active) (or,
+    `plain` false, against its per-thread design only), timed in turns
+    with the per-thread design it replaced, warm and L2-cold (where
+    `plain`, it must beat it in both), beside the plain backward, with its
+    bound and its scratch; stored under `name`.  The plain march takes the
+    rays in `pieces` along their first axis, each piece's backward adding
+    into the same gradients: rays march independently, so the sum is the
+    whole rays' gradient, and the plain ms is the pieces' sum."""
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
 
@@ -2699,35 +2761,58 @@ def check_r1b(results, name, grid, light_map, rays, num, env, cfg, label, smi_li
     cot = torch.from_numpy(np.random.default_rng(21).standard_normal(lead + (4,))
                            .astype(np.float32)).to(grid.device)
     samples = torch.empty(lead + (2,), dtype=torch.int32, device=grid.device)
+    samples_old = torch.empty_like(samples)
     g_grid, g_lm = R.view_march_grad(grid, light_map, *rays, num, packed, flags, cfg, cot,
                                      samples=samples)
-    torch.cuda.reset_peak_memory_stats()
-    g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
-    lm_ref = light_map.clone().requires_grad_(True)
-    plain_ms = 0.0
-    for piece, c in zip(zip(*(r.chunk(pieces) for r in rays)), cot.chunk(pieces)):
-        loss = (RC.view_march(g_ref, piece[0], piece[1], piece[2], num, env, cfg,
-                              light_map=lm_ref, active=piece[3]) * c).sum()
-        plain_ms += plain_backward_ms(loss)
-        del loss
-    plain_peak = torch.cuda.max_memory_allocated()
-    err = max(held_grad(g_grid, g_ref.grad, f"R1b {label}, grid"),
-              held_grad(g_lm, lm_ref.grad, f"R1b {label}, light map"))
-    del g_ref, lm_ref
+    old = R.view_march_grad_perthread(grid, light_map, *rays, num, packed, flags, cfg, cot,
+                                      samples=samples_old)
+    check(torch.equal(samples, samples_old),
+          f"R1b {label}: the same samples walked as the per-thread design")
+    err_old = max(held_yardstick(g_grid, old[0], f"R1b {label}, grid"),
+                  held_yardstick(g_lm, old[1], f"R1b {label}, light map"))
+    del old
+    plain_ms, plain_peak, err = float("nan"), float("nan"), err_old
+    if plain:
+        torch.cuda.reset_peak_memory_stats()
+        g_ref = grid.detach().to(torch.float32, copy=True).requires_grad_(True)
+        lm_ref = light_map.clone().requires_grad_(True)
+        plain_ms = 0.0
+        for piece, c in zip(zip(*(r.chunk(pieces) for r in rays)), cot.chunk(pieces)):
+            loss = (RC.view_march(g_ref, piece[0], piece[1], piece[2], num, env, cfg,
+                                  light_map=lm_ref, active=piece[3]) * c).sum()
+            plain_ms += plain_backward_ms(loss)
+            del loss
+        plain_peak = torch.cuda.max_memory_allocated()
+        err = max(held_grad(g_grid, g_ref.grad, f"R1b {label}, grid"),
+                  held_grad(g_lm, lm_ref.grad, f"R1b {label}, light map"))
+        del g_ref, lm_ref
     views, dense = (float(samples[..., k].sum()) for k in range(2))
     flops = views * R1B_VIEW_OPS + dense * R1B_DENSE_OPS
     # In: the grid, the map, the rays, the cotangent; out: the grid's and the map's cotangents.
     bound_ms, bound_by = bound(nbytes(grid, light_map, *rays, cot, grid, light_map), flops)
-    ms = time_ms(lambda: R.view_march_grad(grid, light_map, *rays, num, packed, flags, cfg, cot),
-                 5, what=name)
+    results[name] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+
+    def launch(fn):
+        def call(g=grid, lm=light_map, o=rays[0], d=rays[1], t=rays[2], a=rays[3], c=cot):
+            return fn(g, lm, o, d, t, a, num, packed, flags, cfg, c)
+        return call
+
+    time_r_designs(results, name, launch(R.view_march_grad), launch(R.view_march_grad_perthread),
+                   (grid, light_map, *rays, cot), reps=5, checked=plain)
+    plan = R.view_grad_plan(lead, tuple(grid.shape[1:]), tuple(light_map.shape[1:]))
+    merge = R.view_grad_merges(lead, tuple(grid.shape[1:]))
+    print(f"R1b {label}: tiles {plan.tile_w} x {32 // plan.tile_w}, the lanes' atomics "
+          f"{'merged' if merge else 'not merged'}")
+    check_scratch(f"R1b {label}", R.view_grad_tape_floats(plan, grid, cfg.max_ray_samples, merge),
+                  3 * cfg.max_ray_samples * math.prod(lead), smi_line)
     traffic = dense * 8 * 7 * (4 + 8)
-    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
-    print(f"R1b {label}: {ms:.4f} ms on {math.prod(lead)} rays ({views:.4g} view samples, "
-          f"{dense:.4g} dense walked), plain autograd backward {plain_ms:.2f} ms in {pieces} "
-          f"piece(s) (peak {plain_peak / 2**30:.2f} GiB with its forward), bound "
-          f"{bound_ms * 1e3:.1f} us ({bound_by}); every tap and atomic at the memory rate "
-          f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms [{smi_line}]")
+    print(f"R1b {label}: {results[name]['ms']:.4f} ms on {math.prod(lead)} rays ({views:.4g} "
+          f"view samples, {dense:.4g} dense walked), plain autograd backward {plain_ms:.2f} ms in "
+          f"{pieces} piece(s) (peak {plain_peak / 2**30:.2f} GiB with its forward), bound "
+          f"{bound_ms * 1e3:.1f} us ({bound_by}); {err_old:.3e} from the per-thread design; "
+          f"every tap and atomic at the memory rate {traffic / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"[{smi_line}]")
 
 
 def adjoint_fd_start(model):
@@ -2851,7 +2936,11 @@ def phase3j_adjoint(dev, smi_line, warm, results):
     for bit, with the same launches (R1 and R2 once a step).  (b) R2b at
     128^3 and R1b on the 6 x 128^2 cube rays against autograd through the
     plain versions (seeded cotangents), and R1b on the 800^2 DIRECT_SEPARATE
-    rays (the plain march in ADJOINT_DIRECT_PIECES pieces).  (c) The loss is
+    rays (the plain march in ADJOINT_DIRECT_PIECES pieces); each against
+    the per-thread design it replaced (the same samples walked) and faster than it
+    in turns, warm and L2-cold, its tape within GRAD_SCRATCH_MAX; the same
+    three timed on dense smoke (`synthetic_smoke`); the registers and
+    resident warps of R1b, R2b and their yardsticks.  (c) The loss is
     the second image's sum, its gradient with respect to an initial
     velocity perturbation (3 x 128^3): finite, non-zero, with R1b and R2b
     launched once each in the backward (the counts set to 0 just before
@@ -2927,22 +3016,29 @@ def phase3j_adjoint(dev, smi_line, warm, results):
     del frames, frames_ng, loss, g, v
     torch.cuda.empty_cache()
 
-    # (b) The kernels against autograd through the plain versions.
-    grid = state.color.contiguous()
+    # (b) The kernels against autograd through the plain versions and their
+    # per-thread designs; on dense smoke against those designs only.
     env = RC.make_light_env(params, None, cfg)
-    light_map = render_light_map(grid, params, cfg).float().contiguous()
-    check_r2b(results, grid, env, cfg, params.num_light_samples, smi_line)
-    torch.cuda.empty_cache()
-    check_r1b(results, "view_march_grad", grid, light_map,
-              cube_rays(params, cfg, 0, dev), params.num_samples, env, cfg,
-              "on the 6 x 128^2 cube rays", smi_line)
-    torch.cuda.empty_cache()
     origin, ray_dir, hit = direct_rays(params, cfg, dev)
-    check_r1b(results, "view_march_grad_direct", grid, light_map,
-              (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit),
-              params.num_samples, env, cfg, "on the 800^2 DIRECT_SEPARATE rays", smi_line,
-              pieces=ADJOINT_DIRECT_PIECES)
-    torch.cuda.empty_cache()
+    direct = (origin, ray_dir, torch.full(hit.shape, float("inf"), device=dev), hit)
+    print(f"R1b and R2b on an f32 grid [{smi_line}]:")
+    grad_occupancy_line(state.color)
+    for grid, suffix, what in ((state.color.contiguous(), "", f"{WARM_FRAMES} frames of smoke"),
+                               (synthetic_smoke(cfg, dev).float().contiguous(), "_dense",
+                                f"dense smoke (default_rng({DENSE_SEED}))")):
+        plain = not suffix
+        light_map = render_light_map(grid, params, cfg).float().contiguous()
+        check_r2b(results, f"light_march_grad{suffix}", grid, env, cfg,
+                  params.num_light_samples, f"at {cfg.zyx}, {what}", smi_line, plain=plain)
+        torch.cuda.empty_cache()
+        check_r1b(results, f"view_march_grad{suffix}", grid, light_map,
+                  cube_rays(params, cfg, 0, dev), params.num_samples, env, cfg,
+                  f"on the 6 x 128^2 cube rays, {what}", smi_line, plain=plain)
+        torch.cuda.empty_cache()
+        check_r1b(results, f"view_march_grad_direct{suffix}", grid, light_map, direct,
+                  params.num_samples, env, cfg, f"on the 800^2 DIRECT_SEPARATE rays, {what}",
+                  smi_line, pieces=ADJOINT_DIRECT_PIECES, plain=plain)
+        torch.cuda.empty_cache()
     adjoint_fd(dev)
     adjoint_card_vs_cpu(dev)
     adjoint_guards(dev, state)

@@ -77,10 +77,6 @@ namespace {
 constexpr int kThreads = 128;       // the per-thread designs' CTA
 constexpr int kViewThreads = 128;   // R1's CTA
 constexpr int kLightWarps = 8;      // R2's CTA: warps sharing a brick's queue
-constexpr int kBrickX = 32;         // R2's brick: one voxel a lane along x
-constexpr int kMaxBrickRows = 32;   // by * bz at most: a lane's dense bits in one word
-constexpr int kTileRays = 32;       // R1's tile: a warp's rays
-constexpr unsigned kFull = 0xffffffffu;
 // Ramamoorthi's irradiance constants (SHIrradianceTypeless.hlsli:18-21).
 constexpr double kC1 = 0.42904276540489171563379376569857;
 constexpr double kC2 = 0.51166335397324424423977581244463;
@@ -251,24 +247,6 @@ __global__ void __launch_bounds__(kThreads) view_march_perthread_kernel(ViewArgs
   }
 }
 
-// R1's work: the rays as a (rows, cols) plane, row-major, cut into tiles of
-// tile_w x (32 / tile_w) rays; slot s is ray l = s % 32 of tile s / 32,
-// tiles row-major (view_plan).
-struct Tiles {
-  int rows, cols, tile_w, tiles_x;
-  int slots;  // 32 x the tiles
-};
-
-// The ray of slot s, or -1 where the tile overhangs the plane.
-__device__ __forceinline__ int ray_of_slot(int s, const Tiles& p) {
-  const int tile = s / kTileRays, l = s % kTileRays;
-  const int ty = tile / p.tiles_x, tx = tile - ty * p.tiles_x;
-  const int row = ty * (kTileRays / p.tile_w) + l / p.tile_w;
-  const int col = tx * p.tile_w + l % p.tile_w;
-  if (row >= p.rows || col >= p.cols) return -1;
-  return row * p.cols + col;
-}
-
 __device__ __forceinline__ void put_ray(const ViewArgs& a, int r, float4 v, int views,
                                         int dense, int lights) {
   reinterpret_cast<float4*>(a.out)[r] = v;
@@ -420,12 +398,6 @@ __global__ void __launch_bounds__(kThreads) light_march_perthread_kernel(LightAr
   if (a.samples != nullptr) a.samples[i] = taken;
 }
 
-// R2's bricks: 32 x by x bz voxels, nbx x nby x nbz of them, x fastest
-// (light_plan).
-struct Bricks {
-  int by, bz, nbx, nby, nbz;
-};
-
 template <typename T, typename I>
 __device__ __forceinline__ void put_light(const LightArgs& a, const T* dens, int x, int y, int z,
                                           bool dense, const March& m) {
@@ -534,19 +506,13 @@ int fx_view_march(const void* grid, int grid_bf16, int gz, int gy, int gx, const
                   int max_ray, int max_light, float absorb, float zero, int flags, int rows,
                   int cols, int tile_w, int wide, void* stream) {
   ViewArgs a;
+  Tiles p;
   if (!view_args(a, grid, gz, gy, gx, light_map, lz, ly, lx, env, origin, dir, t_max, active,
                  num_samples, num_light_samples, out, samples, n, max_ray, max_light, absorb,
                  zero, flags) ||
-      rows < 1 || cols < 1 || (int64_t)rows * cols != n || (tile_w != 8 && tile_w != 32)) {
+      !tiles(n, rows, cols, tile_w, p) || (!wide && !(fits32(a.g, 4) && fits32(a.lm, 3)))) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t tiles_x = (cols + tile_w - 1) / tile_w;
-  const int64_t tiles_y = (rows + kTileRays / tile_w - 1) / (kTileRays / tile_w);
-  if (kTileRays * tiles_x * tiles_y >= ((int64_t)1 << 31) ||
-      (!wide && !(fits32(a.g, 4) && fits32(a.lm, 3)))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Tiles p{rows, cols, tile_w, (int)tiles_x, (int)(kTileRays * tiles_x * tiles_y)};
   channels(a.chan, 4, grid, a.g.plane, grid_bf16 ? 2 : 4);
   if (light_map != nullptr) channels(a.lm_chan, 3, light_map, a.lm.plane, 4);
   cudaStream_t s = (cudaStream_t)stream;
@@ -593,16 +559,13 @@ int fx_light_march(const void* grid, int grid_bf16, int gz, int gy, int gx, cons
                    float absorb, float zero, int flags, int by, int bz, int wide,
                    void* stream) {
   LightArgs a;
+  Bricks b;
   if (grid == nullptr ||
       !light_args(a, gz, gy, gx, env, num_light_samples, out, samples, max_light, absorb, zero,
                   flags) ||
-      by < 1 || bz < 1 || by * bz > kMaxBrickRows || (!wide && !fits32(a.g, 4))) {
+      !bricks(a.g, by, bz, b) || (!wide && !fits32(a.g, 4))) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t nbx = (gx + kBrickX - 1) / kBrickX, nby = (gy + by - 1) / by,
-                nbz = (gz + bz - 1) / bz;
-  if (nbx * nby * nbz >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
-  const Bricks b{by, bz, (int)nbx, (int)nby, (int)nbz};
   channels(a.chan, 4, grid, a.g.plane, grid_bf16 ? 2 : 4);
   cudaStream_t s = (cudaStream_t)stream;
   if (grid_bf16) {

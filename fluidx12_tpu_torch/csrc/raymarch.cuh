@@ -1,7 +1,8 @@
 // Device and host pieces shared by the faithful stack's marches (raymarch.cu:
 // R1 and R2) and their adjoints (raymarch_grad.cu: R1b and R2b): the packed
 // light environment's layout, CLAMP trilinear taps and their lerps, the
-// adaptive step, the kernels' argument blocks and the launch helpers.  Both
+// adaptive step, the kernels' argument blocks, the work layouts (R1's tiles
+// of rays, R2's bricks of voxels) and the launch helpers.  Both
 // files build with --fmad=false, so a sample recomputed in R1b or R2b equals
 // the one R1 or R2 took, to the last bit.
 #pragma once
@@ -229,6 +230,60 @@ int ctas_per_sm(K kernel, int threads) {
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   return per_sm > 0 ? per_sm : 1;
+}
+
+// The work layouts R1 and R1b (tiles of rays), R2 and R2b (bricks of
+// voxels) share.
+constexpr int kBrickX = 32;         // a brick's voxels along x: one a lane
+constexpr int kMaxBrickRows = 32;   // by * bz at most: a lane's dense bits in one word
+constexpr int kTileRays = 32;       // a tile: a warp's rays
+constexpr unsigned kFull = 0xffffffffu;
+
+// The rays as a (rows, cols) plane, row-major, cut into tiles of tile_w x
+// (32 / tile_w) rays; slot s is ray l = s % 32 of tile s / 32, tiles
+// row-major (view_plan).
+struct Tiles {
+  int rows, cols, tile_w, tiles_x;
+  int slots;  // 32 x the tiles
+};
+
+// The ray of slot s, or -1 where the tile overhangs the plane.
+__device__ __forceinline__ int ray_of_slot(int s, const Tiles& p) {
+  const int tile = s / kTileRays, l = s % kTileRays;
+  const int ty = tile / p.tiles_x, tx = tile - ty * p.tiles_x;
+  const int row = ty * (kTileRays / p.tile_w) + l / p.tile_w;
+  const int col = tx * p.tile_w + l % p.tile_w;
+  if (row >= p.rows || col >= p.cols) return -1;
+  return row * p.cols + col;
+}
+
+// The tiles of n rays as (rows, cols), or false where no kernel takes
+// that plan.
+bool tiles(int64_t n, int rows, int cols, int tile_w, Tiles& p) {
+  if (rows < 1 || cols < 1 || (int64_t)rows * cols != n || (tile_w != 8 && tile_w != 32)) {
+    return false;
+  }
+  const int64_t tiles_x = (cols + tile_w - 1) / tile_w;
+  const int64_t tiles_y = (rows + kTileRays / tile_w - 1) / (kTileRays / tile_w);
+  if (kTileRays * tiles_x * tiles_y >= ((int64_t)1 << 31)) return false;
+  p = Tiles{rows, cols, tile_w, (int)tiles_x, (int)(kTileRays * tiles_x * tiles_y)};
+  return true;
+}
+
+// Bricks of 32 x by x bz voxels, nbx x nby x nbz of them, x fastest
+// (light_plan).
+struct Bricks {
+  int by, bz, nbx, nby, nbz;
+};
+
+// The bricks of grid g, or false where no kernel takes that plan.
+bool bricks(const Vol& g, int by, int bz, Bricks& b) {
+  if (by < 1 || bz < 1 || by * bz > kMaxBrickRows) return false;
+  const int64_t nbx = (g.nx + kBrickX - 1) / kBrickX, nby = (g.ny + by - 1) / by,
+                nbz = (g.nz + bz - 1) / bz;
+  if (nbx * nby * nbz >= ((int64_t)1 << 31)) return false;
+  b = Bricks{by, bz, (int)nbx, (int)nby, (int)nbz};
+  return true;
 }
 
 bool view_args(ViewArgs& a, const void* grid, int gz, int gy, int gx, const void* light_map,

@@ -81,8 +81,14 @@ _SIGNATURES = {
     "fx_light_march": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _I, _I, _I, _P],
     "fx_light_march_perthread": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _F, _F, _I, _P],
     "fx_view_march_grad": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
-    "fx_light_march_grad": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _I, _P],
+                           _P, _P, _L, _P, _L, _I, _F, _F, _I, _I, _I, _I, _I, _I, _P],
+    "fx_view_march_grad_perthread": [_P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _L, _I, _F, _F, _I, _I, _P],
+    "fx_light_march_grad": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L, _P, _I, _F, _F, _I, _I,
+                            _I, _I, _P],
+    "fx_light_march_grad_perthread": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I,
+                                      _I, _P],
+    "fx_raymarch_grad_occupancy": [_I, _I, _I, _I, _P],
 }
 
 _lib = None

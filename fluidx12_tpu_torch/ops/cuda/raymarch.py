@@ -445,6 +445,103 @@ def light_march_perthread(*args, **kwargs) -> torch.Tensor:
 # R1b and R2b: the adjoints (csrc/raymarch_grad.cu)
 # ---------------------------------------------------------------------------
 
+# R1b: persistent warps in CTAs of VIEW_GRAD_THREADS on tiles of
+# VIEW_GRAD_TILE_W x 32 / VIEW_GRAD_TILE_W rays (`view_grad_plan`).  R2b:
+# persistent warps in CTAs of LIGHT_GRAD_WARPS, each taking bricks of 32 x
+# by x bz voxels (`light_grad_plan`, LIGHT_GRAD_BRICK, by * bz at most
+# MAX_WARP_ROWS) in a stride of the launch's warps.  Each kernel's launch
+# bounds ask for VIEW_GRAD_CTAS or LIGHT_GRAD_CTAS CTAs an SM.  A lane of
+# either owns a tape slot of max samples entries of TAPE_FLOATS f32 (t,
+# the opacity or transmittance, prev) for the whole launch.
+VIEW_GRAD_THREADS = 128
+VIEW_GRAD_CTAS = 4
+VIEW_GRAD_TILE_W = 32
+LIGHT_GRAD_WARPS = 8
+LIGHT_GRAD_CTAS = 4
+MAX_WARP_ROWS = 8
+LIGHT_GRAD_BRICK = (2, 1)
+TAPE_FLOATS = 3
+# R1b's lanes merge their atomics at one offset (csrc/raymarch_grad.cu's
+# kTree) where an image of rays has MERGE_RAYS_PER_VOXEL rays or more for
+# each voxel of the grid's largest face: neighbouring rays then cross the
+# same cells (`view_grad_merges`).  R2b's lanes always merge theirs (kShiftX).
+# `tools/sweep_raymarch_plans.py --grad` times both ways at 1 (the cube
+# faces), 2.25, 4.0, 9.8, 19.1, 25 and 39 (the 800^2 screen) rays a voxel
+# of 128^3's largest face: merging loses up to 9.8 and wins on dense smoke
+# from 19.1 (PERF.md §6).
+MERGE_RAYS_PER_VOXEL = 16
+# fx_raymarch_grad_occupancy's kernels.
+GRAD_KERNELS = {"view_march_grad": 0, "light_march_grad": 1, "view_march_grad_perthread": 2,
+                "light_march_grad_perthread": 3}
+
+
+def grad_tape_floats(resident_ctas: int, threads: int, work_ctas: int, max_samples: int) -> int:
+    """The f32 values of tape a launch of R1b or R2b needs (csrc/
+    raymarch_grad.cu's tape_floats, which the launch checks): a slot of
+    `max_samples` entries of TAPE_FLOATS for each lane of the
+    min(resident_ctas, work_ctas) CTAs of `threads` it runs."""
+    return min(resident_ctas, work_ctas) * threads * max_samples * TAPE_FLOATS
+
+
+@functools.lru_cache(maxsize=None)
+def view_grad_plan(lead: tuple, grid_zyx: tuple, map_zyx: tuple) -> ViewPlan:
+    """R1b's launch plan on rays of leading shape `lead` over a (4,
+    *grid_zyx) grid and a (3, *map_zyx) light map: `view_plan`'s with
+    tiles VIEW_GRAD_TILE_W wide.  Cached."""
+    plan = view_plan(lead, grid_zyx, map_zyx)
+    return view_layout(plan.rows, plan.cols, VIEW_GRAD_TILE_W, plan.wide)
+
+
+def view_grad_merges(lead: tuple, grid_zyx: tuple) -> bool:
+    """Whether R1b's lanes merge their atomics on rays of leading shape
+    `lead` over a (4, *grid_zyx) grid: where one image of the rays (the
+    last two axes) holds MERGE_RAYS_PER_VOXEL rays or more for each voxel
+    of the grid's largest face (the 800^2 screen over 128^3; not the cube
+    faces' 128^2 texels)."""
+    z, y, x = (int(d) for d in grid_zyx)
+    image = math.prod(int(d) for d in lead[-2:])
+    return image >= MERGE_RAYS_PER_VOXEL * max(z * y, z * x, y * x)
+
+
+@functools.lru_cache(maxsize=None)
+def light_grad_plan(zyx: tuple) -> LightPlan:
+    """R2b's launch plan on a (4, *zyx) grid: bricks of BRICK_X x
+    LIGHT_GRAD_BRICK voxels (x fastest), a warp's unit of work; warp w of
+    the launch's W takes bricks w, w + W, ...  Cached.  Raises ValueError
+    where no plan fits."""
+    z, y, x = (int(d) for d in zyx)
+    if min(z, y, x) < 1:
+        raise ValueError(f"light_grad_plan: no plan for a {zyx} grid")
+    plan = light_layout(zyx, *LIGHT_GRAD_BRICK, wide=4 * z * y * x >= OFFSETS_32)
+    if math.prod(plan.bricks) >= OFFSETS_32:
+        raise ValueError(f"light_grad_plan: no plan for a {zyx} grid")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(kernel: str, bf16: bool, wide: bool, merge: bool, device: int) -> dict:
+    import ctypes
+
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = _build.lib().fx_raymarch_grad_occupancy(GRAD_KERNELS[kernel], int(bf16), int(wide),
+                                                      int(merge), out)
+    _build.check(err, "fx_raymarch_grad_occupancy")
+    return dict(ctas_per_sm=out[0], threads=out[1], registers=out[2], local_bytes=out[3],
+                sms=out[4])
+
+
+def grad_occupancy(kernel: str, grid: torch.Tensor, wide: bool = False,
+                   merge: bool = False) -> dict:
+    """What cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    say of `kernel` (a key of GRAD_KERNELS) for `grid`'s storage type on its
+    card: CTAs an SM, threads a CTA, registers a thread, local (spilled)
+    bytes a thread, the card's SMs (R1b's with `merge` as its launch's).
+    Cached."""
+    return dict(_occupancy(kernel, grid.dtype == torch.bfloat16, bool(wide), bool(merge),
+                           grid.device.index or 0))
+
+
 def _cotangent(grad_out: torch.Tensor, shape, ref: torch.Tensor, name: str) -> torch.Tensor:
     """grad_out as a contiguous f32 tensor of `shape` on ref's device whose
     start is 16-byte aligned (R1b reads it as float4)."""
@@ -453,6 +550,60 @@ def _cotangent(grad_out: torch.Tensor, shape, ref: torch.Tensor, name: str) -> t
                          f"{tuple(grad_out.shape)} on {grad_out.device}")
     g = grad_out.to(torch.float32).contiguous()
     return g if g.data_ptr() % 16 == 0 else g.clone()
+
+
+def _samples_ok(samples, numel: int, ref: torch.Tensor) -> bool:
+    return samples is None or (samples.dtype == torch.int32 and samples.numel() == numel
+                               and samples.is_contiguous() and samples.device == ref.device)
+
+
+def view_grad_tape_floats(plan: ViewPlan, grid: torch.Tensor, max_ray: int,
+                          merge: bool = False) -> int:
+    """The tape R1b's launch under `plan` takes on `grid`'s card."""
+    occ = grad_occupancy("view_march_grad", grid, plan.wide, merge)
+    return grad_tape_floats(occ["ctas_per_sm"] * occ["sms"], VIEW_GRAD_THREADS,
+                            _cdiv(plan.slots, VIEW_GRAD_THREADS), max_ray)
+
+
+def _view_grad_launch(plan, grid, light_map, origin, ray_dir, t_max, active, num_samples, env,
+                      flags, config, grad_out, samples=None, merge: Optional[bool] = None,
+                      tape_floats: Optional[int] = None, name: str = "view_march_grad"):
+    """R1b with `plan`: a ViewPlan as given, "own" for `view_grad_plan`'s,
+    None for the per-thread design; `merge` (None: `view_grad_merges`);
+    `tape_floats` forces the scratch's size (else the launch's own).
+    Returns (g_grid, g_lm, error code)."""
+    if light_map is None:
+        raise ValueError(f"{name}: separate mode only (a light map)")
+    rays, n, lead = _view_operands(grid, origin, ray_dir, t_max, active, num_samples, env,
+                                   light_map, None, None, name)
+    if not _samples_ok(samples, 2 * n, grid):
+        raise ValueError(f"{name}: samples must be a contiguous int32 (..., 2) tensor")
+    g = _cotangent(grad_out, lead + (4,), grid, name)
+    own = view_grad_plan(lead, tuple(grid.shape[1:]), tuple(light_map.shape[1:]))
+    plan = own if plan == "own" else plan
+    if merge is None:
+        merge = view_grad_merges(lead, tuple(grid.shape[1:]))
+    if plan is None:
+        tape_floats = TAPE_FLOATS * config.max_ray_samples * n
+    elif tape_floats is None:
+        tape_floats = view_grad_tape_floats(plan, grid, config.max_ray_samples, merge)
+    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    g_lm = torch.zeros(light_map.shape, dtype=torch.float32, device=grid.device)
+    tape = torch.empty(max(tape_floats, 1), dtype=torch.float32, device=grid.device)
+    args = [grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:],
+            light_map.data_ptr(), *light_map.shape[1:], env.data_ptr(),
+            *(r.data_ptr() for r in rays), num_samples.data_ptr(), g.data_ptr(),
+            g_grid.data_ptr(), g_lm.data_ptr(), tape.data_ptr()]
+    rest = [None if samples is None else samples.data_ptr(), n, config.max_ray_samples,
+            float(config.absorption), float(config.zero_threshold), flags]
+    if plan is None:
+        err = _build.lib().fx_view_march_grad_perthread(*args, *rest, int(own.wide),
+                                                        _build.stream_ptr(grid))
+    else:
+        err = _build.lib().fx_view_march_grad(*args, tape_floats, *rest, plan.rows, plan.cols,
+                                              plan.tile_w, int(plan.wide), int(merge),
+                                              _build.stream_ptr(grid))
+    return g_grid, g_lm, err
 
 
 def view_march_grad(grid: torch.Tensor, light_map: torch.Tensor, origin: torch.Tensor,
@@ -466,34 +617,73 @@ def view_march_grad(grid: torch.Tensor, light_map: torch.Tensor, origin: torch.T
     X'), as autograd through render/raymarch_core.view_march gives them
     (to rounding: the taps' cotangents are summed by atomics).  `samples`
     (an int32 tensor of (..., 2)), where given, receives each ray's view
-    samples run again and dense samples walked.  One launch, a thread a
-    ray, with a tape of 12 bytes a ray a view sample (max_ray_samples)."""
-    if light_map is None:
-        raise ValueError("view_march_grad: separate mode only (a light map)")
-    rays, n, lead = _view_operands(grid, origin, ray_dir, t_max, active, num_samples, env,
-                                   light_map, None, None, "view_march_grad")
-    if samples is not None and (samples.dtype != torch.int32 or samples.numel() != 2 * n
-                                or not samples.is_contiguous() or samples.device != grid.device):
-        raise ValueError("view_march_grad: samples must be a contiguous int32 (..., 2) tensor")
-    g = _cotangent(grad_out, lead + (4,), grid, "view_march_grad")
-    plan = view_plan(lead, tuple(grid.shape[1:]), tuple(light_map.shape[1:]))
-    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
-    g_lm = torch.zeros(light_map.shape, dtype=torch.float32, device=grid.device)
-    tape = torch.empty(3 * config.max_ray_samples * n, dtype=torch.float32, device=grid.device)
-    err = _build.lib().fx_view_march_grad(
-        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:],
-        light_map.data_ptr(), *light_map.shape[1:], env.data_ptr(),
-        *(r.data_ptr() for r in rays), num_samples.data_ptr(), g.data_ptr(), g_grid.data_ptr(),
-        g_lm.data_ptr(), tape.data_ptr(),
-        None if samples is None else samples.data_ptr(), n, config.max_ray_samples,
-        float(config.absorption), float(config.zero_threshold), flags, int(plan.wide),
-        _build.stream_ptr(grid))
+    samples run again and dense samples walked (0 and 0 for a ray skipped:
+    inactive, or a cotangent of 0).  One launch of persistent warps on
+    `view_grad_plan`'s tiles, a tape slot of max_ray_samples entries a
+    resident lane (`view_grad_tape_floats`), the lanes' atomics merged
+    where `view_grad_merges`; launches on one device must follow each
+    other on one stream (they share R1b's fetch counter)."""
+    g_grid, g_lm, err = _view_grad_launch("own", grid, light_map, origin, ray_dir, t_max, active,
+                                          num_samples, env, flags, config, grad_out, samples)
     view_march_grad.launches += 1
     _build.check(err, "fx_view_march_grad")
     return g_grid, g_lm
 
 
 view_march_grad.launches = 0
+
+
+def view_march_grad_perthread(*args, **kwargs):
+    """The design R1b replaced, one thread a ray in storage order with a
+    tape slot of max_ray_samples entries a ray
+    (`fx_view_march_grad_perthread`), kept only as a yardstick to time it
+    against.  Arguments as `view_march_grad`.  No path of the port calls
+    it, and it counts no launch."""
+    g_grid, g_lm, err = _view_grad_launch(None, *args, name="view_march_grad_perthread",
+                                          **kwargs)
+    _build.check(err, "fx_view_march_grad_perthread")
+    return g_grid, g_lm
+
+
+def light_grad_tape_floats(plan: LightPlan, grid: torch.Tensor, max_light: int) -> int:
+    """The tape R2b's launch under `plan` (a brick a warp at a time) takes
+    on `grid`'s card."""
+    occ = grad_occupancy("light_march_grad", grid, plan.wide)
+    return grad_tape_floats(occ["ctas_per_sm"] * occ["sms"], 32 * LIGHT_GRAD_WARPS,
+                            _cdiv(math.prod(plan.bricks), LIGHT_GRAD_WARPS), max_light)
+
+
+def _light_grad_launch(plan, grid, env, flags, num_light_samples, config, grad_out,
+                       samples=None, tape_floats: Optional[int] = None,
+                       name: str = "light_march_grad"):
+    """R2b with `plan`: a LightPlan as given, "own" for `light_grad_plan`'s,
+    None for the per-thread design; `tape_floats` forces the scratch's
+    size.  Returns (g_grid, error code)."""
+    _check(grid, env, [num_light_samples], name)
+    if flags & FLAG_PROBE:
+        raise ValueError(f"{name}: no light probe")
+    if not _samples_ok(samples, grid[0].numel(), grid):
+        raise ValueError(f"{name}: samples must be a contiguous int32 (Z, Y, X) tensor")
+    g = _cotangent(grad_out, (3,) + tuple(grid.shape[1:]), grid, name)
+    own = light_grad_plan(tuple(grid.shape[1:]))
+    plan = own if plan == "own" else plan
+    if plan is None:
+        tape_floats = TAPE_FLOATS * config.max_light_samples * grid[0].numel()
+    elif tape_floats is None:
+        tape_floats = light_grad_tape_floats(plan, grid, config.max_light_samples)
+    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+    tape = torch.empty(max(tape_floats, 1), dtype=torch.float32, device=grid.device)
+    args = [grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:], env.data_ptr(),
+            num_light_samples.data_ptr(), g.data_ptr(), g_grid[3].data_ptr(), tape.data_ptr()]
+    rest = [None if samples is None else samples.data_ptr(), config.max_light_samples,
+            float(config.absorption), float(config.zero_threshold), flags]
+    if plan is None:
+        err = _build.lib().fx_light_march_grad_perthread(*args, *rest, int(own.wide),
+                                                         _build.stream_ptr(grid))
+    else:
+        err = _build.lib().fx_light_march_grad(*args, tape_floats, *rest, plan.by, plan.bz,
+                                               int(plan.wide), _build.stream_ptr(grid))
+    return g_grid, err
 
 
 def light_march_grad(grid: torch.Tensor, env: torch.Tensor, flags: int,
@@ -505,28 +695,26 @@ def light_march_grad(grid: torch.Tensor, env: torch.Tensor, flags: int,
     operands, the f32 (4, Z, Y, X) cotangent of the grid (channels 0-2
     zero), as autograd through render/lightmap.light_map_plain gives it (to
     rounding).  `samples` (int32, (Z, Y, X)), where given, receives each
-    voxel's light samples walked.  One launch, a thread a voxel, with a
-    tape of 12 bytes a voxel a light sample (max_light_samples)."""
-    _check(grid, env, [num_light_samples], "light_march_grad")
-    if flags & FLAG_PROBE:
-        raise ValueError("light_march_grad: no light probe")
-    if samples is not None and (samples.dtype != torch.int32
-                                or samples.numel() != grid[0].numel()
-                                or not samples.is_contiguous() or samples.device != grid.device):
-        raise ValueError("light_march_grad: samples must be a contiguous int32 (Z, Y, X) tensor")
-    g = _cotangent(grad_out, (3,) + tuple(grid.shape[1:]), grid, "light_march_grad")
-    g_grid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
-    tape = torch.empty(3 * config.max_light_samples * grid[0].numel(), dtype=torch.float32,
-                       device=grid.device)
-    err = _build.lib().fx_light_march_grad(
-        grid.data_ptr(), int(grid.dtype == torch.bfloat16), *grid.shape[1:], env.data_ptr(),
-        num_light_samples.data_ptr(), g.data_ptr(), g_grid[3].data_ptr(), tape.data_ptr(),
-        None if samples is None else samples.data_ptr(), config.max_light_samples,
-        float(config.absorption), float(config.zero_threshold), flags,
-        int(light_plan(tuple(grid.shape[1:])).wide), _build.stream_ptr(grid))
+    voxel's light samples walked (0 where none).  One launch of persistent
+    warps on `light_grad_plan`'s bricks, each queueing the dense voxels
+    whose cotangent is not 0 and walking them 32 at a time, a tape slot of
+    max_light_samples entries a resident lane (`light_grad_tape_floats`)."""
+    g_grid, err = _light_grad_launch("own", grid, env, flags, num_light_samples, config,
+                                     grad_out, samples)
     light_march_grad.launches += 1
     _build.check(err, "fx_light_march_grad")
     return g_grid
 
 
 light_march_grad.launches = 0
+
+
+def light_march_grad_perthread(*args, **kwargs) -> torch.Tensor:
+    """The design R2b replaced, one thread a voxel with a tape slot of
+    max_light_samples entries a voxel (`fx_light_march_grad_perthread`),
+    kept only as a yardstick to time it against.  Arguments as
+    `light_march_grad`.  No path of the port calls it, and it counts no
+    launch."""
+    g_grid, err = _light_grad_launch(None, *args, name="light_march_grad_perthread", **kwargs)
+    _build.check(err, "fx_light_march_grad_perthread")
+    return g_grid

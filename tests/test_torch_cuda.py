@@ -1619,43 +1619,63 @@ def _grad_close(got, ref, what):
     return scale > 0.0 and bool((diff <= 1e-4 * scale + slack).all())
 
 
-@pytest.mark.parametrize("case", ["separate", "half_map", "f32", "straight", "ragged"])
+@pytest.mark.parametrize("case", ["separate", "half_map", "f32", "straight", "ragged", "dense",
+                                  "odd_rays", "wide", "merged"])
 def test_view_march_grad_matches_autograd(dev, case):
     """R1b against autograd through the plain separate-light march on the
     card, for the grid and the light map, with a seeded cotangent on rays
     from points in and around the box (finite and infinite t_max, an
     active mask): a light map of the grid's dims and of half its lateral
-    dims, an f32 grid, straight (not premultiplied) colour and ragged
-    dims; and through the autograd Function: the same forward bit for bit,
-    gradients within the tolerance, one R1b launch a backward."""
+    dims, an f32 grid, straight (not premultiplied) colour, ragged dims,
+    an all-dense grid, 37 x 29 rays (1073, not a multiple of 32: tiles
+    overhang the plane), a plan with 64-bit offsets and the lanes'
+    atomics merged (`view_grad_merges` takes them on denser rays); against the
+    per-thread design it replaced (the same samples walked, gradients
+    within the same tolerance); and through the autograd Function: the
+    same forward bit for bit, gradients within the tolerance, one R1b
+    launch a backward."""
+    from fluidx12_tpu_torch.ops.cuda import _build
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
     from fluidx12_tpu_torch.render.lightmap import light_map_plain
 
-    cfg, grid, params, env = _design_inputs(dev, {"f32": "f32", "ragged": "ragged"}.get(case,
-                                                                                      "probe"))
+    cfg, grid, params, env = _design_inputs(dev, {"f32": "f32", "ragged": "ragged",
+                                                  "dense": "dense"}.get(case, "probe"))
     if case == "straight":
         cfg = dataclasses.replace(cfg, pre_multiplied=False)
     light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
     if case == "half_map":
         z, y, x = cfg.zyx
         light_map = light_map.reshape(3, z, y // 2, 2, x // 2, 2).mean(dim=(3, 5)).contiguous()
-    rays = _design_rays(dev, (20, 28))
+    shape = (37, 29) if case == "odd_rays" else (20, 28)
+    rays = _design_rays(dev, shape)
     packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
-    cot = torch.from_numpy(np.random.default_rng(5).standard_normal((20, 28, 4))
+    cot = torch.from_numpy(np.random.default_rng(5).standard_normal(shape + (4,))
                            .astype(np.float32)).to(dev)
     g_ref = grid.to(torch.float32, copy=True).requires_grad_(True)
     lm_ref = light_map.clone().requires_grad_(True)
     ref = RC.view_march(g_ref, rays[0], rays[1], rays[2], params.num_samples, env, cfg,
                         light_map=lm_ref, active=rays[3])
     (ref * cot).sum().backward()
-    samples = torch.full((20, 28, 2), -1, dtype=torch.int32, device=dev)
-    g_grid, g_lm = R.view_march_grad(grid, light_map, *rays, params.num_samples, packed, flags,
-                                     cfg, cot, samples=samples)
+    samples = torch.full(shape + (2,), -1, dtype=torch.int32, device=dev)
+    args = (grid, light_map, *rays, params.num_samples, packed, flags, cfg, cot)
+    if case in ("wide", "merged"):
+        plan = R.view_grad_plan(shape, cfg.zyx, tuple(light_map.shape[1:]))
+        g_grid, g_lm, err = R._view_grad_launch(plan._replace(wide=case == "wide"), *args,
+                                                samples=samples, merge=case == "merged")
+        _build.check(err, "fx_view_march_grad")
+    else:
+        g_grid, g_lm = R.view_march_grad(*args, samples=samples)
     torch.cuda.synchronize()
     assert _grad_close(g_grid, g_ref.grad, f"R1b {case}, grid")
     assert _grad_close(g_lm, lm_ref.grad, f"R1b {case}, light map")
     assert int(samples[..., 1].sum()) > 0 and bool((samples[..., 1] <= samples[..., 0]).all())
+    s_old = torch.full(shape + (2,), -2, dtype=torch.int32, device=dev)
+    old = R.view_march_grad_perthread(*args, samples=s_old)
+    torch.cuda.synchronize()
+    assert torch.equal(samples, s_old)
+    assert _grad_close(g_grid, old[0], f"R1b {case} vs its per-thread design, grid")
+    assert _grad_close(g_lm, old[1], f"R1b {case} vs its per-thread design, light map")
     # Through the Function, as render/raymarch_core.march_view calls it.
     g_in = grid.clone().requires_grad_(True)
     lm_in = light_map.clone().requires_grad_(True)
@@ -1672,18 +1692,21 @@ def test_view_march_grad_matches_autograd(dev, case):
     assert _grad_close(lm_in.grad, lm_ref.grad, f"R1b {case} through autograd, light map")
 
 
-@pytest.mark.parametrize("case", ["smoke", "dense", "f32", "point", "ragged"])
+@pytest.mark.parametrize("case", ["smoke", "dense", "f32", "point", "ragged", "wide"])
 def test_light_march_grad_matches_autograd(dev, case):
     """R2b against autograd through `light_map_plain` on the card (no
-    probe), with a seeded cotangent on the map: smoke, dense smoke, an f32
-    grid, an interior point light and ragged dims; and through the autograd
-    Function, one R2b launch a backward."""
+    probe), with a seeded cotangent on the map: smoke, an all-dense grid,
+    an f32 grid, an interior point light, ragged dims and a plan with
+    64-bit offsets; against the per-thread design it replaced
+    (the same samples walked, the gradient within the same tolerance); and
+    through the autograd Function, one R2b launch a backward."""
+    from fluidx12_tpu_torch.ops.cuda import _build
     from fluidx12_tpu_torch.ops.cuda import raymarch as R
     from fluidx12_tpu_torch.render import raymarch_core as RC
     from fluidx12_tpu_torch.render.lightmap import light_map_plain
 
     design = {"smoke": "probe", "dense": "dense", "f32": "f32", "point": "point",
-              "ragged": "ragged"}[case]
+              "ragged": "ragged", "wide": "probe"}[case]
     cfg, grid, params, env = _design_inputs(dev, design)
     env = env._replace(has_probe=False)
     cfg = dataclasses.replace(cfg, has_light_probe=False)
@@ -1694,10 +1717,21 @@ def test_light_march_grad_matches_autograd(dev, case):
     g_ref = grid.to(torch.float32, copy=True).requires_grad_(True)
     (light_map_plain(g_ref, env, num, cfg) * cot).sum().backward()
     samples = torch.full(cfg.zyx, -1, dtype=torch.int32, device=dev)
-    g_grid = R.light_march_grad(grid, packed, flags, num, cfg, cot, samples=samples)
+    args = (grid, packed, flags, num, cfg, cot)
+    if case == "wide":
+        plan = R.light_grad_plan(cfg.zyx)._replace(wide=True)
+        g_grid, err = R._light_grad_launch(plan, *args, samples=samples)
+        _build.check(err, "fx_light_march_grad")
+    else:
+        g_grid = R.light_march_grad(*args, samples=samples)
     torch.cuda.synchronize()
     assert _grad_close(g_grid, g_ref.grad, f"R2b {case}")
     assert float(g_grid[:3].abs().max()) == 0.0 and int(samples.sum()) > 0
+    s_old = torch.full(cfg.zyx, -2, dtype=torch.int32, device=dev)
+    old = R.light_march_grad_perthread(*args, samples=s_old)
+    torch.cuda.synchronize()
+    assert torch.equal(samples, s_old)
+    assert _grad_close(g_grid, old, f"R2b {case} vs its per-thread design")
     g_in = grid.clone().requires_grad_(True)
     before = R.light_march_grad.launches
     out = R.light_march(g_in, packed, flags, num, cfg)
@@ -1707,6 +1741,101 @@ def test_light_march_grad_matches_autograd(dev, case):
     torch.cuda.synchronize()
     assert R.light_march_grad.launches == before + 1
     assert _grad_close(g_in.grad, g_ref.grad, f"R2b {case} through autograd")
+
+
+def test_grad_kernels_walk_nothing_on_an_empty_grid(dev):
+    """On a grid whose density is 0 everywhere R2b queues no voxel and R1b
+    walks no dense sample: both gradients are exactly 0, R2b's sample
+    counts all 0, R1b's dense counts all 0, as the per-thread designs'."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, "empty")
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    cot = torch.from_numpy(np.random.default_rng(6).standard_normal((3,) + cfg.zyx)
+                           .astype(np.float32)).to(dev)
+    samples = torch.full(cfg.zyx, -1, dtype=torch.int32, device=dev)
+    g_grid = R.light_march_grad(grid, packed, flags, params.num_light_samples, cfg, cot,
+                                samples=samples)
+    light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    rays = _design_rays(dev, (20, 28))
+    view_cot = torch.from_numpy(np.random.default_rng(5).standard_normal((20, 28, 4))
+                                .astype(np.float32)).to(dev)
+    view_samples = torch.full((20, 28, 2), -1, dtype=torch.int32, device=dev)
+    v_grid, v_lm = R.view_march_grad(grid, light_map, *rays, params.num_samples, packed, flags,
+                                     cfg, view_cot, samples=view_samples)
+    torch.cuda.synchronize()
+    assert not bool(g_grid.any()) and not bool(samples.any())
+    assert not bool(v_grid.any()) and not bool(v_lm.any())
+    assert not bool(view_samples[..., 1].any()) and int(view_samples[..., 0].sum()) > 0
+
+
+def test_grad_kernels_refuse_a_tape_one_slot_short(dev):
+    """R1b and R2b refuse a launch whose tape is one lane's slot (max
+    samples entries) short of what the launch's resident lanes need; the
+    wrappers' check raises on the refusal; the launch with the tape it
+    needs runs."""
+    from fluidx12_tpu_torch.ops.cuda import _build
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, "ragged")
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    num_light = params.num_light_samples
+    cot = torch.zeros((3,) + cfg.zyx, device=dev)
+    plan = R.light_grad_plan(cfg.zyx)
+    need = R.light_grad_tape_floats(plan, grid, cfg.max_light_samples)
+    slot = R.TAPE_FLOATS * cfg.max_light_samples
+    _, err = R._light_grad_launch(plan, grid, packed, flags, num_light, cfg, cot,
+                                  tape_floats=need - slot)
+    assert err != 0
+    with pytest.raises(RuntimeError):
+        _build.check(err, "fx_light_march_grad")
+    assert R._light_grad_launch(plan, grid, packed, flags, num_light, cfg, cot,
+                                tape_floats=need)[1] == 0
+    light_map = light_map_plain(grid.float(), env, num_light, cfg)
+    rays = _design_rays(dev, (20, 28))
+    view = R.view_grad_plan((20, 28), cfg.zyx, cfg.zyx)
+    need = R.view_grad_tape_floats(view, grid, cfg.max_ray_samples)
+    args = (grid, light_map, *rays, params.num_samples, packed, flags, cfg,
+            torch.zeros((20, 28, 4), device=dev))
+    assert R._view_grad_launch(view, *args, tape_floats=need - R.TAPE_FLOATS
+                               * cfg.max_ray_samples)[2] != 0
+    assert R._view_grad_launch(view, *args, tape_floats=need)[2] == 0
+    torch.cuda.synchronize()
+
+
+def test_view_march_and_its_adjoint_keep_their_counters_apart(dev):
+    """R1 and R1b launched back to back on one stream, three times over: R1
+    gives its first output bit for bit each time and R1b walks exactly the
+    rays and samples the per-thread design walks, with gradients within
+    the tolerance of its (a counter shared, or left where a launch ended,
+    would start a launch past its first tiles)."""
+    from fluidx12_tpu_torch.ops.cuda import raymarch as R
+    from fluidx12_tpu_torch.render import raymarch_core as RC
+    from fluidx12_tpu_torch.render.lightmap import light_map_plain
+
+    cfg, grid, params, env = _design_inputs(dev, "probe")
+    packed, flags = RC.pack_env(env), RC.env_flags(env, cfg)
+    light_map = light_map_plain(grid.float(), env, params.num_light_samples, cfg)
+    rays = _design_rays(dev, (20, 28))
+    cot = torch.from_numpy(np.random.default_rng(5).standard_normal((20, 28, 4))
+                           .astype(np.float32)).to(dev)
+    fwd = (grid, *rays, params.num_samples, packed, flags, cfg)
+    bwd = (grid, light_map, *rays, params.num_samples, packed, flags, cfg, cot)
+    s_old = torch.empty((20, 28, 2), dtype=torch.int32, device=dev)
+    old = R.view_march_grad_perthread(*bwd, samples=s_old)
+    first = R.view_march(*fwd, light_map=light_map)
+    for _ in range(3):
+        out = R.view_march(*fwd, light_map=light_map)
+        samples = torch.full((20, 28, 2), -1, dtype=torch.int32, device=dev)
+        g_grid, g_lm = R.view_march_grad(*bwd, samples=samples)
+        torch.cuda.synchronize()
+        assert torch.equal(out, first) and torch.equal(samples, s_old)
+        assert _grad_close(g_grid, old[0], "R1b after R1, grid")
+        assert _grad_close(g_lm, old[1], "R1b after R1, light map")
 
 
 @pytest.mark.parametrize("kernel", ["grad_damp", "jacobi", "advect_xy"])

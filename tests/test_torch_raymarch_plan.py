@@ -36,7 +36,9 @@ from fluidx12_tpu_torch.render.lightmap import light_map_plain
 # Several pytest workers share the machine's cores: one torch thread each.
 torch.set_num_threads(1)
 
-SRC = Path(R.__file__).parents[2] / "csrc" / "raymarch.cu"
+# R1 and R2 (raymarch.cu) and the layouts they share with R1b and R2b
+# (raymarch.cuh).
+SRC = [Path(R.__file__).parents[2] / "csrc" / name for name in ("raymarch.cu", "raymarch.cuh")]
 GOLDEN = (24, 24, 24)
 RAGGED = (22, 13, 20)
 
@@ -135,9 +137,9 @@ def test_plans_refuse_what_no_launch_takes():
 
 def test_plans_match_the_kernel_source():
     """The constants and formulas the plans and the models below use are
-    those csrc/raymarch.cu compiles, and its entry points take the plans
+    those csrc/raymarch.cu (with csrc/raymarch.cuh) compiles, and its entry points take the plans
     whole and refuse what their kernels cannot run."""
-    src = SRC.read_text()
+    src = "".join(path.read_text() for path in SRC)
     c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (c["kViewThreads"], c["kTileRays"], c["kLightWarps"], c["kBrickX"],
             c["kMaxBrickRows"]) == (R.VIEW_THREADS, R.TILE_RAYS, R.LIGHT_WARPS, R.BRICK_X,
@@ -175,7 +177,8 @@ def test_plans_match_the_kernel_source():
     assert "for (int e = warp * 32 + lane; e - lane < n; e += kLightWarps * 32) {" in src
     assert ("put_light<T, I>(a, dens, bx * kBrickX + q % kBrickX, y0 + k % b.by, z0 + k / b.by, "
             "true,") in src
-    assert "by < 1 || bz < 1 || by * bz > kMaxBrickRows || (!wide && !fits32(a.g, 4))" in src
+    assert "if (by < 1 || bz < 1 || by * bz > kMaxBrickRows) return false;" in src
+    assert "!bricks(a.g, by, bz, b) || (!wide && !fits32(a.g, 4))) {" in src
     assert "light_brick_kernel<T, I><<<b.nbx * b.nby * b.nbz, kLightWarps * 32, 0, s>>>" in src
     sig = _build._SIGNATURES
     assert sig["fx_view_march"][:-1] == sig["fx_view_march_perthread"][:-1] + [_build._I] * 4
